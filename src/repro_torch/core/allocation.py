@@ -1,0 +1,105 @@
+"""Content-aware multi-camera bandwidth allocation (paper section 5.2).
+
+The counterparts of ``repro.core.allocation``'s device allocators:
+``allocate_dp`` (= ``allocate_dp_jax``: knapsack DP on the bitrate grid at
+one static capacity, traced capacity and liveness) and ``allocate_fair``
+(= ``allocate_fair_jax``: the largest bitrate within an equal share).
+Dead cameras are forced onto the cheapest option at zero utility and the
+capacity grows by what those forced picks cost, so live cameras solve the
+DP a dead-row-free table would; they then receive 0 Kbps.  W <= 0 is the
+all-zero infeasible allocation.
+"""
+from __future__ import annotations
+
+import math
+from functools import reduce
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.knapsack_dp import ops as dp_ops
+
+
+def _grid(bitrates: Sequence[int]) -> Tuple[np.ndarray, int]:
+    """(integer bitrates, d = gcd) — the DP's cost grid."""
+    bitr = np.asarray(bitrates, np.int64)
+    return bitr, reduce(math.gcd, [int(b) for b in bitr])
+
+
+def dp_capacity(bitrates: Sequence[int], W_max_kbps: float) -> int:
+    """Static bucketed DP capacity (grid units) covering W <= W_max_kbps."""
+    _, d = _grid(bitrates)
+    return dp_ops.bucket_capacity(int(float(W_max_kbps) // d))
+
+
+def trace_capacity(bitrates: Sequence[int], trace_kbps, num_cams: int, *,
+                   elastic_borrow_kbps: float = 0.0,
+                   pin_kbps: Optional[float] = None) -> int:
+    """``dp_capacity`` for a whole trace: its max plus the elastic borrow,
+    at least the all-minimum clamp, optionally pinned, plus min-bitrate
+    headroom per camera for the dead-camera forced rows."""
+    W_max = float(np.max(np.asarray(trace_kbps))) + float(elastic_borrow_kbps)
+    W_max = max(W_max, float(min(int(b) for b in bitrates)) * int(num_cams))
+    if pin_kbps is not None:
+        if W_max > float(pin_kbps):
+            raise ValueError(
+                f"w_cap pin {pin_kbps} Kbps does not cover this trace "
+                f"(needs >= {W_max} Kbps incl. elastic borrow + clamp)")
+        W_max = float(pin_kbps)
+    W_max += float(min(int(b) for b in bitrates)) * int(num_cams)
+    return dp_capacity(bitrates, W_max)
+
+
+def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
+                bitrates: Sequence[int], W_kbps: torch.Tensor, *, w_cap: int,
+                live: Optional[torch.Tensor] = None):
+    """util/best_res (I, J), W_kbps 0-d f32 -> (picks (I,), b (I,),
+    res (I,), total, feasible), all on device.  The grid index floors
+    W/d in float32, as the JAX package does."""
+    bitr, d = _grid(bitrates)
+    costs_np = (bitr // d).astype(np.int64)
+    I, J = util.shape
+    dev = util.device
+    jmin = int(np.argmin(costs_np))
+    cmin = int(costs_np[jmin])
+    if cmin * I > w_cap:
+        raise ValueError(f"w_cap={w_cap} cannot express the all-minimum "
+                         f"clamp for {I} cameras")
+    costs = torch.as_tensor(costs_np, device=dev)
+    W = W_kbps.to(torch.float32)
+    open_ = W > 0.0
+    live = (torch.ones((I,), dtype=torch.bool, device=dev) if live is None
+            else live)
+    n_live = live.to(torch.int32).sum()
+    forced = torch.where(torch.arange(J, device=dev) == jmin, 0.0, -1e9)
+    util_eff = torch.where(live[:, None], util, forced[None, :])
+    Wg = torch.clamp(torch.floor(W / d).to(torch.int32), max=w_cap)
+    feasible = (cmin * n_live <= Wg) & open_
+    Wg_eff = torch.clamp(Wg + (I - n_live) * cmin, max=w_cap)
+    picks, total = dp_ops.solve_device(
+        util_eff, costs, torch.clamp(Wg_eff, min=cmin * I), w_cap=w_cap)
+    tx = live & open_
+    bitr_t = torch.as_tensor(bitr, dtype=torch.float32, device=dev)
+    b = torch.where(tx, bitr_t[picks], 0.0)
+    res = torch.where(tx, best_res[torch.arange(I, device=dev), picks], 1.0)
+    return picks, b, res, total * open_.to(total.dtype), feasible
+
+
+def allocate_fair(bitrates: Sequence[int], W_kbps: torch.Tensor,
+                  num_cams: int, live: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Equal share among live cameras: the largest bitrate <= W / n_live,
+    else the minimum (infeasible).  Returns ((I,) bitrates, feasible)."""
+    dev = W_kbps.device
+    bitr = torch.as_tensor(bitrates, dtype=torch.float32, device=dev)
+    live = (torch.ones((num_cams,), dtype=torch.bool, device=dev)
+            if live is None else live)
+    W = W_kbps.to(torch.float32)
+    open_ = W > 0.0
+    share = W / torch.clamp(live.to(torch.float32).sum(), min=1.0)
+    ok = bitr <= share
+    feasible = torch.any(ok)
+    b = torch.where(feasible, torch.where(ok, bitr, -math.inf).max(),
+                    bitr.min())
+    return torch.where(live & open_, b, 0.0), feasible & open_

@@ -1,0 +1,75 @@
+"""Elastic Transmission Mechanism (paper section 5.3), on device scalars.
+
+The counterpart of ``repro.core.elastic.update_jax``: the area threshold
+tau_a = EMA + gamma_a * sigma of the total ROI area, time borrowing when
+the area is high and the link low (bounded by ``budget_kbits``), repayment
+when the link is high, and the EMA/variance update.  The state is four 0-d
+tensors, so the update never syncs with the host.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.common import prng
+
+
+@dataclass(frozen=True)
+class ElasticConfig:
+    alpha: float = 0.15          # EMA factor on total ROI area
+    gamma_a: float = 0.5         # aggressiveness on the area threshold
+    gamma_wl: float = 0.6        # aggressiveness of time borrowing
+    sigma_high: float = 0.05     # offline accuracy-delta std gates
+    sigma_low: float = 0.01
+    budget_kbits: float = 1500.0 # max outstanding borrowed data (Kbit)
+    slot_seconds: float = 1.0
+
+
+class ElasticState(NamedTuple):
+    a_ema: torch.Tensor
+    a_var: torch.Tensor
+    debt_kbits: torch.Tensor
+    initialized: torch.Tensor    # bool; selects the first-slot branch
+
+
+def init_state(device) -> ElasticState:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return ElasticState(a_ema=z, a_var=z, debt_kbits=z,
+                        initialized=torch.zeros((), dtype=torch.bool,
+                                                device=device))
+
+
+def update(cfg: ElasticConfig, state: ElasticState, total_area: torch.Tensor,
+           W_kbps: torch.Tensor, tau_wl: torch.Tensor, tau_wh: torch.Tensor,
+           reset_debt: Optional[torch.Tensor] = None
+           ) -> Tuple[ElasticState, torch.Tensor]:
+    """One slot; returns (new state, extra capacity in Kbit).  Both
+    branches are computed and selected, as in the traced JAX update."""
+    debt0 = state.debt_kbits
+    if reset_debt is not None:
+        debt0 = torch.where(reset_debt, 0.0, debt0)
+    sigma_a = prng.sqrt(torch.clamp(state.a_var, min=1e-12))
+    tau_a = state.a_ema + cfg.gamma_a * sigma_a
+    borrow = (total_area > tau_a) & (W_kbps < tau_wl)
+    headroom = torch.clamp(cfg.budget_kbits - debt0, min=0.0)
+    borrowed = torch.where(
+        borrow, torch.minimum(cfg.gamma_wl * (tau_wl - W_kbps)
+                              * cfg.slot_seconds, headroom), 0.0)
+    repay = ~borrow & (W_kbps >= tau_wh) & (debt0 > 0.0)
+    repaid = torch.where(
+        repay, torch.minimum(debt0, (W_kbps - tau_wh) * cfg.slot_seconds),
+        0.0)
+    debt = debt0 + borrowed - repaid
+    delta = total_area - state.a_ema
+    a_ema = state.a_ema + cfg.alpha * delta
+    a_var = (1 - cfg.alpha) * (state.a_var + cfg.alpha * delta * delta)
+    init = state.initialized
+    new_state = ElasticState(
+        a_ema=torch.where(init, a_ema, total_area),
+        a_var=torch.where(init, a_var, 0.0),
+        debt_kbits=torch.where(init, debt, 0.0),
+        initialized=torch.ones_like(init))
+    extra = torch.where(init, borrowed, 0.0) - torch.where(init, repaid, 0.0)
+    return new_state, extra

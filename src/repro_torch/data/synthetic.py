@@ -1,0 +1,238 @@
+"""Device-resident synthetic multi-camera scenes and bandwidth traces.
+
+The counterpart of ``repro.data.synthetic``'s episode generator: slot t's
+frames and padded ground truth are a pure function of (scene params, base
+key, t).  Geometry (backgrounds with the parked objects baked in, per-camera
+view offsets and time lags, the periodic object pool) is drawn once with
+``numpy.random.default_rng(cfg.seed)``, verbatim from the JAX package; the
+per-slot sensor noise is ``normal(fold_in(fold_in(key, t), cam_id))`` from
+the port's threefry, so frames are bitwise equal to the JAX generator's.
+
+XLA's CPU backend contracts ``a * b + c`` into a fused multiply-add and
+folds the constant noise scale into ``normal``'s sqrt(2) factor; the paint
+coordinates and the noise add below do the same (``prng.fma``,
+``prng.normal_erfinv``) so the pixels match bit for bit.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common import prng
+from repro_torch.common.device import resolve_device
+
+
+@dataclass(frozen=True)
+class SceneConfig:
+    num_cameras: int = 5
+    height: int = 96
+    width: int = 160
+    fps: int = 10
+    seg_seconds: float = 1.0           # paper: T = 1s, 10 frames/segment
+    max_objects: int = 8               # concurrent world objects cap
+    spawn_rate: float = 0.35           # new objects per world-step (poisson)
+    mean_speed: float = 3.0            # px / frame
+    obj_size_range: Tuple[int, int] = (8, 26)
+    num_stationary: int = 2            # parked objects per camera
+    view_jitter: float = 6.0           # per-camera view offset scale (px)
+    cam_lag_frames: int = 2            # max per-camera time lag
+    noise_std: float = 0.02
+    seed: int = 0
+
+    @property
+    def frames_per_segment(self) -> int:
+        return int(self.fps * self.seg_seconds)
+
+
+class DeviceSceneParams(NamedTuple):
+    """Per-scene buffers consumed by ``segments_device``."""
+    backgrounds: torch.Tensor   # (C, H, W) f32, stationary objects baked in
+    stat_boxes: torch.Tensor    # (C, S, 4) f32 xyxy GT of stationary objects
+    stat_valid: torch.Tensor    # (C, S) bool
+    offsets: torch.Tensor       # (C, 2) f32 per-camera view offset (ox, oy)
+    lags: torch.Tensor          # (C,) int32 per-camera time lag (frames)
+    cam_ids: torch.Tensor       # (C,) int32 global camera index
+    objects: torch.Tensor       # (K, 10) f32 pool: [side, speed, y0, vy,
+                                #   w, h, val, phase, period, ttl]
+
+
+def init_device_scene(cfg: SceneConfig, device) -> DeviceSceneParams:
+    """Draw the scene geometry once on the host (numpy, the JAX package's
+    seed discipline) and place it on ``device``."""
+    rng = np.random.default_rng(cfg.seed)
+    C, H, W = cfg.num_cameras, cfg.height, cfg.width
+    backgrounds = np.zeros((C, H, W), np.float32)
+    for i in range(C):
+        base = rng.uniform(0.25, 0.55, (H // 8, W // 8))
+        backgrounds[i] = np.kron(base, np.ones((8, 8)))[:H, :W]
+    offsets = rng.uniform(-cfg.view_jitter, cfg.view_jitter, (C, 2))
+    lags = rng.integers(0, cfg.cam_lag_frames + 1, C)
+    S = cfg.num_stationary
+    stat_boxes = np.zeros((C, S, 4), np.float32)
+    for i in range(C):
+        for s in range(S):
+            w = int(rng.integers(*cfg.obj_size_range))
+            h = int(rng.integers(*cfg.obj_size_range))
+            x = int(rng.integers(0, W - w))
+            y = int(rng.integers(0, H - h))
+            v = float(rng.uniform(0.7, 0.95))
+            backgrounds[i, y:y + h, x:x + w] = v
+            stat_boxes[i, s] = (x, y, x + w, y + h)
+    K = cfg.max_objects
+    period = rng.integers(140, 320, K).astype(np.float32)
+    objects = np.stack([
+        rng.integers(0, 2, K).astype(np.float32),              # side
+        np.maximum(0.5, rng.normal(cfg.mean_speed, 1.0, K)),   # speed
+        rng.uniform(0.15, 0.85, K) * H,                        # y0
+        rng.normal(0, 0.2, K),                                 # vy
+        rng.integers(*cfg.obj_size_range, K).astype(np.float32),
+        rng.integers(*cfg.obj_size_range, K).astype(np.float32),
+        rng.uniform(0.6, 1.0, K),                              # val
+        rng.uniform(0, period),                                # phase
+        period,
+        np.minimum(rng.integers(60, 240, K), period - 30),     # ttl
+    ], axis=1).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
+                                                     device=device)
+    return DeviceSceneParams(
+        backgrounds=t(backgrounds), stat_boxes=t(stat_boxes),
+        stat_valid=torch.ones((C, S), dtype=torch.bool, device=device),
+        offsets=t(offsets.astype(np.float32)),
+        lags=t(lags, torch.int32),
+        cam_ids=torch.arange(C, dtype=torch.int32, device=device),
+        objects=t(objects))
+
+
+def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
+                    key: torch.Tensor, t: int, *, gt_pad: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(params, base key, slot t) -> (frames (C, N, H, W), gt_boxes
+    (C, N, G, 4), gt_valid (C, N, G)); G = ``gt_pad`` holds the stationary
+    boxes then the object pool, invalid entries zeroed."""
+    C = params.backgrounds.shape[0]
+    N, H, W = cfg.frames_per_segment, cfg.height, cfg.width
+    K, S = params.objects.shape[0], params.stat_boxes.shape[1]
+    if gt_pad < S + K:
+        raise ValueError(f"gt_pad {gt_pad} < {S + K} boxes per frame")
+    dev = params.backgrounds.device
+
+    # per-(camera, frame) world time, clamped at 0
+    f = torch.arange(N, dtype=torch.int32, device=dev)
+    g = torch.clamp(int(t) * N + f[None, :] - params.lags[:, None], min=0)
+    gf = g.to(torch.float32)[None]                                 # (1, C, N)
+
+    o = params.objects
+    side, speed, y0, vy, w_o, h_o, val, phase, period, ttl = (
+        o[:, i, None, None] for i in range(10))                    # (K, 1, 1)
+    u = torch.remainder(gf + phase, period)                        # (K, C, N)
+    active = u < ttl
+    x = torch.where(side > 0.5, prng.fma(-speed, u, W + 20.0),
+                    prng.fma(speed, u, -20.0))
+    y = prng.fma(vy, u, y0)
+    ox = params.offsets[None, :, 0, None]
+    oy = params.offsets[None, :, 1, None]
+    x0 = torch.round(x + ox)
+    y0_ = torch.round(y + oy)
+    cx0 = torch.clamp(x0, 0, W)
+    cy0 = torch.clamp(y0_, 0, H)
+    cx1 = torch.clamp(x0 + w_o, 0, W)
+    cy1 = torch.clamp(y0_ + h_o, 0, H)
+    ok = active & (cx1 - cx0 >= 3) & (cy1 - cy0 >= 3)              # (K, C, N)
+
+    frames = params.backgrounds[:, None].expand(C, N, H, W).reshape(
+        C * N, H, W).clone()
+    # paint each object through an object-sized window: the window origin
+    # is clamped inside the frame and the masks compare absolute pixel
+    # coordinates, so border-clipped objects paint exactly their visible
+    # [cx0, cx1) x [cy0, cy1) region
+    PW = -(-(int(cfg.obj_size_range[1]) + 1) // 8) * 8
+    win = torch.arange(PW, dtype=torch.float32, device=dev)
+    win_i = torch.arange(PW, dtype=torch.int64, device=dev)
+    b_idx = torch.arange(C * N, device=dev)[:, None, None]
+    for k in range(K):
+        cx0k, cx1k = cx0[k].reshape(-1), cx1[k].reshape(-1)
+        cy0k, cy1k = cy0[k].reshape(-1), cy1[k].reshape(-1)
+        x0k = torch.clamp(cx0k, 0, W - PW)                         # (C*N,)
+        y0k = torch.clamp(cy0k, 0, H - PW)
+        ys0 = cy0k + torch.floor((cy1k - cy0k) / 3.0)
+        ys1 = cy0k + torch.floor((cy1k - cy0k) / 2.0)
+        rows = y0k.to(torch.int64)[:, None, None] + win_i[None, :, None]
+        cols = x0k.to(torch.int64)[:, None, None] + win_i[None, None, :]
+        patch = frames[b_idx, rows, cols]                      # (B, PW, PW)
+        pr = (y0k[:, None] + win)[:, :, None]
+        pc = (x0k[:, None] + win)[:, None, :]
+        in_c = ((pc >= cx0k[:, None, None]) & (pc < cx1k[:, None, None])
+                & ok[k].reshape(-1)[:, None, None])
+        body = in_c & (pr >= cy0k[:, None, None]) & (pr < cy1k[:, None, None])
+        stripe = in_c & (pr >= ys0[:, None, None]) & (pr < ys1[:, None, None])
+        v = val[k, 0, 0]
+        patch = torch.where(body, v, patch)
+        patch = torch.where(stripe, v * 0.6, patch)
+        frames[b_idx, rows, cols] = patch
+    frames = frames.reshape(C, N, H, W)
+    kt = prng.fold_in(key, int(t))
+    e = prng.normal_erfinv(prng.fold_in(kt, params.cam_ids.to(torch.int64)),
+                           (N, H, W))
+    scale = float(np.float32(cfg.noise_std) * np.float32(prng.SQRT2))
+    frames = torch.clamp(prng.fma(e, scale, frames), 0.0, 1.0)
+
+    mov_boxes = torch.stack([cx0, cy0, cx1, cy1], dim=-1)          # (K,C,N,4)
+    mov_boxes = mov_boxes.permute(1, 2, 0, 3)                      # (C,N,K,4)
+    mov_valid = ok.permute(1, 2, 0)                                # (C,N,K)
+    gt_boxes = torch.cat(
+        [params.stat_boxes[:, None].expand(C, N, S, 4), mov_boxes], dim=2)
+    gt_valid = torch.cat(
+        [params.stat_valid[:, None].expand(C, N, S), mov_valid], dim=2)
+    gt_boxes = torch.where(gt_valid[..., None], gt_boxes, 0.0)
+    if gt_pad > S + K:
+        pad = gt_pad - S - K
+        gt_boxes = torch.cat([gt_boxes, gt_boxes.new_zeros(C, N, pad, 4)], 2)
+        gt_valid = torch.cat([gt_valid, gt_valid.new_zeros(C, N, pad)], 2)
+    return frames, gt_boxes.contiguous(), gt_valid.contiguous()
+
+
+class DeviceScene:
+    """A scene's device params, base key and slot cursor (``_t``), the
+    counterpart of ``repro.data.synthetic.DeviceScene``."""
+
+    def __init__(self, cfg: SceneConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = init_device_scene(cfg, self.device)
+        self.key = prng.PRNGKey(cfg.seed, device=self.device)
+        K = self.params.objects.shape[0]
+        S = self.params.stat_boxes.shape[1]
+        self.G = max(-(-(S + K) // 8) * 8, 16)
+        self._t = 0
+
+
+# the paper's FCC regime parameters (mean, std) in Kbps (section 7.1) and
+# the clip floor its traces respect
+FCC_PARAMS = {"low": (521.0, 230.0), "medium": (1134.0, 499.0),
+              "high": (2305.0, 1397.0)}
+FLOOR_KBPS = 64.0
+
+
+def ar1_trace(rng: np.random.Generator, mu, sd: float, num_slots: int,
+              rho: float = 0.8) -> np.ndarray:
+    """AR(1) around a (scalar or per-slot) mean; innovations are drawn
+    first, then x[0] (the JAX package's draw order)."""
+    mu = np.broadcast_to(np.asarray(mu, np.float64), (num_slots,))
+    eps = rng.normal(0, sd * np.sqrt(1 - rho ** 2), num_slots)
+    x = np.empty(num_slots)
+    x[0] = mu[0] + rng.normal(0, sd)
+    for t in range(1, num_slots):
+        x[t] = mu[t] + rho * (x[t - 1] - mu[t]) + eps[t]
+    return x
+
+
+def bandwidth_trace(kind: str, num_slots: int, seed: int = 0) -> np.ndarray:
+    """FCC-like AR(1) trace with the paper's means/stds, clipped at the
+    64 Kbps floor; the kind folds into the seed through ``zlib.crc32``."""
+    mu, sd = FCC_PARAMS[kind]
+    rng = np.random.default_rng(seed + zlib.crc32(kind.encode()) % 1000)
+    return np.clip(ar1_trace(rng, mu, sd, num_slots), FLOOR_KBPS, None)

@@ -26,6 +26,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped without one")
+
+
 @pytest.fixture(scope="session")
 def detectors():
     """Session-cached light+server detectors (trained once, ckpt-cached);

@@ -1,0 +1,161 @@
+"""The port's kernel modules: plain versions against the JAX package's
+kernels (run in Pallas interpret mode, as the JAX tests run them) and
+oracles, the CPU/CUDA dispatch rule, and — on a machine with a card — each
+CUDA kernel against its plain version."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+# one intra-op thread: the suite runs several pytest workers at once, and
+# PyTorch's default of one thread per core oversubscribes the machine
+torch.set_num_threads(1)
+
+from repro.core import codec as j_codec  # noqa: E402
+from repro.kernels.edge_motion import ops as j_em  # noqa: E402
+from repro.kernels.tx_codec import ops as j_tx  # noqa: E402
+from repro_torch.common import prng  # noqa: E402
+from repro_torch.core import codec as t_codec  # noqa: E402
+from repro_torch.data import synthetic as t_synth  # noqa: E402
+from repro_torch.kernels.edge_motion import ops as t_em  # noqa: E402
+from repro_torch.kernels.edge_motion import ref as t_em_ref  # noqa: E402
+from repro_torch.kernels.tx_codec import ops as t_tx  # noqa: E402
+from repro_torch.kernels.tx_codec import ref as t_tx_ref  # noqa: E402
+
+
+def _frames(C, M, H=96, W=160, seed=0, kind="scene"):
+    if kind == "uniform":
+        return np.random.default_rng(seed).uniform(0, 1, (C, M, H, W)).astype(
+            np.float32)
+    cfg = t_synth.SceneConfig(seed=seed, num_cameras=C, height=H, width=W)
+    sc = t_synth.DeviceScene(cfg, device="cpu")
+    fr = [t_synth.segments_device(cfg, sc.params, sc.key, t, gt_pad=sc.G)[0]
+          for t in (1, 2)]
+    return torch.cat(fr, dim=1)[:, :M].numpy()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# -- edge_motion ------------------------------------------------------------
+
+@pytest.mark.parametrize("C,M,H,W,bs,kind", [
+    (3, 10, 96, 160, 8, "scene"),       # ROIDet pairs
+    (3, 11, 96, 160, 8, "scene"),       # reducto: reference + N frames
+    (2, 4, 96, 160, 8, "uniform"),
+    (2, 3, 32, 64, 16, "uniform"),
+])
+def test_edge_motion_plain_matches_jax(C, M, H, W, bs, kind):
+    """Exact: the scores are counts of booleans."""
+    fr = _frames(C, M, H, W, kind=kind)
+    got = t_em.segment_motion_fleet(torch.from_numpy(fr), block_size=bs,
+                                    edge_thresh=0.35).numpy()
+    for use_kernel in (True, False):
+        want = j_em._segment_motion_fleet_impl(
+            jnp.asarray(fr), block_size=bs, edge_thresh=0.35, tile_rows=None,
+            use_kernel=use_kernel)
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_edge_motion_detects_motion():
+    f0 = np.full((64, 64), 0.4, np.float32)
+    f1 = f0.copy()
+    f1[16:32, 16:32] = 0.9
+    pair = torch.from_numpy(np.stack([f0, f1])[None])
+    sc = t_em_ref.segment_motion_ref(pair, block_size=8, edge_thresh=0.35)
+    assert float(sc[0, 0, 2:4, 2:4].max()) > 4
+    still = t_em_ref.segment_motion_ref(
+        torch.from_numpy(np.stack([f0, f0])[None]), block_size=8,
+        edge_thresh=0.35)
+    assert float(still.max()) == 0.0
+
+
+# -- tx_codec ---------------------------------------------------------------
+
+@pytest.mark.parametrize("res", [(1.0, 1.0, 1.0), (0.75, 0.75, 0.75),
+                                 (0.5, 0.5, 0.5), (1.0, 0.74, 0.5)])
+def test_tx_codec_plain_matches_jax(res):
+    """Port ``encode_fleet`` vs the JAX ``encode_fleet`` with identical
+    keys: <= 1e-6 against the Pallas kernel and its vmapped oracle (the
+    JAX kernel's own allowance, for a fused noise add)."""
+    C = 3
+    fr = _frames(C, 10, seed=4)
+    roi = np.asarray([15360, 9000, 4000], np.float32)
+    b = np.asarray([50, 400, 1000], np.float32)
+    r = np.asarray(res, np.float32)
+    n = np.asarray([10, 3, 7], np.float32)
+    kj = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(5), i))(
+        jnp.arange(C))
+    kt = prng.fold_in(prng.PRNGKey(5), torch.arange(C))
+    dt, st = t_tx.encode_fleet(t_codec.CodecConfig(), torch.from_numpy(fr),
+                               *map(torch.from_numpy, (roi, b, r)), kt,
+                               torch.from_numpy(n))
+    for use_kernel in (True, False):
+        dj, sj = j_tx.encode_fleet(j_codec.CodecConfig(), jnp.asarray(fr),
+                                   *map(jnp.asarray, (roi, b, r)), kj,
+                                   jnp.asarray(n), use_kernel=use_kernel)
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+# -- dispatch ---------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version():
+    fr = torch.from_numpy(_frames(2, 4, kind="uniform"))
+    t_em.LAUNCHES = t_tx.LAUNCHES = 0
+    t_em.segment_motion_fleet(fr, block_size=8, edge_thresh=0.35)
+    ones = torch.ones(2)
+    t_tx.tx_codec(fr, fr, ones * 8, ones * 0.1,
+                  torch.tensor([1, 2], dtype=torch.int32))
+    assert t_em.LAUNCHES == 0 and t_tx.LAUNCHES == 0
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    fr = torch.zeros((2, 4, 32, 64))
+    with pytest.raises(ValueError):
+        t_em.edge_motion_cuda(fr, block_size=8, edge_thresh=0.35)
+    ones = torch.ones(2)
+    with pytest.raises(ValueError):
+        t_tx.tx_codec_cuda(fr, fr, ones, ones,
+                           torch.ones(2, dtype=torch.int32))
+
+
+# -- on the card ------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,M", [(5, 10), (5, 11), (16, 10), (16, 11)])
+def test_edge_motion_cuda_matches_plain(cuda, C, M):
+    fr = torch.from_numpy(_frames(C, M)).to(cuda)
+    before = t_em.LAUNCHES
+    got = t_em.segment_motion_fleet(fr, block_size=8, edge_thresh=0.35)
+    torch.cuda.synchronize()
+    assert t_em.LAUNCHES == before + 1
+    want = t_em_ref.segment_motion_ref(fr, block_size=8, edge_thresh=0.35)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks", [(1,) * 5, (2,) * 5, (4,) * 5,
+                                (1, 2, 4, 2, 1)])
+def test_tx_codec_cuda_matches_plain(cuda, ks):
+    C = len(ks)
+    fr = torch.from_numpy(_frames(C, 10, seed=2)).to(cuda)
+    noise = prng.normal(prng.fold_in(prng.PRNGKey(3, device=cuda),
+                                     torch.arange(C, device=cuda)),
+                        fr.shape[1:])
+    levels = torch.linspace(4.0, 256.0, C, device=cuda)
+    sigma = torch.linspace(0.001, 0.3, C, device=cuda)
+    kcam = torch.tensor(ks, dtype=torch.int32, device=cuda)
+    got = t_tx.tx_codec(fr, noise, levels, sigma, kcam)
+    torch.cuda.synchronize()
+    want = t_tx_ref.tx_codec_ref(fr, noise, levels, sigma, kcam)
+    assert float((got - want).abs().max()) <= 1e-6
