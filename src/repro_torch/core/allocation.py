@@ -1,24 +1,42 @@
 """Content-aware multi-camera bandwidth allocation (paper section 5.2).
 
-The counterparts of ``repro.core.allocation``'s device allocators:
-``allocate_dp`` (= ``allocate_dp_jax``: knapsack DP on the bitrate grid at
-one static capacity, traced capacity and liveness) and ``allocate_fair``
-(= ``allocate_fair_jax``: the largest bitrate within an equal share).
+The counterparts of ``repro.core.allocation``'s allocators, in two forms:
+
+  * device (``allocate_dp`` = ``allocate_dp_jax``, ``allocate_fair`` =
+    ``allocate_fair_jax``): tensors in and out, the knapsack DP at one
+    static capacity with the capacity and liveness as tensors, so the
+    control step never waits on the host;
+  * host (``allocate_dp_host`` = ``allocate_dp``, ``allocate_fair_host`` =
+    ``allocate_fair``): numpy in, ``Allocation`` out, the capacity a Python
+    float.  The DP sweeps on a device (``dp_ops.solve``) and backtracks in
+    numpy.
+
 Dead cameras are forced onto the cheapest option at zero utility and the
 capacity grows by what those forced picks cost, so live cameras solve the
 DP a dead-row-free table would; they then receive 0 Kbps.  W <= 0 is the
-all-zero infeasible allocation.
+all-zero infeasible allocation.  The host grid index floors W/d in
+float64, the device one in float32, as in the JAX package.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from functools import reduce
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import utility as util_mod
 from repro_torch.kernels.knapsack_dp import ops as dp_ops
+
+
+@dataclass
+class Allocation:
+    bitrates_kbps: np.ndarray   # (I,)
+    resolutions: np.ndarray     # (I,)
+    predicted_utility: float
+    feasible: bool
 
 
 def _grid(bitrates: Sequence[int]) -> Tuple[np.ndarray, int]:
@@ -51,6 +69,74 @@ def trace_capacity(bitrates: Sequence[int], trace_kbps, num_cams: int, *,
     return dp_capacity(bitrates, W_max)
 
 
+def build_utility_table(mlp_params, a: np.ndarray, c: np.ndarray,
+                        bitrates: Sequence[int], resolutions: Sequence[float],
+                        weights: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The host allocator's (util (I, J), best_res (I, J)): the device
+    ``utility.utility_table`` on the MLP's device, fetched, so both
+    control paths build bitwise the same table."""
+    dev = next(iter(mlp_params.values())).device
+    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+    util, best_res = util_mod.utility_table(
+        mlp_params, f32(a), f32(c), f32(bitrates), f32(resolutions),
+        f32(weights))
+    return util.cpu().numpy(), best_res.cpu().numpy()
+
+
+def allocate_dp_host(util: np.ndarray, best_res: np.ndarray,
+                     bitrates: Sequence[int], W_kbps: float,
+                     live: Optional[np.ndarray] = None, *,
+                     device=None) -> Allocation:
+    """Host knapsack allocation at capacity ``W_kbps`` (a float): W <= 0
+    sends nothing; a capacity below every live camera's minimum clamps
+    them to it (infeasible); else the DP on ``device``."""
+    bitr, d = _grid(bitrates)
+    costs = (bitr // d).astype(np.int32)
+    Wg = int(W_kbps // d)
+    I = util.shape[0]
+    live = np.ones(I, bool) if live is None else np.asarray(live, bool)
+    n_live = int(live.sum())
+    n_dead = I - n_live
+    jmin = int(np.argmin(costs))
+    cmin = int(costs[jmin])
+    iidx = np.arange(I)
+    if W_kbps <= 0.0:
+        return Allocation(np.zeros(I, np.float64), np.ones(I, np.float64),
+                          0.0, feasible=False)
+    if cmin * n_live > Wg:
+        return Allocation(np.where(live, float(bitr[jmin]), 0.0),
+                          np.where(live, best_res[:, jmin], 1.0)
+                          .astype(np.float64),
+                          float(util[live, jmin].sum()), feasible=False)
+    util_eff = np.where(live[:, None], util,
+                        np.where(np.arange(util.shape[1])[None, :] == jmin,
+                                 0.0, -1e9))
+    picks, total = dp_ops.solve(util_eff.astype(util.dtype), costs,
+                                Wg + n_dead * cmin, device=device)
+    return Allocation(np.where(live, bitr[picks].astype(np.float64), 0.0),
+                      np.where(live, best_res[iidx, picks], 1.0)
+                      .astype(np.float64),
+                      float(total), feasible=True)
+
+
+def allocate_fair_host(bitrates: Sequence[int], W_kbps: float,
+                       num_cams: int,
+                       live: Optional[np.ndarray] = None) -> Allocation:
+    """Host equal share among live cameras: the largest bitrate <= W /
+    n_live, else the minimum (infeasible); W <= 0 sends nothing."""
+    live = np.ones(num_cams, bool) if live is None else np.asarray(live, bool)
+    if W_kbps <= 0:
+        return Allocation(np.zeros(num_cams), np.ones(num_cams), 0.0,
+                          feasible=False)
+    share = W_kbps / max(int(live.sum()), 1)
+    bitr = np.asarray(bitrates, np.float64)
+    feas = bitr[bitr <= share]
+    feasible = len(feas) > 0
+    b = feas.max() if feasible else bitr.min()
+    return Allocation(np.where(live, b, 0.0), np.ones(num_cams), 0.0,
+                      feasible=feasible)
+
+
 def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
                 bitrates: Sequence[int], W_kbps: torch.Tensor, *, w_cap: int,
                 live: Optional[torch.Tensor] = None):
@@ -66,7 +152,7 @@ def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
     if cmin * I > w_cap:
         raise ValueError(f"w_cap={w_cap} cannot express the all-minimum "
                          f"clamp for {I} cameras")
-    costs = torch.as_tensor(costs_np, device=dev)
+    costs = torch.as_tensor(costs_np.astype(np.int32), device=dev)
     W = W_kbps.to(torch.float32)
     open_ = W > 0.0
     live = (torch.ones((I,), dtype=torch.bool, device=dev) if live is None

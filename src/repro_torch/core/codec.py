@@ -95,6 +95,17 @@ def rate_terms(cfg: CodecConfig, roi_pixels: torch.Tensor,
     return levels, sigma, bits / 8.0
 
 
+def crf_terms(cfg: CodecConfig, roi_pixels: torch.Tensor, res: torch.Tensor,
+              n_eff: torch.Tensor):
+    """CRF mode's scalar terms at the fixed ``crf_bpp``: (levels, sigma,
+    size_bytes = effective pixels * bpp / 8), content-proportional."""
+    pix = roi_pixels * res * res * (1.0 + cfg.temporal_rho * (n_eff - 1.0))
+    bpp = torch.full_like(pix, cfg.crf_bpp)
+    levels = torch.clamp(cfg.quant_scale * bpp, 4.0, 256.0)
+    sigma = cfg.sigma0 * torch.exp(-bpp / cfg.beta)
+    return levels, sigma, pix * bpp / 8.0
+
+
 def quantize_noise(x: torch.Tensor, levels, sigma, noise: torch.Tensor
                    ) -> torch.Tensor:
     """clip(round(x * levels) / levels + sigma * noise, 0, 1), the add
@@ -125,6 +136,30 @@ def encode_segment(cfg: CodecConfig, frames: torch.Tensor,
     return quantize_noise(x, levels, sigma, noise), size
 
 
+def encode_segment_crf(cfg: CodecConfig, frames: torch.Tensor,
+                       roi_pixels: torch.Tensor, key: torch.Tensor,
+                       res: Optional[torch.Tensor] = None,
+                       num_frames: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CRF ("constant quality") mode for one camera: fixed bpp, size
+    proportional to the effective pixels.  ``res=None`` skips the blur
+    select (and charges r = 1).  The plain oracle, like
+    ``encode_segment``."""
+    N = frames.shape[0]
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                    device=frames.device)
+    n_eff = f32(N) if num_frames is None else f32(num_frames)
+    r = f32(1.0) if res is None else f32(res)
+    levels, sigma, size = crf_terms(cfg, f32(roi_pixels), r, n_eff)
+    x = frames
+    if res is not None:
+        outs = torch.stack([_resolution_blur(frames, rr)
+                            for rr in cfg.resolutions])
+        x = outs[nearest_resolution(cfg.resolutions, r[None])[0]]
+    noise = prng.normal(key, frames.shape)
+    return quantize_noise(x, levels, sigma, noise), size
+
+
 def encode_fleet_segment(cfg: CodecConfig, frames: torch.Tensor,
                          roi_pixels: torch.Tensor, bitrate_kbps: torch.Tensor,
                          res: torch.Tensor, keys: torch.Tensor,
@@ -136,3 +171,15 @@ def encode_fleet_segment(cfg: CodecConfig, frames: torch.Tensor,
     from repro_torch.kernels.tx_codec import ops as tx_ops
     return tx_ops.encode_fleet(cfg, frames, roi_pixels, bitrate_kbps, res,
                                keys, num_frames)
+
+
+def encode_fleet_segment_crf(cfg: CodecConfig, frames: torch.Tensor,
+                             roi_pixels: torch.Tensor, keys: torch.Tensor,
+                             res: Optional[torch.Tensor] = None,
+                             num_frames: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Camera-batched ``encode_segment_crf`` through the tx_codec kernel
+    (``res=None`` skips the blur select)."""
+    from repro_torch.kernels.tx_codec import ops as tx_ops
+    return tx_ops.encode_fleet_crf(cfg, frames, roi_pixels, keys, res,
+                                   num_frames)

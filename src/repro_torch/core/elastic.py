@@ -1,13 +1,18 @@
-"""Elastic Transmission Mechanism (paper section 5.3), on device scalars.
+"""Elastic Transmission Mechanism (paper section 5.3).
 
-The counterpart of ``repro.core.elastic.update_jax``: the area threshold
-tau_a = EMA + gamma_a * sigma of the total ROI area, time borrowing when
-the area is high and the link low (bounded by ``budget_kbits``), repayment
-when the link is high, and the EMA/variance update.  The state is four 0-d
-tensors, so the update never syncs with the host.
+The area threshold tau_a = EMA + gamma_a * sigma of the total ROI area,
+time borrowing when the area is high and the link low (bounded by
+``budget_kbits``), repayment when the link is high, and the EMA/variance
+update.  Two forms, as in ``repro.core.elastic``:
+
+  * ``update`` (= ``update_jax``): the state is four 0-d float32 tensors,
+    so the device control step never syncs with the host;
+  * ``update_host`` (= ``update``): Python floats (float64) threaded as a
+    ``HostElasticState``, for the host control path.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -25,6 +30,46 @@ class ElasticConfig:
     sigma_low: float = 0.01
     budget_kbits: float = 1500.0 # max outstanding borrowed data (Kbit)
     slot_seconds: float = 1.0
+
+
+@dataclass(frozen=True)
+class HostElasticState:
+    a_ema: float = 0.0
+    a_var: float = 0.0
+    debt_kbits: float = 0.0      # outstanding borrowed data
+    initialized: bool = False
+
+
+def update_host(cfg: ElasticConfig, state: HostElasticState,
+                total_area: float, W_kbps: float, tau_wl: float,
+                tau_wh: float, reset_debt: bool = False
+                ) -> Tuple[HostElasticState, float, dict]:
+    """One slot in float64.  Returns (new state, extra capacity in Kbit,
+    log); ``reset_debt`` clears the debt before the slot (a camera
+    rejoined).  The first slot only seeds the EMA."""
+    if not state.initialized:
+        st = HostElasticState(a_ema=total_area, a_var=0.0, debt_kbits=0.0,
+                              initialized=True)
+        return st, 0.0, {"tau_a": math.inf, "borrowed": 0.0, "repaid": 0.0}
+    sigma_a = math.sqrt(max(state.a_var, 1e-12))
+    tau_a = state.a_ema + cfg.gamma_a * sigma_a
+    borrowed = repaid = 0.0
+    debt = 0.0 if reset_debt else state.debt_kbits
+    if total_area > tau_a and W_kbps < tau_wl:
+        headroom = cfg.budget_kbits - debt
+        borrowed = min(cfg.gamma_wl * (tau_wl - W_kbps) * cfg.slot_seconds,
+                       max(headroom, 0.0))
+        debt += borrowed
+    elif W_kbps >= tau_wh and debt > 0.0:
+        repaid = min(debt, (W_kbps - tau_wh) * cfg.slot_seconds)
+        debt -= repaid
+    delta = total_area - state.a_ema
+    a_ema = state.a_ema + cfg.alpha * delta
+    a_var = (1 - cfg.alpha) * (state.a_var + cfg.alpha * delta * delta)
+    new_state = HostElasticState(a_ema=a_ema, a_var=a_var, debt_kbits=debt,
+                                 initialized=True)
+    return new_state, borrowed - repaid, {
+        "tau_a": tau_a, "borrowed": borrowed, "repaid": repaid, "debt": debt}
 
 
 class ElasticState(NamedTuple):

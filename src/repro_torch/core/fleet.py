@@ -158,10 +158,16 @@ def _slot_encode(cfg: CodecConfig, frames: torch.Tensor, masks: torch.Tensor,
                       w_keep=sel.w_keep, sizes=sizes, tx=live & (b > 0.0))
 
 
+class FleetSlotOut(NamedTuple):
+    f1: torch.Tensor         # (C,) final per-camera F1 (reuse-arm mixed)
+    sizes: torch.Tensor      # (C,) encoded bytes
+    host_pack: torch.Tensor  # (2, C) [f1; sizes], the one per-slot fetch
+
+
 def _slot_finish(server_params: Params, st: SlotStaged, *,
-                 conf_thresh: float, with_reuse: bool) -> torch.Tensor:
+                 conf_thresh: float, with_reuse: bool) -> FleetSlotOut:
     """Server detector -> box decode -> greedy F1 of both arms -> the
-    tx-masked (2, C) [f1; sizes] log pack."""
+    tx-masked outputs and their (2, C) [f1; sizes] log pack."""
     C, F, G = st.gt_e.shape[:3]
     grid = det.forward(server_params, st.batch)
     boxes, _, valid = det.decode_boxes(grid, conf_thresh=conf_thresh)
@@ -179,13 +185,32 @@ def _slot_finish(server_params: Params, st: SlotStaged, *,
               + (f1_miss * st.miss_w).sum(dim=1) * (1.0 - st.w_keep))
     f1 = torch.where(st.tx, f1, 0.0)
     sizes = torch.where(st.tx, st.sizes, 0.0)
-    return torch.stack([f1, sizes])
+    return FleetSlotOut(f1=f1, sizes=sizes,
+                        host_pack=torch.stack([f1, sizes]))
 
 
-def _reducto_keep_impl(frames: torch.Tensor, ref: torch.Tensor,
-                       first: torch.Tensor, *, block_size: int,
-                       edge_thresh: float
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def fleet_slot_step(cfg: CodecConfig, server_params: Params,
+                    frames: torch.Tensor, masks: torch.Tensor,
+                    b: torch.Tensor, r: torch.Tensor, keys: torch.Tensor,
+                    keep: torch.Tensor, gt_boxes: torch.Tensor,
+                    gt_valid: torch.Tensor, live: torch.Tensor, *,
+                    eval_frames: int, block_size: int, with_reuse: bool,
+                    conf_thresh: float = 0.4) -> FleetSlotOut:
+    """One slot of every method: ``_slot_encode`` then ``_slot_finish``.
+    frames (C, N, H, W); masks (C, H/bs, W/bs) bool; b, r (C,); keys
+    (C, 2); keep (C, N) bool (all True except for reducto); GT for all N
+    frames; live (C,) bool.  ``with_reuse`` adds reducto's reuse arm."""
+    st = _slot_encode(cfg, frames, masks, b, r, keys, keep, gt_boxes,
+                      gt_valid, live, eval_frames=eval_frames,
+                      block_size=block_size, with_reuse=with_reuse)
+    return _slot_finish(server_params, st, conf_thresh=conf_thresh,
+                        with_reuse=with_reuse)
+
+
+def reducto_keep_step(frames: torch.Tensor, ref: torch.Tensor,
+                      first: torch.Tensor, *, block_size: int,
+                      edge_thresh: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reducto keep decision with a cross-slot reference: frame 0 against
     the last kept frame of the previous slot, frames 1..N-1 against their
     predecessor, through the edge-motion kernel over (C, N+1) frames.
@@ -211,15 +236,19 @@ class ControlOut(NamedTuple):
     pack: torch.Tensor      # (4,) [extra_kbps, area, alloc_kbps, feasible]
 
 
-def _control_impl(mlp_params: Optional[Params], jcab_util, jcab_res, lam,
-                  a, c, W_t: torch.Tensor, est: ElasticState, tau_wl, tau_wh,
-                  live: torch.Tensor, reconnect: torch.Tensor, *, method: str,
-                  ecfg: ElasticConfig, bitrates: Tuple[int, ...],
-                  resolutions: Tuple[float, ...], slot_seconds: float,
-                  use_elastic: bool, w_cap: int, num_cams: int) -> ControlOut:
+def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
+                       lam, a, c, W_t: torch.Tensor, est: ElasticState,
+                       tau_wl, tau_wh, live: torch.Tensor,
+                       reconnect: torch.Tensor, *, method: str,
+                       ecfg: ElasticConfig, bitrates: Tuple[int, ...],
+                       resolutions: Tuple[float, ...], slot_seconds: float,
+                       use_elastic: bool, w_cap: int,
+                       num_cams: int) -> ControlOut:
     """One slot of the server-side control loop: elastic adjustment ->
-    utility table -> allocation, routed by method.  The effective capacity
-    floor is 0 (a hard-outage slot allocates nothing)."""
+    utility table -> allocation, routed by method, left on the device.
+    ``a``/``c`` are None for the content-agnostic methods; ``live`` (C,)
+    and ``reconnect`` (0-d) are bool tensors.  The effective capacity floor
+    is 0 (a hard-outage slot allocates nothing)."""
     dev = W_t.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if method in ("deepstream", "deepstream_no_elastic"):
@@ -301,17 +330,13 @@ def fleet_episode(method: str, *, codec_cfg: CodecConfig,
         reconnect = live_t & ~live_prev
         a = c = None
         if method in ("deepstream", "deepstream_no_elastic"):
-            roi = roidet_mod._roidet_fleet_impl(
-                frames, light_params, block_size=block_size,
-                motion_thresh=roidet_mod.MOTION_THRESH,
-                edge_thresh=roidet_mod.EDGE_THRESH,
-                conf_thresh=roidet_mod.CONF_THRESH,
-                max_boxes=roidet_mod.MAX_BOXES)
+            roi = roidet_mod.roidet_fleet(frames, light_params,
+                                          block_size=block_size)
             masks, a, c = roi.mask, roi.area_ratio, roi.confidence
         else:
             masks = roidet_mod.full_frame_mask(num_cams, H, W, block_size,
                                                dev)
-        co = _control_impl(
+        co = fleet_control_step(
             mlp_params, jcab_util, jcab_res, lam, a, c, W_t, est, tau_wl,
             tau_wh, live_t, reconnect.any(), method=method, ecfg=ecfg,
             bitrates=bitrates, resolutions=resolutions,
@@ -319,19 +344,24 @@ def fleet_episode(method: str, *, codec_cfg: CodecConfig,
             w_cap=w_cap, num_cams=num_cams)
         if method == "reducto":
             first = reconnect | (t == t_start)
-            keep, ref = _reducto_keep_impl(
+            keep, ref = reducto_keep_step(
                 frames, ref, first, block_size=block_size,
                 edge_thresh=roidet_mod.EDGE_THRESH)
         else:
             keep = torch.ones((num_cams, N), dtype=torch.bool, device=dev)
-        st = _slot_encode(codec_cfg, frames, masks, co.b, co.r, keys, keep,
-                          gtb, gtv, live_t, eval_frames=eval_frames,
-                          block_size=block_size, with_reuse=with_reuse)
-        packs.append(_slot_finish(server_params, st, conf_thresh=conf_thresh,
-                                  with_reuse=with_reuse))
+        packs.append(fleet_slot_step(
+            codec_cfg, server_params, frames, masks, co.b, co.r, keys, keep,
+            gtb, gtv, live_t, eval_frames=eval_frames, block_size=block_size,
+            with_reuse=with_reuse, conf_thresh=conf_thresh).host_pack)
         cpacks.append(co.pack)
         est, live_prev = co.est, live_t
     return EpisodeOut(packs=torch.stack(packs), cpacks=torch.stack(cpacks))
+
+
+def eval_indices(n: int, eval_frames: int) -> np.ndarray:
+    """The sequential runner's scored-frame selection: min(F, n) evenly
+    spaced frames of n."""
+    return np.linspace(0, n - 1, min(eval_frames, n)).astype(int)
 
 
 def gt_capacity(max_boxes_per_frame: int, min_boxes: int = 16) -> int:

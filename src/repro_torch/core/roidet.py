@@ -64,12 +64,14 @@ def _roi_union(D: torch.Tensor, dboxes: torch.Tensor, dvalid: torch.Tensor,
     return mask, area, mboxes, mvalid
 
 
-def _roidet_fleet_impl(frames: torch.Tensor,
-                       det_params: Dict[str, torch.Tensor], *,
-                       block_size: int, motion_thresh: float,
-                       edge_thresh: float, conf_thresh: float,
-                       max_boxes: int) -> ROIResult:
-    """frames (C, N, H, W) -> camera-batched ROIResult."""
+def roidet_fleet(frames: torch.Tensor, det_params: Dict[str, torch.Tensor],
+                 *, block_size: int = 8, motion_thresh: float = MOTION_THRESH,
+                 edge_thresh: float = EDGE_THRESH,
+                 conf_thresh: float = CONF_THRESH,
+                 max_boxes: int = MAX_BOXES) -> ROIResult:
+    """Fleet ROIDet: frames (C, N, H, W) -> camera-batched ROIResult (one
+    light-detector forward on the 2C first/last frames, one edge-motion
+    launch over every frame pair)."""
     C = frames.shape[0]
     grid = det.forward(det_params, torch.cat([frames[:, 0], frames[:, -1]]))
     b2, s2, v2 = det.decode_boxes(grid, conf_thresh=conf_thresh)  # (2C, K)

@@ -1,17 +1,43 @@
-"""DeepStream system entry point: one whole-trace episode per method.
+"""DeepStream system entry point: the slot loops and the whole-trace episode.
 
-The counterpart of ``repro.core.scheduler.DeepStreamSystem.run_episode``:
-build the run's control context (bandwidth trace, lambda weights, elastic
-thresholds, the jcab table, the static DP capacity), run
-``fleet.fleet_episode`` on the device, and fetch the stacked logs once.
-The returned log dict has the JAX package's keys.  Profiling (``profile``,
-which needs the utility-MLP trainer) is not ported yet: callers set
-``mlp``, ``tau_wl``/``tau_wh`` and ``jcab_table`` themselves.
+The counterpart of ``repro.core.scheduler.DeepStreamSystem``.  A bandwidth
+trace runs in one of three ways (``SystemConfig``):
+
+  * ``run()`` with ``batched=True`` (default): the fleet slot loop.  Per
+    slot the scene segment feeds ROIDet, the control step, reducto's keep
+    decision and ``fleet.fleet_slot_step`` (encode -> detect -> score over
+    the camera axis, one code path for every method).  With
+    ``alloc="device"`` (default) the control step
+    (``fleet.fleet_control_step``: elastic, utility table, knapsack DP)
+    stays on the device and the host fetches only the slot's (2, C) log
+    pack and (4,) control pack; with ``pipeline=True`` (default) slot t's
+    harvest waits until slot t+1 is dispatched.  ``alloc="host"`` runs the
+    numpy control path (host elastic in float64, host DP solve) on one
+    packed (a, c) fetch per slot.
+  * ``run()`` with ``batched=False``: the sequential per-camera reference
+    loop (host control; on the card each camera's encode goes through the
+    tx_codec kernel with C = 1).
+  * ``run_episode()`` (or ``run()`` with ``episode=True``): the whole trace
+    in ``fleet.fleet_episode``, its logs fetched once.
+
+Every runner draws the same per-(slot, camera) coding keys
+(``fleet.slot_camera_keys``), so their logs agree.  Every device-to-host
+fetch of a loop goes through ``_d2h``, counted per category
+(``d2h_fetch_counts``).  ``faults`` ((T, C) bool liveness) rides through
+the batched and episode runners as in the JAX package.
+
+Kernels are chosen by tensor device (the kernel for CUDA tensors, the plain
+version for CPU tensors), so the JAX package's ``use_kernels`` has no
+counterpart; nor do ``shard`` and ``donate`` (a camera mesh and buffer
+donation have no meaning on one card) or ``checked`` (checkify).  Only a
+``DeviceScene`` is accepted.  Profiling (``profile``, which needs the
+utility-MLP trainer) is not ported yet: callers set ``mlp``,
+``tau_wl``/``tau_wh`` and ``jcab_table`` themselves.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,13 +45,46 @@ import torch
 from repro_torch.common import prng
 from repro_torch.common.device import resolve_device
 from repro_torch.core import allocation as alloc
+from repro_torch.core import codec as codec_mod
 from repro_torch.core import elastic as elastic_mod
 from repro_torch.core import fleet as fleet_mod
+from repro_torch.core import roidet as roidet_mod
 from repro_torch.core.codec import CodecConfig
-from repro_torch.core.elastic import ElasticConfig
+from repro_torch.core.elastic import ElasticConfig, HostElasticState
 from repro_torch.data.synthetic import DeviceScene, SceneConfig
+from repro_torch.kernels.edge_motion import ops as em_ops
+from repro_torch.models import detector as det
 
 METHODS = ("deepstream", "jcab", "reducto", "static")
+MOTION_KEEP_THRESH = fleet_mod.MOTION_KEEP_THRESH
+LOG_KEYS = ("utility", "mean_f1", "bytes", "W", "extra", "alloc_kbps",
+            "area")
+
+# -- device-to-host accounting ------------------------------------------------
+# Categories: 'harvest' (log packs), 'keep' (the sequential reducto
+# keep-flag fetch), 'control' (the host control path's (a, c) fetch).
+
+D2H_CATEGORIES = ("harvest", "keep", "control")
+_D2H_FETCHES: Dict[str, int] = {}
+
+
+def d2h_fetch_counts() -> Dict[str, int]:
+    """Per-category fetch counts since the process started."""
+    return {k: _D2H_FETCHES.get(k, 0) for k in D2H_CATEGORIES}
+
+
+def _d2h(x: torch.Tensor, kind: str) -> np.ndarray:
+    _D2H_FETCHES[kind] = _D2H_FETCHES.get(kind, 0) + 1
+    return x.cpu().numpy()
+
+
+def _motion_keep(score_sums: np.ndarray, first: bool) -> np.ndarray:
+    """(..., N) per-pair motion sums (pair 0 = frame 0 against the
+    cross-slot reference) -> keep flags; frame 0 is forced kept on the
+    run's first slot and on all-quiet slots."""
+    keep = score_sums > MOTION_KEEP_THRESH
+    keep[..., 0] |= first | ~keep.any(axis=-1)
+    return keep
 
 
 @dataclass
@@ -36,8 +95,26 @@ class SystemConfig:
     block_size: int = 8
     weights: Optional[np.ndarray] = None      # lambda_i (default: ones)
     eval_frames: int = 4                      # frames scored per segment
+    batched: bool = True                      # fleet slot loop vs per camera
+    pipeline: bool = True                     # deferred-harvest slot loop
+    alloc: str = "device"                     # control loop: "device" | "host"
+    episode: bool = False                     # run() goes to run_episode()
     # optional bandwidth ceiling (Kbps) pinning the DP capacity across runs
     w_cap_kbps: Optional[float] = None
+
+    def __post_init__(self):
+        if self.alloc not in ("device", "host"):
+            raise ValueError(f"alloc must be 'device' or 'host': "
+                             f"{self.alloc!r}")
+        if self.episode:
+            if not self.batched:
+                raise ValueError("episode mode requires batched=True")
+            if self.alloc != "device":
+                raise ValueError("episode mode requires alloc='device' "
+                                 f"(got {self.alloc!r})")
+        # the sequential loop has only the host control path
+        if not self.batched:
+            self.alloc = "host"
 
     def lam(self) -> np.ndarray:
         if self.weights is None:
@@ -61,8 +138,181 @@ class DeepStreamSystem:
         self.tau_wh: float = float("inf")
         self.jcab_table: Optional[np.ndarray] = None   # (J, R) agnostic F1
         self._key = prng.PRNGKey(1234, device=self.device)
+        self._reducto_ref: Optional[torch.Tensor] = None   # batched runs
+        self._reducto_ref_host: List[Optional[torch.Tensor]] = []
         self._G = fleet_mod.gt_capacity(
             cfg.scene.max_objects + cfg.scene.num_stationary)
+
+    # -- camera side ----------------------------------------------------------
+
+    def camera_features(self, frames: torch.Tensor) -> roidet_mod.ROIResult:
+        """frames (C, N, H, W) -> the fleet ROIDet result (no sync)."""
+        return roidet_mod.roidet_fleet(frames, self.light,
+                                       block_size=self.cfg.block_size)
+
+    # -- sequential path: one camera at a time --------------------------------
+
+    def _encode_one(self, frames: torch.Tensor, roi_pixels: float, b: float,
+                    r: float, key: torch.Tensor,
+                    num_frames: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One camera's encode: the plain ``encode_segment`` for CPU
+        tensors, the fleet encode with C = 1 (the tx_codec kernel) on the
+        card.  Returns (decoded (N, H, W), size_bytes)."""
+        cfg = self.cfg.codec
+        if frames.device.type == "cpu":
+            return codec_mod.encode_segment(cfg, frames, roi_pixels, b, r,
+                                            key, num_frames=num_frames)
+        f32 = lambda v: torch.tensor([v], dtype=torch.float32,
+                                     device=frames.device)
+        decoded, size = codec_mod.encode_fleet_segment(
+            cfg, frames[None], f32(roi_pixels), f32(b), f32(r), key[None],
+            None if num_frames is None else f32(num_frames))
+        return decoded[0], size[0]
+
+    def _detect(self, frames: torch.Tensor, idx) -> Tuple[np.ndarray,
+                                                          np.ndarray]:
+        """Server detections of ``frames[idx]``, fetched: (boxes, valid)."""
+        sel = torch.as_tensor(np.asarray(idx), device=frames.device)
+        grid = det.forward(self.server, frames[sel])
+        boxes, _, valid = det.decode_boxes(grid, conf_thresh=0.4)
+        return boxes.cpu().numpy(), valid.cpu().numpy()
+
+    def detect_f1(self, decoded: torch.Tensor,
+                  gt_frames: List[List[Tuple]]) -> float:
+        """decoded (N, H, W); GT lists per frame -> mean F1 over
+        ``eval_frames`` evenly spaced frames."""
+        idxs = fleet_mod.eval_indices(decoded.shape[0], self.cfg.eval_frames)
+        boxes, valid = self._detect(decoded, idxs)
+        return float(np.mean([det.f1_score(boxes[i], valid[i], gt_frames[j])
+                              for i, j in enumerate(idxs)]))
+
+    def encode_eval(self, frames: torch.Tensor, gt: List[List[Tuple]],
+                    mask: Optional[torch.Tensor], b: float, r: float,
+                    key: torch.Tensor) -> Tuple[float, float]:
+        """Encode one camera's segment (ROI-masked when ``mask`` is given)
+        under ``key`` and score it.  Returns (f1, size_bytes)."""
+        H, W = frames.shape[-2:]
+        bs = self.cfg.block_size
+        if mask is not None:
+            frames = roidet_mod.crop_to_mask(frames[None], mask[None], bs)[0]
+            roi_pixels = float(mask.sum()) * bs ** 2
+        else:
+            roi_pixels = float(H * W)
+        decoded, size = self._encode_one(frames, roi_pixels, b, r, key)
+        return self.detect_f1(decoded, gt), float(size)
+
+    def _encode_eval_all(self, frames: torch.Tensor,
+                         gts: List[List[List[Tuple]]],
+                         masks: Optional[torch.Tensor], b: np.ndarray,
+                         r: np.ndarray, keys: torch.Tensor
+                         ) -> Tuple[List[float], List[float]]:
+        """Every camera's encode -> detect -> score, one at a time."""
+        f1s, sizes = [], []
+        for i in range(frames.shape[0]):
+            f1, size = self.encode_eval(
+                frames[i], gts[i], None if masks is None else masks[i],
+                float(b[i]), float(r[i]), keys[i])
+            f1s.append(f1)
+            sizes.append(size)
+        return f1s, sizes
+
+    def _kept_eval_selection(self, keep_i: np.ndarray
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """One camera's keep flags (N,) -> (kept frame indices, the ones of
+        them scored for F1)."""
+        kept_idx = np.flatnonzero(keep_i)
+        sel = fleet_mod.eval_indices(len(kept_idx), self.cfg.eval_frames)
+        return kept_idx, kept_idx[sel]
+
+    def _reuse_f1(self, dets: Tuple[np.ndarray, np.ndarray],
+                  gts_missed: List[List[Tuple]]) -> float:
+        """Score filtered-out frames against the reused last detections."""
+        boxes, valid = dets
+        sel = fleet_mod.eval_indices(len(gts_missed), self.cfg.eval_frames)
+        return float(np.mean([det.f1_score(boxes, valid, gts_missed[j])
+                              for j in sel]))
+
+    def _reducto_slot(self, frames: torch.Tensor,
+                      gts: List[List[List[Tuple]]], bs: np.ndarray,
+                      first: bool, keys: torch.Tensor
+                      ) -> Tuple[List[float], List[float]]:
+        """Sequential reducto slot, one camera at a time: edge-motion keep
+        flags against the cross-slot reference (the last kept frame of the
+        previous slot), the fixed-shape segment encoded with the kept-frame
+        count, kept frames scored, filtered frames scored against the
+        detections of the last kept raw frame."""
+        f1s, sizes = [], []
+        H, W = frames.shape[-2:]
+        for i in range(frames.shape[0]):
+            fr = frames[i]
+            ref = fr[0] if first else self._reducto_ref_host[i]
+            sc = em_ops.segment_motion(
+                torch.cat([ref[None], fr]), block_size=self.cfg.block_size,
+                edge_thresh=roidet_mod.EDGE_THRESH)             # (N, M, Nb)
+            keep = _motion_keep(_d2h(sc.sum(dim=(1, 2)), "keep"), first)
+            kept_idx, ev_idx = self._kept_eval_selection(keep)
+            self._reducto_ref_host[i] = fr[int(kept_idx[-1])]
+            decoded, size = self._encode_one(fr, float(H * W), float(bs[i]),
+                                             1.0, keys[i],
+                                             num_frames=float(len(kept_idx)))
+            db, dv = self._detect(decoded, ev_idx)
+            f1 = float(np.mean([det.f1_score(db[k], dv[k], gts[i][j])
+                                for k, j in enumerate(ev_idx)]))
+            if not keep.all():
+                rb, rv = self._detect(fr, kept_idx[-1:])
+                miss_idx = np.flatnonzero(~keep)
+                f1_re = self._reuse_f1((rb[0], rv[0]),
+                                       [gts[i][j] for j in miss_idx])
+                w_keep = keep.mean()
+                f1 = f1 * w_keep + f1_re * (1 - w_keep)
+            f1s.append(f1)
+            sizes.append(float(size))
+        return f1s, sizes
+
+    # -- fleet path -----------------------------------------------------------
+
+    def _slot_dispatch(self, frames: torch.Tensor,
+                       gt_dev: Tuple[torch.Tensor, torch.Tensor],
+                       masks: Optional[torch.Tensor], b, r, *,
+                       keys: torch.Tensor, live: torch.Tensor,
+                       keep: Optional[torch.Tensor] = None
+                       ) -> fleet_mod.FleetSlotOut:
+        """Dispatch the fleet slot step without waiting for it.  masks
+        None = no cropping; b, r (C,) tensors or arrays; keep None = every
+        frame kept and no reuse arm (every method but reducto)."""
+        C, N, H, W = frames.shape
+        dev = frames.device
+        if masks is None:
+            masks = roidet_mod.full_frame_mask(C, H, W, self.cfg.block_size,
+                                               dev)
+        with_reuse = keep is not None
+        if keep is None:
+            keep = torch.ones((C, N), dtype=torch.bool, device=dev)
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return fleet_mod.fleet_slot_step(
+            self.cfg.codec, self.server, frames, masks, f32(b), f32(r), keys,
+            keep, gt_dev[0], gt_dev[1], live,
+            eval_frames=self.cfg.eval_frames,
+            block_size=self.cfg.block_size, with_reuse=with_reuse)
+
+    def _reducto_keep(self, frames: torch.Tensor, first: torch.Tensor
+                      ) -> torch.Tensor:
+        """Reducto keep flags on the device, the cross-slot reference
+        threaded through ``self._reducto_ref``; ``first`` (C,) bool marks
+        cameras that seed the reference from frame 0 (run start,
+        reconnect)."""
+        C, _, H, W = frames.shape
+        if self._reducto_ref is None:
+            self._reducto_ref = torch.zeros((C, H, W), dtype=torch.float32,
+                                            device=frames.device)
+        keep, self._reducto_ref = fleet_mod.reducto_keep_step(
+            frames, self._reducto_ref, first,
+            block_size=self.cfg.block_size,
+            edge_thresh=roidet_mod.EDGE_THRESH)
+        return keep
+
+    # -- control ----------------------------------------------------------------
 
     def _jcab_utility_table(self):
         """jcab's content-agnostic (util (C, J), best_res (C, J)): the
@@ -98,6 +348,226 @@ class DeepStreamSystem:
             ctx["jcab_util"], ctx["jcab_res"] = f32(util), f32(best_res)
         return ctx
 
+    def _slot_control_device(self, method: str, frames: torch.Tensor, t: int,
+                             ctx: Dict[str, Any], use_elastic: bool,
+                             live: torch.Tensor, reconnect: torch.Tensor):
+        """One slot's control on the device: ROIDet's (a, c) tensors feed
+        the elastic -> utility -> allocation step directly; ``live`` (C,)
+        and ``reconnect`` (0-d) are device tensors.  Returns (b, r, masks,
+        control pack), all tensors; the elastic state threads through
+        ``ctx``."""
+        a = c = masks = None
+        if method in ("deepstream", "deepstream_no_elastic"):
+            roi = self.camera_features(frames)
+            masks, a, c = roi.mask, roi.area_ratio, roi.confidence
+        cfgc = self.cfg.codec
+        co = fleet_mod.fleet_control_step(
+            self.mlp if a is not None else None, ctx["jcab_util"],
+            ctx["jcab_res"], ctx["lam"], a, c, ctx["trace"][t], ctx["est"],
+            ctx["tau_wl"], ctx["tau_wh"], live, reconnect, method=method,
+            ecfg=self.cfg.elastic, bitrates=tuple(cfgc.bitrates_kbps),
+            resolutions=tuple(cfgc.resolutions),
+            slot_seconds=cfgc.slot_seconds, use_elastic=use_elastic,
+            w_cap=ctx["w_cap"], num_cams=self.cfg.scene.num_cameras)
+        ctx["est"] = co.est
+        return co.b, co.r, masks, co.pack
+
+    def _slot_allocation(self, method: str, frames: torch.Tensor, W_t: float,
+                         est: HostElasticState, use_elastic: bool,
+                         live: Optional[np.ndarray] = None,
+                         reconnect: bool = False):
+        """One slot's control on the host: features (deepstream only, one
+        packed (a, c) fetch) -> float64 elastic -> host allocation.  Dead
+        cameras leave the area signal and every allocator; ``reconnect``
+        clears the elastic debt first.  Returns (b, r, masks, extra, area,
+        alloc_kbps, est)."""
+        cfgc = self.cfg.codec
+        lam = self.cfg.lam()
+        C = self.cfg.scene.num_cameras
+        bitrates = list(cfgc.bitrates_kbps)
+        live = np.ones(C, bool) if live is None else live
+        masks = None
+        extra = area = 0.0
+        if method in ("deepstream", "deepstream_no_elastic"):
+            roi = self.camera_features(frames)
+            ac = _d2h(torch.stack([roi.area_ratio, roi.confidence]),
+                      "control")
+            a, c = ac[0], ac[1]
+            area = float(a[live].sum())
+            if use_elastic:
+                est, extra_kbits, _ = elastic_mod.update_host(
+                    self.cfg.elastic, est, area, W_t, self.tau_wl,
+                    self.tau_wh, reset_debt=bool(reconnect))
+                extra = extra_kbits / cfgc.slot_seconds
+            util, best_res = alloc.build_utility_table(
+                self.mlp, a, c, bitrates, cfgc.resolutions, lam)
+            al = alloc.allocate_dp_host(util, best_res, bitrates,
+                                        max(W_t + extra, 0.0), live=live,
+                                        device=self.device)
+            masks = roi.mask
+        elif method == "jcab":
+            util, best_res = self._jcab_utility_table()
+            al = alloc.allocate_dp_host(util, best_res, bitrates, W_t,
+                                        live=live, device=self.device)
+        elif method in ("reducto", "static"):
+            al = alloc.allocate_fair_host(bitrates, W_t, C, live=live)
+        else:
+            raise ValueError(method)
+        return (al.bitrates_kbps, al.resolutions, masks, extra, area,
+                float(al.bitrates_kbps.sum()), est)
+
+    # -- runners ----------------------------------------------------------------
+
+    def _check_scene(self, scene: DeviceScene) -> None:
+        if not isinstance(scene, DeviceScene):
+            raise TypeError(f"the port's runners need a DeviceScene, got "
+                            f"{type(scene)!r}")
+        if scene.device != self.device:
+            raise ValueError(f"scene lives on {scene.device}, the system on "
+                             f"{self.device}")
+        if scene.G != self._G:
+            raise ValueError(f"scene GT capacity {scene.G} != {self._G}")
+
+    def run(self, scene: DeviceScene, trace_kbps: np.ndarray,
+            method: str = "deepstream", use_elastic: Optional[bool] = None,
+            faults: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+        """One bandwidth trace through the configured runner.  ``faults``
+        is an optional (T, C) bool liveness mask (batched and episode
+        runners only).  Returns per-slot logs keyed like the JAX
+        package's."""
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}")
+        if use_elastic is None:
+            use_elastic = method == "deepstream"
+        if faults is not None:
+            faults = np.asarray(faults, bool)
+            T, C = len(trace_kbps), self.cfg.scene.num_cameras
+            if faults.shape != (T, C):
+                raise ValueError(f"faults mask must be (T={T}, C={C}), got "
+                                 f"{faults.shape}")
+            if not faults.any(axis=1).all():
+                raise ValueError("faults mask leaves a slot with zero live "
+                                 "cameras")
+        if self.cfg.episode:
+            return self.run_episode(scene, trace_kbps, method, use_elastic,
+                                    faults=faults)
+        self._check_scene(scene)
+        if self.cfg.batched:
+            return self._run_batched(scene, trace_kbps, method, use_elastic,
+                                     faults=faults)
+        if faults is not None:
+            raise NotImplementedError("fault injection needs the batched or "
+                                      "episode runner (batched=True)")
+        return self._run_sequential(scene, trace_kbps, method, use_elastic)
+
+    def _run_batched(self, scene: DeviceScene, trace_kbps: np.ndarray,
+                     method: str, use_elastic: bool,
+                     faults: Optional[np.ndarray] = None
+                     ) -> Dict[str, np.ndarray]:
+        """The fleet slot loop.  Device control: the host fetches slot t's
+        (2, C) and (4,) packs, after slot t+1 is dispatched when
+        ``pipeline`` is on.  Host control: one (2, C) harvest per slot plus
+        deepstream's (a, c) fetch."""
+        lam = self.cfg.lam()
+        C = self.cfg.scene.num_cameras
+        dev = self.device
+        device_ctrl = self.cfg.alloc == "device"
+        est = HostElasticState()
+        ctx = (self._control_context(method, trace_kbps, use_elastic)
+               if device_ctrl else None)
+        cam_ids = torch.arange(C, device=dev)
+        logs: Dict[str, List[float]] = {k: [] for k in LOG_KEYS}
+
+        def harvest(item) -> None:
+            out, cpack = item
+            pack = _d2h(out.host_pack, "harvest")
+            logs["utility"].append(float(np.dot(lam, pack[0])))
+            logs["mean_f1"].append(float(np.mean(pack[0])))
+            logs["bytes"].append(float(np.sum(pack[1])))
+            if cpack is not None:
+                cp = _d2h(cpack, "harvest")
+                logs["extra"].append(float(cp[0]))
+                logs["area"].append(float(cp[1]))
+                logs["alloc_kbps"].append(float(cp[2]))
+
+        self._reducto_ref = None
+        # the liveness mask goes up once per run; per slot the fault
+        # signals are derived on the device (host control reads the mask)
+        live_np = (np.ones((len(trace_kbps), C), bool) if faults is None
+                   else faults)
+        live_tr = torch.as_tensor(live_np, device=dev)
+        live_prev = torch.ones((C,), dtype=torch.bool, device=dev)
+        pending = None
+        for t in range(len(trace_kbps)):
+            W_t = float(trace_kbps[t])
+            seg = scene.segment()
+            frames = seg["frames"]
+            keys = fleet_mod.slot_camera_keys(self._key, seg["t"], cam_ids)
+            live_t = live_tr[t]
+            reconnect = live_t & ~live_prev
+            if device_ctrl:
+                b, r, masks, cpack = self._slot_control_device(
+                    method, frames, t, ctx, use_elastic, live=live_t,
+                    reconnect=reconnect.any())
+            else:
+                rejoin = t > 0 and bool((live_np[t] & ~live_np[t - 1]).any())
+                b, r, masks, extra, area, alloc_kbps, est = \
+                    self._slot_allocation(method, frames, W_t, est,
+                                          use_elastic, live=live_np[t],
+                                          reconnect=rejoin)
+                cpack = None
+                logs["extra"].append(extra)
+                logs["area"].append(area)
+                logs["alloc_kbps"].append(alloc_kbps)
+            keep = None
+            if method == "reducto":
+                keep = self._reducto_keep(frames, reconnect | (t == 0))
+            out = self._slot_dispatch(frames, seg["gt_dev"], masks, b, r,
+                                      keys=keys, live=live_t, keep=keep)
+            live_prev = live_t
+            logs["W"].append(W_t)
+            if pending is not None:
+                harvest(pending)
+            if self.cfg.pipeline:
+                pending = (out, cpack)
+            else:
+                harvest((out, cpack))
+        if pending is not None:
+            harvest(pending)
+        return {k: np.asarray(v) for k, v in logs.items()}
+
+    def _run_sequential(self, scene: DeviceScene, trace_kbps: np.ndarray,
+                        method: str, use_elastic: bool
+                        ) -> Dict[str, np.ndarray]:
+        """The per-camera reference loop with host control."""
+        lam = self.cfg.lam()
+        C = self.cfg.scene.num_cameras
+        est = HostElasticState()
+        cam_ids = torch.arange(C, device=self.device)
+        logs: Dict[str, List[float]] = {k: [] for k in LOG_KEYS}
+        self._reducto_ref_host = [None] * C
+        for t in range(len(trace_kbps)):
+            W_t = float(trace_kbps[t])
+            seg = scene.segment()
+            frames, gts = seg["frames"], seg["boxes"]
+            keys = fleet_mod.slot_camera_keys(self._key, seg["t"], cam_ids)
+            b, r, masks, extra, area, alloc_kbps, est = self._slot_allocation(
+                method, frames, W_t, est, use_elastic)
+            if method == "reducto":
+                f1s, sizes = self._reducto_slot(frames, gts, b, first=t == 0,
+                                                keys=keys)
+            else:
+                f1s, sizes = self._encode_eval_all(frames, gts, masks, b, r,
+                                                   keys)
+            logs["extra"].append(extra)
+            logs["area"].append(area)
+            logs["alloc_kbps"].append(alloc_kbps)
+            logs["utility"].append(float(np.dot(lam, f1s)))
+            logs["mean_f1"].append(float(np.mean(f1s)))
+            logs["bytes"].append(float(np.sum(sizes)))
+            logs["W"].append(W_t)
+        return {k: np.asarray(v) for k, v in logs.items()}
+
     def run_episode(self, scene: DeviceScene, trace_kbps: np.ndarray,
                     method: str = "deepstream",
                     use_elastic: Optional[bool] = None,
@@ -109,14 +579,7 @@ class DeepStreamSystem:
             raise ValueError(f"unknown method {method!r}")
         if use_elastic is None:
             use_elastic = method == "deepstream"
-        if not isinstance(scene, DeviceScene):
-            raise TypeError(f"run_episode needs a DeviceScene, got "
-                            f"{type(scene)!r}")
-        if scene.device != self.device:
-            raise ValueError(f"scene lives on {scene.device}, the system on "
-                             f"{self.device}")
-        if scene.G != self._G:
-            raise ValueError(f"scene GT capacity {scene.G} != {self._G}")
+        self._check_scene(scene)
         C = self.cfg.scene.num_cameras
         lam = self.cfg.lam()
         ctx = self._control_context(method, trace_kbps, use_elastic)
@@ -135,8 +598,8 @@ class DeepStreamSystem:
             gt_pad=self._G, t_start=scene._t, faults=faults)
         scene._t += len(trace_kbps)
         # the one harvest of the stacked logs
-        packs = out.packs.cpu().numpy()
-        cpacks = out.cpacks.cpu().numpy()
+        packs = _d2h(out.packs, "harvest")
+        cpacks = _d2h(out.cpacks, "harvest")
         return {
             "utility": packs[:, 0] @ lam,
             "mean_f1": packs[:, 0].mean(axis=1),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -195,9 +195,32 @@ def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
     return frames, gt_boxes.contiguous(), gt_valid.contiguous()
 
 
+class LazySegment(dict):
+    """Segment dict whose host views (``boxes``) are built on first access:
+    the fleet runners read only the device entries, so they never pay the
+    GT fetch and the Python list build the sequential runner needs."""
+
+    def __init__(self, base: Dict, lazy: Dict[str, Callable[[], object]]):
+        super().__init__(base)
+        self._lazy = lazy
+
+    def __getitem__(self, k):
+        if not super().__contains__(k) and k in self._lazy:
+            self[k] = self._lazy.pop(k)()
+        return super().__getitem__(k)
+
+    def __contains__(self, k):
+        return super().__contains__(k) or k in self._lazy
+
+    def get(self, k, default=None):
+        return self[k] if k in self else default
+
+
 class DeviceScene:
     """A scene's device params, base key and slot cursor (``_t``), the
-    counterpart of ``repro.data.synthetic.DeviceScene``."""
+    counterpart of ``repro.data.synthetic.DeviceScene``.  ``segment()``
+    yields slot ``_t`` and advances the cursor; its frames are bitwise what
+    ``fleet_episode`` synthesises for the same (seed, t)."""
 
     def __init__(self, cfg: SceneConfig, device=None):
         self.cfg = cfg
@@ -208,6 +231,24 @@ class DeviceScene:
         S = self.params.stat_boxes.shape[1]
         self.G = max(-(-(S + K) // 8) * 8, 16)
         self._t = 0
+
+    def segment(self) -> LazySegment:
+        """{"frames": (C, N, H, W), "t": slot index, "gt_dev": (gt_boxes
+        (C, N, G, 4), gt_valid (C, N, G)), "boxes": per camera and frame
+        the list of GT boxes (built on first access)}."""
+        t = self._t
+        self._t += 1
+        frames, gtb, gtv = segments_device(self.cfg, self.params, self.key,
+                                           t, gt_pad=self.G)
+
+        def boxes():
+            gtb_h, gtv_h = gtb.cpu().numpy(), gtv.cpu().numpy()
+            return [[[tuple(b) for b, v in zip(gtb_h[c, f], gtv_h[c, f])
+                      if v] for f in range(frames.shape[1])]
+                    for c in range(frames.shape[0])]
+
+        return LazySegment({"frames": frames, "t": t, "gt_dev": (gtb, gtv)},
+                           {"boxes": boxes})
 
 
 # the paper's FCC regime parameters (mean, std) in Kbps (section 7.1) and

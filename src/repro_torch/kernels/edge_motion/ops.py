@@ -58,3 +58,11 @@ def segment_motion_fleet(frames: torch.Tensor, *, block_size: int,
                                       edge_thresh=edge_thresh)
     return edge_motion_cuda(frames.contiguous(), block_size=block_size,
                             edge_thresh=edge_thresh)
+
+
+def segment_motion(frames: torch.Tensor, *, block_size: int,
+                   edge_thresh: float) -> torch.Tensor:
+    """One camera: frames (N, H, W) -> (N-1, H/bs, W/bs), through the fleet
+    path with C = 1 (the kernel on the card)."""
+    return segment_motion_fleet(frames[None], block_size=block_size,
+                                edge_thresh=edge_thresh)[0]

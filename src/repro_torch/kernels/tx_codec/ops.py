@@ -1,6 +1,7 @@
-"""Fleet encode: per-camera scalar rate terms and the noise draw here, the
-per-pixel transform in the tx_codec kernel (``csrc/tx_codec.cu``) for CUDA
-tensors or its plain version for CPU tensors.
+"""Fleet encode, bitrate and CRF modes: per-camera scalar rate terms and
+the noise draw here, the per-pixel transform in the tx_codec kernel
+(``csrc/tx_codec.cu``) for CUDA tensors or its plain version for CPU
+tensors.
 
 The scalar terms (effective pixels, bits, bpp, levels, sigma, nearest
 resolution, sizes) are (C,) float32 vectors in the order of
@@ -80,8 +81,34 @@ def encode_fleet(cfg: codec.CodecConfig, frames: torch.Tensor,
              if num_frames is None else num_frames.to(torch.float32))
     levels, sigma, size = codec.rate_terms(cfg, roi_pixels, bitrate_kbps,
                                            res, n_eff)
+    kcam = _pool_factors(cfg, res)
+    noise = prng.normal(keys, frames.shape[1:])
+    return tx_codec(frames, noise, levels, sigma, kcam), size
+
+
+def _pool_factors(cfg: codec.CodecConfig, res: torch.Tensor) -> torch.Tensor:
+    """(C,) int32 pool factor of each camera's nearest resolution."""
     ktable = torch.tensor([codec.pool_factor(r) for r in cfg.resolutions],
-                          dtype=torch.int32, device=dev)
-    kcam = ktable[codec.nearest_resolution(cfg.resolutions, res)]
+                          dtype=torch.int32, device=res.device)
+    return ktable[codec.nearest_resolution(cfg.resolutions, res)]
+
+
+def encode_fleet_crf(cfg: codec.CodecConfig, frames: torch.Tensor,
+                     roi_pixels: torch.Tensor, keys: torch.Tensor,
+                     res: Optional[torch.Tensor] = None,
+                     num_frames: Optional[torch.Tensor] = None, *,
+                     blur: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CRF-mode fleet encode: fixed bpp, content-proportional sizes (C,).
+    ``res=None`` or ``blur=False`` takes the identity branch for every
+    camera; the r^2 term still charges when ``res`` is given."""
+    C, N = frames.shape[:2]
+    dev = frames.device
+    n_eff = (torch.full((C,), float(N), dtype=torch.float32, device=dev)
+             if num_frames is None else num_frames.to(torch.float32))
+    r = (torch.ones((C,), dtype=torch.float32, device=dev) if res is None
+         else res.to(torch.float32))
+    levels, sigma, size = codec.crf_terms(cfg, roi_pixels, r, n_eff)
+    kcam = (_pool_factors(cfg, r) if blur and res is not None
+            else torch.ones((C,), dtype=torch.int32, device=dev))
     noise = prng.normal(keys, frames.shape[1:])
     return tx_codec(frames, noise, levels, sigma, kcam), size

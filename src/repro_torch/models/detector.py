@@ -15,8 +15,9 @@ Numerics that must follow XLA to keep discrete outputs equal:
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -150,3 +151,29 @@ def f1_score_batch(pred_boxes: torch.Tensor, pred_valid: torch.Tensor,
     both_empty = (n_pred == 0) & (n_gt == 0)
     either_empty = (n_pred == 0) | (n_gt == 0)
     return torch.where(both_empty, 1.0, torch.where(either_empty, 0.0, f1))
+
+
+def f1_score(pred_boxes, pred_valid, gt_boxes: List[Tuple[float, ...]],
+             iou_thresh: float = 0.3) -> float:
+    """Greedy one-to-one matching F1 for one frame on the host: preds (K,
+    4) with their valid flags against a list of GT boxes (the sequential
+    runner's scorer)."""
+    preds = [tuple(b) for b, v in zip(np.asarray(pred_boxes),
+                                      np.asarray(pred_valid)) if v]
+    if not preds and not gt_boxes:
+        return 1.0
+    if not preds or not gt_boxes:
+        return 0.0
+    a = torch.from_numpy(np.array(preds, np.float32))
+    b = torch.from_numpy(np.array(gt_boxes, np.float32))
+    iou = box_iou(a, b).numpy()
+    matched_gt: set = set()
+    tp = 0
+    for i in np.argsort(-iou.max(axis=1)):
+        j = int(np.argmax(iou[i]))
+        if iou[i, j] >= iou_thresh and j not in matched_gt:
+            matched_gt.add(j)
+            tp += 1
+    prec = tp / len(preds)
+    rec = tp / len(gt_boxes)
+    return 0.0 if tp == 0 else 2 * prec * rec / (prec + rec)

@@ -21,6 +21,8 @@ from repro_torch.core import codec as t_codec  # noqa: E402
 from repro_torch.data import synthetic as t_synth  # noqa: E402
 from repro_torch.kernels.edge_motion import ops as t_em  # noqa: E402
 from repro_torch.kernels.edge_motion import ref as t_em_ref  # noqa: E402
+from repro_torch.kernels.knapsack_dp import ops as t_dp  # noqa: E402
+from repro_torch.kernels.knapsack_dp import ref as t_dp_ref  # noqa: E402
 from repro_torch.kernels.tx_codec import ops as t_tx  # noqa: E402
 from repro_torch.kernels.tx_codec import ref as t_tx_ref  # noqa: E402
 
@@ -107,6 +109,47 @@ def test_tx_codec_plain_matches_jax(res):
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
 
 
+@pytest.mark.parametrize("blur,with_res", [(True, True), (False, True),
+                                           (True, False)])
+def test_tx_codec_crf_matches_jax(blur, with_res):
+    """CRF-mode fleet encode against the JAX ``encode_fleet_crf`` through
+    its Pallas kernel (interpret mode) and its oracle: decoded frames
+    <= 1e-6, sizes exact.  ``blur=False`` and ``res=None`` take the
+    identity branch for every camera."""
+    C = 3
+    fr = _frames(C, 10, seed=6)
+    roi = np.asarray([15360, 7000, 2500], np.float32)
+    r = np.asarray([1.0, 0.74, 0.5], np.float32)
+    n = np.asarray([10, 4, 7], np.float32)
+    kj = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(9), i))(
+        jnp.arange(C))
+    kt = prng.fold_in(prng.PRNGKey(9), torch.arange(C))
+    dt, st = t_tx.encode_fleet_crf(
+        t_codec.CodecConfig(), torch.from_numpy(fr), torch.from_numpy(roi),
+        kt, torch.from_numpy(r) if with_res else None, torch.from_numpy(n),
+        blur=blur)
+    for use_kernel in (True, False):
+        if not use_kernel and not blur and with_res:
+            continue   # the JAX oracle has no blur switch
+        dj, sj = j_tx.encode_fleet_crf(
+            j_codec.CodecConfig(), jnp.asarray(fr), jnp.asarray(roi), kj,
+            jnp.asarray(r) if with_res else None, jnp.asarray(n), blur=blur,
+            use_kernel=use_kernel)
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    # the per-camera plain CRF encode agrees with the fleet one
+    for c in range(C):
+        if not blur and with_res:
+            break
+        dc, sc = t_codec.encode_segment_crf(
+            t_codec.CodecConfig(), torch.from_numpy(fr[c]), float(roi[c]),
+            kt[c], float(r[c]) if with_res else None, float(n[c]))
+        np.testing.assert_allclose(dc.numpy(), dt[c].numpy(), rtol=0,
+                                   atol=1e-6)
+        assert float(sc) == float(st[c])
+
+
 # -- dispatch ---------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version():
@@ -117,6 +160,25 @@ def test_cpu_tensors_take_the_plain_version():
     t_tx.tx_codec(fr, fr, ones * 8, ones * 0.1,
                   torch.tensor([1, 2], dtype=torch.int32))
     assert t_em.LAUNCHES == 0 and t_tx.LAUNCHES == 0
+
+
+def test_knapsack_cpu_tensors_take_the_plain_version():
+    util = torch.rand(5, 6, generator=torch.Generator().manual_seed(0))
+    costs = torch.tensor([1, 2, 4, 8, 16, 20], dtype=torch.int32)
+    t_dp.LAUNCHES = 0
+    vals, choices = t_dp.solve_values(util, costs, 127)
+    picks, total = t_dp.solve_device(util, costs, torch.tensor(60),
+                                     w_cap=127)
+    assert t_dp.LAUNCHES == 0
+    want_v, want_c = t_dp_ref.knapsack_dp_ref(util, costs, 127)
+    assert torch.equal(vals, want_v) and torch.equal(choices, want_c)
+    assert int(costs[picks].sum()) <= 60
+
+
+def test_knapsack_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError):
+        t_dp.knapsack_dp_cuda(torch.zeros(5, 6),
+                              torch.ones(6, dtype=torch.int32), 127)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -159,3 +221,58 @@ def test_tx_codec_cuda_matches_plain(cuda, ks):
     torch.cuda.synchronize()
     want = t_tx_ref.tx_codec_ref(fr, noise, levels, sigma, kcam)
     assert float((got - want).abs().max()) <= 1e-6
+
+
+def _dp_table(kind, I, J, seed, device):
+    r = np.random.default_rng(seed)
+    util = r.uniform(0, 1, (I, J)).astype(np.float32)
+    if kind == "dead":
+        dead = r.choice(I, size=max(I // 2, 1), replace=False)
+        util[dead] = -1e9
+        util[dead, 0] = 0.0
+    elif kind == "ties":
+        util = (np.round(util * 4) / 4).astype(np.float32)
+        util[:, 1] = util[:, 0]
+    return torch.from_numpy(util).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,I,W", [
+    ("uniform", 5, 127), ("uniform", 16, 127), ("uniform", 3, 255),
+    ("uniform", 32, 200), ("dead", 5, 127), ("dead", 16, 127),
+    ("ties", 5, 127), ("uniform", 8, 20000),   # rows past 48 KB of smem
+])
+def test_knapsack_cuda_matches_plain(cuda, kind, I, W):
+    """Values bitwise and choices equal: the kernel's strict > keeps the
+    lowest j, as ``torch.argmax`` does."""
+    util = _dp_table(kind, I, 6, I + W, cuda)
+    costs = torch.tensor([1, 2, 4, 8, 16, 20], dtype=torch.int32,
+                         device=cuda)
+    before = t_dp.LAUNCHES
+    vals, choices = t_dp.solve_values(util, costs, W)
+    torch.cuda.synchronize()
+    assert t_dp.LAUNCHES == before + 1
+    want_v, want_c = t_dp_ref.knapsack_dp_ref(util, costs, W)
+    assert torch.equal(vals, want_v)
+    assert torch.equal(choices, want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blur", [True, False])
+def test_tx_codec_crf_cuda_matches_plain(cuda, blur):
+    C = 5
+    fr = torch.from_numpy(_frames(C, 10, seed=2)).to(cuda)
+    keys = prng.fold_in(prng.PRNGKey(3, device=cuda),
+                        torch.arange(C, device=cuda))
+    roi = torch.linspace(2000.0, 15360.0, C, device=cuda)
+    r = torch.tensor([1.0, 0.75, 0.5, 0.74, 1.0], device=cuda)
+    got, size = t_tx.encode_fleet_crf(t_codec.CodecConfig(), fr, roi, keys,
+                                      r, blur=blur)
+    torch.cuda.synchronize()
+    for c in range(C):
+        want, want_size = t_codec.encode_segment_crf(
+            t_codec.CodecConfig(), fr[c], roi[c], keys[c],
+            r[c] if blur else None)
+        assert float((got[c] - want).abs().max()) <= 1e-6
+        if blur:
+            assert float(size[c]) == float(want_size)

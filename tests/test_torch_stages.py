@@ -195,7 +195,7 @@ def test_roidet_fleet_matches(weights):
             conf_thresh=j_roidet.CONF_THRESH, use_kernel=True,
             max_boxes=j_roidet.MAX_BOXES))
         rj = fn(jnp.asarray(frames.numpy()), pj)
-        rt = t_roidet._roidet_fleet_impl(
+        rt = t_roidet.roidet_fleet(
             frames, pt, block_size=8, motion_thresh=t_roidet.MOTION_THRESH,
             edge_thresh=t_roidet.EDGE_THRESH,
             conf_thresh=t_roidet.CONF_THRESH, max_boxes=t_roidet.MAX_BOXES)
@@ -299,7 +299,7 @@ def test_control_step_matches(method):
         oj = fn(mlp_j, jnp.asarray(ju), jnp.asarray(jr), jnp.asarray(lam),
                 jnp.asarray(a), jnp.asarray(c), W32, est_j, tau[0], tau[1],
                 jnp.asarray(live), jnp.asarray(rec))
-        ot = t_fleet._control_impl(
+        ot = t_fleet.fleet_control_step(
             mlp_t, torch.from_numpy(ju), torch.from_numpy(jr),
             torch.from_numpy(lam), torch.from_numpy(a), torch.from_numpy(c),
             torch.tensor(W32), est_t, torch.tensor(tau[0]),
