@@ -11,7 +11,10 @@ JAX.  In order it prints:
   3. each hand-written kernel against its plain PyTorch version on the card
      at the main path's shapes: edge_motion exact, tx_codec <= 1e-6 in
      bitrate and CRF mode, knapsack_dp values bitwise and choices equal
-     (plus the host solve against the exhaustive oracle);
+     (plus the host solve against the exhaustive oracle), flash_decode at
+     granite-8b's decode shape (B=4, S=2048, 32/8 heads, hd=128) in bf16
+     and f32 and at G=1, valid lengths 0 to 2048, with and without the
+     fresh token;
   4. the four-method whole-trace episode (5 cameras, 96x160, 10 frames per
      slot, T=8): finite logs, F1 in [0, 1], every kernel of the path
      launched, the card's logs equal to the port's own CPU run (<= 1e-5);
@@ -20,11 +23,21 @@ JAX.  In order it prints:
      logs equal to the card's episode and to the CPU ``run()`` (<= 1e-5);
   6. ``alloc="host"`` against device control, and the sequential runner
      against the pipelined one, on the card;
-  7. ms/slot of both runners per method at C=5 and C=16 (median of 3 after
+  7. the LM serving tier: the f32 smoke engine run on the card against
+     the CPU (tokens identical, logits <= 1e-4), then ``ServeEngine`` over
+     granite-8b at its published width and depth with seeded random bf16
+     weights (6 requests on 4 slots, max_seq 2048, 16 new tokens each):
+     every request drains, flash_decode runs once per layer and decode
+     call and never in prefill, one request's last decode agrees with a
+     prefill of its tokens and the kernel route with the plain one (both
+     within 5e-2 of max |logit|); prefill and decode ms, tokens/s, peak
+     memory and one profiled decode;
+  8. ms/slot of both runners per method at C=5 and C=16 (median of 3 after
      a warm-up, with min and max, the two runners timed in turns), and
-     each kernel's time beside its plain version's and its bound, tagged
-     with the card and power limit;
-  8. the wall time, one JSON line of kernel records, then the device line
+     each kernel's time beside its plain version's and its bound (and, for
+     flash_decode, scaled_dot_product_attention's as the library
+     yardstick), tagged with the card and power limit;
+  9. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Each path runs with every kernel's launch counter set to 0 just before it
@@ -36,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,6 +161,360 @@ def slot_ms(torch, run, T: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / T
 
 
+# -- the LM serving tier (slice 3) ---------------------------------------
+
+FD_SHAPE = (4, 2048, 32, 8, 128)           # granite-8b decode: B, S, H, KV, hd
+FD_VALID = (0, 1, 511, 1500, 2048)
+FD_TIMED = (528, 2048)                     # where the run sits; a full cache
+BF16_FLOPS_PER_S = 989e12                  # H100 SXM bf16 tensor cores
+SMALL_PROMPTS = (8, 8, 12, 12, 5, 8)       # tests/test_torch_serve.py
+FULL_PROMPTS = (512, 512, 384, 384, 512, 256)
+FULL_NEW, FULL_SLOTS, FULL_SEQ = 16, 4, 2048
+
+
+def fd_inputs(torch, dev, dtype, B, S, H, KV, hd, seed=0):
+    """q, k, v, k1, v1 of standard normals from numpy (seeded)."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    return [torch.from_numpy(r.normal(0, 1, s).astype(np.float32)).to(
+                dev, dtype)
+            for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                      (B, 1, KV, hd), (B, 1, KV, hd))]
+
+
+def check_flash_decode(torch, dev) -> dict:
+    """B4 against its plain version on the card at the LM decode's shape
+    (bf16 and f32) and one G = 1 shape: ``flash_decode`` (out, m, l) and
+    ``flash_decode_with_new`` (against the same merge of the plain
+    version's stats).  out to <= 1e-5 in float32 and 2e-2 in bfloat16
+    (tests/test_kernels.py's rules), m to <= 1e-5, l to <= 1e-5 of
+    max(1, max l) (a sum of up to S exponentials; the JAX harness's scaled
+    rule).  Returns the worst |diff| of out per dtype."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    worst = {}
+    for shape in (FD_SHAPE, (4, 2048, 8, 8, 128)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, k1, v1 = fd_inputs(torch, dev, dt, *shape)
+            tol = 1e-5 if dt == torch.float32 else 2e-2
+            for vl in FD_VALID:
+                out, m, l = fd_ops.flash_decode_cuda(q, k, v, vl)
+                torch.cuda.synchronize()
+                wo, wm, wl = fd_ref.flash_decode_ref(q, k, v, kv_valid_len=vl)
+                e_out = float((out.float() - wo.float()).abs().max())
+                e_m = float((m - wm).abs().max())
+                e_l = float((l - wl).abs().max())
+                l_tol = 1e-5 * max(1.0, float(wl.abs().max()))
+                got = fd_ops.flash_decode_with_new(q, k, v, k1, v1,
+                                                   kv_valid_len=vl)
+                want = fd_ops.merge_new(q, k1, v1, wo, wm, wl)
+                e_new = float((got.float() - want.float()).abs().max())
+                key = str(dt).split(".")[-1]
+                worst[key] = max(worst.get(key, 0.0), e_out, e_new)
+                print(f"flash_decode vs plain {shape} {key} valid {vl}: "
+                      f"max |diff| out {e_out:.3g}, m {e_m:.3g}, l {e_l:.3g} "
+                      f"(<= {l_tol:.3g}); with the fresh token {e_new:.3g}")
+                if not (e_out <= tol and e_new <= tol and e_m <= 1e-5
+                        and e_l <= l_tol):
+                    raise AssertionError("flash_decode differs from its "
+                                         "plain version")
+    return worst
+
+
+class TimedLM:
+    """Passes calls to ``lm`` with a synchronize and a host clock around
+    each, and keeps what the checks need: per call the kind, ms, position,
+    rows and logits.  At decode call ``compare_at`` it first runs the same
+    decode through the plain route (``use_kernel=False``, writing no cache
+    row) and keeps both logits."""
+
+    def __init__(self, torch, lm, compare_at=None):
+        self.torch, self.lm, self.cfg = torch, lm, lm.cfg
+        self.calls, self.compare_at, self.compared = [], compare_at, None
+        self.n_decode = 0
+
+    def init_cache(self, *a, **kw):
+        return self.lm.init_cache(*a, **kw)
+
+    def _timed(self, fn, *a, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        self.torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def prefill(self, params, batch, max_seq):
+        from repro_torch.kernels.flash_decode import ops as fd_ops
+        before = fd_ops.LAUNCHES
+        (logits, cache), ms = self._timed(self.lm.prefill, params, batch,
+                                          max_seq)
+        if fd_ops.LAUNCHES != before:
+            raise AssertionError("prefill launched flash_decode")
+        self.calls.append(("prefill", ms, batch["tokens"].shape[1], None,
+                           logits.float().cpu()))
+        return logits, cache
+
+    def decode(self, params, tokens, cache, pos, rows=None):
+        if self.n_decode == self.compare_at:
+            plain, _ = self.lm.decode(params, tokens, cache, pos, rows=[],
+                                      use_kernel=False)
+        (logits, cache), ms = self._timed(self.lm.decode, params, tokens,
+                                          cache, pos, rows=rows)
+        if self.n_decode == self.compare_at:
+            self.compared = (pos, plain.float().cpu(), logits.float().cpu())
+        self.n_decode += 1
+        self.calls.append(("decode", ms, pos, rows, logits.float().cpu()))
+        return logits, cache
+
+
+def lm_card_vs_cpu(torch, dev) -> None:
+    """The f32 smoke engine run of tests/test_torch_serve.py on the card
+    and on the CPU, same seeded weights: tokens identical, every call's
+    logits within 1e-4, flash_decode launched once per layer and decode
+    call on the card."""
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = smoke_config("granite-8b").replace(dtype="float32", num_heads=8,
+                                             num_kv_heads=2)
+    lm = LM(cfg)
+    cpu_params = lm.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for where in ("cpu", dev):
+        params = _to(torch, cpu_params, where)
+        rng = np.random.default_rng(5)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=6)
+                for i, n in enumerate(SMALL_PROMPTS)]
+        rec = TimedLM(torch, lm)
+        fd_ops.LAUNCHES = 0
+        stats = ServeEngine(rec, params, batch_slots=4, max_seq=32,
+                            device=where).run(reqs)
+        runs[str(where)] = (stats, [r.out_tokens for r in reqs], rec.calls,
+                            fd_ops.LAUNCHES, rec.n_decode)
+    (cs, ctok, ccalls, _, _), (gs, gtok, gcalls, n_fd, n_dec) = (
+        runs["cpu"], runs[str(dev)])
+    diff = max(float((a[4] - b[4]).abs().max())
+               for a, b in zip(ccalls, gcalls))
+    print(f"LM engine f32 smoke (d=64, 2 layers, G=4, hd=8) card vs CPU: "
+          f"{gs['requests']} requests, {gs['steps']} steps, tokens "
+          f"{'identical' if gtok == ctok else 'DIFFERENT'}, max |logit diff| "
+          f"{diff:.3g} over {len(gcalls)} calls; flash_decode launches "
+          f"{n_fd} for {n_dec} decode calls")
+    if gtok != ctok or gs["steps"] != cs["steps"] or len(gcalls) != len(
+            ccalls) or not diff <= 1e-4:
+        raise AssertionError("the card's LM engine differs from the CPU's")
+    if n_fd != cfg.num_layers * n_dec or n_dec == 0:
+        raise AssertionError("flash_decode not launched once per layer and "
+                             "decode call")
+
+
+def _to(torch, tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: _to(torch, v, device) for k, v in tree.items()}
+
+
+
+def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
+    """ServeEngine over granite-8b at its published config (36 layers,
+    d_model 4096, 32/8 heads, d_ff 14336, vocab 49152, bf16), weights from
+    a seeded torch.Generator on the card: 4 slots, max_seq 2048, prompts of
+    512, 512, 384, 384, 512 and 256 tokens, 16 new tokens each.  Checks
+    that every request drains, that flash_decode ran 36 times per decode
+    call and never in prefill, that one request's last decode logits agree
+    with a prefill of the same tokens (teacher forcing) and that the kernel
+    route agrees with ``use_kernel=False`` at one decode, both within 5e-2
+    of max |logit| (tests/test_archs.py's bf16 rule).  Every launch
+    counter is set to 0 just before the engine run and read just after;
+    no other kernel may have launched.  Returns the flash_decode launches
+    of the engine run."""
+    import numpy as np
+    from repro_torch.common.params import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("granite-8b")
+    lm = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(lm.param_defs())
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=FULL_NEW)
+            for i, n in enumerate(FULL_PROMPTS)]
+    rec = TimedLM(torch, lm, compare_at=2)
+    eng = ServeEngine(rec, params, batch_slots=FULL_SLOTS, max_seq=FULL_SEQ,
+                      device=dev)
+    reset_counts()
+    stats = eng.run(reqs)
+    counts = read_counts()
+    launches = counts.pop("flash_decode")
+    peak = torch.cuda.max_memory_allocated()
+    pre = [c for c in rec.calls if c[0] == "prefill"]
+    dec = [c for c in rec.calls if c[0] == "decode"]
+    if not (stats["requests"] == len(reqs) and all(
+            r.done and len(r.out_tokens) == FULL_NEW for r in reqs)):
+        raise AssertionError(f"not every request drained: {stats}")
+    if launches != cfg.num_layers * len(dec) or not dec or any(
+            counts.values()):
+        raise AssertionError(f"flash_decode launched {launches} times for "
+                             f"{len(dec)} decode calls of {cfg.num_layers} "
+                             f"layers; others {counts}")
+    V = cfg.vocab_size
+    # teacher forcing: request 0 (slot 0) made its last token at decode
+    # position len(prompt) + FULL_NEW - 2, from out_tokens[-2]
+    r0 = reqs[0]
+    last = len(r0.prompt) + FULL_NEW - 2
+    # (request 4 reuses slot 0 later and passes the same position)
+    lg_dec = [c for c in dec if c[2] == last and (
+        c[3] is None or 0 in c[3])][0][4][0, 0, :V]
+    if int(lg_dec.argmax()) != r0.out_tokens[-1]:
+        raise AssertionError("the recorded decode logits did not pick the "
+                             "emitted token")
+    toks = np.concatenate([r0.prompt, r0.out_tokens[:-1]]).astype(np.int64)
+    lg_pre, _ = lm.prefill(params, {"tokens": torch.as_tensor(
+        toks[None], device=dev)}, FULL_SEQ)
+    lg_pre = lg_pre.float().cpu()[0, 0, :V]
+    scale = float(lg_pre.abs().max())
+    e_tf = float((lg_dec - lg_pre).abs().max())
+    pos_c, plain, kern = rec.compared
+    e_route = float((plain[..., :V] - kern[..., :V]).abs().max())
+    s_route = float(plain[..., :V].abs().max())
+    pre_ms = [c[1] for c in pre]
+    dec_ms = [c[1] for c in dec]
+    step_ms = (stats["wall_s"] * 1e3 - sum(pre_ms)) / stats["steps"]
+    print(f"granite-8b full width ({n_params:,} parameters, bf16, init "
+          f"{init_s:.2f} s on the card): {stats['requests']} requests, "
+          f"{stats['tokens']} tokens, {stats['steps']} steps, "
+          f"{len(dec)} decode calls, flash_decode launches {launches} "
+          f"(= {cfg.num_layers} x {len(dec)}), none in {len(pre)} prefills "
+          f"{tag}")
+    print(f"granite-8b prefill ms per request (prompt "
+          f"{[c[2] for c in pre]}): {[round(x, 3) for x in pre_ms]} {tag}")
+    print(f"granite-8b decode ms per call: median "
+          f"{statistics.median(dec_ms):.3f} (min {min(dec_ms):.3f}, max "
+          f"{max(dec_ms):.3f}, {len(dec_ms)} calls); per engine step "
+          f"{step_ms:.3f} ms; {stats['tok_per_s']:.2f} tokens/s over "
+          f"{stats['wall_s']:.3f} s; peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes) {tag}")
+    print(f"granite-8b teacher forcing (request 0, position {last}): max "
+          f"|decode - prefill| {e_tf:.4g} of max |logit| {scale:.4g} "
+          f"({e_tf / scale:.4g}); kernel vs plain route at decode position "
+          f"{pos_c}: {e_route:.4g} of {s_route:.4g} "
+          f"({e_route / s_route:.4g})")
+    if not (e_tf / scale < 5e-2 and e_route / s_route < 5e-2):
+        raise AssertionError("granite-8b decode disagrees with teacher "
+                             "forcing or with the plain route")
+    # one profiled decode of all 4 slots at the position the run reached
+    from torch.profiler import ProfilerActivity, profile
+    # (a masked decode, as the engine ran; the run is over, so writing the
+    # two rows at this position changes nothing that is read again)
+    tokens = torch.zeros((FULL_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = max(FULL_PROMPTS) + FULL_NEW
+    lm.decode(params, tokens, eng.cache, pos, rows=[0, 1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.decode(params, tokens, eng.cache, pos, rows=[0, 1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    busy = device_us(prof) / 1e3
+    fd = device_us(prof, "fd_") / 1e3
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation)
+    gemm = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+               and any(w in e.key.lower() for w in
+                       ("gemm", "gemv", "nvjet", "cutlass"))) / 1e3
+    print(f"granite-8b one decode (4 slots, 2 rows written, position {pos}) "
+          f"under the "
+          f"profiler: wall {wall:.3f} ms, kernels {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}% busy) in {n_kernels} kernels, "
+          f"flash_decode {fd:.3f} ms, "
+          f"matrix products {gemm:.3f} ms, weights-read floor "
+          f"{2 * n_params / HBM_BYTES_PER_S * 1e3:.3f} ms {tag}")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=12))
+    import collections
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        lm.decode(params, tokens, eng.cache, pos, rows=[0, 1])
+    torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                for w in caught)
+    print(f"granite-8b host syncs in one decode call: "
+          f"{sum(sites.values())} {dict(sites.most_common())}")
+    del params, eng, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_decode_record(torch, dev, launches: int, worst: float,
+                        tag: str) -> dict:
+    """B4's times at the LM decode's shape in bf16, at the valid lengths
+    FD_TIMED: the kernel (profiler), the plain version, and
+    scaled_dot_product_attention with the same mask (enable_gqa) as the
+    library yardstick, beside the bound.  The record holds the first
+    length (where the run sits); the others ride along under
+    ``at_valid``."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    F = torch.nn.functional
+    B, S, H, KV, hd = FD_SHAPE
+    q, k, v, _, _ = fd_inputs(torch, dev, torch.bfloat16, *FD_SHAPE)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    per = {}
+    for vl in FD_TIMED:
+        mask = (torch.arange(S, device=dev) < vl)[None, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        want = fd_ref.flash_decode_ref(q, k, v, kv_valid_len=vl)[0]
+        e_lib = float((lib().transpose(1, 2).float() - want.float())
+                      .abs().max())
+        ms = device_ms(torch, lambda: fd_ops.flash_decode_cuda(q, k, v, vl),
+                       100, "fd_")
+        plain_ms = device_ms(torch, lambda: fd_ref.flash_decode_ref(
+            q, k, v, kv_valid_len=vl), 10)
+        library_ms = device_ms(torch, lib, 20)
+        # K and V rows below vl read once; q read, out, m and l written
+        nbytes = 2 * B * vl * KV * hd * 2 + 2 * B * H * hd * 2 + 2 * B * H * 4
+        flops = 4 * B * H * vl * hd
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        nsplit = fd_ops.split_plan(vl, B * KV, fd_ops._sm_count(dev))[1]
+        print(f"kernel flash_decode {FD_SHAPE} bf16 valid {vl} ({nsplit} "
+              f"ranges x {B * KV} blocks): {ms * 1e3:.2f} us on the card, "
+              f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} "
+              f"us (max |diff| vs plain {e_lib:.3g}), bound "
+              f"{bound_ms * 1e3:.3f} us ({nbytes} bytes, {flops} flops; "
+              f"{100 * bound_ms / ms:.1f}% of it) {tag}")
+        per[vl] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    first = per[FD_TIMED[0]]
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/flash_decode.py:66",
+            "shape": list(FD_SHAPE), "valid_len": FD_TIMED[0],
+            "launches": launches, "max_abs_err": worst, **first,
+            "at_valid": {str(vl): per[vl] for vl in FD_TIMED[1:]}}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -171,6 +539,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.edge_motion import ops as em_ops
     from repro_torch.kernels.edge_motion import ref as em_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.knapsack_dp import ops as dp_ops
     from repro_torch.kernels.knapsack_dp import ref as dp_ref
     from repro_torch.kernels.tx_codec import ops as tx_ops
@@ -178,7 +547,7 @@ def main(argv=None) -> int:
     from repro_torch.models.detector import load_detector
 
     counters = {"edge_motion": em_ops, "tx_codec": tx_ops,
-                "knapsack_dp": dp_ops}
+                "knapsack_dp": dp_ops, "flash_decode": fd_ops}
 
     def reset_counts() -> None:
         for mod in counters.values():
@@ -195,12 +564,23 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, Python "
+          f"{sys.version.split()[0]}")
     tag = f"[{smi}]"
 
     t0 = time.perf_counter()
     libs = build.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for "
           f"{len(libs)} sources (nvcc, sm_90a, in parallel)")
+    for name in libs:
+        log = build.BUILD_DIR / f"{name}.log"
+        if log.exists():   # written by the nvcc run of this build
+            text = log.read_text()
+            regs = re.findall(r"Used (\d+) registers", text)
+            spills = sorted(set(re.findall(r"(\d+) bytes spill stores",
+                                           text)))
+            print(f"ptxas {name}: registers per kernel {regs}, spill "
+                  f"stores {spills} bytes")
 
     # -- 3. kernels vs their plain versions on the card -----------------
     bs, thr = 8, 0.35
@@ -319,6 +699,8 @@ def main(argv=None) -> int:
     if not (np.array_equal(picks, o_picks) and abs(total - o_total) <= 1e-5):
         raise AssertionError("host solve differs from the exhaustive oracle")
 
+    worst["flash_decode"] = max(check_flash_decode(torch, dev).values())
+
     # -- 4. the episode, four methods, card vs the port's CPU run -------
     light_h, server_h = load_detector("light", "cpu"), load_detector(
         "server", "cpu")
@@ -426,7 +808,11 @@ def main(argv=None) -> int:
         if n_total["knapsack_dp"] == 0 or n_total["edge_motion"] == 0:
             raise AssertionError(f"{label}: B1 or B3 not launched {n_total}")
 
-    # -- 7. times --------------------------------------------------------
+    # -- 7. the LM serving tier: small width card vs CPU, then full width
+    lm_card_vs_cpu(torch, dev)
+    lm_launches = lm_full_width(torch, dev, tag, reset_counts, read_counts)
+
+    # -- 8. times --------------------------------------------------------
     for C in (5, 16):
         s = gpu_sys if C == 5 else make_system(C, dev)
         tr = trace * C / 5
@@ -514,6 +900,8 @@ def main(argv=None) -> int:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
+    records.append(flash_decode_record(torch, dev, lm_launches,
+                                       worst["flash_decode"], tag))
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

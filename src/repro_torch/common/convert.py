@@ -3,10 +3,15 @@
 ``detector``: convolution kernels go from HWIO (``lax.conv_general_dilated``
 layout) to OIHW (``torch.nn.functional.conv2d``); biases stay as they are.
 ``mlp``: the utility MLP keeps its ``x @ w`` matrices as they are.
+Both are flat and come out float32.
+``lm``: the LM's nested tree keeps its structure, its stacked layer axis,
+its ``(d_in, d_out)`` matrices and each leaf's dtype.  A bfloat16 leaf
+arrives as numpy's ``bfloat16`` extension type, which ``torch.from_numpy``
+refuses: it goes through float32 and back to bfloat16, which is exact.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -14,9 +19,26 @@ import torch
 _DETECTOR_CONVS = ("c1", "c2", "c3", "c4", "head")
 
 
-def params_from_numpy(tree: Mapping[str, np.ndarray], kind: str, *,
-                      device="cpu") -> Dict[str, torch.Tensor]:
-    """Flat ``{name: array}`` -> ``{name: float32 tensor}`` on ``device``."""
+def _lm_leaf(arr, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _lm_tree(tree: Any, device) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _lm_tree(v, device) for k, v in tree.items()}
+    return _lm_leaf(tree, device)
+
+
+def params_from_numpy(tree: Mapping[str, Any], kind: str, *,
+                      device="cpu") -> Dict[str, Any]:
+    """``{name: array}`` (nested for ``lm``) -> the same names as tensors on
+    ``device``."""
+    if kind == "lm":
+        return _lm_tree(tree, device)
     if kind not in ("detector", "mlp"):
         raise ValueError(f"unknown parameter kind {kind!r}")
     out = {}

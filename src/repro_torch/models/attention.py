@@ -1,0 +1,249 @@
+"""GQA attention with a chunked (flash-style) prefill and a one-token
+decode over a read-only KV cache (``repro.models.attention`` in PyTorch).
+
+``chunked_attention`` is the plain online-softmax over query and KV
+chunks with float32 accumulators (no Pallas kernel in JAX either).  The
+decode reads the cache below ``pos`` and merges the fresh token's (k1,
+v1) outside it: through ``decode_attention_with_new`` (plain), or with
+``use_kernel=True`` through ``kernels/flash_decode`` (the CUDA kernel on
+the card, its plain version on the CPU).  Layouts are JAX's: q
+``(B, 1, H, hd)``, a cache view ``(B, S, KV, hd)``, the cache itself
+``k``/``v`` of shape ``(B, S, KV*hd)``.  The int8 cache (quantise and
+dequantise) is not ported yet (``ROADMAP.md``, Queue A item 12).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.models.layers import (apply_rope, dtype_of, linear,
+                                       linear_defs)
+
+NEG_INF = -1e30
+F32 = torch.float32
+
+
+def attn_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Self-attention projections (the cross-attention form waits for the
+    vlm and audio families)."""
+    d, hd, dt, b = cfg.d_model, cfg.resolved_head_dim, dtype_of(cfg), \
+        cfg.qkv_bias
+    qf, kvf = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return {"q": linear_defs(d, qf, dt, bias=b),
+            "k": linear_defs(d, kvf, dt, bias=b),
+            "v": linear_defs(d, kvf, dt, bias=b),
+            "o": linear_defs(qf, d, dt)}
+
+
+# -- chunked attention core ------------------------------------------------------
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> Tuple[torch.Tensor, int]:
+    size = x.shape[axis]
+    pad = (-size) % mult
+    if pad == 0:
+        return x, size
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis), size
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int = 0,
+                      kv_valid_len: Optional[int] = None,
+                      q_chunk: int = 512, kv_chunk: int = 2048
+                      ) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) -> (B,Sq,H,hd).
+
+    Online softmax over KV chunks for each query chunk; GQA grouping via
+    a (KV, G) head split; float32 scores and accumulators."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Skv)
+    q, true_sq = _pad_to(q, 1, qc)
+    k, true_skv = _pad_to(k, 1, kc)
+    v, _ = _pad_to(v, 1, kc)
+    nq, nk = q.shape[1] // qc, k.shape[1] // kc
+    valid_len = true_skv if kv_valid_len is None else kv_valid_len
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        qi = q[:, iq * qc:(iq + 1) * qc].reshape(B, qc, KV, G, hd).to(F32)
+        q_pos = q_offset + iq * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, qc, KV, G), NEG_INF, dtype=F32, device=dev)
+        l = torch.zeros((B, qc, KV, G), dtype=F32, device=dev)
+        acc = torch.zeros((B, qc, KV, G, hd), dtype=F32, device=dev)
+        for ik in range(nk):
+            ki = k[:, ik * kc:(ik + 1) * kc].to(F32)
+            vi = v[:, ik * kc:(ik + 1) * kc].to(F32)
+            kv_pos = ik * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqkgd,bskd->bqkgs", qi, ki) * scale
+            mask = kv_pos[None, :] < valid_len            # (1,kc) padding
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+            s = torch.where(mask[None, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgs,bskd->bqkgd", p, vi)
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=1).reshape(B, nq * qc, H, hd)
+    return out[:, :true_sq]
+
+
+def _mask_scores(s: torch.Tensor, kv_valid_len: int) -> torch.Tensor:
+    pos = torch.arange(s.shape[-1], device=s.device)
+    return torch.where(pos < kv_valid_len, s, torch.full_like(s, NEG_INF))
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_valid_len: int) -> torch.Tensor:
+    """Single-position attention: q (B,1,H,hd), k/v (B,S,KV,hd).  q and p
+    are rounded to the cache dtype and the products summed in float32
+    (JAX's ``preferred_element_type``); softmax in float32."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd).to(k.dtype).to(F32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.to(F32)) * scale
+    p = torch.softmax(_mask_scores(s, kv_valid_len), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).to(F32), v.to(F32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_with_new(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, k1: torch.Tensor,
+                              v1: torch.Tensor, *, kv_valid_len: int
+                              ) -> torch.Tensor:
+    """Decode attention over the old cache (< kv_valid_len) plus one fresh
+    (k1, v1) token, without writing it into the cache.
+    q (B,1,H,hd); k/v (B,S,KV,hd); k1/v1 (B,1,KV,hd)."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd).to(k.dtype).to(F32)
+    s_old = _mask_scores(
+        torch.einsum("bkgd,bskd->bkgs", qg, k.to(F32)) * scale, kv_valid_len)
+    s_new = torch.einsum("bkgd,bskd->bkgs", qg,
+                         k1.to(k.dtype).to(F32)) * scale     # (B,KV,G,1)
+    m = torch.maximum(torch.amax(s_old, dim=-1, keepdim=True), s_new)
+    p_old = torch.exp(s_old - m)
+    p_new = torch.exp(s_new - m)
+    denom = torch.sum(p_old, dim=-1, keepdim=True) + p_new
+    out = (torch.einsum("bkgs,bskd->bkgd",
+                        (p_old / denom).to(v.dtype).to(F32), v.to(F32))
+           + (p_new / denom) * v1.reshape(B, KV, 1, hd).to(F32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# -- attention layer (projections + rope + cache) ------------------------------
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _qkv(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor):
+    hd = cfg.resolved_head_dim
+    q = _split_heads(linear(params["q"], x), cfg.num_heads, hd)
+    k = _split_heads(linear(params["k"], x), cfg.num_kv_heads, hd)
+    v = _split_heads(linear(params["v"], x), cfg.num_kv_heads, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def self_attention(cfg: ModelConfig, params, x: torch.Tensor, *,
+                   positions: Optional[torch.Tensor] = None,
+                   causal: bool = True, q_chunk: int = 512,
+                   kv_chunk: int = 2048) -> torch.Tensor:
+    """Full-sequence self attention."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(cfg, params, x, positions)
+    out = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+    return linear(params["o"], out.reshape(B, S, -1))
+
+
+def _check_cache(cfg: ModelConfig) -> None:
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP.md, Queue A item "
+            "12)")
+
+
+def kv_cache_defs(cfg: ModelConfig, batch: int, max_seq: int
+                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{"k", "v"}: ((batch, max_seq, KV*hd), dtype) in the model dtype."""
+    _check_cache(cfg)
+    kvf = cfg.num_kv_heads * cfg.resolved_head_dim
+    spec = ((batch, max_seq, kvf), dtype_of(cfg))
+    return {"k": spec, "v": spec}
+
+
+def prefill_self_attention(cfg: ModelConfig, params, x: torch.Tensor,
+                           max_seq: int, **chunks
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal self-attention over the prompt; returns the output and the
+    prompt's k/v zero-padded to ``max_seq``."""
+    _check_cache(cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(cfg, params, x, positions)
+    out = chunked_attention(q, k, v, causal=True, **chunks)
+    out = linear(params["o"], out.reshape(B, S, -1))
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        buf = t.new_zeros((B, max_seq, t.shape[2] * t.shape[3]))
+        buf[:, :S] = t.reshape(B, S, -1)
+        cache[name] = buf
+    return out, cache
+
+
+def decode_self_attention_read(cfg: ModelConfig, params, x: torch.Tensor,
+                               cache: Dict[str, torch.Tensor], pos: int,
+                               use_kernel: bool = False
+                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode that only READS the cache: attends over the cache
+    below ``pos`` plus the fresh token, and returns the fresh (k1, v1)
+    flat tokens for the caller to write.
+
+    x (B,1,d); cache k/v (B,S,kvf).  Returns (attn_out, {"k": k1
+    (B,1,kvf), "v": v1})."""
+    _check_cache(cfg)
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    positions = torch.full((B, 1), pos, device=x.device)
+    q, k1, v1 = _qkv(cfg, params, x, positions)
+    S = cache["k"].shape[1]
+    k = cache["k"].reshape(B, S, cfg.num_kv_heads, hd)
+    v = cache["v"].reshape(B, S, cfg.num_kv_heads, hd)
+    attend = (fd_ops.flash_decode_with_new if use_kernel
+              else decode_attention_with_new)
+    out = attend(q, k, v, k1, v1, kv_valid_len=pos)
+    out = linear(params["o"], out.reshape(B, 1, -1))
+    return out, {"k": k1.reshape(B, 1, -1), "v": v1.reshape(B, 1, -1)}
+
+
+def decode_self_attention(cfg: ModelConfig, params, x: torch.Tensor,
+                          cache: Dict[str, torch.Tensor], pos: int,
+                          use_kernel: bool = False
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """As ``decode_self_attention_read``, then writes the fresh token into
+    ``cache`` at ``pos`` in place and returns it."""
+    out, new_tok = decode_self_attention_read(cfg, params, x, cache, pos,
+                                              use_kernel)
+    for name, t in new_tok.items():
+        cache[name][:, pos] = t[:, 0].to(cache[name].dtype)
+    return out, cache

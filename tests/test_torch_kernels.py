@@ -15,16 +15,24 @@ torch.set_num_threads(1)
 
 from repro.core import codec as j_codec  # noqa: E402
 from repro.kernels.edge_motion import ops as j_em  # noqa: E402
+from repro.kernels.flash_decode import ops as j_fd  # noqa: E402
+from repro.kernels.flash_decode.flash_decode import \
+    flash_decode_pallas  # noqa: E402
+from repro.models.attention import \
+    decode_attention_with_new as j_decode_with_new  # noqa: E402
 from repro.kernels.tx_codec import ops as j_tx  # noqa: E402
 from repro_torch.common import prng  # noqa: E402
 from repro_torch.core import codec as t_codec  # noqa: E402
 from repro_torch.data import synthetic as t_synth  # noqa: E402
 from repro_torch.kernels.edge_motion import ops as t_em  # noqa: E402
 from repro_torch.kernels.edge_motion import ref as t_em_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as t_fd  # noqa: E402
+from repro_torch.kernels.flash_decode import ref as t_fd_ref  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ops as t_dp  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ref as t_dp_ref  # noqa: E402
 from repro_torch.kernels.tx_codec import ops as t_tx  # noqa: E402
 from repro_torch.kernels.tx_codec import ref as t_tx_ref  # noqa: E402
+from repro_torch.models import attention as t_attn  # noqa: E402
 
 
 def _frames(C, M, H=96, W=160, seed=0, kind="scene"):
@@ -150,6 +158,90 @@ def test_tx_codec_crf_matches_jax(blur, with_res):
         assert float(sc) == float(st[c])
 
 
+# -- flash_decode -----------------------------------------------------------
+
+# the shapes of tests/test_kernels.py::test_flash_decode_matches_oracle
+# (with its block size) plus one more with G = 1
+FD_SHAPES = [(2, 256, 8, 2, 64, 64, "f32"), (1, 512, 16, 4, 128, 128, "f32"),
+             (3, 128, 8, 8, 32, 64, "f32"), (2, 256, 8, 2, 64, 64, "bf16"),
+             (2, 192, 4, 4, 16, 64, "f32")]
+FD_DT = {"f32": (jnp.float32, torch.float32),
+         "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _fd_inputs(B, S, H, KV, hd, seed=0):
+    r = np.random.default_rng(seed)
+    return [r.normal(0, 1, s).astype(np.float32)
+            for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                      (B, 1, KV, hd), (B, 1, KV, hd))]
+
+
+def _valid_len(S, kind):
+    return {"zero": 0, "one": 1, "ragged": S * 3 // 4 + 1, "full": S}[kind]
+
+
+def _assert_stats(m, l, m_want, l_want):
+    """m to <= 1e-5; l to <= 1e-5 of max(1, max l): l sums up to S
+    exponentials, and two summation orders differ by float32 rounding of
+    that sum, ~1e-6 of it (the JAX harness's scaled rule)."""
+    np.testing.assert_allclose(m, m_want, rtol=0, atol=1e-5)
+    scale = max(1.0, float(np.max(np.abs(l_want))))
+    np.testing.assert_allclose(l, l_want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("kind", ["zero", "one", "ragged", "full"])
+@pytest.mark.parametrize("B,S,H,KV,hd,bs,dt", FD_SHAPES)
+def test_flash_decode_plain_matches_jax_kernel(B, S, H, KV, hd, bs, dt,
+                                               kind):
+    """The port's plain (out, m, l) against the Pallas kernel in interpret
+    mode: out to <= 1e-5 in float32 and 2e-2 in bfloat16 (the JAX kernel
+    test's rules, tests/test_kernels.py), m and l as ``_assert_stats``."""
+    q, k, v, _, _ = _fd_inputs(B, S, H, KV, hd)
+    jd, td = FD_DT[dt]
+    vl = _valid_len(S, kind)
+    jo, jm, jl = flash_decode_pallas(
+        *(jnp.asarray(x).astype(jd) for x in (q, k, v)),
+        kv_valid_len=jnp.int32(vl), block_s=bs, interpret=True)
+    t_fd.LAUNCHES = 0
+    to, tm, tl = t_fd.flash_decode(
+        *(torch.from_numpy(x).to(td) for x in (q, k, v)), kv_valid_len=vl)
+    assert t_fd.LAUNCHES == 0
+    assert to.dtype == td and tm.shape == (B, KV, H // KV, 1)
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo, np.float32), rtol=0,
+                               atol=1e-5 if dt == "f32" else 2e-2)
+    _assert_stats(tm.numpy(), tl.numpy(), np.asarray(jm), np.asarray(jl))
+    if vl == 0:     # every position weighs alike: the mean of V
+        assert float(tm.max()) == float(np.float32(-1e30))
+        assert float(tl.min()) == float(tl.max()) == S
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,vl", [
+    (2, 256, 8, 2, 64, 0), (2, 256, 8, 2, 64, 1), (2, 256, 8, 2, 64, 100),
+    (2, 256, 8, 2, 64, 256), (3, 128, 8, 8, 32, 77), (1, 512, 16, 4, 128, 0)])
+def test_flash_decode_with_new_matches_jax(B, S, H, KV, hd, vl):
+    """Old cache + fresh token: the port's merge against JAX's kernel route
+    and plain route, and its plain route against JAX's, <= 1e-5 in
+    float32; with valid_len = 0 the result is exactly the fresh v1."""
+    q, k, v, k1, v1 = _fd_inputs(B, S, H, KV, hd, seed=vl)
+    jx = [jnp.asarray(x) for x in (q, k, v, k1, v1)]
+    tx = [torch.from_numpy(x) for x in (q, k, v, k1, v1)]
+    got = t_fd.flash_decode_with_new(*tx, kv_valid_len=vl).numpy()
+    got_plain = t_attn.decode_attention_with_new(*tx,
+                                                 kv_valid_len=vl).numpy()
+    want_kern = np.asarray(j_fd.flash_decode_with_new(
+        *jx, kv_valid_len=jnp.int32(vl), force_kernel=True))
+    want_plain = np.asarray(j_decode_with_new(*jx,
+                                              kv_valid_len=jnp.int32(vl)))
+    for a, b in ((got, want_kern), (got, want_plain),
+                 (got_plain, want_plain)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    if vl == 0:
+        G = H // KV
+        want_v1 = np.repeat(v1.reshape(B, 1, KV, 1, hd), G, axis=3)
+        np.testing.assert_array_equal(got, want_v1.reshape(B, 1, H, hd))
+
+
 # -- dispatch ---------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version():
@@ -189,6 +281,41 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         t_tx.tx_codec_cuda(fr, fr, ones, ones,
                            torch.ones(2, dtype=torch.int32))
+
+
+def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = (torch.zeros(s) for s in ((2, 1, 8, 64), (2, 32, 2, 64),
+                                         (2, 32, 2, 64)))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_fd.flash_decode_cuda(q.half(), k.half(), v.half(), 4)
+    with pytest.raises(ValueError, match="shapes do not match"):
+        t_fd.flash_decode_cuda(q, k, v[:, :16], 4)
+    with pytest.raises(ValueError, match="shapes do not match"):
+        t_fd.flash_decode_cuda(torch.zeros((2, 1, 7, 64)), k, v, 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        t_fd.flash_decode_cuda(q[..., :60].bfloat16().contiguous(),
+                               k[..., :60].bfloat16().contiguous(),
+                               v[..., :60].bfloat16().contiguous(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_fd.flash_decode_cuda(q, k.transpose(1, 2).contiguous()
+                               .transpose(1, 2), v, 4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        t_fd.flash_decode_cuda(q, k, v, 4)
+
+
+def test_flash_decode_split_plan_covers_every_position():
+    """The ranges the kernel is launched with tile the valid positions
+    exactly, with none empty, and fill ~BLOCKS_PER_SM blocks per SM when
+    they can."""
+    for n_pos in (1, 31, 32, 33, 511, 528, 1500, 2048, 32768):
+        for blocks in (1, 8, 32, 64, 512):
+            per, nsplit = t_fd.split_plan(n_pos, blocks, 132)
+            tiles = -(-n_pos // t_fd.TILE)
+            assert (nsplit - 1) * per < tiles <= nsplit * per
+            assert nsplit <= max(1, -(-t_fd.BLOCKS_PER_SM * 132 // blocks))
+    # granite-8b's decode (B=4, KV=8) at 2048 and 528 valid positions
+    assert t_fd.split_plan(2048, 32, 132) == (4, 16)
+    assert t_fd.split_plan(528, 32, 132) == (1, 17)
 
 
 # -- on the card ------------------------------------------------------------
@@ -276,3 +403,30 @@ def test_tx_codec_crf_cuda_matches_plain(cuda, blur):
         assert float((got[c] - want).abs().max()) <= 1e-6
         if blur:
             assert float(size[c]) == float(want_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,vl", [
+    (4, 2048, 32, 8, 128, 0), (4, 2048, 32, 8, 128, 1),
+    (4, 2048, 32, 8, 128, 511), (4, 2048, 32, 8, 128, 2048),
+    (2, 256, 8, 8, 64, 100), (2, 32, 8, 2, 8, 5)])
+def test_flash_decode_cuda_matches_plain(cuda, dt, B, S, H, KV, hd, vl):
+    """Kernel vs plain version on the card: out to <= 1e-5 in float32 and
+    2e-2 in bfloat16, m and l as ``_assert_stats``; the fresh-token merge
+    of the kernel's stats against the same merge of the plain ones."""
+    td = FD_DT[dt][1]
+    q, k, v, k1, v1 = (torch.from_numpy(x).to(cuda, td)
+                       for x in _fd_inputs(B, S, H, KV, hd))
+    before = t_fd.LAUNCHES
+    out, m, l = t_fd.flash_decode(q, k, v, kv_valid_len=vl)
+    torch.cuda.synchronize()
+    assert t_fd.LAUNCHES == before + 1
+    wo, wm, wl = t_fd_ref.flash_decode_ref(q, k, v, kv_valid_len=vl)
+    tol = 1e-5 if dt == "f32" else 2e-2
+    assert float((out.float() - wo.float()).abs().max()) <= tol
+    _assert_stats(m.cpu().numpy(), l.cpu().numpy(), wm.cpu().numpy(),
+                  wl.cpu().numpy())
+    got = t_fd.flash_decode_with_new(q, k, v, k1, v1, kv_valid_len=vl)
+    want = t_fd.merge_new(q, k1, v1, wo, wm, wl)
+    assert float((got.float() - want.float()).abs().max()) <= tol
