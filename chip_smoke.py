@@ -9,12 +9,15 @@ JAX.  In order it prints:
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build time (nvcc for sm_90a, every source at once);
   3. each hand-written kernel against its plain PyTorch version on the card
-     at the main path's shapes: edge_motion exact, tx_codec <= 1e-6 in
-     bitrate and CRF mode, knapsack_dp values bitwise and choices equal
-     (plus the host solve against the exhaustive oracle), flash_decode at
-     granite-8b's decode shape (B=4, S=2048, 32/8 heads, hd=128) in bf16
-     and f32 and at G=1, valid lengths 0 to 2048, with and without the
-     fresh token;
+     at the main path's shapes: edge_motion exact, tx_codec bitwise in
+     bitrate and CRF mode (also at frame sizes that are multiples of
+     neither 4 nor the pool factor, every pool factor), knapsack_dp values
+     bitwise and choices equal (plus the host solve against the
+     exhaustive oracle), flash_decode in bf16 and f32 at granite-8b's
+     decode shape (B=4, S=2048, 32/8 heads, hd=128) and at the GQA groups
+     and head sizes of the other configs (G = 1, 7, 16; hd 64, 112, 128),
+     valid lengths 0 to 2048 and one on a range boundary, with and
+     without the fresh token;
   4. the four-method whole-trace episode (5 cameras, 96x160, 10 frames per
      slot, T=8): finite logs, F1 in [0, 1], every kernel of the path
      launched, the card's logs equal to the port's own CPU run (<= 1e-5);
@@ -94,6 +97,12 @@ def device_us(prof, name=None) -> float:
 def device_ms(torch, fn, iters: int, name=None) -> float:
     """Mean kernel time on the card per call of ``fn`` (launch gaps on the
     host excluded), from torch.profiler."""
+    return device_ms_count(torch, fn, iters, name)[0]
+
+
+def device_ms_count(torch, fn, iters: int, name=None):
+    """``device_ms`` and the kernels per call it counted."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -106,7 +115,11 @@ def device_ms(torch, fn, iters: int, name=None) -> float:
     if not us > 0.0:
         raise AssertionError(f"the profiler recorded no kernel time for "
                              f"{name or 'the plain version'}")
-    return us / 1e3 / iters
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation
+                and (name is None or name in e.key))
+    return us / 1e3 / iters, count / iters
 
 
 def max_log_diff(ref: dict, got: dict, keys, tol: float,
@@ -165,7 +178,9 @@ def slot_ms(torch, run, T: int) -> float:
 
 FD_SHAPE = (4, 2048, 32, 8, 128)           # granite-8b decode: B, S, H, KV, hd
 FD_VALID = (0, 1, 511, 1500, 2048)
-FD_TIMED = (528, 2048)                     # where the run sits; a full cache
+# where the run sits; a full cache; one tile in one range (the latency of
+# a single block: launch, q, one tile, no merge)
+FD_TIMED = (528, 2048, 64)
 BF16_FLOPS_PER_S = 989e12                  # H100 SXM bf16 tensor cores
 SMALL_PROMPTS = (8, 8, 12, 12, 5, 8)       # tests/test_torch_serve.py
 FULL_PROMPTS = (512, 512, 384, 384, 512, 256)
@@ -182,24 +197,60 @@ def fd_inputs(torch, dev, dtype, B, S, H, KV, hd, seed=0):
                       (B, 1, KV, hd), (B, 1, KV, hd))]
 
 
+# B4's parity shapes (B, S, H, KV, hd): granite-8b's decode, then the GQA
+# groups and head sizes of the other configs: G = 1 at hd 128, G = 7
+# (yi-34b, 56/8), G = 16 (llama3-405b, 128/8), G = 1 at hd 64
+# (seamless-m4t) and at hd 112 (zamba2)
+FD_PARITY = (FD_SHAPE, (4, 2048, 8, 8, 128), (2, 2048, 56, 8, 128),
+             (1, 2048, 128, 8, 128), (2, 2048, 16, 16, 64),
+             (1, 2048, 32, 32, 112))
+
+
+def range_boundary_len(fd_ops, B, S, KV, G, hd, elem, sms) -> int:
+    """The longest valid length below S that ends exactly on the last of
+    several ranges of the kernel's plan."""
+    for n in range(S - 64, 63, -64):
+        per, nsplit, _ = fd_ops.split_plan(n, B * KV, sms, G, hd, elem)
+        if nsplit > 1 and n % (per * fd_ops.TILE) == 0:
+            return n
+    raise AssertionError(f"no range boundary below {S}")
+
+
 def check_flash_decode(torch, dev) -> dict:
-    """B4 against its plain version on the card at the LM decode's shape
-    (bf16 and f32) and one G = 1 shape: ``flash_decode`` (out, m, l) and
-    ``flash_decode_with_new`` (against the same merge of the plain
-    version's stats).  out to <= 1e-5 in float32 and 2e-2 in bfloat16
-    (tests/test_kernels.py's rules), m to <= 1e-5, l to <= 1e-5 of
-    max(1, max l) (a sum of up to S exponentials; the JAX harness's scaled
-    rule).  Returns the worst |diff| of out per dtype."""
+    """B4 against its plain version on the card at every FD_PARITY shape
+    in bf16 and f32, at valid lengths FD_VALID and one that ends on a range
+    boundary: ``flash_decode`` (out, m, l) and ``flash_decode_with_new``
+    (against the same merge of the plain version's stats).  out to <= 1e-5
+    in float32 and 2e-2 in bfloat16 (tests/test_kernels.py's rules), m to
+    <= 1e-5, l to <= 1e-5 of max(1, max l) (a sum of up to S exponentials;
+    the JAX harness's scaled rule).  The wrapper's shared-memory plan is
+    held to the library's own.  Returns the worst |diff| of out per
+    dtype."""
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
+    sms = fd_ops._sm_count(dev)
+    smem_c = fd_ops._fns()[1]
     worst = {}
-    for shape in (FD_SHAPE, (4, 2048, 8, 8, 128)):
+    for shape in FD_PARITY:
+        B, S, H, KV, hd = shape
         for dt in (torch.bfloat16, torch.float32):
             q, k, v, k1, v1 = fd_inputs(torch, dev, dt, *shape)
+            elem = q.element_size()
+            for st in (1, 2, 3):
+                if smem_c(int(elem == 2), hd, st) != fd_ops.smem_bytes(
+                        elem, hd, st):
+                    raise AssertionError("the wrapper plans with another "
+                                         "shared-memory size than the kernel")
             tol = 1e-5 if dt == torch.float32 else 2e-2
-            for vl in FD_VALID:
+            edge = range_boundary_len(fd_ops, B, S, KV, H // KV, hd, elem,
+                                      sms)
+            for vl in FD_VALID + (edge,):
+                before = fd_ops.LAUNCHES
                 out, m, l = fd_ops.flash_decode_cuda(q, k, v, vl)
                 torch.cuda.synchronize()
+                if fd_ops.LAUNCHES != before + 1:
+                    raise AssertionError("flash_decode counted "
+                                         f"{fd_ops.LAUNCHES - before} launches")
                 wo, wm, wl = fd_ref.flash_decode_ref(q, k, v, kv_valid_len=vl)
                 e_out = float((out.float() - wo.float()).abs().max())
                 e_m = float((m - wm).abs().max())
@@ -211,14 +262,84 @@ def check_flash_decode(torch, dev) -> dict:
                 e_new = float((got.float() - want.float()).abs().max())
                 key = str(dt).split(".")[-1]
                 worst[key] = max(worst.get(key, 0.0), e_out, e_new)
-                print(f"flash_decode vs plain {shape} {key} valid {vl}: "
-                      f"max |diff| out {e_out:.3g}, m {e_m:.3g}, l {e_l:.3g} "
-                      f"(<= {l_tol:.3g}); with the fresh token {e_new:.3g}")
+                n_pos = min(vl, S) if vl > 0 else S
+                plan = fd_ops.split_plan(n_pos, B * KV, sms, H // KV, hd,
+                                         elem)
+                print(f"flash_decode vs plain {shape} {key} valid {vl} "
+                      f"(plan {plan}): max |diff| out {e_out:.3g}, m "
+                      f"{e_m:.3g}, l {e_l:.3g} (<= {l_tol:.3g}); with the "
+                      f"fresh token {e_new:.3g}")
                 if not (e_out <= tol and e_new <= tol and e_m <= 1e-5
                         and e_l <= l_tol):
                     raise AssertionError("flash_decode differs from its "
                                          "plain version")
     return worst
+
+
+def check_tx_codec_ragged(torch, dev) -> float:
+    """B2 against its plain version at frame sizes that are multiples of
+    neither 4 nor any pool factor, each branch alone and mixed, in bitrate
+    mode (the kernel's wrapper) and CRF mode (the fleet encode against the
+    per-camera plain encode): bitwise equal.  Returns the worst |diff|."""
+    from repro_torch.common import prng
+    from repro_torch.core import codec
+    from repro_torch.kernels.tx_codec import ops as tx_ops
+    from repro_torch.kernels.tx_codec import ref as tx_ref
+    worst = 0.0
+    for C, N, H, W in ((4, 3, 101, 157), (4, 2, 37, 45), (3, 2, 9, 13)):
+        gen = torch.Generator(device=dev).manual_seed(H * W)
+        frames = torch.rand((C, N, H, W), device=dev, generator=gen)
+        keys = prng.fold_in(prng.PRNGKey(13, device=dev),
+                            torch.arange(C, device=dev))
+        noise = prng.normal(keys, frames.shape[1:])
+        levels = torch.linspace(4.0, 256.0, C, device=dev)
+        sigma = torch.linspace(0.001, 0.3, C, device=dev)
+        for ks in ([1] * C, [2] * C, [4] * C, [8] * C,
+                   [(1, 2, 4, 8)[i % 4] for i in range(C)]):
+            kcam = torch.tensor(ks, dtype=torch.int32, device=dev)
+            got = tx_ops.tx_codec_cuda(frames, noise, levels, sigma, kcam)
+            torch.cuda.synchronize()
+            want = tx_ref.tx_codec_ref(frames, noise, levels, sigma, kcam)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            print(f"tx_codec vs plain {(C, N, H, W)} k={ks}: max |diff| "
+                  f"{err}")
+            if not torch.equal(got, want):
+                raise AssertionError("tx_codec differs from its plain "
+                                     "version")
+        res = torch.tensor([1.0, 0.75, 0.5, 0.25], device=dev)[
+            torch.arange(C, device=dev) % 4]
+        roi = torch.linspace(500.0, float(H * W), C, device=dev)
+        for blur in (True, False):
+            got, _ = tx_ops.encode_fleet_crf(codec.CodecConfig(), frames, roi,
+                                             keys, res, blur=blur)
+            torch.cuda.synchronize()
+            err = 0.0
+            for c in range(C):
+                want, _ = codec.encode_segment_crf(
+                    codec.CodecConfig(), frames[c], roi[c], keys[c],
+                    res[c] if blur else None)
+                err = max(err, float((got[c] - want).abs().max()))
+            worst = max(worst, err)
+            print(f"tx_codec CRF vs plain {(C, N, H, W)} blur={blur}: max "
+                  f"|diff| {err}")
+            if err != 0.0:
+                raise AssertionError("tx_codec CRF differs from its plain "
+                                     "version")
+    return worst
+
+
+def sass_counts(lib_path) -> dict:
+    """Tensor-core (HMMA, HGMMA) and TMA-load (UTMALDG) instructions in a
+    built library's SASS, where the toolkit has cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "HGMMA", "UTMALDG")}
 
 
 class TimedLM:
@@ -430,6 +551,11 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
     from torch.autograd import DeviceType
     busy = device_us(prof) / 1e3
     fd = device_us(prof, "fd_") / 1e3
+    n_fd = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "fd_" in e.key)
+    if n_fd != cfg.num_layers:
+        raise AssertionError(f"the profiled decode ran {n_fd} flash_decode "
+                             f"kernels for {cfg.num_layers} layers")
     n_kernels = sum(e.count for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA
                     and not e.is_user_annotation)
@@ -441,7 +567,7 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
           f"under the "
           f"profiler: wall {wall:.3f} ms, kernels {busy:.3f} ms "
           f"({100 * busy / wall:.1f}% busy) in {n_kernels} kernels, "
-          f"flash_decode {fd:.3f} ms, "
+          f"flash_decode {fd:.3f} ms in {n_fd} kernels (one per layer), "
           f"matrix products {gemm:.3f} ms, weights-read floor "
           f"{2 * n_params / HBM_BYTES_PER_S * 1e3:.3f} ms {tag}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
@@ -484,8 +610,13 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
         want = fd_ref.flash_decode_ref(q, k, v, kv_valid_len=vl)[0]
         e_lib = float((lib().transpose(1, 2).float() - want.float())
                       .abs().max())
-        ms = device_ms(torch, lambda: fd_ops.flash_decode_cuda(q, k, v, vl),
-                       100, "fd_")
+        # per recorded kernel: the profiler may miss a window's first few
+        ms, per_call = device_ms_count(
+            torch, lambda: fd_ops.flash_decode_cuda(q, k, v, vl), 100, "fd_")
+        if not 0.9 <= per_call <= 1.0:
+            raise AssertionError(f"flash_decode ran {per_call} kernels per "
+                                 "call, not one")
+        ms /= per_call
         plain_ms = device_ms(torch, lambda: fd_ref.flash_decode_ref(
             q, k, v, kv_valid_len=vl), 10)
         library_ms = device_ms(torch, lib, 20)
@@ -495,9 +626,11 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / BF16_FLOPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
-        nsplit = fd_ops.split_plan(vl, B * KV, fd_ops._sm_count(dev))[1]
+        tiles, nsplit, stages = fd_ops.split_plan(
+            vl, B * KV, fd_ops._sm_count(dev), H // KV, hd, 2)
         print(f"kernel flash_decode {FD_SHAPE} bf16 valid {vl} ({nsplit} "
-              f"ranges x {B * KV} blocks): {ms * 1e3:.2f} us on the card, "
+              f"ranges of {tiles} tiles x {B * KV} blocks, {stages} stages, "
+              f"{per_call:g} kernel per call): {ms * 1e3:.2f} us on the card, "
               f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} "
               f"us (max |diff| vs plain {e_lib:.3g}), bound "
               f"{bound_ms * 1e3:.3f} us ({nbytes} bytes, {flops} flops; "
@@ -506,11 +639,21 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
                    "bound_ms": bound_ms,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     first = per[FD_TIMED[0]]
+    from repro_torch.kernels import build
+    sass = sass_counts(build.library_path("flash_decode"))
+    if sass and not sass["HMMA"] + sass["HGMMA"]:
+        raise AssertionError("flash_decode's SASS has no tensor-core "
+                             "instruction")
+    products = ("wgmma" if sass.get("HGMMA") else "mma.sync") if sass \
+        else "mma.sync (source; no cuobjdump)"
+    print(f"flash_decode SASS: {sass or 'cuobjdump not found'}; bf16 "
+          f"products by {products}")
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:66",
             "shape": list(FD_SHAPE), "valid_len": FD_TIMED[0],
             "launches": launches, "max_abs_err": worst, **first,
+            "bf16_products": products, "sass": sass,
             "at_valid": {str(vl): per[vl] for vl in FD_TIMED[1:]}}
 
 
@@ -632,9 +775,9 @@ def main(argv=None) -> int:
             worst["tx_codec"] = max(worst["tx_codec"], err)
             print(f"tx_codec vs plain C={C} {name} {tuple(frames.shape)}: "
                   f"max |diff| {err}")
-            if not err <= 1e-6:
+            if not torch.equal(got, want):
                 raise AssertionError("tx_codec differs from its plain "
-                                     "version by more than 1e-6")
+                                     "version")
         # CRF mode: the fleet encode through the kernel against the
         # per-camera plain CRF encode (every blur branch, then select)
         res = torch.tensor([1.0, 0.75, 0.5, 0.74], device=dev)[
@@ -655,9 +798,9 @@ def main(argv=None) -> int:
             worst["tx_codec"] = max(worst["tx_codec"], err)
             print(f"tx_codec CRF vs plain C={C} blur={blur}: max |diff| "
                   f"{err}")
-            if not err <= 1e-6:
+            if err != 0.0:
                 raise AssertionError("tx_codec CRF differs from its plain "
-                                     "version by more than 1e-6")
+                                     "version")
 
     costs_dev = torch.tensor(DP_COSTS, dtype=torch.int32, device=dev)
     dp_cases = []
@@ -699,6 +842,8 @@ def main(argv=None) -> int:
     if not (np.array_equal(picks, o_picks) and abs(total - o_total) <= 1e-5):
         raise AssertionError("host solve differs from the exhaustive oracle")
 
+    worst["tx_codec"] = max(worst["tx_codec"],
+                            check_tx_codec_ragged(torch, dev))
     worst["flash_decode"] = max(check_flash_decode(torch, dev).values())
 
     # -- 4. the episode, four methods, card vs the port's CPU run -------
@@ -900,6 +1045,14 @@ def main(argv=None) -> int:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
+    # B2 with every camera on the identity branch: no staged band, one
+    # round of loads
+    ones = torch.ones(C, dtype=torch.int32, device=dev)
+    tx_id_ms = device_ms(torch, lambda: tx_ops.tx_codec_cuda(
+        frames, noise, levels, sigma, ones), 100, "tx_codec_kernel")
+    print(f"kernel tx_codec {tuple(frames.shape)} identity branch only: "
+          f"{tx_id_ms * 1e3:.2f} us on the card {tag}")
+    records[1]["identity_ms"] = tx_id_ms
     records.append(flash_decode_record(torch, dev, lm_launches,
                                        worst["flash_decode"], tag))
 

@@ -9,7 +9,11 @@ and of its CUDA counterpart (``csrc/flash_decode.cu``).  Scores
 ``out`` is the mean of V, ``m = -1e30``, ``l = S``, as on the TPU);
 ``m`` is the row max, ``l = sum exp(s - m)`` and
 ``out = (exp(s - m) @ v) / max(l, 1e-30)``.  CPU tensors take this
-version, and the card compares the kernel with it.
+version, and the card compares the kernel with it.  ``round_p=True``
+models the bf16 kernel's arithmetic instead: float32 scores of the bf16
+q and k (each product exact in float32, as on the tensor cores), P
+rounded to bf16 before P.V, P.V accumulated in float32, l summing the
+unrounded P.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ NEG = -1e30
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     kv_valid_len: int
+                     kv_valid_len: int, round_p: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, _, H, hd = q.shape
     KV = k.shape[2]
@@ -35,6 +39,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.amax(s, dim=-1, keepdim=True)                   # (B,KV,G,1)
     p = torch.exp(s - m)
     l = torch.sum(p, dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).to(torch.float32)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
     out = out / torch.clamp(l, min=1e-30)
     return out.reshape(B, 1, H, hd).to(q.dtype), m, l

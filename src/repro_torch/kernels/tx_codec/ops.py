@@ -23,6 +23,21 @@ from repro_torch.kernels.tx_codec import ref
 
 # kernel launches since the last reset
 LAUNCHES = 0
+MIN_SIDE = 8          # H and W the kernel takes: at least the largest pool
+
+_LAUNCH = None
+
+
+def _launcher():
+    """The kernel's C entry point, its argument types bound once."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = build.library("tx_codec").tx_codec_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LAUNCH = fn
+    return _LAUNCH
 
 
 def tx_codec_cuda(frames: torch.Tensor, noise: torch.Tensor,
@@ -45,12 +60,13 @@ def tx_codec_cuda(frames: torch.Tensor, noise: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if H < MIN_SIDE or W < MIN_SIDE:
+        raise ValueError(f"frames must be at least {MIN_SIDE} x {MIN_SIDE}, "
+                         f"got {H} x {W}")
     out = torch.empty_like(frames)
-    fn = build.library("tx_codec").tx_codec_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(frames.data_ptr(), noise.data_ptr(), levels.data_ptr(),
+    if any(t.data_ptr() % 16 for t in (frames, noise)):
+        raise ValueError("frames and noise must start on a 16-byte boundary")
+    err = _launcher()(frames.data_ptr(), noise.data_ptr(), levels.data_ptr(),
              sigma.data_ptr(), kcam.data_ptr(), out.data_ptr(), C, N, H, W,
              torch.cuda.current_stream(frames.device).cuda_stream)
     if err != 0:

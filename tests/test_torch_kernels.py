@@ -90,18 +90,29 @@ def test_edge_motion_detects_motion():
 
 # -- tx_codec ---------------------------------------------------------------
 
-@pytest.mark.parametrize("res", [(1.0, 1.0, 1.0), (0.75, 0.75, 0.75),
-                                 (0.5, 0.5, 0.5), (1.0, 0.74, 0.5)])
-def test_tx_codec_plain_matches_jax(res):
+# pool factors 1, 2, 4 and mixed; 96x160 frames, then frame sizes that are
+# multiples of neither 4 nor the pool factor (edge-padded tails)
+TX_RES = {"k1": (1.0, 1.0, 1.0), "k2": (0.75, 0.75, 0.75),
+          "k4": (0.5, 0.5, 0.5), "mixed": (1.0, 0.74, 0.5)}
+TX_CASES = ([pytest.param(r, (96, 160), id=f"res{i}")
+             for i, r in enumerate(TX_RES.values())]
+            + [pytest.param(r, hw, id=f"{name}-{hw[0]}x{hw[1]}")
+               for hw in ((37, 45), (101, 157))
+               for name, r in TX_RES.items()])
+
+
+@pytest.mark.parametrize("res,hw", TX_CASES)
+def test_tx_codec_plain_matches_jax(res, hw):
     """Port ``encode_fleet`` vs the JAX ``encode_fleet`` with identical
     keys: <= 1e-6 against the Pallas kernel and its vmapped oracle (the
     JAX kernel's own allowance, for a fused noise add)."""
     C = 3
-    fr = _frames(C, 10, seed=4)
+    fr = (_frames(C, 10, seed=4) if hw == (96, 160)
+          else _frames(C, 4, *hw, seed=4, kind="uniform"))
     roi = np.asarray([15360, 9000, 4000], np.float32)
     b = np.asarray([50, 400, 1000], np.float32)
     r = np.asarray(res, np.float32)
-    n = np.asarray([10, 3, 7], np.float32)
+    n = np.minimum(np.asarray([10, 3, 7], np.float32), fr.shape[1])
     kj = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(5), i))(
         jnp.arange(C))
     kt = prng.fold_in(prng.PRNGKey(5), torch.arange(C))
@@ -161,10 +172,14 @@ def test_tx_codec_crf_matches_jax(blur, with_res):
 # -- flash_decode -----------------------------------------------------------
 
 # the shapes of tests/test_kernels.py::test_flash_decode_matches_oracle
-# (with its block size) plus one more with G = 1
+# (with its block size), one more with G = 1, then the GQA groups and head
+# sizes of the configs at small S: G = 7 at hd 128 (yi-34b), G = 16 at
+# hd 64 (llama3-405b's group), G = 1 at hd 112 (zamba2)
 FD_SHAPES = [(2, 256, 8, 2, 64, 64, "f32"), (1, 512, 16, 4, 128, 128, "f32"),
              (3, 128, 8, 8, 32, 64, "f32"), (2, 256, 8, 2, 64, 64, "bf16"),
-             (2, 192, 4, 4, 16, 64, "f32")]
+             (2, 192, 4, 4, 16, 64, "f32"), (1, 128, 14, 2, 128, 64, "f32"),
+             (1, 128, 32, 2, 64, 64, "f32"), (2, 64, 4, 4, 112, 64, "f32"),
+             (1, 128, 14, 2, 128, 64, "bf16")]
 FD_DT = {"f32": (jnp.float32, torch.float32),
          "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -214,6 +229,30 @@ def test_flash_decode_plain_matches_jax_kernel(B, S, H, KV, hd, bs, dt,
     if vl == 0:     # every position weighs alike: the mean of V
         assert float(tm.max()) == float(np.float32(-1e30))
         assert float(tl.min()) == float(tl.max()) == S
+
+
+@pytest.mark.parametrize("kind", ["zero", "one", "ragged", "full"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 128, 8, 2, 128), (1, 128, 14, 2, 128), (1, 128, 32, 2, 64),
+    (2, 64, 4, 4, 112)])
+def test_flash_decode_bf16_arithmetic_meets_the_bf16_rule(B, S, H, KV, hd,
+                                                          kind):
+    """The kernel's bf16 arithmetic (``flash_decode_ref(round_p=True)``:
+    float32 scores of bf16 q and k, P rounded to bf16 before P.V, float32
+    accumulation) against the Pallas kernel in bf16, interpret mode: out
+    within the bf16 rule (2e-2), m and l as ``_assert_stats``."""
+    q, k, v, _, _ = _fd_inputs(B, S, H, KV, hd, seed=hd + H)
+    vl = _valid_len(S, kind)
+    jo, jm, jl = flash_decode_pallas(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        kv_valid_len=jnp.int32(vl), block_s=64, interpret=True)
+    to, tm, tl = t_fd_ref.flash_decode_ref(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        kv_valid_len=vl, round_p=True)
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo, np.float32), rtol=0, atol=2e-2)
+    _assert_stats(tm.numpy(), tl.numpy(), np.asarray(jm), np.asarray(jl))
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,vl", [
@@ -292,10 +331,12 @@ def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take():
         t_fd.flash_decode_cuda(q, k, v[:, :16], 4)
     with pytest.raises(ValueError, match="shapes do not match"):
         t_fd.flash_decode_cuda(torch.zeros((2, 1, 7, 64)), k, v, 4)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        t_fd.flash_decode_cuda(q[..., :60].bfloat16().contiguous(),
-                               k[..., :60].bfloat16().contiguous(),
-                               v[..., :60].bfloat16().contiguous(), 4)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        t_fd.flash_decode_cuda(q[..., :56].bfloat16().contiguous(),
+                               k[..., :56].bfloat16().contiguous(),
+                               v[..., :56].bfloat16().contiguous(), 4)
+    with pytest.raises(ValueError, match="at most 16"):
+        t_fd.flash_decode_cuda(torch.zeros((2, 1, 34, 64)), k, v, 4)
     with pytest.raises(ValueError, match="contiguous"):
         t_fd.flash_decode_cuda(q, k.transpose(1, 2).contiguous()
                                .transpose(1, 2), v, 4)
@@ -304,18 +345,77 @@ def test_flash_decode_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_flash_decode_split_plan_covers_every_position():
-    """The ranges the kernel is launched with tile the valid positions
-    exactly, with none empty, and fill ~BLOCKS_PER_SM blocks per SM when
-    they can."""
-    for n_pos in (1, 31, 32, 33, 511, 528, 1500, 2048, 32768):
-        for blocks in (1, 8, 32, 64, 512):
-            per, nsplit = t_fd.split_plan(n_pos, blocks, 132)
-            tiles = -(-n_pos // t_fd.TILE)
-            assert (nsplit - 1) * per < tiles <= nsplit * per
-            assert nsplit <= max(1, -(-t_fd.BLOCKS_PER_SM * 132 // blocks))
-    # granite-8b's decode (B=4, KV=8) at 2048 and 528 valid positions
-    assert t_fd.split_plan(2048, 32, 132) == (4, 16)
-    assert t_fd.split_plan(528, 32, 132) == (1, 17)
+    """The ranges the kernel is launched with are whole 64-position tiles
+    that cover the valid positions exactly, none empty, fill the card's
+    block slots when they can, keep the float32 partials within
+    PARTIAL_SHARE of the K and V bytes, and the ring has 1 to STAGES
+    stages that fit a block's shared memory."""
+    for elem, G, hd in ((2, 4, 128), (2, 16, 64), (2, 7, 112), (4, 4, 8),
+                        (4, 16, 256), (2, 1, 256)):
+        for n_pos in (1, 63, 64, 65, 511, 528, 1500, 2048, 32768):
+            for blocks in (1, 8, 32, 64, 512):
+                per, nsplit, stages = t_fd.split_plan(n_pos, blocks, 132, G,
+                                                      hd, elem)
+                tiles = -(-n_pos // t_fd.TILE)
+                assert (nsplit - 1) * per < tiles <= nsplit * per
+                assert 1 <= nsplit <= t_fd.MAX_SPLITS
+                assert 1 <= stages <= min(t_fd.STAGES, per)
+                assert t_fd.smem_bytes(elem, hd, stages) <= \
+                    t_fd.MAX_SMEM_BYTES
+                if nsplit > 1:
+                    part = nsplit * G * (hd + 2) * 4
+                    assert part <= t_fd.PARTIAL_SHARE * 2 * n_pos * hd * elem
+    # granite-8b's decode (B=4, KV=8, G=4, hd=128, bf16) at 2048 and 528
+    # valid positions: 8 ranges of 4 tiles, 3 stages (two blocks per SM);
+    # 5 ranges of 2 tiles, 2 stages; partials 1.6% and 3.8% of K and V
+    assert t_fd.split_plan(2048, 32, 132) == (4, 8, 3)
+    assert t_fd.split_plan(528, 32, 132) == (2, 5, 2)
+    for n, nsplit in ((2048, 8), (528, 5)):
+        assert 32 * nsplit * 4 * 130 * 4 <= 0.1 * 2 * 32 * n * 128 * 2
+
+
+def test_flash_decode_tensor_map_cache(monkeypatch):
+    """A tensor map is encoded once per (data_ptr, shape, dtype), and the
+    cache keeps at most MAP_CACHE_SIZE maps (least recently used out)."""
+    calls = []
+
+    def encode(dtype, ptr, B, S, KV, hd, blob):
+        calls.append((dtype, ptr, B, S, KV, hd))
+        return 0
+
+    monkeypatch.setattr(t_fd, "_fns", lambda: (encode, None, None))
+    monkeypatch.setattr(t_fd, "_MAPS", t_fd.OrderedDict())
+    monkeypatch.setattr(t_fd, "MAP_CACHE_SIZE", 2)
+    cache = torch.zeros((2, 32, 4, 64), dtype=torch.bfloat16)
+    a = t_fd.tensor_map(cache)
+    assert t_fd.tensor_map(cache) is a and len(calls) == 1
+    assert calls[0] == (1, cache.data_ptr(), 2, 32, 4, 64)
+    view = cache.view(2, 32, 4, 64)      # the same memory, shape and dtype
+    assert t_fd.map_key(view) == t_fd.map_key(cache)
+    assert t_fd.tensor_map(view) is a and len(calls) == 1
+    other = cache.view(2, 32, 8, 32)
+    assert t_fd.map_key(other) != t_fd.map_key(cache)
+    t_fd.tensor_map(other)
+    t_fd.tensor_map(cache[1:])           # another address: a third map
+    assert len(calls) == 3 and len(t_fd._MAPS) == 2
+    assert t_fd.map_key(cache) not in t_fd._MAPS
+
+
+def test_flash_decode_workspace_is_kept_per_device():
+    """The partials and counters are allocated once per device, grown when
+    a call needs more, and the counters start at 0."""
+    dev = torch.device("cpu")
+    t_fd._WORKSPACE.pop(t_fd.workspace_key(dev), None)
+    parts, counts = t_fd.workspace(dev, 100, 8)
+    assert parts.numel() >= 100 and counts.numel() >= 8
+    assert counts.dtype == torch.int32 and int(counts.abs().sum()) == 0
+    again = t_fd.workspace(dev, 50, 4)
+    assert again[0] is parts and again[1] is counts
+    bigger = t_fd.workspace(dev, 1000, 4)
+    assert bigger[0].numel() >= 1000 and bigger[1] is counts
+    assert t_fd.workspace_key(dev) == ("cpu", None)
+    assert t_fd.workspace_key(torch.device("cuda", 1)) == ("cuda", 1)
+    t_fd._WORKSPACE.pop(t_fd.workspace_key(dev))
 
 
 # -- on the card ------------------------------------------------------------
@@ -332,22 +432,32 @@ def test_edge_motion_cuda_matches_plain(cuda, C, M):
     assert torch.equal(got, want)
 
 
+TX_KS = ((1,) * 5, (2,) * 5, (4,) * 5, (1, 2, 4, 2, 1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ks", [(1,) * 5, (2,) * 5, (4,) * 5,
-                                (1, 2, 4, 2, 1)])
-def test_tx_codec_cuda_matches_plain(cuda, ks):
+@pytest.mark.parametrize("ks,hw", [
+    pytest.param(ks, (96, 160), id=f"ks{i}") for i, ks in enumerate(TX_KS)]
+    + [pytest.param(ks, hw, id=f"ks{i}-{hw[0]}x{hw[1]}")
+       for hw in ((37, 45), (101, 157)) for i, ks in enumerate(TX_KS)])
+def test_tx_codec_cuda_matches_plain(cuda, ks, hw):
+    """Bitwise, also where H and W are multiples of neither 4 nor k."""
     C = len(ks)
-    fr = torch.from_numpy(_frames(C, 10, seed=2)).to(cuda)
+    fr = torch.from_numpy(
+        _frames(C, 10, seed=2) if hw == (96, 160)
+        else _frames(C, 4, *hw, seed=2, kind="uniform")).to(cuda)
     noise = prng.normal(prng.fold_in(prng.PRNGKey(3, device=cuda),
                                      torch.arange(C, device=cuda)),
                         fr.shape[1:])
     levels = torch.linspace(4.0, 256.0, C, device=cuda)
     sigma = torch.linspace(0.001, 0.3, C, device=cuda)
     kcam = torch.tensor(ks, dtype=torch.int32, device=cuda)
+    before = t_tx.LAUNCHES
     got = t_tx.tx_codec(fr, noise, levels, sigma, kcam)
     torch.cuda.synchronize()
+    assert t_tx.LAUNCHES == before + 1
     want = t_tx_ref.tx_codec_ref(fr, noise, levels, sigma, kcam)
-    assert float((got - want).abs().max()) <= 1e-6
+    assert torch.equal(got, want)
 
 
 def _dp_table(kind, I, J, seed, device):
@@ -410,14 +520,21 @@ def test_tx_codec_crf_cuda_matches_plain(cuda, blur):
 @pytest.mark.parametrize("B,S,H,KV,hd,vl", [
     (4, 2048, 32, 8, 128, 0), (4, 2048, 32, 8, 128, 1),
     (4, 2048, 32, 8, 128, 511), (4, 2048, 32, 8, 128, 2048),
-    (2, 256, 8, 8, 64, 100), (2, 32, 8, 2, 8, 5)])
+    (2, 256, 8, 8, 64, 100), (2, 32, 8, 2, 8, 5), (2, 256, 14, 2, 128, 200),
+    (1, 256, 32, 2, 64, 100), (1, 128, 4, 4, 112, 77),
+    (4, 2048, 32, 8, 128, 512)])        # ends on a range boundary
 def test_flash_decode_cuda_matches_plain(cuda, dt, B, S, H, KV, hd, vl):
     """Kernel vs plain version on the card: out to <= 1e-5 in float32 and
     2e-2 in bfloat16, m and l as ``_assert_stats``; the fresh-token merge
-    of the kernel's stats against the same merge of the plain ones."""
+    of the kernel's stats against the same merge of the plain ones.  The
+    bf16 kernel takes head sizes in steps of 16 and refuses others."""
     td = FD_DT[dt][1]
     q, k, v, k1, v1 = (torch.from_numpy(x).to(cuda, td)
                        for x in _fd_inputs(B, S, H, KV, hd))
+    if dt == "bf16" and hd % 16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            t_fd.flash_decode(q, k, v, kv_valid_len=vl)
+        return
     before = t_fd.LAUNCHES
     out, m, l = t_fd.flash_decode(q, k, v, kv_valid_len=vl)
     torch.cuda.synchronize()
