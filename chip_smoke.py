@@ -7,13 +7,19 @@ pass over one episode and host-sync counts of both runners).  It needs no
 JAX.  In order it prints:
 
   1. the card's name and power limit (nvidia-smi);
-  2. the kernel build time (nvcc for sm_90a, every source at once);
+  2. the kernel build time (nvcc for sm_90a, every source at once) and
+     each kernel's registers, stack frame and spills (ptxas);
   3. each hand-written kernel against its plain PyTorch version on the card
-     at the main path's shapes: edge_motion exact, tx_codec bitwise in
+     at the main path's shapes: edge_motion bitwise (also with W % 4 != 0,
+     bs = 2 and 6, M = 2, an unaligned base and frames past one block's
+     shared memory, each under its launch plan, whole-row segments and one
+     pair per chunk), tx_codec bitwise in
      bitrate and CRF mode (also at frame sizes that are multiples of
      neither 4 nor the pool factor, every pool factor), knapsack_dp values
-     bitwise and choices equal (plus the host solve against the
-     exhaustive oracle), flash_decode in bf16 and f32 at granite-8b's
+     bitwise and choices equal, and its fused solve's picks and total
+     equal to the plain backtrack's (W = 20000 included; the host solve
+     against the CPU's and the exhaustive oracle), flash_decode in bf16
+     and f32 at granite-8b's
      decode shape (B=4, S=2048, 32/8 heads, hd=128) and at the GQA groups
      and head sizes of the other configs (G = 1, 7, 16; hd 64, 112, 128),
      valid lengths 0 to 2048 and one on a range boundary, with and
@@ -22,10 +28,12 @@ JAX.  In order it prints:
      slot, T=8): finite logs, F1 in [0, 1], every kernel of the path
      launched, the card's logs equal to the port's own CPU run (<= 1e-5);
   5. the pipelined ``run()`` loop, four methods, same cells: the same
-     checks, knapsack_dp launched once per slot for deepstream and jcab,
-     logs equal to the card's episode and to the CPU ``run()`` (<= 1e-5);
+     checks, knapsack_dp launched once per slot for deepstream and jcab
+     and edge_motion 16 times in all, logs equal to the card's episode and
+     to the CPU ``run()`` (<= 1e-5);
   6. ``alloc="host"`` against device control, and the sequential runner
-     against the pipelined one, on the card;
+     against the pipelined one, on the card (no solve on the card takes
+     the plain backtrack);
   7. the LM serving tier: the f32 smoke engine run on the card against
      the CPU (tokens identical, logits <= 1e-4), then ``ServeEngine`` over
      granite-8b at its published width and depth with seeded random bf16
@@ -39,7 +47,10 @@ JAX.  In order it prints:
      a warm-up, with min and max, the two runners timed in turns), and
      each kernel's time beside its plain version's and its bound (and, for
      flash_decode, scaled_dot_product_attention's as the library
-     yardstick), tagged with the card and power limit;
+     yardstick), tagged with the card and power limit: edge_motion at the
+     ROIDet, reducto and C = 16 shapes and one block's chain;
+     knapsack_dp's fused solve at I = 5, 16 and 1 with its
+     kernels per solve (one), and the sweep alone;
   9. the wall time, one JSON line of kernel records, then the device line
      (last).
 
@@ -100,8 +111,10 @@ def device_ms(torch, fn, iters: int, name=None) -> float:
     return device_ms_count(torch, fn, iters, name)[0]
 
 
-def device_ms_count(torch, fn, iters: int, name=None):
-    """``device_ms`` and the kernels per call it counted."""
+def profile_window(torch, fn, iters: int, name=None) -> tuple:
+    """(kernel us, kernels) the profiler recorded on the card over ``iters``
+    calls of ``fn`` after one warm-up call: every kernel, or those whose
+    name contains ``name``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -111,15 +124,43 @@ def device_ms_count(torch, fn, iters: int, name=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = device_us(prof, name)
-    if not us > 0.0:
-        raise AssertionError(f"the profiler recorded no kernel time for "
-                             f"{name or 'the plain version'}")
+        time.sleep(0.05)    # the card's activity records arrive late
     count = sum(e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and not e.is_user_annotation
                 and (name is None or name in e.key))
+    return device_us(prof, name), count
+
+
+def device_ms_count(torch, fn, iters: int, name=None):
+    """``device_ms`` and the kernels per call it counted."""
+    us, count = profile_window(torch, fn, iters, name)
+    if not us > 0.0:
+        raise AssertionError(f"the profiler recorded no kernel time for "
+                             f"{name or 'the plain version'}")
     return us / 1e3 / iters, count / iters
+
+
+def one_kernel_ms(torch, fn, iters: int, name=None, what: str = "",
+                  windows: int = 5):
+    """Kernel time on the card per recorded kernel of ``fn``, which must
+    launch one kernel per call (those whose name contains ``name``, or
+    every kernel): (ms, kernels per call).  Raises if a window records
+    more than one per call.  A window that records fewer than 90% of its
+    launches (the profiler drops records now and then) is taken again, up
+    to ``windows`` windows; then it raises."""
+    for _ in range(windows):
+        us, count = profile_window(torch, fn, iters, name)
+        per_call = count / iters
+        if per_call > 1.0:
+            raise AssertionError(f"{what or name} ran {per_call} kernels per "
+                                 "call, not one")
+        if per_call >= 0.9:
+            return us / 1e3 / count, per_call
+        print(f"{what or name}: the profiler recorded {per_call:g} kernels "
+              f"per call in a window of {iters}; taking another")
+    raise AssertionError(f"{what or name} ran {per_call} kernels per call, "
+                         "not one")
 
 
 def max_log_diff(ref: dict, got: dict, keys, tol: float,
@@ -226,9 +267,10 @@ def check_flash_decode(torch, dev) -> dict:
     the JAX harness's scaled rule).  The wrapper's shared-memory plan is
     held to the library's own.  Returns the worst |diff| of out per
     dtype."""
+    from repro_torch.common.device import sm_count
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
-    sms = fd_ops._sm_count(dev)
+    sms = sm_count(dev)
     smem_c = fd_ops._fns()[1]
     worst = {}
     for shape in FD_PARITY:
@@ -327,6 +369,333 @@ def check_tx_codec_ragged(torch, dev) -> float:
                 raise AssertionError("tx_codec CRF differs from its plain "
                                      "version")
     return worst
+
+
+# -- B1 and B3 (slice 5: redesigned) ------------------------------------
+
+# B1 parity shapes beyond the main path's (C, M, H, W, bs): W % 4 != 0 with
+# bs = 6 (blocks straddle 32-bit words), bs = 2, M = 2 (one pair), and
+# more frames than fit one block, in the plan's chunks of 140 and of 744
+# pairs (more frames than a block has threads)
+EM_EXTRA = ((2, 5, 36, 54, 6), (2, 4, 32, 90, 2), (3, 2, 96, 160, 8),
+            (1, 150, 16, 32, 8), (2, 1000, 16, 4, 4))
+# B1 timed shapes: the ROIDet call, the reducto keep (reference + N
+# frames), C = 16, and one block's chain (one pair, one band)
+EM_TIMED = ((5, 10, 96, 160), (5, 11, 96, 160), (16, 10, 96, 160),
+            (1, 2, 8, 160))
+# B3 timed shapes (I, W+1): the main path at C = 5 and 16, and one camera
+DP_TIMED = ((5, 128), (16, 128), (1, 128))
+
+
+def em_plans(em_ops, sms, C, M, H, W, bs):
+    """The launch plan, whole-row segments with as many pairs as fit, and
+    one pair per chunk (every frame restaged per pair)."""
+    nb = W // bs
+    fit = max(p for p in range(1, M)
+              if em_ops.smem_bytes(bs, nb, p) <= em_ops.MAX_SMEM_BYTES)
+    return (em_ops.plan(C, M, H, W, bs, sms), (nb, fit), (nb, 1))
+
+
+def check_edge_motion(torch, dev, cases: dict, bs: int, thr: float
+                      ) -> float:
+    """B1 against its plain version on the card, bitwise, one launch per
+    call, under each of ``em_plans``: the main path's ``cases`` (name ->
+    frames), EM_EXTRA on uniform frames, and an unaligned base (frames a
+    view one float into a buffer, so that the kernel takes its 4-byte
+    copies).  Returns the worst |diff|."""
+    from repro_torch.common.device import sm_count
+    from repro_torch.kernels.edge_motion import ops as em_ops
+    from repro_torch.kernels.edge_motion import ref as em_ref
+    sms = sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = {k: (v, bs) for k, v in cases.items()}
+    for C, M, H, W, b in EM_EXTRA:
+        cases[f"uniform bs={b}"] = (torch.rand((C, M, H, W), device=dev,
+                                               generator=gen), b)
+    # wide rows (640 floats) on the 4-byte path
+    src = torch.rand((2, 4, 16, 640), device=dev, generator=gen)
+    flat = torch.empty(src.numel() + 1, device=dev)
+    unaligned = flat[1:].view(src.shape)
+    unaligned.copy_(src)
+    if unaligned.data_ptr() % 16 == 0 or not unaligned.is_contiguous():
+        raise AssertionError("the unaligned case is aligned")
+    cases["unaligned base"] = (unaligned, bs)
+    from repro_torch.kernels import build
+    smem_c = build.library("edge_motion").edge_motion_smem
+    worst = 0.0
+    for name, (fr, b) in cases.items():
+        for seg, ppc in em_plans(em_ops, sms, *fr.shape, b):
+            if smem_c(b, seg, ppc) != em_ops.smem_bytes(b, seg, ppc):
+                raise AssertionError("the wrapper plans with another "
+                                     "shared-memory size than the kernel")
+        want = em_ref.segment_motion_ref(fr, block_size=b, edge_thresh=thr)
+        for i, launch_plan in enumerate(em_plans(em_ops, sms, *fr.shape, b)):
+            before = em_ops.LAUNCHES
+            got = em_ops.edge_motion_cuda(fr, block_size=b, edge_thresh=thr) \
+                if i == 0 else em_ops._launch(fr, b, thr, launch_plan)
+            torch.cuda.synchronize()
+            if em_ops.LAUNCHES != before + 1:
+                raise AssertionError("edge_motion counted "
+                                     f"{em_ops.LAUNCHES - before} launches")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            print(f"edge_motion vs plain {name} {tuple(fr.shape)} bs={b} plan "
+                  f"{launch_plan}: max |diff| {err} (sum "
+                  f"{float(want.sum()):.0f})")
+            if not torch.equal(got, want):
+                raise AssertionError("edge_motion differs from its plain "
+                                     "version")
+    return worst
+
+
+def check_knapsack(torch, dev, dp_cases) -> float:
+    """B3 against its plain versions on the card: the sweep's values
+    bitwise and choices equal to ``knapsack_dp_ref``'s, and the fused
+    solve's picks and total equal to ``backtrack_device`` of the plain
+    sweep at Wg = I, a middle value and W, one launch per call; the
+    wrapper's shared-memory rule held to the library's.  Returns the worst
+    |diff| of the values."""
+    from repro_torch.kernels.knapsack_dp import ops as dp_ops
+    from repro_torch.kernels.knapsack_dp import ref as dp_ref
+    smem_c = dp_ops._fns()[2]
+    costs = torch.tensor(DP_COSTS, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for I, W, kind, util in dp_cases:
+        for solve in (0, 1):
+            if smem_c(I, 6, W + 1, solve) != dp_ops.smem_bytes(I, 6, W + 1,
+                                                               bool(solve)):
+                raise AssertionError("the wrapper plans with another "
+                                     "shared-memory size than the kernel")
+        u = torch.from_numpy(util).to(dev)
+        before = dp_ops.LAUNCHES
+        vals, choices = dp_ops.knapsack_dp_cuda(u, costs, W)
+        torch.cuda.synchronize()
+        want_v, want_c = dp_ref.knapsack_dp_ref(u, costs, W)
+        torch.cuda.synchronize()
+        err = float((vals - want_v).abs().max())
+        bad = int((choices != want_c).sum())
+        worst = max(worst, err)
+        line = (f"knapsack_dp vs plain ({I}, 6, {W + 1}) {kind}: max |diff| "
+                f"values {err}, choices differing {bad}; solve (table in "
+                + ("shared" if dp_ops.table_in_smem(I, 6, W + 1) else "device")
+                + " memory) at Wg")
+        if not (torch.equal(vals, want_v) and bad == 0):
+            raise AssertionError("knapsack_dp differs from its plain version")
+        for Wg in (I, (I + W) // 2, W):
+            wg = torch.tensor(Wg, dtype=torch.int32, device=dev)
+            picks, total = dp_ops.solve_device(u, costs, wg, w_cap=W)
+            torch.cuda.synchronize()
+            want_p, want_t = dp_ref.backtrack_device(want_c, costs, want_v, wg)
+            ok = torch.equal(picks, want_p) and torch.equal(total, want_t)
+            line += (f" {Wg}: picks {'equal' if ok else 'DIFFER'}, total "
+                     f"{float(total):.6g}")
+            if not ok:
+                print(line)
+                raise AssertionError("the fused knapsack solve differs from "
+                                     "the plain backtrack")
+        if dp_ops.LAUNCHES != before + 4:
+            raise AssertionError(f"knapsack_dp counted "
+                                 f"{dp_ops.LAUNCHES - before} launches for "
+                                 "one sweep and three solves")
+        print(line)
+    # costs past one warp's 32 columns (the rotated registers), a zero
+    # cost, and more options than the kernel keeps in registers
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for cl, W in (((0, 33, 65, 100, 7, 300), 255),
+                  ((1, 40, 64, 96, 129, 31, 2, 3, 5, 9, 17), 1023),
+                  ((3, 70), 200), ((2, 5, 1, 7, 11, 13, 4, 8, 6), 127)):
+        c = torch.tensor(cl, dtype=torch.int32, device=dev)
+        for I in (1, 4, 9):
+            u = torch.rand((I, len(cl)), device=dev, generator=gen)
+            vals, choices = dp_ops.knapsack_dp_cuda(u, c, W)
+            want_v, want_c = dp_ref.knapsack_dp_ref(u, c, W)
+            wg = torch.tensor(W // 3, dtype=torch.int32, device=dev)
+            picks, total = dp_ops.solve_device(u, c, wg, w_cap=W)
+            want_p, want_t = dp_ref.backtrack_device(want_c, c, want_v, wg)
+            torch.cuda.synchronize()
+            if not (torch.equal(vals, want_v) and torch.equal(choices, want_c)
+                    and torch.equal(picks, want_p)
+                    and torch.equal(total, want_t)):
+                raise AssertionError(f"knapsack_dp differs from its plain "
+                                     f"version at costs {cl}, I={I}")
+    print("knapsack_dp vs plain with costs past 32, a zero cost and 11 "
+          "options (I = 1, 4, 9): values, choices, picks and totals equal")
+    return worst
+
+
+def kernel_times(torch, fn, plain, kname):
+    """(kernel ms from the profiler (one kernel per call), plain ms, kernel
+    and plain ms per call back to back on CUDA events, which include the
+    host's launch gaps)."""
+    return (one_kernel_ms(torch, fn, 100, kname)[0],
+            device_ms(torch, plain, 10), cuda_ms(torch, fn),
+            cuda_ms(torch, plain, iters=20))
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(bound ms, what bounds it): bytes over the HBM rate or float32
+    operations over the CUDA cores' rate, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def em_timed_frames(torch, dev, C: int, M: int, H: int, W: int):
+    """B1's input at an EM_TIMED shape: scene frames of one slot (the
+    reducto keep's reference frame first at M = 11); uniform frames at the
+    floor shape."""
+    from repro_torch.data.synthetic import (DeviceScene, SceneConfig,
+                                            segments_device)
+    if H != 96:
+        return torch.rand((C, M, H, W), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    scene = DeviceScene(SceneConfig(seed=7, num_cameras=C), device=dev)
+    fr = segments_device(scene.cfg, scene.params, scene.key, 3,
+                         gt_pad=scene.G)[0]
+    if M == 11:
+        prev = segments_device(scene.cfg, scene.params, scene.key, 2,
+                               gt_pad=scene.G)[0][:, -1:]
+        fr = torch.cat([prev, fr], dim=1)
+    return fr[:, :M].contiguous()
+
+
+def edge_motion_record(torch, dev, launches: dict, worst: float, bs: int,
+                       thr: float, tag: str) -> dict:
+    """B1's times at EM_TIMED (``em_timed_frames``), each beside its plain
+    version and its bound.  The record holds the first shape; the others
+    ride along under ``at_shape``."""
+    from repro_torch.common.device import sm_count
+    from repro_torch.kernels.edge_motion import ops as em_ops
+    from repro_torch.kernels.edge_motion import ref as em_ref
+    per = {}
+    for C, M, H, W in EM_TIMED:
+        fr = em_timed_frames(torch, dev, C, M, H, W)
+        run = lambda f=fr: em_ops.edge_motion_cuda(  # noqa: E731
+            f, block_size=bs, edge_thresh=thr)
+        plain = lambda f=fr: em_ref.segment_motion_ref(  # noqa: E731
+            f, block_size=bs, edge_thresh=thr)
+        ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
+            torch, run, plain, "edge_motion_kernel")
+        px = C * M * H * W
+        # frames read once, scores written once; per pixel of every frame a
+        # Sobel |g|^2 (14 operations) and a compare, per pixel of every
+        # pair an XOR and an add
+        nbytes = 4 * (px + C * (M - 1) * (H // bs) * (W // bs))
+        bound_ms, bound_by = bound(nbytes, px * 15 + C * (M - 1) * H * W * 2)
+        launch_plan = em_ops.plan(C, M, H, W, bs, sm_count(dev))
+        print(f"kernel edge_motion {(C, M, H, W)} bs={bs} plan {launch_plan}: "
+              f"{ms * 1e3:.2f} us on the card ({stream_ms * 1e3:.2f} us per "
+              f"call back to back), plain {plain_ms * 1e3:.2f} us "
+              f"({plain_stream_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.4f} "
+              f"us ({bound_by}; {100 * bound_ms / ms:.1f}% of it) {tag}")
+        per[str((C, M, H, W))] = {
+            "ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms,
+            "plain_stream_ms": plain_stream_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "plan": list(launch_plan)}
+    first = per.pop(str(EM_TIMED[0]))
+    return {"name": "edge_motion", "route": "cuda",
+            "source": "src/repro_torch/csrc/edge_motion.cu",
+            "replaces": "src/repro/kernels/edge_motion/edge_motion.py:48",
+            "shape": list(EM_TIMED[0]), "launches": launches["run"],
+            "launches_episode": launches["episode"], "max_abs_err": worst,
+            **first, "library_ms": None, "at_shape": per}
+
+
+def knapsack_record(torch, dev, launches: dict, worst: float, tag: str
+                    ) -> dict:
+    """B3's times: the fused solve (what the main path launches) at
+    DP_TIMED and the sweep alone at (5, 6, 128), each beside its plain
+    version (``knapsack_dp_ref``, then ``backtrack_device`` for the solve)
+    and its bound; kernels per device solve from the profiler (raises if
+    not one).  The record holds the solve at (5, 6, 128); the others ride
+    along."""
+    import numpy as np
+    from repro_torch.kernels.knapsack_dp import ops as dp_ops
+    from repro_torch.kernels.knapsack_dp import ref as dp_ref
+    costs = torch.tensor(DP_COSTS, dtype=torch.int32, device=dev)
+    J = len(DP_COSTS)
+    per = {}
+    for I, wp1 in DP_TIMED:
+        W = wp1 - 1
+        util = torch.from_numpy(np.random.default_rng(I * 1000 + W).uniform(
+            0, 1, (I, J)).astype(np.float32)).to(dev)
+        wg = torch.tensor(W // 2, dtype=torch.int32, device=dev)
+        solve = lambda u=util, w=wg, W=W: dp_ops.solve_device(  # noqa: E731
+            u, costs, w, w_cap=W)
+
+        def plain(u=util, w=wg, W=W):
+            v, c = dp_ref.knapsack_dp_ref(u, costs, W)
+            return dp_ref.backtrack_device(c, costs, v, w)
+
+        # every kernel of the solve: one
+        ms, per_solve = one_kernel_ms(torch, solve, 100,
+                                      what="a device solve")
+        plain_ms = device_ms(torch, plain, 10)
+        stream_ms = cuda_ms(torch, solve)
+        plain_stream_ms = cuda_ms(torch, plain, iters=20)
+        # util, costs and Wg read once, picks and total written once; per
+        # (i, w, j) an add, a compare and a select, then the walk
+        nbytes = 4 * (I * J + J + 1) + 8 * I + 4
+        bound_ms, bound_by = bound(nbytes, I * J * wp1 * 3 + 2 * wp1)
+        print(f"kernel knapsack_dp solve ({I}, {J}, {wp1}) Wg {W // 2}: "
+              f"{ms * 1e3:.2f} us on the card ({stream_ms * 1e3:.2f} us per "
+              f"call back to back), {per_solve:g} kernel per solve; plain "
+              f"{plain_ms * 1e3:.2f} us ({plain_stream_ms * 1e3:.2f} us); "
+              f"bound "
+              f"{bound_ms * 1e3:.5f} us ({bound_by}) {tag}")
+        rec = {"ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms,
+               "plain_stream_ms": plain_stream_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "kernels_per_solve": per_solve}
+        if (I, wp1) == DP_TIMED[0]:
+            s_ms, s_plain, s_stream, s_plain_stream = kernel_times(
+                torch, lambda u=util, W=W: dp_ops.knapsack_dp_cuda(
+                    u, costs, W),
+                lambda u=util, W=W: dp_ref.knapsack_dp_ref(u, costs, W),
+                "knapsack_dp")
+            s_bound, s_by = bound(4 * (I * J + J + wp1 + I * wp1),
+                                  I * J * wp1 * 3)
+            print(f"kernel knapsack_dp sweep ({I}, {J}, {wp1}): "
+                  f"{s_ms * 1e3:.2f} us on the card ({s_stream * 1e3:.2f} us "
+                  f"back to back), plain {s_plain * 1e3:.2f} us, bound "
+                  f"{s_bound * 1e3:.5f} us ({s_by}) {tag}")
+            rec["sweep"] = {"ms": s_ms, "plain_ms": s_plain,
+                            "stream_ms": s_stream,
+                            "plain_stream_ms": s_plain_stream,
+                            "bound_ms": s_bound, "bound_by": s_by}
+        per[str((I, J, wp1))] = rec
+    first = per.pop(str((DP_TIMED[0][0], J, DP_TIMED[0][1])))
+    return {"name": "knapsack_dp", "route": "cuda",
+            "source": "src/repro_torch/csrc/knapsack_dp.cu",
+            "replaces": "src/repro/kernels/knapsack_dp/knapsack_dp.py:54",
+            "shape": [DP_TIMED[0][0], J, DP_TIMED[0][1]],
+            "launches": launches["run"],
+            "launches_episode": launches["episode"], "max_abs_err": worst,
+            **first, "library_ms": None, "at_shape": per}
+
+
+def ptxas_lines(log: str) -> list:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its name (the mangled
+    name's last identifier and template arguments), registers, stack
+    frame and spill stores."""
+    out = []
+    for block in log.split("Compiling entry function")[1:]:
+        mangled = re.search(r"'(\w+)'", block).group(1)
+        name = mangled
+        m = re.search(r"cu_[0-9a-f]{8}(\d+)", mangled)
+        if m:
+            start = m.end()
+            name = mangled[start:start + int(m.group(1))]
+            targs = re.findall(r"L[ib](\d+)E", mangled[start:])
+            if targs:
+                name += "<" + ", ".join(targs) + ">"
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", block)
+        out.append(f"{name} "
+                   f"{regs.group(1) if regs else '?'} registers, "
+                   f"{frame.group(1) if frame else '?'} B stack, "
+                   f"{frame.group(2) if frame else '?'} B spilled")
+    return out
 
 
 def sass_counts(lib_path) -> dict:
@@ -596,6 +965,7 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
     library yardstick, beside the bound.  The record holds the first
     length (where the run sits); the others ride along under
     ``at_valid``."""
+    from repro_torch.common.device import sm_count
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
     F = torch.nn.functional
@@ -611,12 +981,9 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
         e_lib = float((lib().transpose(1, 2).float() - want.float())
                       .abs().max())
         # per recorded kernel: the profiler may miss a window's first few
-        ms, per_call = device_ms_count(
-            torch, lambda: fd_ops.flash_decode_cuda(q, k, v, vl), 100, "fd_")
-        if not 0.9 <= per_call <= 1.0:
-            raise AssertionError(f"flash_decode ran {per_call} kernels per "
-                                 "call, not one")
-        ms /= per_call
+        ms, per_call = one_kernel_ms(
+            torch, lambda: fd_ops.flash_decode_cuda(q, k, v, vl), 100, "fd_",
+            "flash_decode")
         plain_ms = device_ms(torch, lambda: fd_ref.flash_decode_ref(
             q, k, v, kv_valid_len=vl), 10)
         library_ms = device_ms(torch, lib, 20)
@@ -627,7 +994,7 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
         t_ops = flops / BF16_FLOPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         tiles, nsplit, stages = fd_ops.split_plan(
-            vl, B * KV, fd_ops._sm_count(dev), H // KV, hd, 2)
+            vl, B * KV, sm_count(dev), H // KV, hd, 2)
         print(f"kernel flash_decode {FD_SHAPE} bf16 valid {vl} ({nsplit} "
               f"ranges of {tiles} tiles x {B * KV} blocks, {stages} stages, "
               f"{per_call:g} kernel per call): {ms * 1e3:.2f} us on the card, "
@@ -681,7 +1048,6 @@ def main(argv=None) -> int:
                                             bandwidth_trace, segments_device)
     from repro_torch.kernels import build
     from repro_torch.kernels.edge_motion import ops as em_ops
-    from repro_torch.kernels.edge_motion import ref as em_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.knapsack_dp import ops as dp_ops
     from repro_torch.kernels.knapsack_dp import ref as dp_ref
@@ -718,16 +1084,13 @@ def main(argv=None) -> int:
     for name in libs:
         log = build.BUILD_DIR / f"{name}.log"
         if log.exists():   # written by the nvcc run of this build
-            text = log.read_text()
-            regs = re.findall(r"Used (\d+) registers", text)
-            spills = sorted(set(re.findall(r"(\d+) bytes spill stores",
-                                           text)))
-            print(f"ptxas {name}: registers per kernel {regs}, spill "
-                  f"stores {spills} bytes")
+            print(f"ptxas {name}: " + "; ".join(ptxas_lines(log.read_text())))
 
     # -- 3. kernels vs their plain versions on the card -----------------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 3: kernels vs plain")
     bs, thr = 8, 0.35
     worst = {"edge_motion": 0.0, "tx_codec": 0.0, "knapsack_dp": 0.0}
+    em_cases = {}
     for C in (5, 16):
         scene = DeviceScene(SceneConfig(seed=7, num_cameras=C), device=dev)
         frames = segments_device(scene.cfg, scene.params, scene.key, 3,
@@ -736,23 +1099,9 @@ def main(argv=None) -> int:
                                      gt_pad=scene.G)[0][:, -1:]
         gen = torch.Generator(device=dev).manual_seed(C)
         noise_fr = torch.rand(frames.shape, device=dev, generator=gen)
-        cases = {"roidet": frames,
-                 "reducto": torch.cat([ref_frames, frames], dim=1),
-                 "uniform": noise_fr}
-        for name, fr in cases.items():
-            got = em_ops.edge_motion_cuda(fr.contiguous(), block_size=bs,
-                                          edge_thresh=thr)
-            torch.cuda.synchronize()
-            want = em_ref.segment_motion_ref(fr, block_size=bs,
-                                             edge_thresh=thr)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            worst["edge_motion"] = max(worst["edge_motion"], err)
-            print(f"edge_motion vs plain C={C} {name} {tuple(fr.shape)}: "
-                  f"max |diff| {err} (sum {float(want.sum()):.0f})")
-            if err != 0.0:
-                raise AssertionError("edge_motion differs from its plain "
-                                     "version")
+        em_cases[f"C={C} roidet"] = frames.contiguous()
+        em_cases[f"C={C} reducto"] = torch.cat([ref_frames, frames], dim=1)
+        em_cases[f"C={C} uniform"] = noise_fr
         keys = prng.fold_in(prng.PRNGKey(11, device=dev),
                             torch.arange(C, device=dev))
         noise = prng.normal(keys, frames.shape[1:])
@@ -802,12 +1151,14 @@ def main(argv=None) -> int:
                 raise AssertionError("tx_codec CRF differs from its plain "
                                      "version")
 
-    costs_dev = torch.tensor(DP_COSTS, dtype=torch.int32, device=dev)
     dp_cases = []
+    worst["edge_motion"] = check_edge_motion(torch, dev, em_cases, bs, thr)
+    del em_cases
     for I, W, kind in ((5, 127, "uniform"), (16, 127, "uniform"),
                        (32, 200, "uniform"), (5, 127, "dead"),
                        (16, 127, "dead"), (5, 127, "ties"),
-                       (16, 127, "ties")):
+                       (16, 127, "ties"), (1, 127, "uniform"),
+                       (8, 20000, "uniform")):
         rng = np.random.default_rng(I * 1000 + W)
         util = rng.uniform(0, 1, (I, 6)).astype(np.float32)
         if kind == "dead":      # dead cameras: cheapest option at 0 only
@@ -818,19 +1169,7 @@ def main(argv=None) -> int:
             util = (np.round(util * 4) / 4).astype(np.float32)
             util[:, 1] = util[:, 0]
         dp_cases.append((I, W, kind, util))
-    for I, W, kind, util in dp_cases:
-        u = torch.from_numpy(util).to(dev)
-        vals, choices = dp_ops.knapsack_dp_cuda(u, costs_dev, W)
-        torch.cuda.synchronize()
-        want_v, want_c = dp_ref.knapsack_dp_ref(u, costs_dev, W)
-        torch.cuda.synchronize()
-        err = float((vals - want_v).abs().max())
-        bad = int((choices != want_c).sum())
-        worst["knapsack_dp"] = max(worst["knapsack_dp"], err)
-        print(f"knapsack_dp vs plain ({I}, 6, {W + 1}) {kind}: max |diff| "
-              f"values {err}, choices differing {bad}")
-        if not (torch.equal(vals, want_v) and bad == 0):
-            raise AssertionError("knapsack_dp differs from its plain version")
+    worst["knapsack_dp"] = check_knapsack(torch, dev, dp_cases)
     util5 = dp_cases[0][3]
     picks, total = dp_ops.solve(util5, np.asarray(DP_COSTS, np.int32), 127,
                                 device=dev)
@@ -841,12 +1180,28 @@ def main(argv=None) -> int:
           f"{o_total}")
     if not (np.array_equal(picks, o_picks) and abs(total - o_total) <= 1e-5):
         raise AssertionError("host solve differs from the exhaustive oracle")
+    for I, W, kind, util in dp_cases[:7]:
+        for Wh in (I, 60, W):
+            before = dp_ops.LAUNCHES
+            got = dp_ops.solve(util, np.asarray(DP_COSTS, np.int32), Wh,
+                               device=dev)
+            if dp_ops.LAUNCHES != before + 1:
+                raise AssertionError("the host solve is not one launch")
+            want = dp_ops.solve(util, np.asarray(DP_COSTS, np.int32), Wh,
+                                device="cpu")
+            if not (np.array_equal(got[0], want[0]) and got[1] == want[1]):
+                raise AssertionError(f"host solve ({I}, 6, {W + 1}) {kind} "
+                                     f"W={Wh}: card {got} vs CPU {want}")
+    print("knapsack_dp host solve on the card equals the CPU's (picks and "
+          "total) for every case at W = I, 60 and the capacity, one launch "
+          "each")
 
     worst["tx_codec"] = max(worst["tx_codec"],
                             check_tx_codec_ragged(torch, dev))
     worst["flash_decode"] = max(check_flash_decode(torch, dev).values())
 
     # -- 4. the episode, four methods, card vs the port's CPU run -------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 4: episode")
     light_h, server_h = load_detector("light", "cpu"), load_detector(
         "server", "cpu")
 
@@ -865,6 +1220,16 @@ def main(argv=None) -> int:
                 else ()) + ("tx_codec",) + (
             ("knapsack_dp",) if method in ("deepstream", "jcab") else ())
 
+    # on the card every solve is the fused kernel: the plain backtrack
+    # must see CUDA tensors nowhere on the main path
+    backtracks = []
+    plain_backtrack = dp_ref.backtrack_device
+
+    def counted_backtrack(choices, *a, **kw):
+        backtracks.append(choices.device.type)
+        return plain_backtrack(choices, *a, **kw)
+
+    dp_ref.backtrack_device = counted_backtrack
     trace = bandwidth_trace("medium", T_SLOTS, seed=3)
     gpu_sys, cpu_sys = make_system(5, dev), make_system(5, "cpu")
     launches_episode = dict.fromkeys(counters, 0)
@@ -891,6 +1256,7 @@ def main(argv=None) -> int:
               + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
 
     # -- 5. run(), pipelined, four methods -------------------------------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 5: run()")
     launches_run = dict.fromkeys(counters, 0)
     run_logs = {}
     for method in METHODS:
@@ -924,6 +1290,8 @@ def main(argv=None) -> int:
               + " ".join(f"{k}={v:.3g}" for k, v in d_cpu.items()))
 
     # -- 6. host control and the sequential runner on the card ----------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 6: host control "
+          "and the sequential runner")
     host_sys = make_system(5, dev, pipeline=False, alloc="host")
     seq_sys = make_system(5, dev, batched=False)
     tr4 = trace[:4]
@@ -952,12 +1320,25 @@ def main(argv=None) -> int:
                   + " ".join(f"{k}={v:.3g}" for k, v in d.items()))
         if n_total["knapsack_dp"] == 0 or n_total["edge_motion"] == 0:
             raise AssertionError(f"{label}: B1 or B3 not launched {n_total}")
+    dp_ref.backtrack_device = plain_backtrack
+    print(f"backtrack_device calls during the card's runs: "
+          f"{backtracks.count('cuda')} on CUDA tensors, "
+          f"{backtracks.count('cpu')} on CPU tensors")
+    if "cuda" in backtracks:
+        raise AssertionError("a device solve on the card took the plain "
+                             "backtrack")
+    if launches_run["edge_motion"] != 2 * T_SLOTS:
+        raise AssertionError(f"run(): edge_motion launched "
+                             f"{launches_run['edge_motion']} times, not "
+                             f"{2 * T_SLOTS} (ROIDet and reducto per slot)")
 
     # -- 7. the LM serving tier: small width card vs CPU, then full width
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 7: LM serving")
     lm_card_vs_cpu(torch, dev)
     lm_launches = lm_full_width(torch, dev, tag, reset_counts, read_counts)
 
     # -- 8. times --------------------------------------------------------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 8: times")
     for C in (5, 16):
         s = gpu_sys if C == 5 else make_system(C, dev)
         tr = trace * C / 5
@@ -989,70 +1370,52 @@ def main(argv=None) -> int:
     sigma = torch.full((C,), 0.01, device=dev)
     kcam = torch.tensor([1, 2, 4, 1, 2], dtype=torch.int32, device=dev)
     px = C * N * H * W
-    dp_util = torch.from_numpy(dp_cases[0][3]).to(dev)
-    dpI, dpJ, dpW = 5, len(DP_COSTS), 127
-    records = []
-    for name, kname, fn, plain, shape, nbytes, ops, src, tpu in (
-            ("edge_motion", "edge_motion_kernel",
-             lambda: em_ops.edge_motion_cuda(frames, block_size=bs,
-                                             edge_thresh=thr),
-             lambda: em_ref.segment_motion_ref(frames, block_size=bs,
-                                               edge_thresh=thr),
-             list(frames.shape),
-             4 * (px + C * (N - 1) * (H // bs) * (W // bs)),
-             # two 3x3 Sobel |g|^2 (14 flops each), compare, XOR, sum
-             C * (N - 1) * H * W * 33,
-             "src/repro_torch/csrc/edge_motion.cu",
-             "src/repro/kernels/edge_motion/edge_motion.py:48"),
-            ("tx_codec", "tx_codec_kernel",
-             lambda: tx_ops.tx_codec_cuda(frames, noise, levels, sigma, kcam),
-             lambda: tx_ref.tx_codec_ref(frames, noise, levels, sigma, kcam),
-             list(frames.shape),
-             4 * 3 * px,
-             # pool sum (up to 15 adds) + divide, quantise (3), fma, clip (2)
-             px * 8,
-             "src/repro_torch/csrc/tx_codec.cu",
-             "src/repro/kernels/tx_codec/tx_codec.py:78"),
-            ("knapsack_dp", "knapsack_dp_kernel",
-             lambda: dp_ops.knapsack_dp_cuda(dp_util, costs_dev, dpW),
-             lambda: dp_ref.knapsack_dp_ref(dp_util, costs_dev, dpW),
-             [dpI, dpJ, dpW + 1],
-             # util and costs read, values and choices written, once each
-             4 * (dpI * dpJ + dpJ + (dpW + 1) + dpI * (dpW + 1)),
-             # per (i, w, j): add, compare, select
-             dpI * dpJ * (dpW + 1) * 3,
-             "src/repro_torch/csrc/knapsack_dp.cu",
-             "src/repro/kernels/knapsack_dp/knapsack_dp.py:54")):
-        # ms: kernel time on the card; stream_ms: back-to-back calls timed
-        # with CUDA events, which includes the host's launch gaps
-        ms = device_ms(torch, fn, 100, kname)
-        plain_ms = device_ms(torch, plain, 10)
-        stream_ms = cuda_ms(torch, fn)
-        plain_stream_ms = cuda_ms(torch, plain, iters=20)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        print(f"kernel {name} {tuple(shape)}: {ms * 1e3:.2f} us on "
-              f"the card ({stream_ms * 1e3:.2f} us per call back to back), "
-              f"plain {plain_ms * 1e3:.2f} us ({plain_stream_ms * 1e3:.2f} "
-              f"us), bound {bound_ms * 1e3:.4f} us "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}) {tag}")
-        records.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "shape": shape, "launches": launches_run[name],
-            "launches_episode": launches_episode[name],
-            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
-            "stream_ms": stream_ms, "plain_stream_ms": plain_stream_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
+          "edge_motion")
+    records = [edge_motion_record(
+        torch, dev, {"run": launches_run["edge_motion"],
+                     "episode": launches_episode["edge_motion"]},
+        worst["edge_motion"], bs, thr, tag)]
+    # B2: ms is the kernel time on the card; stream_ms: back-to-back calls
+    # timed with CUDA events, which includes the host's launch gaps
+    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: tx_codec")
+    ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
+        torch, lambda: tx_ops.tx_codec_cuda(frames, noise, levels, sigma,
+                                            kcam),
+        lambda: tx_ref.tx_codec_ref(frames, noise, levels, sigma, kcam),
+        "tx_codec_kernel")
+    # frames and noise read once, decoded frames written once; pool sum (up
+    # to 15 adds) + divide, quantise (3), fma, clip (2)
+    bound_ms, bound_by = bound(4 * 3 * px, px * 8)
+    print(f"kernel tx_codec {tuple(frames.shape)}: {ms * 1e3:.2f} us on the "
+          f"card ({stream_ms * 1e3:.2f} us per call back to back), plain "
+          f"{plain_ms * 1e3:.2f} us ({plain_stream_ms * 1e3:.2f} us), bound "
+          f"{bound_ms * 1e3:.4f} us ({bound_by}) {tag}")
+    records.append({
+        "name": "tx_codec", "route": "cuda",
+        "source": "src/repro_torch/csrc/tx_codec.cu",
+        "replaces": "src/repro/kernels/tx_codec/tx_codec.py:78",
+        "shape": list(frames.shape), "launches": launches_run["tx_codec"],
+        "launches_episode": launches_episode["tx_codec"],
+        "max_abs_err": worst["tx_codec"], "ms": ms, "plain_ms": plain_ms,
+        "stream_ms": stream_ms, "plain_stream_ms": plain_stream_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
+          "knapsack_dp")
+    records.append(knapsack_record(
+        torch, dev, {"run": launches_run["knapsack_dp"],
+                     "episode": launches_episode["knapsack_dp"]},
+        worst["knapsack_dp"], tag))
     # B2 with every camera on the identity branch: no staged band, one
     # round of loads
     ones = torch.ones(C, dtype=torch.int32, device=dev)
-    tx_id_ms = device_ms(torch, lambda: tx_ops.tx_codec_cuda(
-        frames, noise, levels, sigma, ones), 100, "tx_codec_kernel")
+    tx_id_ms = one_kernel_ms(torch, lambda: tx_ops.tx_codec_cuda(
+        frames, noise, levels, sigma, ones), 100, "tx_codec_kernel")[0]
     print(f"kernel tx_codec {tuple(frames.shape)} identity branch only: "
           f"{tx_id_ms * 1e3:.2f} us on the card {tag}")
     records[1]["identity_ms"] = tx_id_ms
+    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
+          "flash_decode")
     records.append(flash_decode_record(torch, dev, lm_launches,
                                        worst["flash_decode"], tag))
 

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import ref
 
@@ -36,18 +37,9 @@ SM_SMEM_BYTES = 233472      # shared memory of one SM (228 KB)
 MAP_CACHE_SIZE = 4096       # tensor maps kept (128 bytes each)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMS = {}
 _MAPS: "OrderedDict[tuple, ctypes.Array]" = OrderedDict()
 _WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 _FNS = None
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def smem_bytes(elem_bytes: int, hd: int, stages: int) -> int:
@@ -194,7 +186,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n < 0:
         raise ValueError(f"valid length must be >= 0, got {n}")
     n_pos = min(n, S) if n > 0 else S
-    per, nsplit, stages = split_plan(n_pos, B * KV, _sm_count(dev), G, hd,
+    per, nsplit, stages = split_plan(n_pos, B * KV, sm_count(dev), G, hd,
                                      q.element_size())
     out = torch.empty_like(q)
     m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)

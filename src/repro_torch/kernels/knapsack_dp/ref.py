@@ -2,11 +2,12 @@
 
 V_0[w] = 0;  V_i[w] = max_j V_{i-1}[w - cost_j] + u[i, j]  (w >= cost_j),
 ties to the lowest j.  ``knapsack_dp_ref`` is the plain PyTorch version of
-the hand-written kernel (``csrc/knapsack_dp.cu``): CPU tensors take it,
-and the card compares the kernel with it.  ``backtrack`` walks the choice
-table in numpy (the host solve), ``backtrack_device`` with gathers on the
-tensors' device (the device solve), and ``exhaustive_oracle`` brute-forces
-small problems for the tests.
+the hand-written sweep (``csrc/knapsack_dp.cu``), and ``knapsack_dp_ref``
+followed by ``backtrack_device`` (gathers on the tensors' device) that of
+the kernel's solve: CPU tensors take them, and the card compares the
+kernels with them.  ``backtrack`` walks the choice table in numpy (the
+host solve on the CPU), and ``exhaustive_oracle`` brute-forces small
+problems for the tests.
 """
 from __future__ import annotations
 

@@ -65,6 +65,56 @@ def test_knapsack_plain_matches_pallas(kind, I, J, W, seed):
     assert torch.equal(vd, vt) and torch.equal(cd, ct)
 
 
+@pytest.mark.parametrize("I", [1, 3, 5, 16])
+@pytest.mark.parametrize("kind", ["uniform", "dead", "ties"])
+def test_solves_match_jax(kind, I):
+    """The device solve (sweep at w_cap = 127, backtrack bounded by Wg) and
+    the host solve on CPU tensors against JAX's ``solve_device`` (Pallas
+    kernel in interpret mode, and the plain sweep) and JAX's ``solve``, at
+    Wg = cmin * I (the all-minimum clamp), a middle value and w_cap: picks
+    and totals exact."""
+    util = _table(kind, I, 6, 100 + I)
+    costs = COSTS
+    w_cap = 127
+    cmin = int(costs.min())
+    for Wg in (cmin * I, (cmin * I + w_cap) // 2, w_cap):
+        pt, tt = t_dp.solve_device(torch.from_numpy(util),
+                                   torch.from_numpy(costs),
+                                   torch.tensor(Wg, dtype=torch.int32),
+                                   w_cap=w_cap)
+        assert pt.dtype == torch.int64 and tt.dim() == 0
+        for use_kernel in (True, False):
+            pj, tj = j_dp.solve_device(jnp.asarray(util), jnp.asarray(costs),
+                                       jnp.int32(Wg), w_cap=w_cap,
+                                       use_kernel=use_kernel)
+            np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+            assert float(tt) == float(tj)
+        ph, th = t_dp.solve(util, costs, Wg, device="cpu")
+        pjh, tjh = j_dp.solve(util, costs, Wg, use_kernel=True)
+        np.testing.assert_array_equal(ph, pjh)
+        assert th == tjh == float(tt)
+        np.testing.assert_array_equal(ph, pt.numpy())
+        assert int(costs[ph].sum()) <= max(Wg, cmin * I)
+
+
+def test_solve_table_placement():
+    """The fused solve keeps its one-byte choice table in shared memory at
+    the fleet's shapes and goes to a scratch table in device memory where
+    it does not fit (W = 20000) or a choice needs more than a byte; the
+    shared memory a launch asks for stays within a block's 227 KB."""
+    assert t_dp.table_in_smem(5, 6, 128) and t_dp.table_in_smem(16, 6, 128)
+    assert t_dp.smem_bytes(5, 6, 128, solve=True) == 4 * (30 + 6) + 640
+    assert t_dp.smem_bytes(5, 6, 128, solve=False) == 4 * (30 + 6)
+    assert t_dp.table_in_smem(32, 6, 201)
+    assert not t_dp.table_in_smem(8, 6, 20001)
+    assert not t_dp.table_in_smem(5, 300, 128)
+    assert t_dp.smem_bytes(8, 6, 20001, solve=True) == \
+        t_dp.smem_bytes(8, 6, 20001, solve=False) == 4 * (48 + 6) + 8 * 20001
+    for I, J, wp1 in ((5, 6, 128), (16, 6, 1024), (200, 6, 1024),
+                      (32, 6, 201), (8, 6, 20001), (1, 255, 1)):
+        assert t_dp.smem_bytes(I, J, wp1, solve=True) <= t_dp.MAX_SMEM_BYTES
+
+
 @pytest.mark.parametrize("I,J,W,seed", [
     (3, 4, 9, 0), (4, 3, 17, 1), (5, 4, 30, 2), (4, 6, 40, 3), (2, 6, 7, 4),
 ])

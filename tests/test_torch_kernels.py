@@ -75,6 +75,149 @@ def test_edge_motion_plain_matches_jax(C, M, H, W, bs, kind):
         np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def _popcount(x: np.ndarray) -> np.ndarray:
+    """Set bits of each uint64."""
+    x = x.astype(np.uint64)
+    n = np.zeros(x.shape, np.int64)
+    while np.any(x):
+        n += (x & np.uint64(1)).astype(np.int64)
+        x = x >> np.uint64(1)
+    return n
+
+
+def _edge_motion_grid(C: int, M: int, H: int, W: int, bs: int,
+                      launch_plan):
+    """The kernel's blocks under ``launch_plan`` as ``edge_motion_launch``
+    sizes the grid and ``edge_motion_kernel`` decodes ``blockIdx``: per
+    block (c, band, bx0, nbx, p0, np), its camera, band, first output
+    block and output blocks of its column segment, first pair and pairs of
+    its chunk."""
+    seg_blocks, ppc = launch_plan
+    nb = W // bs
+    nseg = (nb + seg_blocks - 1) // seg_blocks
+    nchunk = (M - 1 + ppc - 1) // ppc
+    for bx in range(nseg * (H // bs)):
+        for by in range(C * nchunk):
+            seg, band = bx % nseg, bx // nseg
+            c, chunk = by // nchunk, by % nchunk
+            bx0 = seg * seg_blocks
+            p0 = chunk * ppc
+            yield (c, band, bx0, min(seg_blocks, nb - bx0), p0,
+                   min(ppc, M - 1 - p0))
+
+
+def _edge_motion_word_model(frames: np.ndarray, bs: int, thr: float,
+                            launch_plan) -> np.ndarray:
+    """The CUDA kernel's bit layout, in numpy: per block of the launch
+    (``_edge_motion_grid``), each frame's band edge map packed into 32-bit
+    ballot words (bit l of word k = column x0 + 32 k + l of the segment,
+    zero past its end), XOR of consecutive frames' words, and per output
+    block the popcount of its bs bits of each row, funnel-shifted out of
+    two words where it straddles them.  Every output must be written by
+    exactly one block."""
+    C, M, H, W = frames.shape
+    nb, nbands = W // bs, H // bs
+    edges = (t_em_ref.sobel_mag2(torch.from_numpy(frames))
+             > t_em_ref.edge_thresh2(thr)).numpy()
+    out = np.full((C, M - 1, nbands, nb), -1.0, np.float32)
+    lanes = np.arange(32, dtype=np.uint64)
+    mask = np.uint64((1 << bs) - 1)
+    for c, band, bx0, nbx, p0, npairs in _edge_motion_grid(
+            C, M, H, W, bs, launch_plan):
+        x0, x1 = bx0 * bs, (bx0 + nbx) * bs
+        nw = -(-(x1 - x0) // 32)
+        bits = np.zeros((npairs + 1, bs, nw * 32), bool)
+        bits[..., :x1 - x0] = edges[c, p0:p0 + npairs + 1,
+                                    band * bs:(band + 1) * bs, x0:x1]
+        words = (bits.reshape(npairs + 1, bs, nw, 32).astype(np.uint64)
+                 << lanes).sum(-1)
+        diff = words[:-1] ^ words[1:]                  # (pairs, bs, nw)
+        diff = np.concatenate(
+            [diff, np.zeros(diff.shape[:2] + (1,), np.uint64)], axis=2)
+        for j in range(nbx):
+            lo = j * bs
+            k0, off = lo >> 5, lo & 31
+            d0 = diff[..., k0]
+            d1 = diff[..., k0 + 1] if off + bs > 32 else 0 * d0
+            funnel = ((d1 << np.uint64(32)) | d0) >> np.uint64(off)
+            cnt = _popcount(funnel & mask).sum(axis=1)
+            dst = out[c, p0:p0 + npairs, band, bx0 + j]
+            assert np.all(dst == -1.0), "written twice"
+            out[c, p0:p0 + npairs, band, bx0 + j] = cnt
+    assert np.all(out >= 0.0), "an output block no block wrote"
+    return out
+
+
+@pytest.mark.parametrize("bs", [2, 6, 8, 16])
+def test_edge_motion_bit_words_match_plain_and_jax(bs):
+    """The kernel's word-level arithmetic (ballot words, XOR, a funnel-
+    shifted popcount per block: bs = 6 straddles words in the whole-row
+    segment) under the launch plan, whole-row segments and chunks of two
+    pairs, against the plain version and the JAX package's fleet motion
+    (Pallas kernel in interpret mode, and its reference): exact."""
+    C, M, H, W = 2, 5, 48, 96
+    fr = _frames(C, M, H, W, seed=bs, kind="uniform")
+    fr[1, 2:] = fr[1, 1]          # a still camera: XOR words of zero
+    want = t_em_ref.segment_motion_ref(torch.from_numpy(fr), block_size=bs,
+                                       edge_thresh=0.35).numpy()
+    for use_kernel in (True, False):
+        np.testing.assert_array_equal(want, np.asarray(
+            j_em._segment_motion_fleet_impl(
+                jnp.asarray(fr), block_size=bs, edge_thresh=0.35,
+                tile_rows=None, use_kernel=use_kernel)))
+    nb = W // bs
+    for launch_plan in (t_em.plan(C, M, H, W, bs, 132), (nb, M - 1), (nb, 2),
+                        (max(1, nb // 3), 3)):
+        got = _edge_motion_word_model(fr, bs, 0.35, launch_plan)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("sms", [132, 114])     # H100 SXM and PCIe
+def test_edge_motion_plan_covers_every_block_once(sms):
+    """Every (camera, pair, band, column block) is written by exactly one
+    block of the launch, as the kernel decodes its grid
+    (``_edge_motion_grid``); each block's staged columns (the segment, one
+    halo column each side, widened to 4-column bounds) fit its row stride,
+    and shared memory stays within a block's 227 KB for W up to 1920 and M
+    up to 31, and past a thousand frames of a narrow W (chunks of hundreds
+    of frames); all pairs share one chunk wherever the frames fit; at the
+    main path's shapes the plan is the one with the least work on the
+    busiest SM: 80-column segments (120 blocks at C = 5, 384 at C = 16)."""
+    for C, M, H, W, bs in ((5, 10, 96, 160, 8), (5, 11, 96, 160, 8),
+                           (16, 10, 96, 160, 8), (2, 5, 36, 54, 6),
+                           (2, 4, 32, 90, 2), (1, 2, 8, 160, 8),
+                           (1, 31, 1080, 1920, 8), (1, 31, 1088, 1920, 16),
+                           (1, 31, 1088, 1920, 32), (3, 31, 544, 960, 16),
+                           (1, 64, 1088, 1920, 32), (1, 31, 1080, 1920, 1),
+                           (40, 3, 64, 64, 32), (1, 150, 16, 32, 8),
+                           (2, 1000, 16, 4, 4)):
+        seg, ppc = t_em.plan(C, M, H, W, bs, sms)
+        nb, nbands = W // bs, H // bs
+        assert 1 <= seg <= nb and 1 <= ppc <= M - 1
+        assert t_em.smem_bytes(bs, seg, ppc) <= t_em.MAX_SMEM_BYTES
+        sw = (seg * bs + 8 + 3) // 4 * 4
+        cover = np.zeros((C, M - 1, nbands, nb), np.int64)
+        for c, band, bx0, nbx, p0, npairs in _edge_motion_grid(
+                C, M, H, W, bs, (seg, ppc)):
+            assert nbx >= 1 and npairs >= 1
+            x0, x1 = bx0 * bs, (bx0 + nbx) * bs
+            ca = max(x0 - 1, 0) & ~3
+            cb = min((min(x1 + 1, W) + 3) & ~3, W)
+            assert ca <= max(x0 - 1, 0) and cb >= min(x1 + 1, W)
+            assert cb - ca <= sw
+            cover[c, p0:p0 + npairs, band, bx0:bx0 + nbx] += 1
+        assert np.all(cover == 1), (C, M, H, W, bs)
+        narrowest = max(1, min(nb, 32 // bs))
+        if t_em.smem_bytes(bs, narrowest, M - 1) <= t_em.MAX_SMEM_BYTES:
+            assert ppc == M - 1, (C, M, H, W, bs)
+    if sms == 132:
+        assert t_em.plan(5, 10, 96, 160, 8, sms) == (10, 9)
+        assert t_em.plan(5, 11, 96, 160, 8, sms) == (10, 10)
+        assert t_em.plan(16, 10, 96, 160, 8, sms) == (10, 9)
+    assert t_em.plan(1, 64, 1088, 1920, 32, sms) == (1, 40)
+    assert t_em.plan(2, 1000, 16, 4, 4, sms) == (1, 744)
+
+
 def test_edge_motion_detects_motion():
     f0 = np.full((64, 64), 0.4, np.float32)
     f1 = f0.copy()
@@ -421,15 +564,39 @@ def test_flash_decode_workspace_is_kept_per_device():
 # -- on the card ------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,M", [(5, 10), (5, 11), (16, 10), (16, 11)])
-def test_edge_motion_cuda_matches_plain(cuda, C, M):
-    fr = torch.from_numpy(_frames(C, M)).to(cuda)
+@pytest.mark.parametrize("C,M,H,W,bs,kind,offset", [
+    (5, 10, 96, 160, 8, "scene", 0), (5, 11, 96, 160, 8, "scene", 0),
+    (16, 10, 96, 160, 8, "scene", 0), (16, 11, 96, 160, 8, "scene", 0),
+    (2, 5, 36, 54, 6, "uniform", 0),     # W % 4 != 0; bs straddles words
+    (2, 4, 32, 90, 2, "uniform", 0),
+    (3, 2, 96, 160, 8, "uniform", 0),    # M = 2: one pair
+    (2, 4, 16, 640, 8, "uniform", 1),    # base one float past 16 bytes
+    (1, 150, 16, 32, 8, "uniform", 0),   # the plan's chunks of 140 pairs
+    (2, 1000, 16, 4, 4, "uniform", 0),   # chunks of 744 pairs: more frames
+                                         # than a block has threads
+])
+def test_edge_motion_cuda_matches_plain(cuda, C, M, H, W, bs, kind, offset):
+    """Bitwise, one launch per call, under the launch plan, whole-row
+    segments with as many pairs as fit, and chunks of one pair (each frame
+    restaged per pair)."""
+    src = torch.from_numpy(_frames(C, M, H, W, kind=kind)).to(cuda)
+    flat = torch.empty(src.numel() + offset, device=cuda)
+    fr = flat[offset:].view(C, M, H, W)
+    fr.copy_(src)
+    assert fr.is_contiguous() and (fr.data_ptr() % 16 != 0) == bool(offset)
+    want = t_em_ref.segment_motion_ref(fr, block_size=bs, edge_thresh=0.35)
+    fit = max(p for p in range(1, M) if t_em.smem_bytes(
+        bs, W // bs, p) <= t_em.MAX_SMEM_BYTES)
+    for launch_plan in (None, (W // bs, fit), (W // bs, 1)):
+        before = t_em.LAUNCHES
+        got = t_em._launch(fr, bs, 0.35, launch_plan)
+        torch.cuda.synchronize()
+        assert t_em.LAUNCHES == before + 1
+        assert torch.equal(got, want), launch_plan
     before = t_em.LAUNCHES
-    got = t_em.segment_motion_fleet(fr, block_size=8, edge_thresh=0.35)
-    torch.cuda.synchronize()
+    assert torch.equal(t_em.segment_motion_fleet(fr, block_size=bs,
+                                                 edge_thresh=0.35), want)
     assert t_em.LAUNCHES == before + 1
-    want = t_em_ref.segment_motion_ref(fr, block_size=8, edge_thresh=0.35)
-    assert torch.equal(got, want)
 
 
 TX_KS = ((1,) * 5, (2,) * 5, (4,) * 5, (1, 2, 4, 2, 1))
@@ -481,7 +648,8 @@ def _dp_table(kind, I, J, seed, device):
 ])
 def test_knapsack_cuda_matches_plain(cuda, kind, I, W):
     """Values bitwise and choices equal: the kernel's strict > keeps the
-    lowest j, as ``torch.argmax`` does."""
+    lowest j, as ``torch.argmax`` does; the fused solve's picks and total
+    equal the plain backtrack's, one launch per solve."""
     util = _dp_table(kind, I, 6, I + W, cuda)
     costs = torch.tensor([1, 2, 4, 8, 16, 20], dtype=torch.int32,
                          device=cuda)
@@ -492,6 +660,38 @@ def test_knapsack_cuda_matches_plain(cuda, kind, I, W):
     want_v, want_c = t_dp_ref.knapsack_dp_ref(util, costs, W)
     assert torch.equal(vals, want_v)
     assert torch.equal(choices, want_c)
+    # the sweep and the bounded backtrack in one launch, against the plain
+    # backtrack of the plain sweep
+    for Wg in (I, (I + W) // 2, W):
+        wg = torch.tensor(Wg, dtype=torch.int32, device=cuda)
+        before = t_dp.LAUNCHES
+        picks, total = t_dp.solve_device(util, costs, wg, w_cap=W)
+        torch.cuda.synchronize()
+        assert t_dp.LAUNCHES == before + 1
+        want_p, want_t = t_dp_ref.backtrack_device(want_c, costs, want_v, wg)
+        assert picks.dtype == torch.int64 and torch.equal(picks, want_p)
+        assert torch.equal(total, want_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs,W", [
+    ((0, 33, 65, 100, 7, 300), 255),       # costs past 32: rotated rows
+    ((1, 40, 64, 96, 129, 31, 2, 3, 5, 9, 17), 1023),   # 11, block sweep
+    ((3, 70), 200), ((2, 5, 1, 7, 11, 13, 4, 8, 6), 127)])
+@pytest.mark.parametrize("I", [1, 4, 9])
+def test_knapsack_cuda_costs_matches_plain(cuda, costs, W, I):
+    """The one-warp sweep with costs of more than a warp's 32 columns, a
+    zero cost and more options than it keeps in registers: values,
+    choices, picks and total equal to the plain versions."""
+    c = torch.tensor(costs, dtype=torch.int32, device=cuda)
+    u = _dp_table("uniform", I, len(costs), W + I, cuda)
+    vals, choices = t_dp.knapsack_dp_cuda(u, c, W)
+    want_v, want_c = t_dp_ref.knapsack_dp_ref(u, c, W)
+    assert torch.equal(vals, want_v) and torch.equal(choices, want_c)
+    wg = torch.tensor(W // 3, dtype=torch.int32, device=cuda)
+    picks, total = t_dp.solve_device(u, c, wg, w_cap=W)
+    want_p, want_t = t_dp_ref.backtrack_device(want_c, c, want_v, wg)
+    assert torch.equal(picks, want_p) and torch.equal(total, want_t)
 
 
 @pytest.mark.cuda
