@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:  ``python3 chip_smoke.py``  (``--profile`` adds a torch.profiler
-pass over one episode and host-sync counts of both runners).  It needs no
+pass over one graph-replayed and one eager episode and host-sync counts
+per site of both runners).  It needs no
 JAX.  In order it prints:
 
   1. the card's name and power limit (nvidia-smi);
@@ -23,11 +24,22 @@ JAX.  In order it prints:
      decode shape (B=4, S=2048, 32/8 heads, hd=128) and at the GQA groups
      and head sizes of the other configs (G = 1, 7, 16; hd 64, 112, 128),
      valid lengths 0 to 2048 and one on a range boundary, with and
-     without the fresh token;
-  4. the four-method whole-trace episode (5 cameras, 96x160, 10 frames per
-     slot, T=8): finite logs, F1 in [0, 1], every kernel of the path
-     launched, the card's logs equal to the port's own CPU run (<= 1e-5);
-  5. the pipelined ``run()`` loop, four methods, same cells: the same
+     without the fresh token; cc_label bitwise (labels, and the boxes
+     built on them) on the scenes' motion masks at C = 5 and 16, empty
+     and full masks, serpentines at 12 x 20 and 68 x 120 and random masks
+     at 68 x 120;
+  4. the whole-trace episode as the JAX package runs it in production
+     (pipelined, bucketed), its slot step replayed as CUDA graphs, for
+     the four methods and deepstream_no_elastic at C=5 and C=16, T=8
+     (bucket 8) and T=11 (bucket 16): the first run's capture goes through
+     the wrapper of each kernel of its path; a second run captures
+     nothing, calls no wrapper and runs under
+     ``torch.cuda.set_sync_debug_mode("error")`` up to its harvest (its
+     kernels as the card records them are counted in phase 9); the logs
+     equal the eager reference body's on the card bitwise and the port's
+     CPU run's to <= 1e-5; then a camera_churn run (no capture, the same
+     checks) and two windows chained through the carry against one run;
+  5. the pipelined ``run()`` loop, four methods, C=5, T=8: the same
      checks, knapsack_dp launched once per slot for deepstream and jcab
      and edge_motion 16 times in all, logs equal to the card's episode and
      to the CPU ``run()`` (<= 1e-5);
@@ -43,15 +55,22 @@ JAX.  In order it prints:
      prefill of its tokens and the kernel route with the plain one (both
      within 5e-2 of max |logit|); prefill and decode ms, tokens/s, peak
      memory and one profiled decode;
-  8. ms/slot of both runners per method at C=5 and C=16 (median of 3 after
-     a warm-up, with min and max, the two runners timed in turns), and
-     each kernel's time beside its plain version's and its bound (and, for
-     flash_decode, scaled_dot_product_attention's as the library
-     yardstick), tagged with the card and power limit: edge_motion at the
-     ROIDet, reducto and C = 16 shapes and one block's chain;
-     knapsack_dp's fused solve at I = 5, 16 and 1 with its
-     kernels per solve (one), and the sweep alone;
-  9. the wall time, one JSON line of kernel records, then the device line
+  8. ms/slot of the graph-replayed episode (pipelined and reference
+     body), the eager episode and ``run()`` per method at C=5 and C=16
+     (CUDA events around each whole run, the four in turns, median, min
+     and max of 5 runs after a warm-up), and each kernel's time beside
+     its plain version's and its bound (and, for flash_decode,
+     scaled_dot_product_attention's as the library yardstick), tagged with the card and power limit:
+     edge_motion at the ROIDet, reducto and C = 16 shapes and one block's
+     chain; knapsack_dp's fused solve at I = 5, 16 and 1 with its kernels
+     per solve (one), and the sweep alone; cc_label at the C = 5 and 16
+     scene masks and at 68 x 120;
+  9. each replayed episode of phase 4 once more under the profiler: its
+     kernels as the card recorded them (CUPTI kernel records counted by
+     name; a replay runs the kernels without their wrappers) must be T per
+     kernel of the method's path and none of the others, with no wrapper
+     call; the C=5, T=8 counts go into the kernel records;
+ 10. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Each path runs with every kernel's launch counter set to 0 just before it
@@ -74,8 +93,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 METHODS = ("deepstream", "jcab", "reducto", "static")
+EP_METHODS = METHODS + ("deepstream_no_elastic",)
 T_SLOTS = 8
 T_CPU = 4                    # slots of the CPU runs the card is held to
+TIMED_ROUNDS = 5             # timed runs per runner, after a warm-up
 LOG_KEYS = ("utility", "bytes", "alloc_kbps", "extra", "area")
 DP_COSTS = (1, 2, 4, 8, 16, 20)   # the default codec's grid (d = 50 Kbps)
 
@@ -673,6 +694,177 @@ def knapsack_record(torch, dev, launches: dict, worst: float, tag: str
             **first, "library_ms": None, "at_shape": per}
 
 
+# -- the labeler (cc_label) and the graph-replayed episode (slice 6) -----
+
+CC_TIMED = ("C=5 scene (5, 12, 20)", "C=16 scene (16, 12, 20)",
+            "random (4, 68, 120)")
+
+
+def serpentine(np, M: int, N: int):
+    """One one-cell-wide path through every other row, joined at
+    alternating ends: close to M*N/2 passes to label."""
+    m = np.zeros((M, N), bool)
+    m[::2] = True
+    for r in range(1, M, 2):
+        m[r, N - 1 if (r // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def cc_cases(torch, dev, scene_masks: dict) -> dict:
+    """cc_label's parity cases on the card: the scenes' motion masks (what
+    ROIDet labels), empty and full masks, serpentines and random masks at
+    68 x 120 (1080p at 16-pixel blocks)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    up = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    cases = dict(scene_masks)
+    cases["empty (5, 12, 20)"] = torch.zeros((5, 12, 20), dtype=torch.bool,
+                                             device=dev)
+    cases["full (5, 12, 20)"] = torch.ones((5, 12, 20), dtype=torch.bool,
+                                           device=dev)
+    cases["serpentine (1, 12, 20)"] = up(serpentine(np, 12, 20)[None])
+    cases["serpentine (1, 68, 120)"] = up(serpentine(np, 68, 120)[None])
+    cases["random (4, 68, 120)"] = up(np.stack(
+        [rng.uniform(size=(68, 120)) < p for p in (0.1, 0.3, 0.45, 0.6)]))
+    return cases
+
+
+def check_cc_label(torch, dev, cases: dict) -> float:
+    """cc_label against its plain version on the card (labels), and the
+    boxes built on its labels against those of the plain labels on the
+    CPU: bitwise in every case."""
+    from repro_torch.core import cc
+    from repro_torch.kernels.cc_label import ops as cc_ops
+    from repro_torch.kernels.cc_label import ref as cc_ref
+    for name, m in cases.items():
+        got = cc_ops.cc_label_cuda(m)
+        torch.cuda.synchronize()
+        want = cc_ref.cc_label_ref(m)
+        boxes = [x.cpu() for x in cc.label_and_boxes(m)]
+        boxes_cpu = cc.label_and_boxes(m.cpu())
+        same = torch.equal(got, want) and all(
+            torch.equal(a, b) for a, b in zip(boxes, boxes_cpu))
+        print(f"cc_label vs plain {name}: labels "
+              f"{'equal' if torch.equal(got, want) else 'DIFFER'}, boxes and "
+              f"valid flags vs the plain labels on the CPU "
+              f"{'equal' if same else 'DIFFER'}; {label_passes(torch, m)} "
+              "passes of the plain loop")
+        if not same:
+            raise AssertionError(f"cc_label differs from its plain version "
+                                 f"on {name}")
+    return 0.0
+
+
+def label_passes(torch, mask) -> int:
+    """Sweeps of the plain propagation until nothing changes, plus the one
+    that finds no change: the passes this mask needs (the kernel's
+    in-place passes need no more)."""
+    from repro_torch.kernels.cc_label import ref as cc_ref
+    m = mask.cpu()
+    C, M, N = m.shape
+    labels = torch.where(m, torch.arange(M * N, dtype=torch.int32).reshape(
+        1, M, N), cc_ref.INF)
+    for passes in range(1, M * N + 1):
+        nxt = cc_ref._propagate(labels, m)
+        if torch.equal(nxt, labels):
+            return passes
+        labels = nxt
+    return M * N
+
+
+def cc_label_record(torch, dev, launches: dict, worst: float, cases: dict,
+                    tag: str) -> dict:
+    """cc_label's times at CC_TIMED, each beside its plain version and its
+    bound.  The record holds the first shape; the others ride along."""
+    from repro_torch.kernels.cc_label import ops as cc_ops
+    from repro_torch.kernels.cc_label import ref as cc_ref
+    per = {}
+    for name in CC_TIMED:
+        m = cases[name]
+        C, M, N = m.shape
+        ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
+            torch, lambda m=m: cc_ops.cc_label_cuda(m),
+            lambda m=m: cc_ref.cc_label_ref(m), "cc_label_kernel")
+        passes = label_passes(torch, m)
+        # the mask read once (a byte a cell), the labels written once; per
+        # pass and cell four neighbour minimums and a compare
+        bound_ms, bound_by = bound(5 * C * M * N, 5 * passes * C * M * N)
+        print(f"kernel cc_label {name}: {ms * 1e3:.2f} us on the card "
+              f"({stream_ms * 1e3:.2f} us per call back to back), {passes} "
+              f"passes; plain {plain_ms * 1e3:.2f} us "
+              f"({plain_stream_ms * 1e3:.2f} us); bound "
+              f"{bound_ms * 1e3:.5f} us ({bound_by}) {tag}")
+        per[name] = {"shape": [C, M, N], "passes": passes, "ms": ms,
+                     "plain_ms": plain_ms, "stream_ms": stream_ms,
+                     "plain_stream_ms": plain_stream_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    first = per.pop(CC_TIMED[0])
+    return {"name": "cc_label", "route": "cuda",
+            "source": "src/repro_torch/csrc/cc_label.cu",
+            "replaces": "src/repro/core/cc.py:63",
+            "launches": launches["run"],
+            "launches_episode": launches["episode"], "max_abs_err": worst,
+            **first, "library_ms": None, "at_shape": per}
+
+
+def event_ms(torch, run) -> float:
+    """ms of one call of ``run`` between two CUDA events, the call ending
+    in a host fetch (so the end event follows all of its work)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+# each kernel's name in the card's records (CUPTI), for counting the
+# launches of a graph replay, which runs the kernels without their wrappers
+KERNEL_NAMES = {"edge_motion": "edge_motion_kernel",
+                "tx_codec": "tx_codec_kernel", "knapsack_dp": "knapsack_dp_",
+                "flash_decode": "fd_kernel", "cc_label": "cc_label_kernel"}
+
+
+def recorded_launches(torch, run, want: dict, what: str,
+                      windows: int = 3) -> dict:
+    """Each hand-written kernel's launches in one call of ``run`` as the
+    card recorded them (torch.profiler's CUPTI kernel records, counted by
+    name), which must equal ``want``.  A window that records fewer (the
+    profiler drops records now and then) is taken again, up to
+    ``windows``; one that records more raises at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+            time.sleep(0.05)    # the card's activity records arrive late
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+        got = {k: sum(e.count for e in kernels if name in e.key)
+               for k, name in KERNEL_NAMES.items()}
+        if any(got[k] > want[k] for k in want):
+            raise AssertionError(f"{what}: the card ran {got}, not {want}")
+        if got == want:
+            return got
+        print(f"{what}: the profiler recorded {got} of {want}; taking "
+              "another window")
+    raise AssertionError(f"{what}: the card ran {got}, not {want}")
+
+
+def same_logs(a: dict, b: dict, what: str) -> None:
+    """Every log key of two runs bitwise equal."""
+    import numpy as np
+    for k in a:
+        if not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            raise AssertionError(f"{what}: key {k} differs")
+
+
 def ptxas_lines(log: str) -> list:
     """Per kernel of an ``nvcc -Xptxas -v`` log: its name (the mangled
     name's last identifier and template arguments), registers, stack
@@ -1042,11 +1234,15 @@ def main(argv=None) -> int:
     import numpy as np
     from repro_torch.common import prng
     from repro_torch.core import codec
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.core import roidet
     from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
     from repro_torch.core.utility import init_utility_mlp
+    from repro_torch.data.scenarios import make_faults
     from repro_torch.data.synthetic import (DeviceScene, SceneConfig,
                                             bandwidth_trace, segments_device)
     from repro_torch.kernels import build
+    from repro_torch.kernels.cc_label import ops as cc_ops
     from repro_torch.kernels.edge_motion import ops as em_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.knapsack_dp import ops as dp_ops
@@ -1056,7 +1252,8 @@ def main(argv=None) -> int:
     from repro_torch.models.detector import load_detector
 
     counters = {"edge_motion": em_ops, "tx_codec": tx_ops,
-                "knapsack_dp": dp_ops, "flash_decode": fd_ops}
+                "knapsack_dp": dp_ops, "flash_decode": fd_ops,
+                "cc_label": cc_ops}
 
     def reset_counts() -> None:
         for mod in counters.values():
@@ -1091,10 +1288,16 @@ def main(argv=None) -> int:
     bs, thr = 8, 0.35
     worst = {"edge_motion": 0.0, "tx_codec": 0.0, "knapsack_dp": 0.0}
     em_cases = {}
+    scene_masks = {}
     for C in (5, 16):
         scene = DeviceScene(SceneConfig(seed=7, num_cameras=C), device=dev)
         frames = segments_device(scene.cfg, scene.params, scene.key, 3,
                                  gt_pad=scene.G)[0]
+        # ROIDet's motion mask of this slot: what cc_label labels
+        motion = (em_ops.segment_motion_fleet(
+            frames, block_size=bs, edge_thresh=thr)
+            > roidet.MOTION_THRESH).any(dim=1)
+        scene_masks[f"C={C} scene {tuple(motion.shape)}"] = motion
         ref_frames = segments_device(scene.cfg, scene.params, scene.key, 2,
                                      gt_pad=scene.G)[0][:, -1:]
         gen = torch.Generator(device=dev).manual_seed(C)
@@ -1199,8 +1402,10 @@ def main(argv=None) -> int:
     worst["tx_codec"] = max(worst["tx_codec"],
                             check_tx_codec_ragged(torch, dev))
     worst["flash_decode"] = max(check_flash_decode(torch, dev).values())
+    cc_parity = cc_cases(torch, dev, scene_masks)
+    worst["cc_label"] = check_cc_label(torch, dev, cc_parity)
 
-    # -- 4. the episode, four methods, card vs the port's CPU run -------
+    # -- 4. the episode, graph-replayed: card vs eager, vs CPU -----------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 4: episode")
     light_h, server_h = load_detector("light", "cpu"), load_detector(
         "server", "cpu")
@@ -1216,9 +1421,13 @@ def main(argv=None) -> int:
 
     def needs(method: str) -> tuple:
         """The kernels a method's main path launches."""
-        return (("edge_motion",) if method in ("deepstream", "reducto")
-                else ()) + ("tx_codec",) + (
-            ("knapsack_dp",) if method in ("deepstream", "jcab") else ())
+        deep = method.startswith("deepstream")
+        return (("edge_motion",) if deep or method == "reducto" else ()) + (
+            "tx_codec",) + (("knapsack_dp",) if deep or method == "jcab"
+                            else ()) + (("cc_label",) if deep else ())
+
+    def scene_of(system):
+        return DeviceScene(system.cfg.scene, device=system.device)
 
     # on the card every solve is the fused kernel: the plain backtrack
     # must see CUDA tensors nowhere on the main path
@@ -1230,29 +1439,118 @@ def main(argv=None) -> int:
         return plain_backtrack(choices, *a, **kw)
 
     dp_ref.backtrack_device = counted_backtrack
-    trace = bandwidth_trace("medium", T_SLOTS, seed=3)
+    trace11 = bandwidth_trace("medium", 11, seed=3)
+    trace = trace11[:T_SLOTS]
     gpu_sys, cpu_sys = make_system(5, dev), make_system(5, "cpu")
-    launches_episode = dict.fromkeys(counters, 0)
+    replays = []     # (what, C, T, run, launches each kernel must make)
     episode_logs = {}
-    for method in METHODS:
-        scene = DeviceScene(gpu_sys.cfg.scene, device=dev)
-        reset_counts()
-        logs = gpu_sys.run_episode(scene, trace, method)
-        n = read_counts()
-        episode_logs[method] = logs
-        for k in counters:
-            launches_episode[k] += n[k]
-        check_logs(logs, f"episode {method}")
-        if any(n[k] == 0 for k in needs(method)):
-            raise AssertionError(f"episode {method}: kernel not launched on "
-                                 f"the main path {n}")
-        cpu_logs = cpu_sys.run_episode(
-            DeviceScene(cpu_sys.cfg.scene, device="cpu"), trace, method)
+    n_graphs = fleet_mod.episode_graph_count()
+    for C in (5, 16):
+        g_sys = gpu_sys if C == 5 else make_system(C, dev)
+        e_sys = make_system(C, dev, episode_pipelined=False)
+        c_sys = cpu_sys if C == 5 else make_system(C, "cpu")
+        tr11 = trace11 * C / 5
+        for method in EP_METHODS:
+            # the CPU's 11 slots; their first 8 are the 8-slot run's
+            cpu_logs = c_sys.run_episode(scene_of(c_sys), tr11, method)
+            for T in (8, 11):
+                tr = tr11[:T]
+                what = f"episode {method} C={C} T={T}"
+                # the first run builds the graphs from the kernels' wrappers
+                # (eager warm-up, then capture)
+                reset_counts()
+                first = g_sys.run_episode(scene_of(g_sys), tr, method)
+                n_capture = read_counts()
+                if any(n_capture[k] == 0 for k in needs(method)):
+                    raise AssertionError(f"{what}: the capture went through "
+                                         f"no wrapper of {needs(method)}: "
+                                         f"{n_capture}")
+                captured = fleet_mod.episode_graph_count()
+                scene = scene_of(g_sys)
+                reset_counts()
+                # the timed region: nothing may wait on the card, and the
+                # replays call no kernel wrapper (no eager slot step)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = g_sys._episode_dispatch(scene, tr, method)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                n_replay = read_counts()
+                logs = g_sys._episode_logs(out, tr)
+                if fleet_mod.episode_graph_count() != captured:
+                    raise AssertionError(f"{what}: a second run captured a "
+                                         "graph")
+                if any(n_replay.values()):
+                    raise AssertionError(f"{what}: the replayed run called "
+                                         f"kernel wrappers {n_replay}")
+                same_logs(first, logs, f"{what} second run")
+                check_logs(logs, f"episode {method}")
+                # the kernels a replayed run launched, as the card records
+                # them (once per slot for each kernel of the method's
+                # path), are counted in phase 9, after the kernel times: in
+                # a run that profiled the replays here, every one-kernel
+                # window of phase 8 then recorded 85 of its 100 launches
+                replays.append((what, C, T, lambda g=g_sys, tr=tr, m=method:
+                                g.run_episode(scene_of(g), tr, m),
+                                {k: T if k in needs(method) else 0
+                                 for k in counters}))
+                eager = e_sys._episode_logs(e_sys._episode_dispatch(
+                    scene_of(e_sys), tr, method, _eager=True), tr)
+                same_logs(eager, logs, f"episode {method} C={C} T={T} graph "
+                          "vs the eager reference body")
+                diffs = max_log_diff({k: v[:T] for k, v in cpu_logs.items()},
+                                     logs, LOG_KEYS, 1e-5)
+                print(f"{what} (bucket {fleet_mod.bucket_len(T)}): wrapper "
+                      "calls at capture "
+                      + " ".join(f"{k} {v}" for k, v in n_capture.items())
+                      + ", at replay 0"
+                      + "; no host sync under set_sync_debug_mode('error'); "
+                      "second run 0 captures; graph = eager reference body "
+                      f"bitwise; mean F1 {float(np.mean(logs['mean_f1'])):.4f}"
+                      "; card vs CPU max diff "
+                      + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
+                if C == 5 and T == T_SLOTS:
+                    episode_logs[method] = logs
+    print(f"episode graphs captured: "
+          f"{fleet_mod.episode_graph_count() - n_graphs} (4 per method, C "
+          "and bucket: two halves of the pipelined step and two drains)")
+
+    # a fault family, then a chain of two windows through the carry
+    T = T_SLOTS
+    faults = make_faults("camera_churn", T, 5, seed=4)
+    e_sys = make_system(5, dev, episode_pipelined=False)
+    for method in EP_METHODS:
+        before = fleet_mod.episode_graph_count()
+        logs = gpu_sys.run_episode(scene_of(gpu_sys), trace, method,
+                                   faults=faults)
+        if fleet_mod.episode_graph_count() != before:
+            raise AssertionError("a fault mask captured a graph")
+        eager = e_sys._episode_logs(e_sys._episode_dispatch(
+            scene_of(e_sys), trace, method, faults=faults, _eager=True),
+            trace)
+        same_logs(eager, logs, f"churn {method} graph vs eager reference")
+        cpu_logs = cpu_sys.run_episode(scene_of(cpu_sys), trace, method,
+                                       faults=faults)
         diffs = max_log_diff(cpu_logs, logs, LOG_KEYS, 1e-5)
-        print(f"episode {method} C=5 T={T_SLOTS}: launches "
-              + " ".join(f"{k} {v}" for k, v in n.items())
-              + f"; mean F1 {float(np.mean(logs['mean_f1'])):.4f}; card vs "
-              "CPU max diff "
+        print(f"episode {method} C=5 T={T} camera_churn ({int(faults.sum())}"
+              f" of {faults.size} camera-slots live): graph = eager "
+              "reference body bitwise, no capture; card vs CPU max diff "
+              + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
+    faults11 = make_faults("camera_churn", 11, 5, seed=6)
+    for method in ("deepstream", "reducto", "deepstream_no_elastic"):
+        whole = gpu_sys.run_episode(scene_of(gpu_sys), trace11, method,
+                                    faults=faults11)
+        scene = scene_of(gpu_sys)
+        w1 = gpu_sys.run_episode(scene, trace11[:4], method,
+                                 faults=faults11[:4])
+        w2 = gpu_sys.run_episode(scene, trace11[4:], method,
+                                 faults=faults11[4:],
+                                 carry=gpu_sys.last_carry)
+        chain = {k: np.concatenate([w1[k], w2[k]]) for k in w1}
+        diffs = max_log_diff(whole, chain, LOG_KEYS, 1e-5,
+                             "carried windows vs one run")
+        print(f"episode {method} C=5: windows of 4 and 7 slots through the "
+              "carry vs one 11-slot run (camera_churn), max diff "
               + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
 
     # -- 5. run(), pipelined, four methods -------------------------------
@@ -1339,25 +1637,43 @@ def main(argv=None) -> int:
 
     # -- 8. times --------------------------------------------------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 8: times")
+    # ms/slot of the graph-replayed episode (the pipelined body and the
+    # reference body), the eager episode and run(): CUDA events around each
+    # whole run (harvest included), the four in turns, one warm-up round
+    # (which captures the graphs) and TIMED_ROUNDS timed ones
     for C in (5, 16):
         s = gpu_sys if C == 5 else make_system(C, dev)
+        s_ref = make_system(C, dev, episode_pipelined=False)
         tr = trace * C / 5
         for method in METHODS:
-            # both runners in turns (episode, run, run, episode, ...) after
-            # one warm-up each, so host drift hits them alike
-            runners = ("run_episode", "run")
+            runners = {
+                "episode graph": lambda sc, m=method: s.run_episode(
+                    sc, tr, m),
+                "episode graph reference body": (
+                    lambda sc, m=method: s_ref.run_episode(sc, tr, m)),
+                "episode eager": lambda sc, m=method: s._episode_logs(
+                    s._episode_dispatch(sc, tr, m, _eager=True), tr),
+                "run": lambda sc, m=method: s.run(sc, tr, m)}
+            names = list(runners)
             ms = {r: [] for r in runners}
-            for rnd in range(4):
-                for r in (runners if rnd % 2 == 0 else runners[::-1]):
-                    scene = DeviceScene(s.cfg.scene, device=dev)
-                    t_ms = slot_ms(torch, lambda: getattr(s, r)(
-                        scene, tr, method), T_SLOTS)
+            for rnd in range(TIMED_ROUNDS + 1):
+                for r in (names if rnd % 2 == 0 else names[::-1]):
+                    scene = scene_of(s)
+                    t_ms = event_ms(torch, lambda: runners[r](scene))
+                    t_ms /= T_SLOTS
                     if rnd > 0:
                         ms[r].append(t_ms)
-            for r in runners:
+            for r in names:
                 print(f"ms/slot {r} {method} C={C} T={T_SLOTS}: median "
                       f"{statistics.median(ms[r]):.3f} (min {min(ms[r]):.3f}"
-                      f", max {max(ms[r]):.3f}, 3 runs) {tag}")
+                      f", max {max(ms[r]):.3f}, {TIMED_ROUNDS} runs) {tag}")
+            med = {r: statistics.median(v) for r, v in ms.items()}
+            ref_pipe = (med["episode graph reference body"]
+                        / med["episode graph"])
+            print(f"ms/slot {method} C={C}: eager / graph = "
+                  f"{med['episode eager'] / med['episode graph']:.2f}, "
+                  "graph reference body / graph pipelined = "
+                  f"{ref_pipe:.3f}")
 
     scene = DeviceScene(SceneConfig(seed=7, num_cameras=5), device=dev)
     frames = segments_device(scene.cfg, scene.params, scene.key, 3,
@@ -1373,8 +1689,7 @@ def main(argv=None) -> int:
     print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
           "edge_motion")
     records = [edge_motion_record(
-        torch, dev, {"run": launches_run["edge_motion"],
-                     "episode": launches_episode["edge_motion"]},
+        torch, dev, {"run": launches_run["edge_motion"], "episode": None},
         worst["edge_motion"], bs, thr, tag)]
     # B2: ms is the kernel time on the card; stream_ms: back-to-back calls
     # timed with CUDA events, which includes the host's launch gaps
@@ -1396,15 +1711,14 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/tx_codec.cu",
         "replaces": "src/repro/kernels/tx_codec/tx_codec.py:78",
         "shape": list(frames.shape), "launches": launches_run["tx_codec"],
-        "launches_episode": launches_episode["tx_codec"],
+        "launches_episode": None,
         "max_abs_err": worst["tx_codec"], "ms": ms, "plain_ms": plain_ms,
         "stream_ms": stream_ms, "plain_stream_ms": plain_stream_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
           "knapsack_dp")
     records.append(knapsack_record(
-        torch, dev, {"run": launches_run["knapsack_dp"],
-                     "episode": launches_episode["knapsack_dp"]},
+        torch, dev, {"run": launches_run["knapsack_dp"], "episode": None},
         worst["knapsack_dp"], tag))
     # B2 with every camera on the identity branch: no staged band, one
     # round of loads
@@ -1418,41 +1732,94 @@ def main(argv=None) -> int:
           "flash_decode")
     records.append(flash_decode_record(torch, dev, lm_launches,
                                        worst["flash_decode"], tag))
+    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: cc_label")
+    records.append(cc_label_record(
+        torch, dev, {"run": launches_run["cc_label"], "episode": None},
+        worst["cc_label"], cc_parity, tag))
+
+    # -- 9. the replayed episodes' launches as the card recorded them ----
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 9: episode launches "
+          "(CUPTI)")
+    launches_episode = dict.fromkeys(counters, 0)
+    for what, C, T, run, want in replays:
+        reset_counts()
+        n = recorded_launches(torch, run, want, what)
+        if any(read_counts().values()):
+            raise AssertionError(f"{what}: the replayed run called kernel "
+                                 f"wrappers {read_counts()}")
+        print(f"{what}: kernels the card ran (CUPTI records) "
+              + " ".join(f"{k} {v}" for k, v in n.items())
+              + ", wrapper calls 0")
+        if C == 5 and T == T_SLOTS:
+            for k in counters:
+                launches_episode[k] += n[k]
+    for rec in records:
+        if "launches_episode" in rec:
+            rec["launches_episode"] = launches_episode[rec["name"]]
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        scene = DeviceScene(gpu_sys.cfg.scene, device=dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            gpu_sys.run_episode(scene, trace, "deepstream")
-            wall = time.perf_counter() - t0
         from torch.autograd import DeviceType
-        dev_us = device_us(prof)
-        n_kernels = sum(e.count for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA
-                        and not e.is_user_annotation)
-        print(f"profile deepstream C=5 T={T_SLOTS}: wall {wall * 1e3:.1f} ms, "
-              f"{n_kernels} kernels on the card taking {dev_us / 1e3:.1f} ms "
-              f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}% busy) {tag}")
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=15))
-        # where each runner still waits on the card (host syncs per site)
+        from torch.profiler import ProfilerActivity, profile
+        for C, label, run in (
+                (5, "graph", lambda sc: gpu_sys.run_episode(
+                    sc, trace, "deepstream")),
+                (5, "eager", lambda sc: gpu_sys._episode_logs(
+                    gpu_sys._episode_dispatch(sc, trace, "deepstream",
+                                              _eager=True), trace))):
+            scene = scene_of(gpu_sys)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(scene)
+                wall = time.perf_counter() - t0
+                time.sleep(0.05)   # the card's activity records arrive late
+            dev_us = device_us(prof)
+            n_kernels = sum(e.count for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and not e.is_user_annotation)
+            dev_ms = dev_us / 1e3
+            print(f"profile episode {label} deepstream C={C} T={T_SLOTS}: "
+                  f"wall {wall * 1e3:.1f} ms, {n_kernels} kernels on the card "
+                  f"({n_kernels / T_SLOTS:.0f} per slot) taking "
+                  f"{dev_ms:.1f} ms ({dev_ms / T_SLOTS:.2f} ms per slot, "
+                  f"{100 * dev_ms / (wall * 1e3):.1f}% busy) {tag}")
+            print(prof.key_averages().table(sort_by="self_device_time_total",
+                                            row_limit=12))
+        # where each runner still waits on the card (host syncs per site):
+        # the episode's dispatch and its harvest apart
         import collections
         import warnings
-        for runner in ("run_episode", "run"):
-            for method in METHODS:
-                scene = DeviceScene(gpu_sys.cfg.scene, device=dev)
-                torch.cuda.set_sync_debug_mode("warn")
+
+        def flagged(fn) -> collections.Counter:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    getattr(gpu_sys, runner)(scene, trace, method)
+                    fn()
+            finally:
                 torch.cuda.set_sync_debug_mode("default")
-                sites = collections.Counter(
-                    f"{Path(w.filename).name}:{w.lineno}" for w in caught)
-                print(f"host syncs {runner} {method} C=5 T={T_SLOTS}: "
-                      f"{sum(sites.values())} {dict(sites.most_common())}")
+            return collections.Counter(
+                f"{Path(w.filename).name}:{w.lineno}" for w in caught)
+
+        for method in METHODS:
+            scene = scene_of(gpu_sys)
+            box = {}
+            in_dispatch = flagged(lambda: box.update(out=(
+                gpu_sys._episode_dispatch(scene, trace, method))))
+            at_harvest = flagged(lambda: gpu_sys._episode_logs(box["out"],
+                                                               trace))
+            print(f"host syncs run_episode {method} C=5 T={T_SLOTS}: "
+                  f"{sum(in_dispatch.values())} before the harvest "
+                  f"{dict(in_dispatch)}, {sum(at_harvest.values())} at the "
+                  f"harvest {dict(at_harvest)}")
+            if in_dispatch:
+                raise AssertionError("run_episode waits on the card before "
+                                     "its harvest")
+            scene = scene_of(gpu_sys)
+            sites = flagged(lambda: gpu_sys.run(scene, trace, method))
+            print(f"host syncs run {method} C=5 T={T_SLOTS}: "
+                  f"{sum(sites.values())} {dict(sites.most_common())}")
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_begin:.1f} s "
           f"{tag}")

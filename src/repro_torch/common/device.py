@@ -1,6 +1,7 @@
 """Where the port runs: the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _SMS = {}
@@ -24,3 +25,15 @@ def sm_count(device: torch.device) -> int:
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
+
+
+def upload(array, device, dtype=None) -> torch.Tensor:
+    """A copy of host data (array-like) on ``device`` that leaves the host
+    free: a CUDA upload goes through pinned memory as an asynchronous
+    copy, so it never waits on the card (the caching host allocator keeps
+    the pinned block until the copy is done)."""
+    host = torch.from_numpy(np.array(array, dtype=dtype))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)

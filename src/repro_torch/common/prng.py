@@ -67,10 +67,17 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``: key (..., 2), data int or int tensor that
-    broadcasts against the key's batch shape -> (..., 2)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
-    a, b = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    """``jax.random.fold_in``: key (..., 2), data a Python int or an integer
+    tensor that broadcasts against the key's batch shape -> (..., 2).
+    Neither form uploads anything: an int enters the arithmetic as a
+    scalar, a tensor (a 0-d slot index on the card, say) is used where it
+    lies."""
+    if torch.is_tensor(data):
+        d = data.to(device=key.device, dtype=torch.int64) & MASK
+        x1 = torch.zeros_like(d)
+    else:
+        d, x1 = int(data) & MASK, 0
+    a, b = threefry2x32(key[..., 0], key[..., 1], x1, d)
     return torch.stack([a, b], dim=-1)
 
 
@@ -110,9 +117,10 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
-    return torch.maximum(lo, floats * span + lo)
+    # the bounds in float32, as kernel arguments (nothing is uploaded)
+    lo = _f32(minval)
+    span = float(np.float32(maxval) - np.float32(lo))
+    return torch.clamp(floats * span + lo, min=lo)
 
 
 # XLA's float32 erf_inv (Giles' single-precision polynomial), Horner order
@@ -210,14 +218,10 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     w = -log1p(x * (-x))
     lt = w < 5.0
     ww = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
-    dev = x.device
-    c_lt = torch.tensor([_f32(c) for c in _ERFINV_LT5], dtype=torch.float32,
-                        device=dev)
-    c_ge = torch.tensor([_f32(c) for c in _ERFINV_GE5], dtype=torch.float32,
-                        device=dev)
-    p = torch.where(lt, c_lt[0], c_ge[0])
-    for i in range(1, len(_ERFINV_LT5)):
-        p = fma(p, ww, torch.where(lt, c_lt[i], c_ge[i]))
+    # the coefficients enter as scalars (nothing is uploaded)
+    p = torch.where(lt, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = fma(p, ww, torch.where(lt, _f32(c_lt), _f32(c_ge)))
     out = p * x
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 

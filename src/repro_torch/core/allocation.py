@@ -139,10 +139,13 @@ def allocate_fair_host(bitrates: Sequence[int], W_kbps: float,
 
 def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
                 bitrates: Sequence[int], W_kbps: torch.Tensor, *, w_cap: int,
+                rates: torch.Tensor,
                 live: Optional[torch.Tensor] = None):
     """util/best_res (I, J), W_kbps 0-d f32 -> (picks (I,), b (I,),
     res (I,), total, feasible), all on device.  The grid index floors
-    W/d in float32, as the JAX package does."""
+    W/d in float32, as the JAX package does.  ``rates`` is ``bitrates`` as
+    a (J,) f32 tensor on the device (``CodecTables.bitrates``, built once
+    per run), so that the grid's constants are not uploaded per slot."""
     bitr, d = _grid(bitrates)
     costs_np = (bitr // d).astype(np.int64)
     I, J = util.shape
@@ -152,7 +155,8 @@ def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
     if cmin * I > w_cap:
         raise ValueError(f"w_cap={w_cap} cannot express the all-minimum "
                          f"clamp for {I} cameras")
-    costs = torch.as_tensor(costs_np.astype(np.int32), device=dev)
+    # d divides every bitrate, so the float32 quotient is the exact cost
+    costs = (rates / d).to(torch.int32)
     W = W_kbps.to(torch.float32)
     open_ = W > 0.0
     live = (torch.ones((I,), dtype=torch.bool, device=dev) if live is None
@@ -166,8 +170,7 @@ def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
     picks, total = dp_ops.solve_device(
         util_eff, costs, torch.clamp(Wg_eff, min=cmin * I), w_cap=w_cap)
     tx = live & open_
-    bitr_t = torch.as_tensor(bitr, dtype=torch.float32, device=dev)
-    b = torch.where(tx, bitr_t[picks], 0.0)
+    b = torch.where(tx, rates[picks], 0.0)
     res = torch.where(tx, best_res[torch.arange(I, device=dev), picks], 1.0)
     return picks, b, res, total * open_.to(total.dtype), feasible
 
@@ -176,7 +179,9 @@ def allocate_fair(bitrates: Sequence[int], W_kbps: torch.Tensor,
                   num_cams: int, live: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Equal share among live cameras: the largest bitrate <= W / n_live,
-    else the minimum (infeasible).  Returns ((I,) bitrates, feasible)."""
+    else the minimum (infeasible).  Returns ((I,) bitrates, feasible).
+    ``bitrates`` is a sequence or, on the slot step, the (J,) f32 device
+    table ``CodecTables.bitrates``."""
     dev = W_kbps.device
     bitr = torch.as_tensor(bitrates, dtype=torch.float32, device=dev)
     live = (torch.ones((num_cams,), dtype=torch.bool, device=dev)

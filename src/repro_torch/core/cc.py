@@ -5,9 +5,10 @@ The counterpart of ``repro.core.cc``: iterative min-label propagation
 fixpoint), segment min/max of rows and columns per root label, and the
 top-``max_boxes`` components by bounding-box area.  Batched over cameras.
 
-The fixpoint test reads one flag on the host every ``CHECK_EVERY`` sweeps
-(sweeps past the fixpoint change nothing, so the result is the JAX
-package's exactly).  Ties in area go to the lowest label first, like
+The labels come from the cc_label kernel (``kernels/cc_label``: one block
+per camera loops to the fixpoint on the card, so no host read bounds the
+loop) or, for CPU tensors, its plain version; both give the JAX package's
+labels exactly.  Ties in area go to the lowest label first, like
 ``lax.top_k``; non-components all tie at -1.
 """
 from __future__ import annotations
@@ -16,15 +17,8 @@ from typing import Tuple
 
 import torch
 
-INF = 2 ** 30
-CHECK_EVERY = 4
-
-
-def _propagate(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    p = torch.nn.functional.pad(labels, (1, 1, 1, 1), value=INF)
-    neigh = torch.minimum(torch.minimum(p[:, :-2, 1:-1], p[:, 2:, 1:-1]),
-                          torch.minimum(p[:, 1:-1, :-2], p[:, 1:-1, 2:]))
-    return torch.where(mask, torch.minimum(labels, neigh), INF)
+from repro_torch.kernels.cc_label import ops as cc_ops
+from repro_torch.kernels.cc_label.ref import INF
 
 
 def label_and_boxes(mask: torch.Tensor, max_boxes: int = 16
@@ -34,14 +28,7 @@ def label_and_boxes(mask: torch.Tensor, max_boxes: int = 16
     by area, largest first."""
     C, M, N = mask.shape
     dev = mask.device
-    idx = torch.arange(M * N, dtype=torch.int32, device=dev).reshape(1, M, N)
-    labels = torch.where(mask, idx, INF)
-    for it in range(0, M * N, CHECK_EVERY):
-        prev = labels
-        for _ in range(min(CHECK_EVERY, M * N - it)):
-            labels = _propagate(labels, mask)
-        if torch.equal(labels, prev):
-            break
+    labels = cc_ops.cc_label(mask)
 
     flat = labels.reshape(C, -1).to(torch.int64)
     num_seg = M * N + 1

@@ -14,11 +14,13 @@ multiply-add XLA forms for ``x + sigma * noise``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common import prng
+from repro_torch.common.device import upload
 
 
 @dataclass(frozen=True)
@@ -38,6 +40,25 @@ def pool_factor(res: float) -> int:
     if res >= 0.999:
         return 1
     return 2 if res > 0.6 else 4 if res > 0.3 else 8
+
+
+class CodecTables(NamedTuple):
+    """A codec config's tables on the device, built once per run
+    (``device_tables``) so that a slot step uploads nothing."""
+    bitrates: torch.Tensor      # (J,) f32 Kbps
+    resolutions: torch.Tensor   # (R,) f32
+    pool_factors: torch.Tensor  # (R,) int32 blur branch of each resolution
+
+
+def device_tables(bitrates: Sequence[int], resolutions: Sequence[float],
+                  device) -> CodecTables:
+    """The (bitrates, resolutions) tables and each resolution's pool factor
+    on ``device``, uploaded without a host sync."""
+    return CodecTables(
+        bitrates=upload(bitrates, device, np.float32),
+        resolutions=upload(resolutions, device, np.float32),
+        pool_factors=upload([pool_factor(r) for r in resolutions], device,
+                            np.int32))
 
 
 def _avg_pool(frames: torch.Tensor, k: int) -> torch.Tensor:
@@ -77,8 +98,10 @@ def _resolution_blur(frames: torch.Tensor, res: float) -> torch.Tensor:
 
 def nearest_resolution(resolutions, res: torch.Tensor) -> torch.Tensor:
     """(C,) requested resolutions -> (C,) int64 index of the nearest
-    configured one (first on ties, like ``jnp.argmin``)."""
-    table = torch.tensor(resolutions, dtype=torch.float32, device=res.device)
+    configured one (first on ties, like ``jnp.argmin``).  ``resolutions``
+    is a sequence or, on the slot step, ``CodecTables.resolutions``."""
+    table = torch.as_tensor(resolutions, dtype=torch.float32,
+                            device=res.device)
     return torch.argmin(torch.abs(table[None, :] - res[:, None]), dim=1)
 
 
@@ -163,14 +186,16 @@ def encode_segment_crf(cfg: CodecConfig, frames: torch.Tensor,
 def encode_fleet_segment(cfg: CodecConfig, frames: torch.Tensor,
                          roi_pixels: torch.Tensor, bitrate_kbps: torch.Tensor,
                          res: torch.Tensor, keys: torch.Tensor,
-                         num_frames: Optional[torch.Tensor] = None
+                         num_frames: Optional[torch.Tensor] = None, *,
+                         tables: CodecTables
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Camera-batched ``encode_segment`` through the tx_codec kernel:
     frames (C, N, H, W), per-camera scalars (C,), keys (C, 2) ->
-    (decoded (C, N, H, W), size_bytes (C,))."""
+    (decoded (C, N, H, W), size_bytes (C,)).  ``tables`` are the config's
+    device tables (``device_tables``, built once per run)."""
     from repro_torch.kernels.tx_codec import ops as tx_ops
     return tx_ops.encode_fleet(cfg, frames, roi_pixels, bitrate_kbps, res,
-                               keys, num_frames)
+                               keys, num_frames, tables=tables)
 
 
 def encode_fleet_segment_crf(cfg: CodecConfig, frames: torch.Tensor,

@@ -1,12 +1,12 @@
 """Whole-trace fleet episode: synthesis -> ROIDet -> control -> keep ->
 encode -> detect -> score, slot by slot, for every method.
 
-The counterpart of ``repro.core.fleet``'s reference episode body
-(``_episode_impl`` with ``pipelined=False``).  Method routing follows the
-JAX package:
+The counterpart of ``repro.core.fleet``'s episode (``_episode_impl`` and
+``fleet_episode``).  Method routing follows the JAX package:
 
-  * deepstream — ROI masks and (a, c) features from ROIDet, elastic
-    adjustment, utility-MLP table, knapsack DP;
+  * deepstream (and deepstream_no_elastic, without the elastic update) —
+    ROI masks and (a, c) features from ROIDet, elastic adjustment,
+    utility-MLP table, knapsack DP;
   * jcab — full frames, the content-agnostic table, knapsack DP;
   * reducto — full frames, equal share, traced keep-flags from the
     edge-motion kernel against a cross-slot reference frame, detections of
@@ -18,21 +18,34 @@ stacked there and fetched once by the caller.  The liveness mask
 (``faults``) rides through as data: a dead camera computes but transmits
 nothing, is excluded from the allocators and the area signal, and rejoins
 as fresh (reducto reference re-seeded, elastic debt cleared).
+
+A slot is ``slot_front`` (synthesis to the staged detector batch) then
+``_slot_finish`` (detector to the log pack).  The reference body runs them
+back to back; the pipelined body (the default) runs slot i's front beside
+slot i-1's finish, with each slot's live cameras compacted to the leading
+rows, and its logs equal the reference body's bitwise.  On the card the
+slot step is captured once per (method, configuration, trace bucket) as a
+CUDA graph and replayed for every slot: the counterpart of the JAX
+package's one compiled program per (method, bucket).  Nothing in a slot
+step reads the device from the host.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import dataclasses
+import threading
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common import prng
+from repro_torch.common.device import upload
 from repro_torch.core import allocation as alloc_mod
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import elastic as elastic_mod
 from repro_torch.core import roidet as roidet_mod
 from repro_torch.core import utility as util_mod
-from repro_torch.core.codec import CodecConfig
+from repro_torch.core.codec import CodecConfig, CodecTables
 from repro_torch.core.elastic import ElasticConfig, ElasticState
 from repro_torch.data import synthetic as synth_mod
 from repro_torch.data.synthetic import DeviceSceneParams, SceneConfig
@@ -48,12 +61,48 @@ CODEC_KEY_SALT = 0x0DEC
 Params = Dict[str, torch.Tensor]
 
 
-def slot_camera_keys(key0: torch.Tensor, t: int,
+# default trace-length buckets of the episode: one CUDA graph per (method,
+# configuration, bucket) serves every trace length up to the bucket
+EPISODE_BUCKETS: Tuple[int, ...] = (8, 16, 32)
+
+
+def bucket_len(T: int, buckets: Optional[Sequence[int]] = EPISODE_BUCKETS
+               ) -> int:
+    """Padded trace length for a T-slot episode: the smallest bucket >= T,
+    doubling the largest bucket until it covers T, or T itself when
+    bucketing is disabled (``buckets`` falsy).
+
+    Padded-slot contract: a padded slot cannot advance any observable
+    episode state.  The elastic state, the reducto reference and the
+    liveness row handed back are the last active slot's, the padded log
+    rows never reach the host, and the DP capacity comes from the active
+    trace (``allocation.trace_capacity`` runs before padding), so
+    bucketing can never change a pick.  The JAX package runs padded slots
+    and freezes the carry; the port does not run them at all (the host
+    knows T), and the bucket sizes the captured graph's per-slot buffers,
+    so one graph serves every T <= bucket."""
+    T = int(T)
+    if not buckets:
+        return T
+    bs = sorted(int(b) for b in buckets)
+    if bs[0] < 1:
+        raise ValueError(f"episode buckets must be >= 1: {buckets!r}")
+    for b in bs:
+        if T <= b:
+            return b
+    b = bs[-1]
+    while b < T:
+        b *= 2
+    return b
+
+
+def slot_camera_keys(key0: torch.Tensor, t,
                      cam_ids: torch.Tensor) -> torch.Tensor:
     """Per-(slot, camera) codec keys, ``fold_in(fold_in(fold_in(key0,
     salt), t), cam_id)``: camera i's noise does not depend on which other
-    cameras exist -> (C, 2)."""
-    kt = prng.fold_in(prng.fold_in(key0, CODEC_KEY_SALT), int(t))
+    cameras exist -> (C, 2).  ``t`` is the global slot index, a Python int
+    or a 0-d integer tensor on the key's device."""
+    kt = prng.fold_in(prng.fold_in(key0, CODEC_KEY_SALT), t)
     return prng.fold_in(kt, cam_ids.to(torch.int64))
 
 
@@ -133,8 +182,8 @@ def _slot_encode(cfg: CodecConfig, frames: torch.Tensor, masks: torch.Tensor,
                  b: torch.Tensor, r: torch.Tensor, keys: torch.Tensor,
                  keep: torch.Tensor, gt_boxes: torch.Tensor,
                  gt_valid: torch.Tensor, live: torch.Tensor, *,
-                 eval_frames: int, block_size: int,
-                 with_reuse: bool) -> SlotStaged:
+                 eval_frames: int, block_size: int, with_reuse: bool,
+                 tables: CodecTables) -> SlotStaged:
     """Crop -> fleet encode (tx_codec kernel) -> eval-frame gather ->
     detector batch (+ the reuse row and GT gathers)."""
     C, N, H, W = frames.shape
@@ -143,7 +192,7 @@ def _slot_encode(cfg: CodecConfig, frames: torch.Tensor, masks: torch.Tensor,
     cropped = roidet_mod.crop_to_mask(frames, masks, block_size)
     roi_pixels = (masks.sum(dim=(1, 2)) * block_size ** 2).to(torch.float32)
     decoded, sizes = codec_mod.encode_fleet_segment(
-        cfg, cropped, roi_pixels, b, r, keys, sel.n_eff)
+        cfg, cropped, roi_pixels, b, r, keys, sel.n_eff, tables=tables)
     batch = _rows(decoded, sel.eval_idx).reshape(C * F, H, W)
     gt_e, gv_e = _rows(gt_boxes, sel.eval_idx), _rows(gt_valid, sel.eval_idx)
     gt_m = gv_m = None
@@ -195,14 +244,17 @@ def fleet_slot_step(cfg: CodecConfig, server_params: Params,
                     keep: torch.Tensor, gt_boxes: torch.Tensor,
                     gt_valid: torch.Tensor, live: torch.Tensor, *,
                     eval_frames: int, block_size: int, with_reuse: bool,
+                    tables: CodecTables,
                     conf_thresh: float = 0.4) -> FleetSlotOut:
     """One slot of every method: ``_slot_encode`` then ``_slot_finish``.
     frames (C, N, H, W); masks (C, H/bs, W/bs) bool; b, r (C,); keys
     (C, 2); keep (C, N) bool (all True except for reducto); GT for all N
-    frames; live (C,) bool.  ``with_reuse`` adds reducto's reuse arm."""
+    frames; live (C,) bool.  ``with_reuse`` adds reducto's reuse arm;
+    ``tables`` are the run's codec tables on the device."""
     st = _slot_encode(cfg, frames, masks, b, r, keys, keep, gt_boxes,
                       gt_valid, live, eval_frames=eval_frames,
-                      block_size=block_size, with_reuse=with_reuse)
+                      block_size=block_size, with_reuse=with_reuse,
+                      tables=tables)
     return _slot_finish(server_params, st, conf_thresh=conf_thresh,
                         with_reuse=with_reuse)
 
@@ -242,13 +294,15 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
                        reconnect: torch.Tensor, *, method: str,
                        ecfg: ElasticConfig, bitrates: Tuple[int, ...],
                        resolutions: Tuple[float, ...], slot_seconds: float,
-                       use_elastic: bool, w_cap: int,
-                       num_cams: int) -> ControlOut:
+                       use_elastic: bool, w_cap: int, num_cams: int,
+                       tables: CodecTables) -> ControlOut:
     """One slot of the server-side control loop: elastic adjustment ->
     utility table -> allocation, routed by method, left on the device.
     ``a``/``c`` are None for the content-agnostic methods; ``live`` (C,)
     and ``reconnect`` (0-d) are bool tensors.  The effective capacity floor
-    is 0 (a hard-outage slot allocates nothing)."""
+    is 0 (a hard-outage slot allocates nothing).  ``tables`` holds
+    ``bitrates`` and ``resolutions`` on the device (``codec.device_tables``,
+    built once per run)."""
     dev = W_t.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if method in ("deepstream", "deepstream_no_elastic"):
@@ -259,20 +313,20 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
                 ecfg, est, area, W_t, tau_wl, tau_wh, reset_debt=reconnect)
             extra = extra_kbits / slot_seconds
         util, best_res = util_mod.utility_table(
-            mlp_params, a, c,
-            torch.tensor(bitrates, dtype=torch.float32, device=dev),
-            torch.tensor(resolutions, dtype=torch.float32, device=dev), lam)
+            mlp_params, a, c, tables.bitrates, tables.resolutions, lam)
         W_eff = torch.clamp(W_t + extra, min=0.0)
         _, b, r, _, feasible = alloc_mod.allocate_dp(
-            util, best_res, bitrates, W_eff, w_cap=w_cap, live=live)
+            util, best_res, bitrates, W_eff, w_cap=w_cap, live=live,
+            rates=tables.bitrates)
     elif method == "jcab":
         area = extra = zero
         _, b, r, _, feasible = alloc_mod.allocate_dp(
-            jcab_util, jcab_res, bitrates, W_t, w_cap=w_cap, live=live)
+            jcab_util, jcab_res, bitrates, W_t, w_cap=w_cap, live=live,
+            rates=tables.bitrates)
     elif method in ("reducto", "static"):
         area = extra = zero
-        b, feasible = alloc_mod.allocate_fair(bitrates, W_t, num_cams,
-                                              live=live)
+        b, feasible = alloc_mod.allocate_fair(tables.bitrates, W_t,
+                                              num_cams, live=live)
         r = torch.ones((num_cams,), dtype=torch.float32, device=dev)
     else:
         raise ValueError(method)
@@ -283,6 +337,326 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
 class EpisodeOut(NamedTuple):
     packs: torch.Tensor     # (T, 2, C) stacked [f1; sizes] per slot
     cpacks: torch.Tensor    # (T, 4) [extra, area, alloc_kbps, feasible]
+    key: torch.Tensor       # the run key, unchanged (codec keys are a pure
+                            # per-(slot, camera) fold, ``slot_camera_keys``)
+    est: ElasticState       # final elastic state (last active slot's)
+    ref: torch.Tensor       # (C, H, W) final reducto reference frames, the
+                            # carry a windowed run hands to the next window
+
+
+@dataclasses.dataclass(frozen=True)
+class _Statics:
+    """What a slot step's code depends on besides its tensors: the key of
+    its CUDA graph (the JAX package's episode cache key, less the mesh)."""
+    method: str
+    scfg: SceneConfig
+    ccfg: CodecConfig
+    ecfg: ElasticConfig
+    bitrates: Tuple[int, ...]
+    resolutions: Tuple[float, ...]
+    use_elastic: bool
+    w_cap: int
+    num_cams: int
+    eval_frames: int
+    block_size: int
+    conf_thresh: float
+    gt_pad: int
+    pipelined: bool
+
+
+class _Ctx(NamedTuple):
+    """Every tensor a slot step reads and no slot changes."""
+    server: Params
+    light: Params
+    mlp: Params                  # {} for the content-agnostic methods
+    jcab_util: torch.Tensor      # (C, J)
+    jcab_res: torch.Tensor       # (C, J)
+    lam: torch.Tensor            # (C,)
+    scene: DeviceSceneParams
+    key0: torch.Tensor
+    skey: torch.Tensor
+    tau_wl: torch.Tensor
+    tau_wh: torch.Tensor
+    tables: CodecTables
+    t_first: torch.Tensor        # 0-d int64: the stream's first slot
+
+
+class _Xs(NamedTuple):
+    """The run's per-slot inputs, padded to the bucket."""
+    t_idx: torch.Tensor          # (T_b,) int64 global slot indices
+    trace: torch.Tensor          # (T_b,) f32 Kbps
+    live: torch.Tensor           # (T_b, C) bool
+
+
+class _Carry(NamedTuple):
+    est: ElasticState
+    ref: torch.Tensor            # (C, H, W) reducto reference frames
+    live_prev: torch.Tensor      # (C,) bool previous slot's liveness
+
+
+def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
+               W_t: torch.Tensor, live_t: torch.Tensor
+               ) -> Tuple[_Carry, SlotStaged, torch.Tensor,
+                          Optional[torch.Tensor]]:
+    """Everything up to the staged detector batch for one slot: synthesis
+    -> ROIDet -> control -> keep -> encode.  ``t`` (0-d int64), ``W_t``
+    (0-d f32) and ``live_t`` (C,) bool are device tensors.  Returns (the
+    advanced carry, the staged slot, the (4,) control pack, the inverse
+    camera permutation or None).  The pipelined body compacts the live
+    cameras to the leading rows by a stable sort and zeroes the dead
+    rows' frames; every stage after control is camera-row-local, so the
+    live cameras' outputs are bitwise the reference body's, and ``inv``
+    puts the log columns back in camera order."""
+    N, H, W = s.scfg.frames_per_segment, s.scfg.height, s.scfg.width
+    dev = W_t.device
+    deep = s.method in ("deepstream", "deepstream_no_elastic")
+    frames, gtb, gtv = synth_mod.segments_device(
+        s.scfg, ctx.scene, ctx.skey, t, gt_pad=s.gt_pad)
+    keys = slot_camera_keys(ctx.key0, t, ctx.scene.cam_ids)
+    reconnect = live_t & ~carry.live_prev
+    a = c = None
+    if deep:
+        roi = roidet_mod.roidet_fleet(frames, ctx.light,
+                                      block_size=s.block_size)
+        masks, a, c = roi.mask, roi.area_ratio, roi.confidence
+    else:
+        masks = roidet_mod.full_frame_mask(s.num_cams, H, W, s.block_size,
+                                           dev)
+    co = fleet_control_step(
+        ctx.mlp if deep else None, ctx.jcab_util, ctx.jcab_res, ctx.lam, a,
+        c, W_t, carry.est, ctx.tau_wl, ctx.tau_wh, live_t, reconnect.any(),
+        method=s.method, ecfg=s.ecfg, bitrates=s.bitrates,
+        resolutions=s.resolutions, slot_seconds=s.ccfg.slot_seconds,
+        use_elastic=s.use_elastic, w_cap=s.w_cap, num_cams=s.num_cams,
+        tables=ctx.tables)
+    ref = carry.ref
+    if s.method == "reducto":
+        # "first" is per run (t == t_first) and per reconnecting camera
+        keep, ref = reducto_keep_step(
+            frames, ref, reconnect | (t == ctx.t_first),
+            block_size=s.block_size, edge_thresh=roidet_mod.EDGE_THRESH)
+    else:
+        keep = torch.ones((s.num_cams, N), dtype=torch.bool, device=dev)
+    rows = (masks, co.b, co.r, keys, keep, gtb, gtv)
+    live_e, inv = live_t, None
+    if s.pipelined:
+        order = torch.argsort((~live_t).to(torch.uint8), stable=True)
+        inv = torch.argsort(order, stable=True)
+        rows = tuple(x[order] for x in rows)
+        live_e = live_t[order]
+        frames = torch.where(live_e[:, None, None, None], frames[order], 0.0)
+    st = _slot_encode(s.ccfg, frames, *rows, live_e,
+                      eval_frames=s.eval_frames,
+                      block_size=s.block_size,
+                      with_reuse=s.method == "reducto", tables=ctx.tables)
+    return _Carry(co.est, ref, live_t), st, co.pack, inv
+
+
+def _finish(s: _Statics, ctx: _Ctx, st: SlotStaged,
+            inv: Optional[torch.Tensor]) -> torch.Tensor:
+    """A staged slot's (2, C) [f1; sizes] log pack, in camera order."""
+    pack = _slot_finish(ctx.server, st, conf_thresh=s.conf_thresh,
+                        with_reuse=s.method == "reducto").host_pack
+    return pack if inv is None else pack[:, inv]
+
+
+def _episode_eager(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, _Carry]:
+    """The episode as a Python loop over the first T slots: the CPU's
+    path, and on the card the comparison the graph is held to.  Returns
+    ((T, 2, C) packs, (T, 4) control packs, the final carry)."""
+    packs: List[torch.Tensor] = []
+    cpacks: List[torch.Tensor] = []
+    staged = None
+    for i in range(T + s.pipelined):
+        if s.pipelined and staged is not None:
+            packs.append(_finish(s, ctx, *staged))   # slot i-1 (stage B)
+            staged = None
+        if i < T:
+            carry, st, cpack, inv = slot_front(s, ctx, carry, xs.t_idx[i],
+                                               xs.trace[i], xs.live[i])
+            cpacks.append(cpack)
+            if s.pipelined:
+                staged = (st, inv)
+            else:
+                packs.append(_finish(s, ctx, st, inv))
+    return torch.stack(packs), torch.stack(cpacks), carry
+
+
+# -- the slot step as a CUDA graph ------------------------------------------
+
+def _leaves(x) -> List[torch.Tensor]:
+    """The tensors of a nest of NamedTuples, tuples, dicts and None, in a
+    fixed order."""
+    if torch.is_tensor(x):
+        return [x]
+    if x is None:
+        return []
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in _leaves(x[k])]
+    return [y for v in x for y in _leaves(v)]
+
+
+def _map(fn, x):
+    """``x`` with ``fn`` applied to each of its tensors."""
+    if torch.is_tensor(x):
+        return fn(x)
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _map(fn, v) for k, v in x.items()}
+    items = [_map(fn, v) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def _copy(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same-shaped nest ``dst`` (on
+    the current stream; a tensor copied onto itself is skipped)."""
+    for d, v in zip(_leaves(dst), _leaves(src), strict=True):
+        if d is not v:
+            d.copy_(v)
+
+
+_GRAPHS: Dict[tuple, "_EpisodeGraph"] = {}
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURES = 0
+
+
+def episode_graph_count() -> int:
+    """CUDA graphs captured for episodes in this process (the counterpart
+    of the JAX package's ``episode_compile_count``): a re-run of a
+    configuration already seen adds zero."""
+    return _CAPTURES
+
+
+class _EpisodeGraph:
+    """The slot step of one (statics, bucket, input shapes) on the card,
+    captured as CUDA graphs that read and write static buffers: the run's
+    inputs (copied in before each run, device to device), its per-slot rows
+    (indexed on the device by a slot counter the graph advances), the
+    carry, the stacked log packs and, for the pipelined body, the staged
+    slot in two halves.  Pipelined graph ``full{p}`` runs stage B (finish
+    the slot staged in half 1-p) on a second stream beside stage A (front
+    the next slot into half p): two independent branches, forked and
+    joined by events.  ``drain{p}`` is stage B alone, for the slot after
+    the last.  The reference body is one graph, ``step``.  Row i of the
+    packs holds slot i's logs (reference) or slot i-1's (pipelined, whose
+    row 0 is the warm-up row and is dropped).  The host replays only the
+    run's T slots and the drain: a padded slot never runs.  A replay goes
+    through no kernel wrapper, so it adds nothing to their launch counts:
+    the kernels a replay runs are counted on the card (CUPTI records)."""
+
+    def __init__(self, s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry):
+        global _CAPTURES
+        dev = xs.trace.device
+        self.s = s
+        self.ctx, self.xs, self.carry = (_map(torch.clone, v)
+                                         for v in (ctx, xs, carry))
+        self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+        rows = xs.trace.shape[0] + 1
+        self.packs = torch.zeros((rows, 2, s.num_cams), device=dev)
+        self.cpacks = torch.zeros((rows, 4), device=dev)
+        self.side = torch.cuda.Stream(dev)
+        self.halves = None
+        # build the kernels, bind their entry points, let cuDNN and cuBLAS
+        # set up, and learn the staged slot's shapes: eagerly, on a side
+        # stream, before anything is captured
+        warm = torch.cuda.Stream(dev)
+        warm.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(warm):
+            if s.pipelined:
+                _, st, _, inv = slot_front(s, self.ctx, self.carry,
+                                           *self._slot_inputs())
+                self.halves = [_map(torch.zeros_like, (st, inv))
+                               for _ in range(2)]
+            bodies = self._bodies()
+            for body in bodies.values():
+                self.counter.zero_()
+                body()
+        torch.cuda.current_stream(dev).wait_stream(warm)
+        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        pool = None
+        for name, body in bodies.items():
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool):
+                body()
+            pool = g.pool()
+            self.graphs[name] = g
+            _CAPTURES += 1
+
+    def _slot_inputs(self):
+        """(t, W_t, live_t) of the slot the counter points at."""
+        i = self.counter.view(1)
+        return tuple(x.index_select(0, i)[0] for x in self.xs)
+
+    def _bodies(self):
+        if not self.s.pipelined:
+            return {"step": self._step}
+        return {f"{kind}{p}": (lambda f=fn, q=p: f(q))
+                for kind, fn in (("full", self._full), ("drain", self._drain))
+                for p in (0, 1)}
+
+    def _finish_into(self, half) -> None:
+        pack = _finish(self.s, self.ctx, *half)
+        self.packs.index_copy_(0, self.counter.view(1), pack[None])
+
+    def _front(self):
+        carry, st, cpack, inv = slot_front(self.s, self.ctx, self.carry,
+                                           *self._slot_inputs())
+        self.cpacks.index_copy_(0, self.counter.view(1), cpack[None])
+        _copy(self.carry, carry)
+        return st, inv
+
+    def _step(self) -> None:
+        self._finish_into(self._front())
+        self.counter.add_(1)
+
+    def _full(self, p: int) -> None:
+        main = torch.cuda.current_stream()
+        self.side.wait_stream(main)
+        with torch.cuda.stream(self.side):
+            self._finish_into(self.halves[1 - p])      # stage B: slot i-1
+        _copy(self.halves[p], self._front())           # stage A: slot i
+        main.wait_stream(self.side)
+        self.counter.add_(1)
+
+    def _drain(self, p: int) -> None:
+        self._finish_into(self.halves[1 - p])
+
+    def run(self, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, _Carry]:
+        """Load the run's inputs and replay the first T slots; the same
+        return as ``_episode_eager``, copied out of the static buffers."""
+        _copy(self.ctx, ctx)
+        _copy(self.xs, xs)
+        _copy(self.carry, carry)
+        self.counter.zero_()
+        if self.s.pipelined:
+            for i in range(T):
+                self.graphs[f"full{i % 2}"].replay()
+            self.graphs[f"drain{T % 2}"].replay()
+            packs = self.packs[1:T + 1]
+        else:
+            for _ in range(T):
+                self.graphs["step"].replay()
+            packs = self.packs[:T]
+        return (packs.clone(), self.cpacks[:T].clone(),
+                _map(torch.clone, self.carry))
+
+
+def _episode_graphed(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry,
+                     T: int) -> Tuple[torch.Tensor, torch.Tensor, _Carry]:
+    """The episode on the card: the graphs of (statics, bucket, input
+    shapes), captured on first use, replayed for the T active slots.  One
+    run at a time uses a graph's static buffers (callers share the current
+    stream)."""
+    key = (s, xs.trace.device) + tuple(
+        (tuple(x.shape), x.dtype) for x in _leaves((ctx, xs, carry)))
+    with _GRAPHS_LOCK:
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            graph = _GRAPHS[key] = _EpisodeGraph(s, ctx, xs, carry)
+        return graph.run(ctx, xs, carry, T)
 
 
 def fleet_episode(method: str, *, codec_cfg: CodecConfig,
@@ -292,70 +666,93 @@ def fleet_episode(method: str, *, codec_cfg: CodecConfig,
                   scene_params: DeviceSceneParams, trace: torch.Tensor,
                   key0: torch.Tensor, skey: torch.Tensor, tau_wl, tau_wh,
                   est0: ElasticState, ecfg: ElasticConfig,
-                  bitrates: Tuple[int, ...], resolutions: Tuple[float, ...],
+                  bitrates: Sequence[int], resolutions: Sequence[float],
                   use_elastic: bool, w_cap: int, num_cams: int,
                   eval_frames: int, block_size: int,
                   conf_thresh: float = 0.4, gt_pad: int = 16,
                   t_start: int = 0,
-                  faults: Optional[np.ndarray] = None) -> EpisodeOut:
+                  buckets: Optional[Sequence[int]] = EPISODE_BUCKETS,
+                  faults: Optional[np.ndarray] = None,
+                  ref0: Optional[torch.Tensor] = None,
+                  live_prev0: Optional[np.ndarray] = None,
+                  t_first: Optional[int] = None, pipelined: bool = True,
+                  _eager: bool = False) -> EpisodeOut:
     """Run a whole bandwidth trace (``trace`` (T,) f32 on the device) and
-    return the stacked logs, still on the device.  ``faults`` is the
-    optional (T, C) bool liveness mask (True = live)."""
+    return the stacked logs and the final carry, still on the device.
+
+    ``pipelined=True`` (the default, the production body) overlaps slot
+    i's front with slot i-1's finish and compacts each slot's live
+    cameras; ``pipelined=False`` is the reference body it equals bitwise.
+    ``faults`` is the optional (T, C) bool liveness mask (True = live).
+    T is padded to ``bucket_len(T, buckets)`` for the per-slot buffers
+    (``buckets=None``: no padding); padded slots never run (see
+    ``bucket_len``), and the logs come back sliced to T.  ``w_cap`` must
+    come from the active trace.
+
+    Streaming carry: ``est0``, ``ref0`` ((C, H, W) reducto reference),
+    ``live_prev0`` ((C,) bool previous liveness row) and ``t_first`` (the
+    stream's first slot, distinct from this window's ``t_start``) seed the
+    episode from the previous window, so a chain of windows is slot for
+    slot one long episode; the defaults are a standalone run's (zeros,
+    all live, ``t_start``).
+
+    On a CUDA device the slot step runs as CUDA graphs (``_EpisodeGraph``)
+    and no slot reads the device from the host; on the CPU it runs
+    eagerly.  ``_eager`` runs the eager loop on the card too, for
+    comparison only."""
     N, H, W = (scene_cfg.frames_per_segment, scene_cfg.height,
                scene_cfg.width)
     dev = trace.device
     T = int(trace.shape[0])
-    if faults is None:
-        live_np = np.ones((T, num_cams), bool)
-    else:
-        live_np = np.asarray(faults, bool)
-        if live_np.shape != (T, num_cams):
+    T_b = bucket_len(T, buckets)
+    live_np = np.ones((T_b, num_cams), bool)
+    if faults is not None:
+        faults = np.asarray(faults, bool)
+        if faults.shape != (T, num_cams):
             raise ValueError(f"faults mask must be (T={T}, C={num_cams}) "
-                             f"bool, got {live_np.shape}")
-        if not live_np.any(axis=1).all():
+                             f"bool, got {faults.shape}")
+        if not faults.any(axis=1).all():
             raise ValueError("faults mask leaves a slot with zero live "
                              "cameras — the control step needs >= 1")
-    live_tr = torch.as_tensor(live_np, device=dev)
-    with_reuse = method == "reducto"
-    est = est0
-    ref = torch.zeros((num_cams, H, W), dtype=torch.float32, device=dev)
-    live_prev = torch.ones((num_cams,), dtype=torch.bool, device=dev)
-    packs, cpacks = [], []
-    for i in range(T):
-        t = t_start + i
-        W_t, live_t = trace[i], live_tr[i]
-        frames, gtb, gtv = synth_mod.segments_device(
-            scene_cfg, scene_params, skey, t, gt_pad=gt_pad)
-        keys = slot_camera_keys(key0, t, scene_params.cam_ids)
-        reconnect = live_t & ~live_prev
-        a = c = None
-        if method in ("deepstream", "deepstream_no_elastic"):
-            roi = roidet_mod.roidet_fleet(frames, light_params,
-                                          block_size=block_size)
-            masks, a, c = roi.mask, roi.area_ratio, roi.confidence
-        else:
-            masks = roidet_mod.full_frame_mask(num_cams, H, W, block_size,
-                                               dev)
-        co = fleet_control_step(
-            mlp_params, jcab_util, jcab_res, lam, a, c, W_t, est, tau_wl,
-            tau_wh, live_t, reconnect.any(), method=method, ecfg=ecfg,
-            bitrates=bitrates, resolutions=resolutions,
-            slot_seconds=codec_cfg.slot_seconds, use_elastic=use_elastic,
-            w_cap=w_cap, num_cams=num_cams)
-        if method == "reducto":
-            first = reconnect | (t == t_start)
-            keep, ref = reducto_keep_step(
-                frames, ref, first, block_size=block_size,
-                edge_thresh=roidet_mod.EDGE_THRESH)
-        else:
-            keep = torch.ones((num_cams, N), dtype=torch.bool, device=dev)
-        packs.append(fleet_slot_step(
-            codec_cfg, server_params, frames, masks, co.b, co.r, keys, keep,
-            gtb, gtv, live_t, eval_frames=eval_frames, block_size=block_size,
-            with_reuse=with_reuse, conf_thresh=conf_thresh).host_pack)
-        cpacks.append(co.pack)
-        est, live_prev = co.est, live_t
-    return EpisodeOut(packs=torch.stack(packs), cpacks=torch.stack(cpacks))
+        live_np[:T] = faults
+    xs = _Xs(
+        t_idx=torch.arange(T_b, dtype=torch.int64, device=dev) + t_start,
+        trace=torch.cat([trace.to(torch.float32),
+                         trace.new_zeros(T_b - T, dtype=torch.float32)]),
+        live=upload(live_np, dev))
+    carry = _Carry(
+        est=est0,
+        ref=(torch.zeros((num_cams, H, W), dtype=torch.float32, device=dev)
+             if ref0 is None else ref0.to(dev, torch.float32)),
+        live_prev=(torch.ones((num_cams,), dtype=torch.bool, device=dev)
+                   if live_prev0 is None else upload(live_prev0, dev, bool)))
+    J = len(bitrates)
+    if jcab_util is None:
+        jcab_util = torch.zeros((num_cams, J), dtype=torch.float32,
+                                device=dev)
+        jcab_res = torch.ones((num_cams, J), dtype=torch.float32, device=dev)
+    ctx = _Ctx(
+        server=server_params, light=light_params, mlp=mlp_params or {},
+        jcab_util=jcab_util, jcab_res=jcab_res, lam=lam, scene=scene_params,
+        key0=key0, skey=skey, tau_wl=tau_wl, tau_wh=tau_wh,
+        tables=codec_mod.device_tables(bitrates, resolutions, dev),
+        t_first=torch.full((), t_start if t_first is None else t_first,
+                           dtype=torch.int64, device=dev))
+    # the generator reads only the shape-like fields of the scene config:
+    # its seed lives in the device params
+    s = _Statics(
+        method=method, scfg=dataclasses.replace(scene_cfg, seed=0),
+        ccfg=codec_cfg, ecfg=ecfg, bitrates=tuple(int(b) for b in bitrates),
+        resolutions=tuple(float(r) for r in resolutions),
+        use_elastic=bool(use_elastic), w_cap=int(w_cap),
+        num_cams=int(num_cams), eval_frames=int(eval_frames),
+        block_size=int(block_size), conf_thresh=float(conf_thresh),
+        gt_pad=int(gt_pad), pipelined=bool(pipelined))
+    run = (_episode_graphed if dev.type == "cuda" and not _eager
+           else _episode_eager)
+    packs, cpacks, carry = run(s, ctx, xs, carry, T)
+    return EpisodeOut(packs=packs, cpacks=cpacks, key=key0, est=carry.est,
+                      ref=carry.ref)
 
 
 def eval_indices(n: int, eval_frames: int) -> np.ndarray:

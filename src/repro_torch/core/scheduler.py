@@ -18,7 +18,11 @@ trace runs in one of three ways (``SystemConfig``):
     loop (host control; on the card each camera's encode goes through the
     tx_codec kernel with C = 1).
   * ``run_episode()`` (or ``run()`` with ``episode=True``): the whole trace
-    in ``fleet.fleet_episode``, its logs fetched once.
+    in ``fleet.fleet_episode`` (pipelined and bucketed by default, the slot
+    step replayed as a CUDA graph on the card), its logs fetched once.
+    Nothing before that one harvest waits on the card: the run's inputs go
+    up through pinned memory, and no slot reads the device.  An
+    ``EpisodeCarry`` resumes a run where the last one stopped.
 
 Every runner draws the same per-(slot, camera) coding keys
 (``fleet.slot_camera_keys``), so their logs agree.  Every device-to-host
@@ -29,7 +33,8 @@ the batched and episode runners as in the JAX package.
 Kernels are chosen by tensor device (the kernel for CUDA tensors, the plain
 version for CPU tensors), so the JAX package's ``use_kernels`` has no
 counterpart; nor do ``shard`` and ``donate`` (a camera mesh and buffer
-donation have no meaning on one card) or ``checked`` (checkify).  Only a
+donation have no meaning on one card).  The ``checked`` diagnostics lane
+(checkify) is not ported.  Only a
 ``DeviceScene`` is accepted.  Profiling (``profile``, which needs the
 utility-MLP trainer) is not ported yet: callers set ``mlp``,
 ``tau_wl``/``tau_wh`` and ``jcab_table`` themselves.
@@ -37,25 +42,27 @@ utility-MLP trainer) is not ported yet: callers set ``mlp``,
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common import prng
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import resolve_device, upload
 from repro_torch.core import allocation as alloc
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import elastic as elastic_mod
 from repro_torch.core import fleet as fleet_mod
 from repro_torch.core import roidet as roidet_mod
 from repro_torch.core.codec import CodecConfig
-from repro_torch.core.elastic import ElasticConfig, HostElasticState
+from repro_torch.core.elastic import (ElasticConfig, ElasticState,
+                                      HostElasticState)
 from repro_torch.data.synthetic import DeviceScene, SceneConfig
 from repro_torch.kernels.edge_motion import ops as em_ops
 from repro_torch.models import detector as det
 
-METHODS = ("deepstream", "jcab", "reducto", "static")
+METHODS = ("deepstream", "deepstream_no_elastic", "jcab", "reducto",
+           "static")
 MOTION_KEEP_THRESH = fleet_mod.MOTION_KEEP_THRESH
 LOG_KEYS = ("utility", "mean_f1", "bytes", "W", "extra", "alloc_kbps",
             "area")
@@ -99,6 +106,13 @@ class SystemConfig:
     pipeline: bool = True                     # deferred-harvest slot loop
     alloc: str = "device"                     # control loop: "device" | "host"
     episode: bool = False                     # run() goes to run_episode()
+    # the episode's pipelined body (slot t's finish beside slot t+1's
+    # front, live cameras compacted); False runs the reference body it
+    # equals bitwise
+    episode_pipelined: bool = True
+    # trace-length buckets of the episode (``fleet.bucket_len``): one CUDA
+    # graph per (method, bucket) serves every T; None disables them
+    episode_buckets: Optional[Tuple[int, ...]] = fleet_mod.EPISODE_BUCKETS
     # optional bandwidth ceiling (Kbps) pinning the DP capacity across runs
     w_cap_kbps: Optional[float] = None
 
@@ -122,6 +136,21 @@ class SystemConfig:
         return np.asarray(self.weights, np.float64)
 
 
+class EpisodeCarry(NamedTuple):
+    """What one run hands to the next so that a chain of runs is slot for
+    slot one run over the concatenated trace (the JAX package's serving
+    carry).  ``est`` and ``ref`` stay on the device (they are not fetched);
+    ``live_prev`` and ``t_first`` are host values.  The codec keys (a pure
+    fold of the run key) and the scene (pure in seed and cursor) need no
+    carry.  ``t_first`` is the stream's first global slot: reducto
+    force-keeps frame 0 only there, so later windows keep the reference
+    the carry hands them."""
+    est: ElasticState            # device elastic EMA / variance / debt
+    ref: torch.Tensor            # (C, H, W) reducto reference frames
+    live_prev: np.ndarray        # (C,) bool last served liveness row
+    t_first: int                 # stream-origin slot index
+
+
 class DeepStreamSystem:
     def __init__(self, cfg: SystemConfig, light_params: Dict[str, Any],
                  server_params: Dict[str, Any], mlp_params=None, *,
@@ -138,10 +167,17 @@ class DeepStreamSystem:
         self.tau_wh: float = float("inf")
         self.jcab_table: Optional[np.ndarray] = None   # (J, R) agnostic F1
         self._key = prng.PRNGKey(1234, device=self.device)
+        # the codec's bitrate, resolution and pool-factor tables on the
+        # device: built once, read by every run's slot steps
+        self._tables = codec_mod.device_tables(cfg.codec.bitrates_kbps,
+                                               cfg.codec.resolutions,
+                                               self.device)
         self._reducto_ref: Optional[torch.Tensor] = None   # batched runs
         self._reducto_ref_host: List[Optional[torch.Tensor]] = []
         self._G = fleet_mod.gt_capacity(
             cfg.scene.max_objects + cfg.scene.num_stationary)
+        # the carry of the last run_episode or device-control run()
+        self.last_carry: Optional[EpisodeCarry] = None
 
     # -- camera side ----------------------------------------------------------
 
@@ -167,7 +203,8 @@ class DeepStreamSystem:
                                      device=frames.device)
         decoded, size = codec_mod.encode_fleet_segment(
             cfg, frames[None], f32(roi_pixels), f32(b), f32(r), key[None],
-            None if num_frames is None else f32(num_frames))
+            None if num_frames is None else f32(num_frames),
+            tables=self._tables)
         return decoded[0], size[0]
 
     def _detect(self, frames: torch.Tensor, idx) -> Tuple[np.ndarray,
@@ -276,11 +313,13 @@ class DeepStreamSystem:
                        gt_dev: Tuple[torch.Tensor, torch.Tensor],
                        masks: Optional[torch.Tensor], b, r, *,
                        keys: torch.Tensor, live: torch.Tensor,
+                       tables: codec_mod.CodecTables,
                        keep: Optional[torch.Tensor] = None
                        ) -> fleet_mod.FleetSlotOut:
         """Dispatch the fleet slot step without waiting for it.  masks
         None = no cropping; b, r (C,) tensors or arrays; keep None = every
-        frame kept and no reuse arm (every method but reducto)."""
+        frame kept and no reuse arm (every method but reducto); ``tables``
+        the run's codec tables on the device."""
         C, N, H, W = frames.shape
         dev = frames.device
         if masks is None:
@@ -294,7 +333,8 @@ class DeepStreamSystem:
             self.cfg.codec, self.server, frames, masks, f32(b), f32(r), keys,
             keep, gt_dev[0], gt_dev[1], live,
             eval_frames=self.cfg.eval_frames,
-            block_size=self.cfg.block_size, with_reuse=with_reuse)
+            block_size=self.cfg.block_size, with_reuse=with_reuse,
+            tables=tables)
 
     def _reducto_keep(self, frames: torch.Tensor, first: torch.Tensor
                       ) -> torch.Tensor:
@@ -328,8 +368,9 @@ class DeepStreamSystem:
 
     def _control_context(self, method: str, trace_kbps: np.ndarray,
                          use_elastic: bool) -> Dict[str, Any]:
-        """Per-run uploads: the trace, lambda, thresholds, the jcab table,
-        a fresh elastic state and the static DP capacity."""
+        """Per-run uploads (none of them waits on the card): the trace,
+        lambda, thresholds, the jcab table, a fresh elastic state and the
+        static DP capacity."""
         cfgc = self.cfg.codec
         dev = self.device
         bitrates = tuple(int(b) for b in cfgc.bitrates_kbps)
@@ -338,7 +379,7 @@ class DeepStreamSystem:
         w_cap = alloc.trace_capacity(
             bitrates, trace_kbps, self.cfg.scene.num_cameras,
             elastic_borrow_kbps=borrow, pin_kbps=self.cfg.w_cap_kbps)
-        f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+        f32 = lambda v: upload(v, dev, np.float32)
         ctx: Dict[str, Any] = dict(
             trace=f32(trace_kbps), lam=f32(self.cfg.lam()),
             tau_wl=f32(self.tau_wl), tau_wh=f32(self.tau_wh), w_cap=w_cap,
@@ -350,12 +391,13 @@ class DeepStreamSystem:
 
     def _slot_control_device(self, method: str, frames: torch.Tensor, t: int,
                              ctx: Dict[str, Any], use_elastic: bool,
-                             live: torch.Tensor, reconnect: torch.Tensor):
+                             live: torch.Tensor, reconnect: torch.Tensor,
+                             tables: codec_mod.CodecTables):
         """One slot's control on the device: ROIDet's (a, c) tensors feed
         the elastic -> utility -> allocation step directly; ``live`` (C,)
-        and ``reconnect`` (0-d) are device tensors.  Returns (b, r, masks,
-        control pack), all tensors; the elastic state threads through
-        ``ctx``."""
+        and ``reconnect`` (0-d) are device tensors, ``tables`` the run's
+        codec tables.  Returns (b, r, masks, control pack), all tensors;
+        the elastic state threads through ``ctx``."""
         a = c = masks = None
         if method in ("deepstream", "deepstream_no_elastic"):
             roi = self.camera_features(frames)
@@ -368,7 +410,8 @@ class DeepStreamSystem:
             ecfg=self.cfg.elastic, bitrates=tuple(cfgc.bitrates_kbps),
             resolutions=tuple(cfgc.resolutions),
             slot_seconds=cfgc.slot_seconds, use_elastic=use_elastic,
-            w_cap=ctx["w_cap"], num_cams=self.cfg.scene.num_cameras)
+            w_cap=ctx["w_cap"], num_cams=self.cfg.scene.num_cameras,
+            tables=tables)
         ctx["est"] = co.est
         return co.b, co.r, masks, co.pack
 
@@ -462,19 +505,29 @@ class DeepStreamSystem:
 
     def _run_batched(self, scene: DeviceScene, trace_kbps: np.ndarray,
                      method: str, use_elastic: bool,
-                     faults: Optional[np.ndarray] = None
+                     faults: Optional[np.ndarray] = None,
+                     carry: Optional[EpisodeCarry] = None
                      ) -> Dict[str, np.ndarray]:
         """The fleet slot loop.  Device control: the host fetches slot t's
         (2, C) and (4,) packs, after slot t+1 is dispatched when
         ``pipeline`` is on.  Host control: one (2, C) harvest per slot plus
-        deepstream's (a, c) fetch."""
+        deepstream's (a, c) fetch.  ``carry`` (device control only) seeds
+        the run as it seeds ``run_episode``, and every device-control run
+        records ``last_carry``."""
         lam = self.cfg.lam()
         C = self.cfg.scene.num_cameras
         dev = self.device
         device_ctrl = self.cfg.alloc == "device"
+        if carry is not None and not device_ctrl:
+            raise ValueError("carry-seeded runs need alloc='device' (the "
+                             "host control path has no device carry)")
         est = HostElasticState()
+        t_begin = scene._t
         ctx = (self._control_context(method, trace_kbps, use_elastic)
                if device_ctrl else None)
+        if carry is not None:
+            ctx["est"] = carry.est
+        tables = self._tables
         cam_ids = torch.arange(C, device=dev)
         logs: Dict[str, List[float]] = {k: [] for k in LOG_KEYS}
 
@@ -490,13 +543,15 @@ class DeepStreamSystem:
                 logs["area"].append(float(cp[1]))
                 logs["alloc_kbps"].append(float(cp[2]))
 
-        self._reducto_ref = None
+        self._reducto_ref = None if carry is None else carry.ref
         # the liveness mask goes up once per run; per slot the fault
         # signals are derived on the device (host control reads the mask)
         live_np = (np.ones((len(trace_kbps), C), bool) if faults is None
                    else faults)
-        live_tr = torch.as_tensor(live_np, device=dev)
-        live_prev = torch.ones((C,), dtype=torch.bool, device=dev)
+        live_np0 = (np.ones(C, bool) if carry is None
+                    else np.asarray(carry.live_prev, bool))
+        live_tr = upload(live_np, dev, bool)
+        live_prev = upload(live_np0, dev, bool)
         pending = None
         for t in range(len(trace_kbps)):
             W_t = float(trace_kbps[t])
@@ -508,7 +563,7 @@ class DeepStreamSystem:
             if device_ctrl:
                 b, r, masks, cpack = self._slot_control_device(
                     method, frames, t, ctx, use_elastic, live=live_t,
-                    reconnect=reconnect.any())
+                    reconnect=reconnect.any(), tables=tables)
             else:
                 rejoin = t > 0 and bool((live_np[t] & ~live_np[t - 1]).any())
                 b, r, masks, extra, area, alloc_kbps, est = \
@@ -521,9 +576,13 @@ class DeepStreamSystem:
                 logs["alloc_kbps"].append(alloc_kbps)
             keep = None
             if method == "reducto":
-                keep = self._reducto_keep(frames, reconnect | (t == 0))
+                # a carried run's reference is live: only reconnecting
+                # cameras re-seed it
+                keep = self._reducto_keep(
+                    frames, reconnect | (t == 0 and carry is None))
             out = self._slot_dispatch(frames, seg["gt_dev"], masks, b, r,
-                                      keys=keys, live=live_t, keep=keep)
+                                      keys=keys, live=live_t, tables=tables,
+                                      keep=keep)
             live_prev = live_t
             logs["W"].append(W_t)
             if pending is not None:
@@ -534,6 +593,17 @@ class DeepStreamSystem:
                 harvest((out, cpack))
         if pending is not None:
             harvest(pending)
+        if device_ctrl:
+            ref = self._reducto_ref
+            if ref is None:     # non-reducto: the reference passes through
+                ref = (carry.ref if carry is not None else torch.zeros(
+                    (C, self.cfg.scene.height, self.cfg.scene.width),
+                    dtype=torch.float32, device=dev))
+            self.last_carry = EpisodeCarry(
+                est=ctx["est"], ref=ref,
+                live_prev=(live_np[-1].copy() if len(trace_kbps)
+                           else live_np0),
+                t_first=carry.t_first if carry is not None else t_begin)
         return {k: np.asarray(v) for k, v in logs.items()}
 
     def _run_sequential(self, scene: DeviceScene, trace_kbps: np.ndarray,
@@ -571,22 +641,50 @@ class DeepStreamSystem:
     def run_episode(self, scene: DeviceScene, trace_kbps: np.ndarray,
                     method: str = "deepstream",
                     use_elastic: Optional[bool] = None,
-                    faults: Optional[np.ndarray] = None
+                    faults: Optional[np.ndarray] = None,
+                    carry: Optional[EpisodeCarry] = None
                     ) -> Dict[str, np.ndarray]:
         """One whole bandwidth trace on the device, then one log fetch.
-        ``faults`` is an optional (T, C) bool liveness mask."""
+        ``faults`` is an optional (T, C) bool liveness mask.  Up to that
+        fetch nothing waits on the card (``_episode_dispatch``).
+
+        ``carry`` (the previous window's ``last_carry``) seeds the elastic
+        state, the reducto reference, the previous liveness row and the
+        stream's first slot, so that a chain of windows over one reused
+        scene is slot for slot one run over the concatenated trace.  Every
+        call records its own final carry on ``last_carry``."""
+        out = self._episode_dispatch(scene, trace_kbps, method, use_elastic,
+                                     faults, carry)
+        return self._episode_logs(out, trace_kbps)
+
+    def _episode_dispatch(self, scene: DeviceScene, trace_kbps: np.ndarray,
+                          method: str, use_elastic: Optional[bool] = None,
+                          faults: Optional[np.ndarray] = None,
+                          carry: Optional[EpisodeCarry] = None,
+                          _eager: bool = False) -> fleet_mod.EpisodeOut:
+        """``run_episode`` up to its harvest: the run's uploads (through
+        pinned memory), ``fleet.fleet_episode``, the scene cursor and
+        ``last_carry``; returns the device logs.  On a warm configuration
+        nothing here waits on the card.  ``_eager`` runs the slot loop
+        eagerly on the card (for comparison with the graph only)."""
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}")
+        if not (self.cfg.batched and self.cfg.alloc == "device"):
+            raise ValueError("episode mode requires batched=True and "
+                             "alloc='device'")
         if use_elastic is None:
             use_elastic = method == "deepstream"
         self._check_scene(scene)
         C = self.cfg.scene.num_cameras
-        lam = self.cfg.lam()
+        t_begin = scene._t
         ctx = self._control_context(method, trace_kbps, use_elastic)
+        if carry is not None:
+            ctx["est"] = carry.est
+        deep = method in ("deepstream", "deepstream_no_elastic")
         out = fleet_mod.fleet_episode(
             method, codec_cfg=self.cfg.codec, scene_cfg=scene.cfg,
             server_params=self.server, light_params=self.light,
-            mlp_params=self.mlp if method == "deepstream" else None,
+            mlp_params=self.mlp if deep else None,
             jcab_util=ctx["jcab_util"], jcab_res=ctx["jcab_res"],
             lam=ctx["lam"], scene_params=scene.params, trace=ctx["trace"],
             key0=self._key, skey=scene.key, tau_wl=ctx["tau_wl"],
@@ -595,9 +693,24 @@ class DeepStreamSystem:
             resolutions=tuple(self.cfg.codec.resolutions),
             use_elastic=use_elastic, w_cap=ctx["w_cap"], num_cams=C,
             eval_frames=self.cfg.eval_frames, block_size=self.cfg.block_size,
-            gt_pad=self._G, t_start=scene._t, faults=faults)
+            gt_pad=self._G, t_start=scene._t,
+            buckets=self.cfg.episode_buckets, faults=faults,
+            ref0=None if carry is None else carry.ref,
+            live_prev0=None if carry is None else carry.live_prev,
+            t_first=None if carry is None else carry.t_first,
+            pipelined=self.cfg.episode_pipelined, _eager=_eager)
         scene._t += len(trace_kbps)
-        # the one harvest of the stacked logs
+        self.last_carry = EpisodeCarry(
+            est=out.est, ref=out.ref,
+            live_prev=(np.asarray(faults[-1], bool) if faults is not None
+                       else np.ones(C, bool)),
+            t_first=carry.t_first if carry is not None else t_begin)
+        return out
+
+    def _episode_logs(self, out: fleet_mod.EpisodeOut,
+                      trace_kbps: np.ndarray) -> Dict[str, np.ndarray]:
+        """The one harvest of an episode's stacked logs."""
+        lam = self.cfg.lam()
         packs = _d2h(out.packs, "harvest")
         cpacks = _d2h(out.cpacks, "harvest")
         return {

@@ -108,11 +108,13 @@ def init_device_scene(cfg: SceneConfig, device) -> DeviceSceneParams:
 
 
 def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
-                    key: torch.Tensor, t: int, *, gt_pad: int
+                    key: torch.Tensor, t, *, gt_pad: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(params, base key, slot t) -> (frames (C, N, H, W), gt_boxes
     (C, N, G, 4), gt_valid (C, N, G)); G = ``gt_pad`` holds the stationary
-    boxes then the object pool, invalid entries zeroed."""
+    boxes then the object pool, invalid entries zeroed.  ``t`` is a Python
+    int or a 0-d integer tensor on the params' device (the episode's slot
+    index): either way nothing goes between host and device."""
     C = params.backgrounds.shape[0]
     N, H, W = cfg.frames_per_segment, cfg.height, cfg.width
     K, S = params.objects.shape[0], params.stat_boxes.shape[1]
@@ -122,7 +124,7 @@ def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
 
     # per-(camera, frame) world time, clamped at 0
     f = torch.arange(N, dtype=torch.int32, device=dev)
-    g = torch.clamp(int(t) * N + f[None, :] - params.lags[:, None], min=0)
+    g = torch.clamp(t * N + f[None, :] - params.lags[:, None], min=0)
     gf = g.to(torch.float32)[None]                                 # (1, C, N)
 
     o = params.objects
@@ -174,7 +176,7 @@ def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
         patch = torch.where(stripe, v * 0.6, patch)
         frames[b_idx, rows, cols] = patch
     frames = frames.reshape(C, N, H, W)
-    kt = prng.fold_in(key, int(t))
+    kt = prng.fold_in(key, t)
     e = prng.normal_erfinv(prng.fold_in(kt, params.cam_ids.to(torch.int64)),
                            (N, H, W))
     scale = float(np.float32(cfg.noise_std) * np.float32(prng.SQRT2))

@@ -87,26 +87,29 @@ def tx_codec(frames, noise, levels, sigma, kcam) -> torch.Tensor:
 def encode_fleet(cfg: codec.CodecConfig, frames: torch.Tensor,
                  roi_pixels: torch.Tensor, bitrate_kbps: torch.Tensor,
                  res: torch.Tensor, keys: torch.Tensor,
-                 num_frames: Optional[torch.Tensor] = None
+                 num_frames: Optional[torch.Tensor] = None, *,
+                 tables: codec.CodecTables
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bitrate-mode fleet encode: frames (C, N, H, W), per-camera scalars
-    (C,), keys (C, 2) -> (decoded (C, N, H, W), size_bytes (C,))."""
+    (C,), keys (C, 2) -> (decoded (C, N, H, W), size_bytes (C,)).
+    ``tables`` are ``cfg``'s device tables (``codec.device_tables``, built
+    once per run)."""
     C, N = frames.shape[:2]
     dev = frames.device
     n_eff = (torch.full((C,), float(N), dtype=torch.float32, device=dev)
              if num_frames is None else num_frames.to(torch.float32))
     levels, sigma, size = codec.rate_terms(cfg, roi_pixels, bitrate_kbps,
                                            res, n_eff)
-    kcam = _pool_factors(cfg, res)
+    kcam = _pool_factors(tables, res)
     noise = prng.normal(keys, frames.shape[1:])
     return tx_codec(frames, noise, levels, sigma, kcam), size
 
 
-def _pool_factors(cfg: codec.CodecConfig, res: torch.Tensor) -> torch.Tensor:
+def _pool_factors(tables: codec.CodecTables, res: torch.Tensor
+                  ) -> torch.Tensor:
     """(C,) int32 pool factor of each camera's nearest resolution."""
-    ktable = torch.tensor([codec.pool_factor(r) for r in cfg.resolutions],
-                          dtype=torch.int32, device=res.device)
-    return ktable[codec.nearest_resolution(cfg.resolutions, res)]
+    return tables.pool_factors[codec.nearest_resolution(tables.resolutions,
+                                                        res)]
 
 
 def encode_fleet_crf(cfg: codec.CodecConfig, frames: torch.Tensor,
@@ -124,7 +127,9 @@ def encode_fleet_crf(cfg: codec.CodecConfig, frames: torch.Tensor,
     r = (torch.ones((C,), dtype=torch.float32, device=dev) if res is None
          else res.to(torch.float32))
     levels, sigma, size = codec.crf_terms(cfg, roi_pixels, r, n_eff)
-    kcam = (_pool_factors(cfg, r) if blur and res is not None
+    kcam = (_pool_factors(codec.device_tables(cfg.bitrates_kbps,
+                                              cfg.resolutions, dev), r)
+            if blur and res is not None
             else torch.ones((C,), dtype=torch.int32, device=dev))
     noise = prng.normal(keys, frames.shape[1:])
     return tx_codec(frames, noise, levels, sigma, kcam), size

@@ -196,7 +196,9 @@ def test_grid_floor_precision_matches_jax():
     *_, feas_t = t_alloc.allocate_dp(torch.from_numpy(util),
                                      torch.from_numpy(best_res), BITRATES,
                                      torch.tensor(W, dtype=torch.float32),
-                                     w_cap=w_cap)
+                                     w_cap=w_cap,
+                                     rates=torch.tensor(BITRATES,
+                                                        dtype=torch.float32))
     *_, feas_j = j_alloc.allocate_dp_jax(jnp.asarray(util),
                                          jnp.asarray(best_res), BITRATES,
                                          jnp.float32(W), w_cap=w_cap)

@@ -30,6 +30,7 @@ from repro_torch.models.detector import load_detector  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 SCENE = ("urban_mid", 33)
 T_SLOTS = 4
+METHODS = harness.METHODS + ("deepstream_no_elastic",)
 
 
 def _port_system(scene_cfg) -> DeepStreamSystem:
@@ -61,17 +62,18 @@ def _run_pair(systems, method, trace, faults=None):
     return want, got
 
 
-@pytest.mark.parametrize("method", harness.METHODS)
+@pytest.mark.parametrize("method", METHODS)
 def test_episode_matches_jax(systems, method):
-    """utility / bytes / alloc_kbps / extra / area equal the JAX episode's
-    to <= 1e-5 (the harness's reference-relative rule)."""
+    """The port's default episode (pipelined, bucketed): utility / bytes /
+    alloc_kbps / extra / area equal the JAX default episode's to <= 1e-5
+    (the harness's reference-relative rule)."""
     trace = make_trace("fcc_medium", T_SLOTS, seed=8, num_cams=3)
     want, got = _run_pair(systems, method, trace)
     harness.assert_logs_match(want, got, ctx=method)
     assert np.all(got["mean_f1"] >= 0) and np.all(got["mean_f1"] <= 1)
 
 
-@pytest.mark.parametrize("method", ["deepstream", "reducto"])
+@pytest.mark.parametrize("method", METHODS)
 def test_episode_camera_churn_matches_jax(systems, method):
     """Cameras leave and rejoin: dead cameras send nothing, rejoining ones
     reset the reducto reference and the elastic debt."""
@@ -81,6 +83,16 @@ def test_episode_camera_churn_matches_jax(systems, method):
     assert not faults.all()
     want, got = _run_pair(systems, method, trace, faults=faults)
     harness.assert_logs_match(want, got, ctx=f"churn {method}")
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_episode_dead_camera_matches_jax(systems, method):
+    """The last camera dead for the whole trace."""
+    T = 5
+    trace = make_trace("fcc_medium", T, seed=5, num_cams=3)
+    faults = make_faults("dead_camera", T, 3, seed=0)
+    want, got = _run_pair(systems, method, trace, faults=faults)
+    harness.assert_logs_match(want, got, ctx=f"dead camera {method}")
 
 
 def test_port_imports_no_jax():

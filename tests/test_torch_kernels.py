@@ -259,9 +259,12 @@ def test_tx_codec_plain_matches_jax(res, hw):
     kj = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(5), i))(
         jnp.arange(C))
     kt = prng.fold_in(prng.PRNGKey(5), torch.arange(C))
-    dt, st = t_tx.encode_fleet(t_codec.CodecConfig(), torch.from_numpy(fr),
+    cfg = t_codec.CodecConfig()
+    dt, st = t_tx.encode_fleet(cfg, torch.from_numpy(fr),
                                *map(torch.from_numpy, (roi, b, r)), kt,
-                               torch.from_numpy(n))
+                               torch.from_numpy(n),
+                               tables=t_codec.device_tables(
+                                   cfg.bitrates_kbps, cfg.resolutions, "cpu"))
     for use_kernel in (True, False):
         dj, sj = j_tx.encode_fleet(j_codec.CodecConfig(), jnp.asarray(fr),
                                    *map(jnp.asarray, (roi, b, r)), kj,

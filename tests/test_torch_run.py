@@ -77,7 +77,8 @@ def _trace(T, family="fcc_medium", seed=8):
     return make_trace(family, T, seed=seed, num_cams=3)
 
 
-@pytest.mark.parametrize("method", harness.METHODS)
+@pytest.mark.parametrize("method", harness.METHODS
+                         + ("deepstream_no_elastic",))
 def test_pipelined_run_matches_jax(systems, method):
     """Logs within the harness's 1e-5 of the JAX pipelined run.  Device
     control fetches nothing but the harvest: per slot the (2, C) log pack

@@ -304,7 +304,8 @@ def test_control_step_matches(method):
             torch.from_numpy(lam), torch.from_numpy(a), torch.from_numpy(c),
             torch.tensor(W32), est_t, torch.tensor(tau[0]),
             torch.tensor(tau[1]), torch.from_numpy(live), torch.tensor(rec),
-            method=method, **statics)
+            method=method, tables=t_codec.device_tables(br, rs, "cpu"),
+            **statics)
         np.testing.assert_array_equal(np.asarray(oj.b), ot.b.numpy())
         np.testing.assert_array_equal(np.asarray(oj.r), ot.r.numpy())
         np.testing.assert_allclose(ot.pack.numpy(), np.asarray(oj.pack),
