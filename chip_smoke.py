@@ -27,7 +27,32 @@ JAX.  In order it prints:
      without the fresh token; cc_label bitwise (labels, and the boxes
      built on them) on the scenes' motion masks at C = 5 and 16, empty
      and full masks, serpentines at 12 x 20 and 68 x 120 and random masks
-     at 68 x 120;
+     at 68 x 120; tx_codec bitwise at the profiling sweep's shape
+     (30, 10, 96, 160): a profiled slot's 5 cameras x 3 resolutions x
+     masked/full, at each of the 6 bitrates;
+  3b. the offline profile at full width (``SystemConfig(eval_frames=5)``,
+     C = 5, 96 x 160, 10 frames, 6 bitrates, 3 resolutions) on
+     ``MultiCameraScene(SceneConfig(seed=42))``, 8 slots and 700 fit
+     steps: its artifacts (mlp_mse, thresholds, samples, the jcab table),
+     the sweep's ms per slot (and one slot's parts timed alone) and the
+     fit's ms per step, launches B1 8,
+     cc_label 8, B2 48, B3 0, and exactly 1 host sync in ``utility.fit``
+     (the final loss, ``set_sync_debug_mode("warn")``); then 2 slots and
+     120 steps on the card and on the CPU: features, targets (the masked
+     F1 table) and the jcab table to <= 1e-5, thresholds equal, fitted
+     parameters to <= 1e-5.  Every later phase runs on these artifacts
+     (the thresholds scaled to C cameras);
+  3c. ``fleet_control_scan`` over 16 slots of deepstream control: equal
+     to 16 ``fleet_control_step`` calls bitwise, no host sync, knapsack_dp
+     launched 16 times;
+  3d. Fig. 3: the pipelined ``run()`` of deepstream, its no-elastic
+     ablation, jcab, reducto and static on
+     ``MultiCameraScene(SceneConfig(seed=77))`` over the low, medium and
+     high ``bandwidth_trace(kind, 16, seed=3)``, uniform and with the
+     paper's weights: mean utility per cell and deepstream's gain over the
+     best baseline (not a gate); finite logs, knapsack_dp once per slot
+     where the DP runs, and the medium trace's first 4 slots equal to the
+     CPU ``run()`` on the same artifacts (<= 1e-5);
   4. the whole-trace episode as the JAX package runs it in production
      (pipelined, bucketed), its slot step replayed as CUDA graphs, for
      the four methods and deepstream_no_elastic at C=5 and C=16, T=8
@@ -62,9 +87,11 @@ JAX.  In order it prints:
      its plain version's and its bound (and, for flash_decode,
      scaled_dot_product_attention's as the library yardstick), tagged with the card and power limit:
      edge_motion at the ROIDet, reducto and C = 16 shapes and one block's
-     chain; knapsack_dp's fused solve at I = 5, 16 and 1 with its kernels
+     chain; tx_codec at (5, 10, 96, 160) and at the sweep's (30, 10, 96,
+     160); knapsack_dp's fused solve at I = 5, 16 and 1 with its kernels
      per solve (one), and the sweep alone; cc_label at the C = 5 and 16
-     scene masks and at 68 x 120;
+     scene masks and at 68 x 120; and ``run()`` of deepstream on a host
+     scene beside the same run on a ``DeviceScene`` (in turns);
   9. each replayed episode of phase 4 once more under the profiler: its
      kernels as the card recorded them (CUPTI kernel records counted by
      name; a replay runs the kernels without their wrappers) must be T per
@@ -74,9 +101,11 @@ JAX.  In order it prints:
      (last).
 
 Each path runs with every kernel's launch counter set to 0 just before it
-and read just after.  Any mismatch ends the run with a non-zero exit code;
-no phase's failure is caught.  Without a CUDA device it exits non-zero
-before printing a result.
+and read just after; each kernel record carries its launches on the main
+path (``run()``), in the replayed episodes and in the profile.  Any
+mismatch ends the run with a non-zero exit code; no phase's failure is
+caught.  Without a CUDA device it exits non-zero before printing a
+result.
 """
 from __future__ import annotations
 
@@ -1217,6 +1246,376 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
 
 
 
+# -- offline profiling, Fig. 3 and the control scan (slice 7) -------------
+
+PROFILE_SLOTS, PROFILE_STEPS = 8, 700   # benchmarks/common.py, full setting
+PROFILE_CPU_SLOTS, PROFILE_CPU_STEPS = 2, 120
+FIT_TOL = 1e-5           # fitted parameters, tests/test_torch_profile.py
+FIG3_SLOTS = 16
+FIG3_CPU_SLOTS = 4
+FIG3_METHODS = ("deepstream", "deepstream_no_elastic", "jcab", "reducto",
+                "static")
+PAPER_WEIGHTS = (0.84, 0.38, 1.92, 0.74, 0.45)   # paper section 7.2
+
+
+def sweep_codec_inputs(torch, dev):
+    """B2's operands in one fleet call of the profiling sweep at full
+    width: a slot of ``MultiCameraScene(SceneConfig(seed=42))``, ROIDet's
+    masks on the card, the C*R*2 = 30 entries laid out (camera,
+    resolution, masked/full) as ``_profile_slot_batched`` lays them out
+    (masked entries cropped to their ROI, each entry's resolution picking
+    its blur branch).  Returns (frames (30, 10, 96, 160), noise, per
+    bitrate (levels, sigma), kcam)."""
+    import numpy as np
+    from repro_torch.common import prng
+    from repro_torch.common.device import upload
+    from repro_torch.core import codec, roidet
+    from repro_torch.data.synthetic import MultiCameraScene, SceneConfig
+    from repro_torch.models.detector import load_detector
+    cfg, bs = codec.CodecConfig(), 8
+    seg = MultiCameraScene(SceneConfig(seed=42)).segment()
+    frames = upload(seg["frames"], dev, np.float32)
+    C, N = frames.shape[:2]
+    R = len(cfg.resolutions)
+    B = C * R * 2
+    roi = roidet.roidet_fleet(frames, load_detector("light", dev),
+                              block_size=bs)
+    masks_cr = torch.stack([roi.mask, torch.ones_like(roi.mask)], dim=1)
+    masks_b = masks_cr[:, None].expand(C, R, *masks_cr.shape[1:]).reshape(
+        B, *masks_cr.shape[2:])
+    cropped = roidet.crop_to_mask(frames.repeat_interleave(R * 2, dim=0),
+                                  masks_b, bs).contiguous()
+    roi_px = (masks_b.sum(dim=(1, 2)) * bs * bs).to(torch.float32)
+    tables = codec.device_tables(cfg.bitrates_kbps, cfg.resolutions, dev)
+    r_b = tables.resolutions.repeat(C).repeat_interleave(2)
+    kcam = tables.pool_factors[codec.nearest_resolution(
+        tables.resolutions, r_b)].contiguous()
+    keys = prng.fold_in(prng.PRNGKey(17, device=dev),
+                        torch.arange(B, device=dev))
+    noise = prng.normal(keys, cropped.shape[1:]).contiguous()
+    n_eff = torch.full((B,), float(N), device=dev)
+    terms = [tuple(x.contiguous() for x in codec.rate_terms(
+        cfg, roi_px, torch.full((B,), float(b), device=dev), r_b, n_eff)[:2])
+        for b in cfg.bitrates_kbps]
+    return cropped, noise, terms, kcam
+
+
+def check_tx_codec_sweep(torch, dev) -> tuple:
+    """B2 against its plain version at the sweep's shape, once per bitrate
+    of a profiled slot: bitwise.  Returns (worst |diff|, the operands)."""
+    from repro_torch.core import codec
+    from repro_torch.kernels.tx_codec import ops as tx_ops
+    from repro_torch.kernels.tx_codec import ref as tx_ref
+    frames, noise, terms, kcam = sweep_codec_inputs(torch, dev)
+    worst = 0.0
+    for b, (levels, sigma) in zip(codec.CodecConfig().bitrates_kbps, terms):
+        got = tx_ops.tx_codec_cuda(frames, noise, levels, sigma, kcam)
+        torch.cuda.synchronize()
+        want = tx_ref.tx_codec_ref(frames, noise, levels, sigma, kcam)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        print(f"tx_codec vs plain sweep {tuple(frames.shape)} {b} Kbps "
+              f"(pool factors {kcam.tolist()[:6]} per camera, masked/full "
+              f"crops): max |diff| {err}")
+        if not torch.equal(got, want):
+            raise AssertionError("tx_codec differs from its plain version "
+                                 "at the sweep's shape")
+    return worst, (frames, noise, terms[0][0], terms[0][1], kcam)
+
+
+class FitWatch:
+    """Stands in for ``utility.fit`` while a profile runs: times each call,
+    keeps its features, targets and fitted parameters, and on the card
+    counts the host syncs inside it (``set_sync_debug_mode("warn")``,
+    sites by file:line)."""
+
+    def __init__(self, torch, util_mod):
+        self.torch, self.util_mod, self.real = torch, util_mod, util_mod.fit
+        self.calls = []
+
+    def __enter__(self):
+        self.util_mod.fit = self._fit
+        return self
+
+    def __exit__(self, *exc):
+        self.util_mod.fit = self.real
+
+    def _fit(self, params, features, targets, **kw):
+        import collections
+        import warnings
+        import numpy as np
+        torch = self.torch
+        on_card = params["w1"].device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                out = self.real(params, features, targets, **kw)
+                wall = time.perf_counter() - t0   # the loss fetch waited
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = collections.Counter(
+            f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
+        self.calls.append({
+            "features": np.array(features), "targets": np.array(targets),
+            "params": {k: v.detach().cpu() for k, v in out[0].items()},
+            "loss": out[1], "ms": wall * 1e3, "steps": kw["steps"],
+            "syncs": syncs})
+        return out
+
+
+def profile_phase(torch, dev, light_h, server_h, reset_counts, read_counts,
+                  tag: str):
+    """The offline profile at full width (``SystemConfig(eval_frames=5)``,
+    C = 5, 96 x 160, 10 frames, 6 bitrates, 3 resolutions) on
+    ``MultiCameraScene(SceneConfig(seed=42))`` for 8 slots and 700 fit
+    steps: its artifacts, the sweep's ms per slot, the fit's ms per step,
+    the launches of each kernel (B1 8, cc_label 8, B2 48, B3 0) and the
+    host syncs inside the fit (1, the final loss).  Then 2 slots and 120
+    steps on the card and on the CPU: features, targets and the jcab table
+    to <= 1e-5, thresholds and sample counts equal, fitted parameters to
+    <= FIT_TOL.  Returns (the profiled card system, its B2 sweep launches
+    per kernel)."""
+    import numpy as np
+    from repro_torch.core import utility as util_mod
+    from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
+    from repro_torch.data.synthetic import MultiCameraScene, SceneConfig
+
+    def system(device):
+        return DeepStreamSystem(SystemConfig(eval_frames=5), light_h,
+                                server_h, device=device)
+
+    with FitWatch(torch, util_mod) as watch:
+        s = system(dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = s.profile(MultiCameraScene(SceneConfig(seed=42)),
+                         num_slots=PROFILE_SLOTS, mlp_steps=PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n = read_counts()
+        fit = watch.calls[-1]
+        sweep_ms = (wall - fit["ms"]) / PROFILE_SLOTS
+        print(f"profile C=5 {PROFILE_SLOTS} slots, {PROFILE_STEPS} fit steps: "
+              f"mlp_mse {info['mlp_mse']:.6g}, tau_wl {info['tau_wl']}, "
+              f"tau_wh {info['tau_wh']}, num_samples {info['num_samples']}")
+        print("profile jcab table (J x R, bitrates x resolutions): "
+              + json.dumps(np.round(s.jcab_table.astype(float), 4).tolist()))
+        print(f"profile times: sweep {sweep_ms:.1f} ms/slot (scene, upload, "
+              f"ROIDet, 6 fleet calls of 30 entries, fetches), fit "
+              f"{fit['ms'] / PROFILE_STEPS:.3f} ms/step ({fit['ms']:.0f} ms "
+              f"for {PROFILE_STEPS}), whole profile {wall:.0f} ms {tag}")
+        print("profile launches: " + " ".join(f"{k} {v}" for k, v in n.items())
+              + f"; host syncs in fit {sum(fit['syncs'].values())} "
+              f"{dict(fit['syncs'])}")
+        want = {"edge_motion": PROFILE_SLOTS, "cc_label": PROFILE_SLOTS,
+                "tx_codec": 6 * PROFILE_SLOTS, "knapsack_dp": 0,
+                "flash_decode": 0}
+        if n != want:
+            raise AssertionError(f"profile launched {n}, not {want}")
+        if sum(fit["syncs"].values()) != 1:
+            raise AssertionError(f"fit waited on the card "
+                                 f"{dict(fit['syncs'])} times, not once")
+        if info["num_samples"] != PROFILE_SLOTS * 5 * 6 * 3:
+            raise AssertionError("profile sample count")
+        sweep_breakdown(torch, s, tag)
+        arts = []
+        for device in (dev, "cpu"):
+            p = system(device)
+            p.profile(MultiCameraScene(SceneConfig(seed=42)),
+                      num_slots=PROFILE_CPU_SLOTS,
+                      mlp_steps=PROFILE_CPU_STEPS)
+            arts.append((p, watch.calls[-1]))
+    (card, fc), (cpu, fh) = arts
+    d = {"features": float(np.abs(fc["features"] - fh["features"]).max()),
+         "targets": float(np.abs(fc["targets"] - fh["targets"]).max()),
+         "jcab_table": float(np.abs(card.jcab_table - cpu.jcab_table).max()),
+         "params": max(float((fc["params"][k] - fh["params"][k]).abs().max())
+                       for k in fc["params"])}
+    print(f"profile card vs CPU ({PROFILE_CPU_SLOTS} slots, "
+          f"{PROFILE_CPU_STEPS} steps): max |diff| "
+          + " ".join(f"{k} {v:.3g}" for k, v in d.items())
+          + f"; tau card ({card.tau_wl}, {card.tau_wh}) CPU ({cpu.tau_wl}, "
+          f"{cpu.tau_wh}); samples {len(fc['targets'])} / "
+          f"{len(fh['targets'])}")
+    if not (d["features"] <= 1e-5 and d["targets"] <= 1e-5
+            and d["jcab_table"] <= 1e-5 and d["params"] <= FIT_TOL):
+        raise AssertionError("the card's profile differs from the CPU's")
+    if (card.tau_wl, card.tau_wh) != (cpu.tau_wl, cpu.tau_wh) or \
+            fc["features"].shape != fh["features"].shape:
+        raise AssertionError("the card's thresholds or samples differ")
+    return s, n
+
+
+def sweep_breakdown(torch, s, tag: str) -> None:
+    """Where a sweep slot's time goes: its parts run alone once each on a
+    fresh segment (host clock for the numpy scene, CUDA events around the
+    rest, each ending in a fetch).  The system's key is restored
+    afterwards."""
+    from repro_torch.data.synthetic import MultiCameraScene, SceneConfig
+    cfgc = s.cfg.codec
+    n_keys = (s.cfg.scene.num_cameras * len(cfgc.bitrates_kbps)
+              * len(cfgc.resolutions) * 2)
+    key = s._key.clone()
+    t0 = time.perf_counter()
+    seg = MultiCameraScene(SceneConfig(seed=42)).segment()
+    scene_ms = (time.perf_counter() - t0) * 1e3
+    got = {}
+
+    def roidet():
+        got["frames"] = s._frames_of(seg)
+        got["roi"] = s.camera_features(got["frames"])
+        got["roi"].area_ratio.cpu()
+
+    def chain():
+        s._keys(n_keys).cpu()
+
+    def sweep():    # the key chain, then one fleet call per bitrate
+        s._profile_slot_batched(seg, got["frames"], got["roi"])
+
+    roidet_ms, chain_ms, sweep_ms = (event_ms(torch, f)
+                                     for f in (roidet, chain, sweep))
+    s._key = key
+    fleet_ms = (sweep_ms - chain_ms) / len(cfgc.bitrates_kbps)
+    print(f"profile slot breakdown: numpy scene {scene_ms:.1f} ms, upload + "
+          f"ROIDet + fetch {roidet_ms:.1f} ms, key chain ({n_keys} splits) "
+          f"{chain_ms:.1f} ms, one fleet call of 30 entries with its fetch "
+          f"{fleet_ms:.1f} ms (x {len(cfgc.bitrates_kbps)}) {tag}")
+
+
+def artifacts_of(system) -> dict:
+    """A profiled system's control artifacts, on the host."""
+    return {"mlp": {k: v.detach().cpu() for k, v in system.mlp.items()},
+            "tau": (system.tau_wl, system.tau_wh),
+            "jcab_table": system.jcab_table.copy()}
+
+
+def give_artifacts(system, arts: dict, num_cams: int = 5):
+    """Hand profiled artifacts to ``system`` (the MLP on its device, the
+    thresholds scaled from the 5 profiled cameras to ``num_cams``)."""
+    system.mlp = {k: v.to(system.device) for k, v in arts["mlp"].items()}
+    system.tau_wl, system.tau_wh = (t * num_cams / 5 for t in arts["tau"])
+    system.jcab_table = arts["jcab_table"].copy()
+    return system
+
+
+def fig3_phase(torch, s, cpu_sys, reset_counts, read_counts, tag: str):
+    """Fig. 3 on the card: the pipelined ``run()`` of the five methods on
+    ``MultiCameraScene(SceneConfig(seed=77))`` over
+    ``bandwidth_trace(kind, 16, seed=3)`` for each kind, with uniform and
+    with the paper's weights, from the full profile's artifacts.  Gates:
+    finite logs; B3 once per slot for the methods that solve the DP; the
+    medium trace's first 4 slots equal the CPU ``run()`` holding the same
+    artifacts (<= 1e-5).  Prints mean utility per cell and deepstream's
+    gain over the best baseline (not a gate).  Returns the table."""
+    import numpy as np
+    from repro_torch.data.synthetic import (MultiCameraScene, SceneConfig,
+                                            bandwidth_trace)
+    table = {}
+    for wname, weights in (("uniform", None), ("paper", PAPER_WEIGHTS)):
+        for system in (s, cpu_sys):
+            system.cfg.weights = (None if weights is None
+                                  else np.asarray(weights))
+        for kind in ("low", "medium", "high"):
+            trace = bandwidth_trace(kind, FIG3_SLOTS, seed=3)
+            row = {}
+            for method in FIG3_METHODS:
+                reset_counts()
+                logs = s.run(MultiCameraScene(SceneConfig(seed=77)), trace,
+                             method)
+                n = read_counts()
+                check_logs(logs, f"fig3 {wname} {kind} {method}")
+                dp = FIG3_SLOTS if method in ("deepstream",
+                                              "deepstream_no_elastic",
+                                              "jcab") else 0
+                if n["knapsack_dp"] != dp:
+                    raise AssertionError(f"fig3 {method}: knapsack_dp "
+                                         f"launched {n['knapsack_dp']} times,"
+                                         f" not {dp}")
+                row[method] = float(np.mean(logs["utility"]))
+                if kind == "medium":
+                    cpu_logs = cpu_sys.run(
+                        MultiCameraScene(SceneConfig(seed=77)),
+                        trace[:FIG3_CPU_SLOTS], method)
+                    diffs = max_log_diff(
+                        cpu_logs, {k: v[:FIG3_CPU_SLOTS]
+                                   for k, v in logs.items()}, LOG_KEYS, 1e-5)
+                    print(f"fig3 {wname} medium {method}: card vs CPU run() "
+                          f"first {FIG3_CPU_SLOTS} slots max diff "
+                          + " ".join(f"{k}={v:.3g}"
+                                     for k, v in diffs.items()))
+            best = max(row["jcab"], row["reducto"], row["static"])
+            gain = row["deepstream"] / best - 1
+            table[f"{wname}/{kind}"] = dict(row, gain=gain)
+            print(f"fig3 {wname:7s} {kind:6s}: "
+                  + " ".join(f"{m}={row[m]:.4f}" for m in FIG3_METHODS)
+                  + f" | deepstream vs best baseline {100 * gain:+.2f}% {tag}")
+    for system in (s, cpu_sys):
+        system.cfg.weights = None
+    return table
+
+
+def control_scan_phase(torch, dev, s, reset_counts, read_counts) -> None:
+    """``fleet_control_scan`` over 16 slots of deepstream control on the
+    card (seeded features, the medium trace, the profiled artifacts):
+    equal to 16 ``fleet_control_step`` calls bitwise, no host sync
+    (``set_sync_debug_mode("error")``), knapsack_dp launched 16 times."""
+    import numpy as np
+    from repro_torch.common.device import upload
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.data.synthetic import bandwidth_trace
+    T, C = FIG3_SLOTS, s.cfg.scene.num_cameras
+    r = np.random.default_rng(12)
+    a = upload(r.uniform(0.0, 0.6, (T, C)), dev, np.float32)
+    c = upload(r.uniform(0.2, 1.0, (T, C)), dev, np.float32)
+    trace = bandwidth_trace("medium", T, seed=3)
+    ctx = s._control_context("deepstream", trace, True)
+    cfgc = s.cfg.codec
+    statics = dict(method="deepstream", ecfg=s.cfg.elastic,
+                   bitrates=tuple(cfgc.bitrates_kbps),
+                   resolutions=tuple(cfgc.resolutions),
+                   slot_seconds=cfgc.slot_seconds, use_elastic=True,
+                   w_cap=ctx["w_cap"], num_cams=C, tables=s._tables)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b, rr, packs, est = fleet_mod.fleet_control_scan(
+            s.mlp, None, None, ctx["lam"], a, c, ctx["trace"], ctx["est"],
+            ctx["tau_wl"], ctx["tau_wh"], **statics)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = read_counts()
+    if n["knapsack_dp"] != T:
+        raise AssertionError(f"fleet_control_scan launched knapsack_dp "
+                             f"{n['knapsack_dp']} times, not {T}")
+    est_s = ctx["est"]
+    live = torch.ones((C,), dtype=torch.bool, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    for t in range(T):
+        co = fleet_mod.fleet_control_step(
+            s.mlp, None, None, ctx["lam"], a[t], c[t], ctx["trace"][t],
+            est_s, ctx["tau_wl"], ctx["tau_wh"], live, no, **statics)
+        est_s = co.est
+        if not (torch.equal(co.b, b[t]) and torch.equal(co.r, rr[t])
+                and torch.equal(co.pack, packs[t])):
+            raise AssertionError(f"fleet_control_scan differs from the step "
+                                 f"loop at slot {t}")
+    if not all(torch.equal(x, y) for x, y in zip(est, est_s)):
+        raise AssertionError("fleet_control_scan's final state differs")
+    borrowed = float(packs[:, 0].clamp(min=0).sum())
+    print(f"fleet_control_scan deepstream C={C} T={T}: equal to {T} "
+          f"fleet_control_step calls bitwise (b, r, packs, state); no host "
+          f"sync under set_sync_debug_mode('error'); knapsack_dp "
+          f"{n['knapsack_dp']} launches; {borrowed:.1f} Kbps borrowed in all")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1237,10 +1636,10 @@ def main(argv=None) -> int:
     from repro_torch.core import fleet as fleet_mod
     from repro_torch.core import roidet
     from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
-    from repro_torch.core.utility import init_utility_mlp
     from repro_torch.data.scenarios import make_faults
-    from repro_torch.data.synthetic import (DeviceScene, SceneConfig,
-                                            bandwidth_trace, segments_device)
+    from repro_torch.data.synthetic import (DeviceScene, MultiCameraScene,
+                                            SceneConfig, bandwidth_trace,
+                                            segments_device)
     from repro_torch.kernels import build
     from repro_torch.kernels.cc_label import ops as cc_ops
     from repro_torch.kernels.edge_motion import ops as em_ops
@@ -1404,20 +1803,37 @@ def main(argv=None) -> int:
     worst["flash_decode"] = max(check_flash_decode(torch, dev).values())
     cc_parity = cc_cases(torch, dev, scene_masks)
     worst["cc_label"] = check_cc_label(torch, dev, cc_parity)
+    sweep_err, sweep_ops = check_tx_codec_sweep(torch, dev)
+    worst["tx_codec"] = max(worst["tx_codec"], sweep_err)
+
+    # -- 3b-3d. the offline profile at full width, whose artifacts every
+    # later phase runs on; the control scan; Fig. 3 ----------------------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 3b: profile")
+    t_new = time.perf_counter()
+    light_h, server_h = load_detector("light", "cpu"), load_detector(
+        "server", "cpu")
+    prof_sys, prof_launches = profile_phase(torch, dev, light_h, server_h,
+                                            reset_counts, read_counts, tag)
+    arts = artifacts_of(prof_sys)
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 3c: "
+          "fleet_control_scan")
+    control_scan_phase(torch, dev, prof_sys, reset_counts, read_counts)
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 3d: Fig. 3")
+    fig3_cpu = give_artifacts(DeepStreamSystem(
+        SystemConfig(eval_frames=5), light_h, server_h, device="cpu"), arts)
+    fig3_cpu._key = prof_sys._key.cpu()
+    fig3_phase(torch, prof_sys, fig3_cpu, reset_counts, read_counts, tag)
+    print(f"phases 3b-3d (profile, control scan, Fig. 3): "
+          f"{time.perf_counter() - t_new:.1f} s")
 
     # -- 4. the episode, graph-replayed: card vs eager, vs CPU -----------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 4: episode")
-    light_h, server_h = load_detector("light", "cpu"), load_detector(
-        "server", "cpu")
 
     def make_system(C: int, device, **kw) -> DeepStreamSystem:
-        s = DeepStreamSystem(SystemConfig(scene=SceneConfig(
-            seed=7, num_cameras=C), **kw), light_h, server_h, device=device)
-        s.mlp = init_utility_mlp(prng.PRNGKey(0, device=s.device))
-        s.tau_wl, s.tau_wh = 10.0, 50.0
-        s.jcab_table = np.linspace(0.2, 0.8, 18).reshape(6, 3).astype(
-            np.float32)
-        return s
+        """A system on scene seed 7 holding the profiled artifacts."""
+        return give_artifacts(DeepStreamSystem(SystemConfig(scene=SceneConfig(
+            seed=7, num_cameras=C), **kw), light_h, server_h, device=device),
+            arts, C)
 
     def needs(method: str) -> tuple:
         """The kernels a method's main path launches."""
@@ -1674,6 +2090,23 @@ def main(argv=None) -> int:
                   f"{med['episode eager'] / med['episode graph']:.2f}, "
                   "graph reference body / graph pipelined = "
                   f"{ref_pipe:.3f}")
+    # run() on a host scene (segments rendered by numpy, frames and GT
+    # uploaded per slot) beside the same run on a DeviceScene, in turns
+    scene_kinds = {"host scene": lambda: MultiCameraScene(gpu_sys.cfg.scene),
+                   "DeviceScene": lambda: scene_of(gpu_sys)}
+    ms = {k: [] for k in scene_kinds}
+    for rnd in range(TIMED_ROUNDS + 1):
+        for k in (list(scene_kinds) if rnd % 2 == 0
+                  else list(scene_kinds)[::-1]):
+            scene = scene_kinds[k]()
+            t_ms = event_ms(torch, lambda: gpu_sys.run(
+                scene, trace, "deepstream")) / T_SLOTS
+            if rnd > 0:
+                ms[k].append(t_ms)
+    for k, v in ms.items():
+        print(f"ms/slot run deepstream C=5 T={T_SLOTS} {k}: median "
+              f"{statistics.median(v):.3f} (min {min(v):.3f}, max "
+              f"{max(v):.3f}, {TIMED_ROUNDS} runs) {tag}")
 
     scene = DeviceScene(SceneConfig(seed=7, num_cameras=5), device=dev)
     frames = segments_device(scene.cfg, scene.params, scene.key, 3,
@@ -1715,6 +2148,26 @@ def main(argv=None) -> int:
         "max_abs_err": worst["tx_codec"], "ms": ms, "plain_ms": plain_ms,
         "stream_ms": stream_ms, "plain_stream_ms": plain_stream_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # B2 at the profiling sweep's shape (30 entries: 5 cameras x 3
+    # resolutions x masked/full), the operands of a profiled slot
+    sw_frames, sw_noise, sw_levels, sw_sigma, sw_kcam = sweep_ops
+    ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
+        torch, lambda: tx_ops.tx_codec_cuda(sw_frames, sw_noise, sw_levels,
+                                            sw_sigma, sw_kcam),
+        lambda: tx_ref.tx_codec_ref(sw_frames, sw_noise, sw_levels, sw_sigma,
+                                    sw_kcam), "tx_codec_kernel")
+    sw_px = sw_frames.numel()
+    bound_ms, bound_by = bound(4 * 3 * sw_px, sw_px * 8)
+    print(f"kernel tx_codec sweep {tuple(sw_frames.shape)}: {ms * 1e3:.2f} us "
+          f"on the card ({stream_ms * 1e3:.2f} us per call back to back), "
+          f"plain {plain_ms * 1e3:.2f} us ({plain_stream_ms * 1e3:.2f} us), "
+          f"bound {bound_ms * 1e3:.4f} us ({bound_by}; "
+          f"{100 * bound_ms / ms:.1f}% of it); {prof_launches['tx_codec']} "
+          f"launches in the {PROFILE_SLOTS}-slot profile {tag}")
+    records[1]["at_shape"] = {str(tuple(sw_frames.shape)): {
+        "ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms,
+        "plain_stream_ms": plain_stream_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "launches_profile": prof_launches["tx_codec"]}}
     print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
           "knapsack_dp")
     records.append(knapsack_record(
@@ -1756,6 +2209,7 @@ def main(argv=None) -> int:
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
+        rec["launches_profile"] = prof_launches[rec["name"]]
 
     if args.profile:
         from torch.autograd import DeviceType

@@ -3,9 +3,9 @@ its sub-configs, copied so the port imports nothing of ``repro``).
 
 One ``ModelConfig`` describes every architecture family (dense / moe /
 ssm / hybrid / vlm / audio enc-dec); ``repro_torch/configs/`` instantiates
-it with the published hyper-parameters.  The training, dry-run and
-hardware configs of the JAX module are not copied: nothing in the port
-uses them yet.
+it with the published hyper-parameters.  ``OptimizerConfig`` is copied as
+data for ``train/optimizer.py``.  The run, dry-run and hardware configs of
+the JAX module are not copied: nothing in the port uses them yet.
 """
 from __future__ import annotations
 
@@ -168,3 +168,18 @@ class ModelConfig:
         per_layer = attn + m.top_k * expert + shared + d * m.num_experts + 2 * d
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.num_layers * per_layer + emb
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"   # bf16 for the giant archs
+    compress_grads: bool = False    # int8 error-feedback DP all-reduce

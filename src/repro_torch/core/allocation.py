@@ -3,13 +3,14 @@
 The counterparts of ``repro.core.allocation``'s allocators, in two forms:
 
   * device (``allocate_dp`` = ``allocate_dp_jax``, ``allocate_fair`` =
-    ``allocate_fair_jax``): tensors in and out, the knapsack DP at one
-    static capacity with the capacity and liveness as tensors, so the
-    control step never waits on the host;
+    ``allocate_fair_jax``, ``allocate_greedy`` = ``allocate_greedy_jax``):
+    tensors in and out, the knapsack DP at one static capacity with the
+    capacity and liveness as tensors, so the control step never waits on
+    the host;
   * host (``allocate_dp_host`` = ``allocate_dp``, ``allocate_fair_host`` =
-    ``allocate_fair``): numpy in, ``Allocation`` out, the capacity a Python
-    float.  The DP sweeps on a device (``dp_ops.solve``) and backtracks in
-    numpy.
+    ``allocate_fair``, ``allocate_greedy_host`` = ``allocate_greedy``):
+    numpy in, ``Allocation`` out, the capacity a Python float.  The DP
+    sweeps on a device (``dp_ops.solve``) and backtracks in numpy.
 
 Dead cameras are forced onto the cheapest option at zero utility and the
 capacity grows by what those forced picks cost, so live cameras solve the
@@ -135,6 +136,84 @@ def allocate_fair_host(bitrates: Sequence[int], W_kbps: float,
     b = feas.max() if feasible else bitr.min()
     return Allocation(np.where(live, b, 0.0), np.ones(num_cams), 0.0,
                       feasible=feasible)
+
+
+def allocate_greedy_host(util: np.ndarray, best_res: np.ndarray,
+                         bitrates: Sequence[int], W_kbps: float,
+                         live: Optional[np.ndarray] = None) -> Allocation:
+    """Greedy upgrades by marginal utility per Kbps (the continuous
+    heuristic), in float64.  Zero-gain upgrades are taken (positive gains
+    still win): on a utility plateau, refusing the free step would strand
+    budget below later positive-gain upgrades."""
+    bitr = np.asarray(bitrates, np.float64)
+    I, J = util.shape
+    live = np.ones(I, bool) if live is None else np.asarray(live, bool)
+    iidx = np.arange(I)
+    if W_kbps <= 0:
+        return Allocation(np.zeros(I), np.ones(I), 0.0, feasible=False)
+    picks = np.zeros(I, np.int64)
+    budget = W_kbps - bitr[0] * int(live.sum())
+    if budget < 0:
+        return Allocation(np.where(live, bitr[0], 0.0),
+                          np.where(live, best_res[:, 0], 1.0),
+                          float(util[live, 0].sum()), feasible=False)
+    while True:
+        best_gain, best_i = -1.0, -1
+        for i in range(I):
+            j = picks[i]
+            if live[i] and j + 1 < J:
+                dc = bitr[j + 1] - bitr[j]
+                gain = (util[i, j + 1] - util[i, j]) / max(dc, 1e-9)
+                if dc <= budget and gain >= 0.0 and gain > best_gain:
+                    best_gain, best_i = gain, i
+        if best_i < 0:
+            break
+        j = picks[best_i]
+        budget -= bitr[j + 1] - bitr[j]
+        picks[best_i] = j + 1
+    return Allocation(np.where(live, bitr[picks], 0.0),
+                      np.where(live, best_res[iidx, picks], 1.0),
+                      float(util[iidx, picks][live].sum()), feasible=True)
+
+
+def allocate_greedy(util: torch.Tensor, best_res: torch.Tensor,
+                    bitrates: Sequence[int], W_kbps: torch.Tensor,
+                    live: Optional[torch.Tensor] = None):
+    """Device greedy (the JAX package's fallback when the DP kernel is
+    off): util/best_res (I, J), W_kbps 0-d -> (picks, b, res, total,
+    feasible).  The JAX ``while_loop`` becomes a fixed I * (J - 1) rounds,
+    the most upgrades there can be; a round takes the best upgrade (first
+    camera on ties) only while every round before it found one, so the
+    picks are the loop's and nothing is read back."""
+    dev = util.device
+    bitr = torch.as_tensor(bitrates, dtype=torch.float32, device=dev)
+    I, J = util.shape
+    iidx = torch.arange(I, device=dev)
+    live = (torch.ones((I,), dtype=torch.bool, device=dev) if live is None
+            else live)
+    W = W_kbps.to(torch.float32)
+    open_ = W > 0.0
+    budget = W - bitr[0] * live.to(torch.float32).sum()
+    feasible = (budget >= 0) & open_
+    picks = torch.zeros((I,), dtype=torch.int64, device=dev)
+    active = feasible
+    for _ in range(I * (J - 1)):
+        can = (picks + 1 < J) & live
+        jn = torch.where(can, picks + 1, picks)
+        dc = bitr[jn] - bitr[picks]
+        gain = (util[iidx, jn] - util[iidx, picks]) / torch.clamp(dc,
+                                                                  min=1e-9)
+        ok = can & (dc <= budget) & (gain >= 0.0)
+        best_i = torch.argmax(torch.where(ok, gain, -math.inf))
+        active = active & ok.any()
+        picks = picks.index_add(0, best_i[None], active.to(torch.int64)[None])
+        budget = budget - torch.where(active, dc[best_i], 0.0)
+    tx = live & open_
+    b = torch.where(tx, bitr[picks], 0.0)
+    res = torch.where(tx, best_res[iidx, picks], 1.0)
+    total = (torch.where(live, util[iidx, picks], 0.0).sum()
+             * open_.to(util.dtype))
+    return picks, b, res, total, feasible
 
 
 def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,

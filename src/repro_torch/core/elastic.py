@@ -6,9 +6,13 @@ time borrowing when the area is high and the link low (bounded by
 update.  Two forms, as in ``repro.core.elastic``:
 
   * ``update`` (= ``update_jax``): the state is four 0-d float32 tensors,
-    so the device control step never syncs with the host;
+    so the device control step never syncs with the host; ``update_scan``
+    runs it over a whole trace;
   * ``update_host`` (= ``update``): Python floats (float64) threaded as a
     ``HostElasticState``, for the host control path.
+
+``offline_thresholds`` derives (tau_wl, tau_wh) from the profiled
+accuracy table (numpy, copied from the JAX package).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common import prng
@@ -38,6 +43,26 @@ class HostElasticState:
     a_var: float = 0.0
     debt_kbits: float = 0.0      # outstanding borrowed data
     initialized: bool = False
+
+
+def offline_thresholds(cfg: ElasticConfig, acc_table: np.ndarray,
+                       bitrates: np.ndarray) -> Tuple[float, float]:
+    """acc_table (segments, I, J) profiled accuracy per camera and bitrate
+    -> (tau_wl, tau_wh) in Kbps (paper section 5.3.1b): the std over
+    segments of each bitrate's accuracy gap to the highest bitrate,
+    averaged over cameras; tau_wl is I times the highest bitrate whose std
+    exceeds ``sigma_high`` (else the lowest), tau_wh I times the lowest
+    whose std is under ``sigma_low`` (else the highest)."""
+    n_seg, I, J = acc_table.shape
+    deltas = acc_table - acc_table[:, :, -1:]
+    stds = deltas.std(axis=0).mean(axis=0)      # (J,)
+    need_more = [j for j in range(J) if stds[j] > cfg.sigma_high]
+    can_give = [j for j in range(J) if stds[j] < cfg.sigma_low]
+    tau_wl = (float(bitrates[max(need_more)] * I) if need_more
+              else float(bitrates[0] * I))
+    tau_wh = (float(bitrates[min(can_give)] * I) if can_give
+              else float(bitrates[-1] * I))
+    return tau_wl, tau_wh
 
 
 def update_host(cfg: ElasticConfig, state: HostElasticState,
@@ -118,3 +143,18 @@ def update(cfg: ElasticConfig, state: ElasticState, total_area: torch.Tensor,
         initialized=torch.ones_like(init))
     extra = torch.where(init, borrowed, 0.0) - torch.where(init, repaid, 0.0)
     return new_state, extra
+
+
+def update_scan(cfg: ElasticConfig, state: ElasticState, areas: torch.Tensor,
+                Ws: torch.Tensor, tau_wl: torch.Tensor, tau_wh: torch.Tensor
+                ) -> Tuple[ElasticState, torch.Tensor]:
+    """``update`` over a whole trace, a device loop that reads nothing
+    back: areas and Ws (T,) f32 -> (final state, per-slot extra capacity
+    (T,) in Kbit)."""
+    extras = []
+    for t in range(int(areas.shape[0])):
+        state, extra = update(cfg, state, areas[t], Ws[t], tau_wl, tau_wh)
+        extras.append(extra)
+    out = (torch.stack(extras) if extras else
+           torch.zeros((0,), dtype=torch.float32, device=areas.device))
+    return state, out

@@ -96,6 +96,20 @@ def bucket_len(T: int, buckets: Optional[Sequence[int]] = EPISODE_BUCKETS
     return b
 
 
+def _key_chain(key: torch.Tensor, n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """n successive ``key, sub = split(key)`` steps on the key's device ->
+    (the advanced key, the n subkeys stacked (n, 2)): the keys a host loop
+    of ``split`` draws, in its order, with no read of the device."""
+    subs = []
+    for _ in range(int(n)):
+        key, sub = prng.split(key)
+        subs.append(sub)
+    stacked = (torch.stack(subs) if subs else
+               torch.zeros((0, 2), dtype=key.dtype, device=key.device))
+    return key, stacked
+
+
 def slot_camera_keys(key0: torch.Tensor, t,
                      cam_ids: torch.Tensor) -> torch.Tensor:
     """Per-(slot, camera) codec keys, ``fold_in(fold_in(fold_in(key0,
@@ -209,6 +223,7 @@ def _slot_encode(cfg: CodecConfig, frames: torch.Tensor, masks: torch.Tensor,
 
 class FleetSlotOut(NamedTuple):
     f1: torch.Tensor         # (C,) final per-camera F1 (reuse-arm mixed)
+    f1_frames: torch.Tensor  # (C, F) per-eval-frame F1 on kept frames
     sizes: torch.Tensor      # (C,) encoded bytes
     host_pack: torch.Tensor  # (2, C) [f1; sizes], the one per-slot fetch
 
@@ -233,8 +248,9 @@ def _slot_finish(server_params: Params, st: SlotStaged, *,
         f1 = (f1 * st.w_keep
               + (f1_miss * st.miss_w).sum(dim=1) * (1.0 - st.w_keep))
     f1 = torch.where(st.tx, f1, 0.0)
+    f1_frames = torch.where(st.tx[:, None], f1_frames, 0.0)
     sizes = torch.where(st.tx, st.sizes, 0.0)
-    return FleetSlotOut(f1=f1, sizes=sizes,
+    return FleetSlotOut(f1=f1, f1_frames=f1_frames, sizes=sizes,
                         host_pack=torch.stack([f1, sizes]))
 
 
@@ -332,6 +348,54 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
         raise ValueError(method)
     pack = torch.stack([extra, area, b.sum(), feasible.to(torch.float32)])
     return ControlOut(b=b, r=r, est=est, pack=pack)
+
+
+def fleet_control_scan(mlp_params: Optional[Params], jcab_util, jcab_res,
+                       lam, a_trace: Optional[torch.Tensor],
+                       c_trace: Optional[torch.Tensor], W_trace: torch.Tensor,
+                       est: ElasticState, tau_wl, tau_wh,
+                       live_trace: Optional[torch.Tensor] = None,
+                       reconnect_trace: Optional[torch.Tensor] = None, *,
+                       method: str, ecfg: ElasticConfig,
+                       bitrates: Tuple[int, ...],
+                       resolutions: Tuple[float, ...], slot_seconds: float,
+                       use_elastic: bool, w_cap: int, num_cams: int,
+                       tables: CodecTables
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  ElasticState]:
+    """The whole control trajectory of a trace, the counterpart of the JAX
+    package's ``lax.scan`` variant: (T, C) features and the (T,) bandwidth
+    trace (``W_trace`` on the device) -> (T, C) b and r, (T, 4) log packs
+    and the final elastic state.  A device loop of T ``fleet_control_step``
+    calls that reads nothing back.  ``a_trace``/``c_trace`` may be None
+    (zeros take their place); ``live_trace`` (T, C) and
+    ``reconnect_trace`` (T,) default to all live and no reconnect."""
+    dev = W_trace.device
+    T = int(W_trace.shape[0])
+    if live_trace is None:
+        live_trace = torch.ones((T, int(num_cams)), dtype=torch.bool,
+                                device=dev)
+    if reconnect_trace is None:
+        reconnect_trace = torch.zeros((T,), dtype=torch.bool, device=dev)
+    if a_trace is None:
+        a_trace = c_trace = torch.zeros((T, int(num_cams)),
+                                        dtype=torch.float32, device=dev)
+    deep = method in ("deepstream", "deepstream_no_elastic")
+    bs, rs, packs = [], [], []
+    for t in range(T):
+        co = fleet_control_step(
+            mlp_params, jcab_util, jcab_res, lam,
+            a_trace[t] if deep else None, c_trace[t] if deep else None,
+            W_trace[t], est, tau_wl, tau_wh, live_trace[t],
+            reconnect_trace[t], method=method, ecfg=ecfg, bitrates=bitrates,
+            resolutions=resolutions, slot_seconds=slot_seconds,
+            use_elastic=use_elastic, w_cap=w_cap, num_cams=num_cams,
+            tables=tables)
+        est = co.est
+        bs.append(co.b)
+        rs.append(co.r)
+        packs.append(co.pack)
+    return torch.stack(bs), torch.stack(rs), torch.stack(packs), est
 
 
 class EpisodeOut(NamedTuple):
@@ -765,3 +829,32 @@ def gt_capacity(max_boxes_per_frame: int, min_boxes: int = 16) -> int:
     """Fixed GT padding G for a scene: the smallest multiple of 8 >=
     max(min_boxes, max_boxes_per_frame)."""
     return max(min_boxes, -(-max_boxes_per_frame // 8) * 8)
+
+
+def pad_gt(gts: Sequence[Sequence[Sequence[Tuple]]], idx: np.ndarray,
+           G: int = 16) -> Tuple[np.ndarray, np.ndarray]:
+    """Ragged host GT lists -> padded arrays: gts[cam][frame] lists of
+    (x0, y0, x1, y1), idx (C, F) frame indices -> (boxes (C, F, G, 4)
+    float32, valid (C, F, G) bool).  G is the scene's fixed capacity
+    (``gt_capacity``); a frame with more boxes is an error, never a
+    larger G."""
+    C, F = idx.shape
+    boxes = np.zeros((C, F, G, 4), np.float32)
+    valid = np.zeros((C, F, G), bool)
+    for c_i in range(C):
+        for f_i in range(F):
+            bxs = gts[c_i][int(idx[c_i, f_i])]
+            assert len(bxs) <= G, (
+                f"slot has {len(bxs)} GT boxes > scene capacity G={G}; raise "
+                "SceneConfig.max_objects-derived gt_capacity instead")
+            for g_i, bx in enumerate(bxs):
+                boxes[c_i, f_i, g_i] = bx
+                valid[c_i, f_i, g_i] = True
+    return boxes, valid
+
+
+def pad_gt_all(gts: Sequence[Sequence[Sequence[Tuple]]], num_frames: int,
+               G: int = 16) -> Tuple[np.ndarray, np.ndarray]:
+    """``pad_gt`` over every frame of the slot: (C, N, G, 4), (C, N, G)."""
+    idx = np.tile(np.arange(num_frames), (len(gts), 1))
+    return pad_gt(gts, idx, G=G)

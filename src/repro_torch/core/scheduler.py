@@ -4,9 +4,12 @@ The counterpart of ``repro.core.scheduler.DeepStreamSystem``.  A bandwidth
 trace runs in one of three ways (``SystemConfig``):
 
   * ``run()`` with ``batched=True`` (default): the fleet slot loop.  Per
-    slot the scene segment feeds ROIDet, the control step, reducto's keep
-    decision and ``fleet.fleet_slot_step`` (encode -> detect -> score over
-    the camera axis, one code path for every method).  With
+    slot the scene segment (a ``DeviceScene``'s, already on the device, or
+    a host ``MultiCameraScene``'s, whose frames go up once through pinned
+    memory and whose box lists are padded and uploaded once) feeds
+    ROIDet, the control step, reducto's keep decision and
+    ``fleet.fleet_slot_step`` (encode -> detect -> score over the camera
+    axis, one code path for every method).  With
     ``alloc="device"`` (default) the control step
     (``fleet.fleet_control_step``: elastic, utility table, knapsack DP)
     stays on the device and the host fetches only the slot's (2, C) log
@@ -30,14 +33,21 @@ fetch of a loop goes through ``_d2h``, counted per category
 (``d2h_fetch_counts``).  ``faults`` ((T, C) bool liveness) rides through
 the batched and episode runners as in the JAX package.
 
+``profile()`` is the offline step (paper sections 5.1 and 5.3.1b): on a
+host ``MultiCameraScene`` it sweeps every (camera, bitrate, resolution)
+masked and full, fits the utility MLP to the masked F1
+(``utility.fit``), derives the elastic thresholds
+(``elastic.offline_thresholds``) and averages jcab's content-agnostic
+table.  The MLP lands on the system's device; the thresholds are floats
+and the jcab table a (J, R) numpy array, read by ``run()`` as before.
+Without it, callers set ``mlp``, ``tau_wl``/``tau_wh`` and ``jcab_table``
+themselves.
+
 Kernels are chosen by tensor device (the kernel for CUDA tensors, the plain
 version for CPU tensors), so the JAX package's ``use_kernels`` has no
 counterpart; nor do ``shard`` and ``donate`` (a camera mesh and buffer
 donation have no meaning on one card).  The ``checked`` diagnostics lane
-(checkify) is not ported.  Only a
-``DeviceScene`` is accepted.  Profiling (``profile``, which needs the
-utility-MLP trainer) is not ported yet: callers set ``mlp``,
-``tau_wl``/``tau_wh`` and ``jcab_table`` themselves.
+(checkify) is not ported.
 """
 from __future__ import annotations
 
@@ -57,7 +67,9 @@ from repro_torch.core import roidet as roidet_mod
 from repro_torch.core.codec import CodecConfig
 from repro_torch.core.elastic import (ElasticConfig, ElasticState,
                                       HostElasticState)
-from repro_torch.data.synthetic import DeviceScene, SceneConfig
+from repro_torch.core import utility as util_mod
+from repro_torch.data.synthetic import (DeviceScene, MultiCameraScene,
+                                        SceneConfig)
 from repro_torch.kernels.edge_motion import ops as em_ops
 from repro_torch.models import detector as det
 
@@ -179,6 +191,27 @@ class DeepStreamSystem:
         # the carry of the last run_episode or device-control run()
         self.last_carry: Optional[EpisodeCarry] = None
 
+    # -- keys and segments ----------------------------------------------------
+
+    def _nextkey(self) -> torch.Tensor:
+        """The next key of the system's split chain (profiling draws)."""
+        self._key, k = prng.split(self._key)
+        return k
+
+    def _keys(self, n: int) -> torch.Tensor:
+        """n keys of the split chain, stacked (n, 2), in the order n
+        ``_nextkey()`` calls would draw them."""
+        self._key, subs = fleet_mod._key_chain(self._key, n)
+        return subs
+
+    def _frames_of(self, seg: Dict) -> torch.Tensor:
+        """A segment's (C, N, H, W) frames on the system's device: a
+        ``DeviceScene``'s as they are, a host scene's uploaded once through
+        pinned memory."""
+        fr = seg["frames"]
+        return fr if torch.is_tensor(fr) else upload(fr, self.device,
+                                                     np.float32)
+
     # -- camera side ----------------------------------------------------------
 
     def camera_features(self, frames: torch.Tensor) -> roidet_mod.ROIResult:
@@ -226,9 +259,11 @@ class DeepStreamSystem:
 
     def encode_eval(self, frames: torch.Tensor, gt: List[List[Tuple]],
                     mask: Optional[torch.Tensor], b: float, r: float,
-                    key: torch.Tensor) -> Tuple[float, float]:
+                    key: Optional[torch.Tensor] = None) -> Tuple[float, float]:
         """Encode one camera's segment (ROI-masked when ``mask`` is given)
-        under ``key`` and score it.  Returns (f1, size_bytes)."""
+        under ``key`` (the runners' fold-in keys; None draws the next key
+        of the split chain, as profiling does) and score it.  Returns
+        (f1, size_bytes)."""
         H, W = frames.shape[-2:]
         bs = self.cfg.block_size
         if mask is not None:
@@ -236,7 +271,8 @@ class DeepStreamSystem:
             roi_pixels = float(mask.sum()) * bs ** 2
         else:
             roi_pixels = float(H * W)
-        decoded, size = self._encode_one(frames, roi_pixels, b, r, key)
+        decoded, size = self._encode_one(
+            frames, roi_pixels, b, r, self._nextkey() if key is None else key)
         return self.detect_f1(decoded, gt), float(size)
 
     def _encode_eval_all(self, frames: torch.Tensor,
@@ -309,19 +345,26 @@ class DeepStreamSystem:
 
     # -- fleet path -----------------------------------------------------------
 
-    def _slot_dispatch(self, frames: torch.Tensor,
-                       gt_dev: Tuple[torch.Tensor, torch.Tensor],
+    def _slot_dispatch(self, frames: torch.Tensor, gts,
                        masks: Optional[torch.Tensor], b, r, *,
                        keys: torch.Tensor, live: torch.Tensor,
                        tables: codec_mod.CodecTables,
-                       keep: Optional[torch.Tensor] = None
+                       keep: Optional[torch.Tensor] = None,
+                       gt_dev: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None
                        ) -> fleet_mod.FleetSlotOut:
-        """Dispatch the fleet slot step without waiting for it.  masks
-        None = no cropping; b, r (C,) tensors or arrays; keep None = every
-        frame kept and no reuse arm (every method but reducto); ``tables``
-        the run's codec tables on the device."""
+        """Dispatch the fleet slot step without waiting for it.  GT: the
+        padded device arrays ``gt_dev`` when the segment has them (a
+        ``DeviceScene``'s), else the host lists ``gts[cam][frame]``,
+        padded to G (``fleet.pad_gt_all``) and uploaded.  masks None = no
+        cropping; b, r (C,) tensors or arrays; keep None = every frame kept
+        and no reuse arm (every method but reducto); ``tables`` the run's
+        codec tables on the device."""
         C, N, H, W = frames.shape
         dev = frames.device
+        if gt_dev is None:
+            gtb, gtv = fleet_mod.pad_gt_all(gts, N, G=self._G)
+            gt_dev = (upload(gtb, dev), upload(gtv, dev))
         if masks is None:
             masks = roidet_mod.full_frame_mask(C, H, W, self.cfg.block_size,
                                                dev)
@@ -335,6 +378,128 @@ class DeepStreamSystem:
             eval_frames=self.cfg.eval_frames,
             block_size=self.cfg.block_size, with_reuse=with_reuse,
             tables=tables)
+
+    def fleet_encode_eval(self, frames: torch.Tensor, gts,
+                          masks: Optional[torch.Tensor], b, r, *,
+                          keys: Optional[torch.Tensor] = None,
+                          gt_dev: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None
+                          ) -> Tuple[np.ndarray, np.ndarray,
+                                     fleet_mod.FleetSlotOut]:
+        """Whole-fleet encode -> detect -> score in one slot step, no
+        reuse arm, waited for (profiling and tests).  ``keys`` None draws
+        the next C keys of the split chain.  Returns (per-frame F1s (C, F),
+        sizes (C,), the raw ``FleetSlotOut``), fetched in one transfer."""
+        C = frames.shape[0]
+        if keys is None:
+            keys = self._keys(C)
+        live = torch.ones((C,), dtype=torch.bool, device=frames.device)
+        out = self._slot_dispatch(frames, gts, masks, b, r, keys=keys,
+                                  live=live, tables=self._tables,
+                                  gt_dev=gt_dev)
+        pack = torch.cat([out.f1_frames, out.sizes[:, None]], 1).cpu().numpy()
+        return pack[:, :-1], pack[:, -1], out
+
+    # -- offline profiling (paper sections 5.1 and 5.3.1b) --------------------
+
+    def profile(self, scene: MultiCameraScene, num_slots: int = 10,
+                mlp_steps: int = 600, seed: int = 0) -> Dict:
+        """Profile ``num_slots`` segments of a host scene: per camera,
+        bitrate and resolution the F1 of the ROI-masked encode (the MLP's
+        targets, their (a, c, b, r) its features) and of the full frame
+        (jcab's table); fit the MLP from ``init_utility_mlp(PRNGKey(seed))``
+        for ``mlp_steps`` steps; derive (tau_wl, tau_wh) from the best
+        masked F1 per bitrate.  ``batched`` sweeps a slot in J fleet calls
+        of C*R*2 entries, else one ``encode_eval`` at a time; both draw
+        the same keys.  Per slot the (a, c) features are fetched once and
+        each fleet call's F1 table once.  Returns {"mlp_mse", "tau_wl",
+        "tau_wh", "num_samples"}."""
+        if not isinstance(scene, MultiCameraScene):
+            raise TypeError(f"profile needs a MultiCameraScene, got "
+                            f"{type(scene)!r}")
+        cfgc = self.cfg.codec
+        feats, tgts = [], []
+        C = self.cfg.scene.num_cameras
+        J = len(cfgc.bitrates_kbps)
+        R = len(cfgc.resolutions)
+        acc_table = np.zeros((num_slots, C, J), np.float32)
+        jcab_acc = np.zeros((num_slots, C, J, R), np.float32)
+        for t in range(num_slots):
+            seg = scene.segment()
+            frames = self._frames_of(seg)
+            roi = self.camera_features(frames)
+            a, c = torch.stack([roi.area_ratio, roi.confidence]).cpu().numpy()
+            if self.cfg.batched:
+                masked_f1, full_f1 = self._profile_slot_batched(seg, frames,
+                                                                roi)
+                for i in range(C):
+                    for j, b in enumerate(cfgc.bitrates_kbps):
+                        for k, r in enumerate(cfgc.resolutions):
+                            feats.append((float(a[i]), float(c[i]),
+                                          float(b), float(r)))
+                            tgts.append(float(masked_f1[i, j, k]))
+                acc_table[t] = masked_f1.max(-1)
+                jcab_acc[t] = full_f1
+            else:
+                for i in range(C):
+                    for j, b in enumerate(cfgc.bitrates_kbps):
+                        best = 0.0
+                        for k, r in enumerate(cfgc.resolutions):
+                            f1, _ = self.encode_eval(
+                                frames[i], seg["boxes"][i], roi.mask[i], b, r)
+                            feats.append((float(a[i]), float(c[i]),
+                                          float(b), float(r)))
+                            tgts.append(f1)
+                            best = max(best, f1)
+                            f1_full, _ = self.encode_eval(
+                                frames[i], seg["boxes"][i], None, b, r)
+                            jcab_acc[t, i, j, k] = f1_full
+                        acc_table[t, i, j] = best
+        mlp = util_mod.init_utility_mlp(prng.PRNGKey(seed,
+                                                     device=self.device))
+        self.mlp, mse = util_mod.fit(mlp, np.array(feats), np.array(tgts),
+                                     steps=mlp_steps)
+        self.tau_wl, self.tau_wh = elastic_mod.offline_thresholds(
+            self.cfg.elastic, acc_table, np.asarray(cfgc.bitrates_kbps))
+        self.jcab_table = jcab_acc.mean(axis=(0, 1))          # (J, R)
+        return {"mlp_mse": mse, "tau_wl": self.tau_wl,
+                "tau_wh": self.tau_wh, "num_samples": len(tgts)}
+
+    def _profile_slot_batched(self, seg: Dict, frames: torch.Tensor,
+                              roi: roidet_mod.ROIResult
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+        """One slot of the sweep in J fleet calls (one per bitrate) of
+        B = C*R*2 entries laid out (camera, resolution, masked/full).  The
+        slot's GT is padded and uploaded once and repeated on the device.
+        Keys: C*J*R*2 of the split chain, reshaped (C, J, R, 2), the order
+        of the sequential branch's nesting.  Returns (masked_f1, full_f1),
+        each (C, J, R)."""
+        cfgc = self.cfg.codec
+        C, N = frames.shape[:2]
+        J = len(cfgc.bitrates_kbps)
+        R = len(cfgc.resolutions)
+        dev = frames.device
+        keyseq = self._keys(C * J * R * 2).reshape(C, J, R, 2, 2)
+        B = C * R * 2
+        masks_cr = torch.stack([roi.mask, torch.ones_like(roi.mask)], dim=1)
+        masks_b = masks_cr[:, None].expand(
+            C, R, *masks_cr.shape[1:]).reshape(B, *masks_cr.shape[2:])
+        frames_b = frames.repeat_interleave(R * 2, dim=0)
+        r_b = self._tables.resolutions.repeat(C).repeat_interleave(2)
+        gtb, gtv = fleet_mod.pad_gt_all(seg["boxes"], N, G=self._G)
+        gt_b = (upload(gtb, dev).repeat_interleave(R * 2, dim=0),
+                upload(gtv, dev).repeat_interleave(R * 2, dim=0))
+        masked_f1 = np.zeros((C, J, R), np.float32)
+        full_f1 = np.zeros((C, J, R), np.float32)
+        for j, b in enumerate(cfgc.bitrates_kbps):
+            f1f, _, _ = self.fleet_encode_eval(
+                frames_b, None, masks_b,
+                torch.full((B,), float(b), dtype=torch.float32, device=dev),
+                r_b, keys=keyseq[:, j].reshape(B, 2), gt_dev=gt_b)
+            f1 = f1f.mean(axis=1).reshape(C, R, 2)
+            masked_f1[:, j] = f1[:, :, 0]
+            full_f1[:, j] = f1[:, :, 1]
+        return masked_f1, full_f1
 
     def _reducto_keep(self, frames: torch.Tensor, first: torch.Tensor
                       ) -> torch.Tensor:
@@ -461,9 +626,21 @@ class DeepStreamSystem:
 
     # -- runners ----------------------------------------------------------------
 
-    def _check_scene(self, scene: DeviceScene) -> None:
+    def _check_scene(self, scene, device_only: bool = False) -> None:
+        """``run()`` takes a ``DeviceScene`` on the system's device with
+        its GT capacity, or a host ``MultiCameraScene`` of the system's
+        camera count; ``run_episode`` (``device_only``) a ``DeviceScene``
+        only, since the episode synthesises the segments on the device."""
+        if isinstance(scene, MultiCameraScene) and not device_only:
+            if scene.cfg.num_cameras != self.cfg.scene.num_cameras:
+                raise ValueError(f"scene has {scene.cfg.num_cameras} "
+                                 f"cameras, the system "
+                                 f"{self.cfg.scene.num_cameras}")
+            return
         if not isinstance(scene, DeviceScene):
-            raise TypeError(f"the port's runners need a DeviceScene, got "
+            kinds = ("a DeviceScene" if device_only
+                     else "a DeviceScene or a MultiCameraScene")
+            raise TypeError(f"this runner needs {kinds}, got "
                             f"{type(scene)!r}")
         if scene.device != self.device:
             raise ValueError(f"scene lives on {scene.device}, the system on "
@@ -471,13 +648,14 @@ class DeepStreamSystem:
         if scene.G != self._G:
             raise ValueError(f"scene GT capacity {scene.G} != {self._G}")
 
-    def run(self, scene: DeviceScene, trace_kbps: np.ndarray,
+    def run(self, scene, trace_kbps: np.ndarray,
             method: str = "deepstream", use_elastic: Optional[bool] = None,
             faults: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
-        """One bandwidth trace through the configured runner.  ``faults``
-        is an optional (T, C) bool liveness mask (batched and episode
-        runners only).  Returns per-slot logs keyed like the JAX
-        package's."""
+        """One bandwidth trace through the configured runner, on a
+        ``DeviceScene`` or a host ``MultiCameraScene`` (the episode runner
+        takes a ``DeviceScene`` only).  ``faults`` is an optional (T, C)
+        bool liveness mask (batched and episode runners only).  Returns
+        per-slot logs keyed like the JAX package's."""
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}")
         if use_elastic is None:
@@ -503,7 +681,7 @@ class DeepStreamSystem:
                                       "episode runner (batched=True)")
         return self._run_sequential(scene, trace_kbps, method, use_elastic)
 
-    def _run_batched(self, scene: DeviceScene, trace_kbps: np.ndarray,
+    def _run_batched(self, scene, trace_kbps: np.ndarray,
                      method: str, use_elastic: bool,
                      faults: Optional[np.ndarray] = None,
                      carry: Optional[EpisodeCarry] = None
@@ -522,7 +700,7 @@ class DeepStreamSystem:
             raise ValueError("carry-seeded runs need alloc='device' (the "
                              "host control path has no device carry)")
         est = HostElasticState()
-        t_begin = scene._t
+        t_begin = getattr(scene, "_t", 0)
         ctx = (self._control_context(method, trace_kbps, use_elastic)
                if device_ctrl else None)
         if carry is not None:
@@ -556,7 +734,10 @@ class DeepStreamSystem:
         for t in range(len(trace_kbps)):
             W_t = float(trace_kbps[t])
             seg = scene.segment()
-            frames = seg["frames"]
+            # a DeviceScene's frames and padded GT are on the device; a host
+            # scene's frames go up here once and its GT in the dispatch
+            frames = self._frames_of(seg)
+            gt_dev = seg.get("gt_dev")
             keys = fleet_mod.slot_camera_keys(self._key, seg["t"], cam_ids)
             live_t = live_tr[t]
             reconnect = live_t & ~live_prev
@@ -580,9 +761,10 @@ class DeepStreamSystem:
                 # cameras re-seed it
                 keep = self._reducto_keep(
                     frames, reconnect | (t == 0 and carry is None))
-            out = self._slot_dispatch(frames, seg["gt_dev"], masks, b, r,
-                                      keys=keys, live=live_t, tables=tables,
-                                      keep=keep)
+            out = self._slot_dispatch(
+                frames, None if gt_dev is not None else seg["boxes"], masks,
+                b, r, keys=keys, live=live_t, tables=tables, keep=keep,
+                gt_dev=gt_dev)
             live_prev = live_t
             logs["W"].append(W_t)
             if pending is not None:
@@ -606,7 +788,7 @@ class DeepStreamSystem:
                 t_first=carry.t_first if carry is not None else t_begin)
         return {k: np.asarray(v) for k, v in logs.items()}
 
-    def _run_sequential(self, scene: DeviceScene, trace_kbps: np.ndarray,
+    def _run_sequential(self, scene, trace_kbps: np.ndarray,
                         method: str, use_elastic: bool
                         ) -> Dict[str, np.ndarray]:
         """The per-camera reference loop with host control."""
@@ -619,7 +801,7 @@ class DeepStreamSystem:
         for t in range(len(trace_kbps)):
             W_t = float(trace_kbps[t])
             seg = scene.segment()
-            frames, gts = seg["frames"], seg["boxes"]
+            frames, gts = self._frames_of(seg), seg["boxes"]
             keys = fleet_mod.slot_camera_keys(self._key, seg["t"], cam_ids)
             b, r, masks, extra, area, alloc_kbps, est = self._slot_allocation(
                 method, frames, W_t, est, use_elastic)
@@ -674,7 +856,7 @@ class DeepStreamSystem:
                              "alloc='device'")
         if use_elastic is None:
             use_elastic = method == "deepstream"
-        self._check_scene(scene)
+        self._check_scene(scene, device_only=True)
         C = self.cfg.scene.num_cameras
         t_begin = scene._t
         ctx = self._control_context(method, trace_kbps, use_elastic)

@@ -1,12 +1,19 @@
-"""Device-resident synthetic multi-camera scenes and bandwidth traces.
+"""Synthetic multi-camera scenes and bandwidth traces.
 
-The counterpart of ``repro.data.synthetic``'s episode generator: slot t's
-frames and padded ground truth are a pure function of (scene params, base
-key, t).  Geometry (backgrounds with the parked objects baked in, per-camera
-view offsets and time lags, the periodic object pool) is drawn once with
-``numpy.random.default_rng(cfg.seed)``, verbatim from the JAX package; the
-per-slot sensor noise is ``normal(fold_in(fold_in(key, t), cam_id))`` from
-the port's threefry, so frames are bitwise equal to the JAX generator's.
+``MultiCameraScene`` is the stateful numpy world of
+``repro.data.synthetic`` (objects that spawn, move and leave, rendered per
+camera with view offsets and time lags), copied so that it draws in the
+same order: its frames and boxes are bitwise the JAX package's.  It stays
+on the host; the system uploads each segment.
+
+``DeviceScene`` is the counterpart of the JAX package's episode generator:
+slot t's frames and padded ground truth are a pure function of (scene
+params, base key, t).  Geometry (backgrounds with the parked objects baked
+in, per-camera view offsets and time lags, the periodic object pool) is
+drawn once with ``numpy.random.default_rng(cfg.seed)``, verbatim from the
+JAX package; the per-slot sensor noise is ``normal(fold_in(fold_in(key,
+t), cam_id))`` from the port's threefry, so frames are bitwise equal to
+the JAX generator's.
 
 XLA's CPU backend contracts ``a * b + c`` into a fused multiply-add and
 folds the constant noise scale into ``normal``'s sqrt(2) factor; the paint
@@ -15,9 +22,10 @@ coordinates and the noise add below do the same (``prng.fma``,
 """
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +54,134 @@ class SceneConfig:
     @property
     def frames_per_segment(self) -> int:
         return int(self.fps * self.seg_seconds)
+
+
+@dataclass
+class WorldObject:
+    x: float; y: float; vx: float; vy: float
+    w: int; h: int; val: float; ttl: int
+
+
+class MultiCameraScene:
+    """Streaming host generator: each ``segment()`` advances the world one
+    slot and renders every camera's frames and ground-truth boxes.  Every
+    draw comes from ``numpy.random.default_rng(cfg.seed)`` in the JAX
+    package's order."""
+
+    def __init__(self, cfg: SceneConfig):
+        self.cfg = cfg
+        self.rng = np.random.default_rng(cfg.seed)
+        c = cfg
+        # per-camera static background texture (smooth noise)
+        self.backgrounds = []
+        for _ in range(c.num_cameras):
+            base = self.rng.uniform(0.25, 0.55, (c.height // 8, c.width // 8))
+            bg = np.kron(base, np.ones((8, 8)))[:c.height, :c.width]
+            self.backgrounds.append(bg.astype(np.float32))
+        # per-camera view translation and time lag
+        self.offsets = [(self.rng.uniform(-c.view_jitter, c.view_jitter),
+                         self.rng.uniform(-c.view_jitter, c.view_jitter))
+                        for _ in range(c.num_cameras)]
+        self.lags = [int(self.rng.integers(0, c.cam_lag_frames + 1))
+                     for _ in range(c.num_cameras)]
+        # parked objects per camera: (x, y, w, h, value)
+        self.stationary: List[List[Tuple[int, int, int, int, float]]] = []
+        for _ in range(c.num_cameras):
+            objs = []
+            for _ in range(c.num_stationary):
+                w = int(self.rng.integers(*c.obj_size_range))
+                h = int(self.rng.integers(*c.obj_size_range))
+                x = int(self.rng.integers(0, c.width - w))
+                y = int(self.rng.integers(0, c.height - h))
+                objs.append((x, y, w, h, float(self.rng.uniform(0.7, 0.95))))
+            self.stationary.append(objs)
+        self.objects: List[WorldObject] = []
+        self._frame_idx = 0
+        self._phase0 = float(self.rng.uniform(0, 2 * np.pi))
+        self._history: List[List[WorldObject]] = []  # world state per frame
+
+    def _step_world(self) -> None:
+        """One frame of world time: move and age the objects, drop the
+        expired and the far off-screen ones, spawn new ones at a rate that
+        follows a slow traffic wave."""
+        c = self.cfg
+        for o in self.objects:
+            o.x += o.vx + self.rng.normal(0, 0.3)
+            o.y += o.vy + self.rng.normal(0, 0.3)
+            o.ttl -= 1
+        self.objects = [o for o in self.objects
+                        if o.ttl > 0 and -40 < o.x < c.width + 40
+                        and -40 < o.y < c.height + 40]
+        phase = 2 * np.pi * self._frame_idx / 120.0
+        activity = max(0.05, 1.0 + 1.2 * np.sin(phase + self._phase0))
+        n_new = self.rng.poisson(c.spawn_rate * activity)
+        for _ in range(n_new):
+            if len(self.objects) >= c.max_objects:
+                break
+            side = self.rng.integers(0, 2)
+            speed = max(0.5, self.rng.normal(c.mean_speed, 1.0))
+            if side == 0:   # left -> right
+                x, vx = -20.0, speed
+            else:           # right -> left
+                x, vx = float(c.width + 20), -speed
+            y = float(self.rng.uniform(0.15, 0.85) * c.height)
+            self.objects.append(WorldObject(
+                x=x, y=y, vx=vx, vy=float(self.rng.normal(0, 0.2)),
+                w=int(self.rng.integers(*c.obj_size_range)),
+                h=int(self.rng.integers(*c.obj_size_range)),
+                val=float(self.rng.uniform(0.6, 1.0)),
+                ttl=int(self.rng.integers(60, 240))))
+        self._history.append([dataclasses.replace(o) for o in self.objects])
+        self._frame_idx += 1
+
+    def _render(self, cam: int, world: List[WorldObject]
+                ) -> Tuple[np.ndarray, List[Tuple[int, int, int, int]]]:
+        """One camera's view of one world state: (frame (H, W) float32,
+        xyxy boxes of the parked and the visible moving objects)."""
+        c = self.cfg
+        ox, oy = self.offsets[cam]
+        frame = self.backgrounds[cam].copy()
+        boxes: List[Tuple[int, int, int, int]] = []
+        for (x, y, w, h, v) in self.stationary[cam]:
+            frame[y:y + h, x:x + w] = v
+            boxes.append((x, y, x + w, y + h))
+        for o in world:
+            x0 = int(round(o.x + ox))
+            y0 = int(round(o.y + oy))
+            x1, y1 = x0 + o.w, y0 + o.h
+            cx0, cy0 = max(0, x0), max(0, y0)
+            cx1, cy1 = min(c.width, x1), min(c.height, y1)
+            if cx1 - cx0 < 3 or cy1 - cy0 < 3:
+                continue
+            frame[cy0:cy1, cx0:cx1] = o.val
+            # a darker "windshield" stripe, so objects have inner edges
+            frame[cy0 + (cy1 - cy0) // 3: cy0 + (cy1 - cy0) // 2,
+                  cx0:cx1] = o.val * 0.6
+            boxes.append((cx0, cy0, cx1, cy1))
+        noisy = frame + self.rng.normal(0, c.noise_std, frame.shape)
+        return np.clip(noisy, 0, 1).astype(np.float32), boxes
+
+    def segment(self) -> Dict:
+        """Advance one slot: {"frames": (C, N, H, W) float32 numpy,
+        "boxes": per camera and frame the list of GT boxes, "t": the slot
+        index}."""
+        c = self.cfg
+        n = c.frames_per_segment
+        for _ in range(n):
+            self._step_world()
+        frames = np.zeros((c.num_cameras, n, c.height, c.width), np.float32)
+        boxes: List[List[List[Tuple[int, int, int, int]]]] = []
+        for cam in range(c.num_cameras):
+            cam_boxes = []
+            for f in range(n):
+                idx = max(0, self._frame_idx - n + f - self.lags[cam])
+                idx = min(idx, len(self._history) - 1)
+                frame, bxs = self._render(cam, self._history[idx])
+                frames[cam, f] = frame
+                cam_boxes.append(bxs)
+            boxes.append(cam_boxes)
+        return {"frames": frames, "boxes": boxes,
+                "t": self._frame_idx // n - 1}
 
 
 class DeviceSceneParams(NamedTuple):

@@ -1,7 +1,10 @@
 """The port's control layer against the JAX package's: the plain knapsack
 DP against the Pallas kernel (interpret mode, as the JAX kernel tests run
 it), the host solve against the JAX solve and the exhaustive oracle, the
-host allocators and the float64 elastic controller."""
+host allocators and the float64 elastic controller, the greedy allocators,
+and the whole-trace control loops (``elastic.update_scan``,
+``fleet.fleet_control_scan``) against JAX's scans and their own
+stepwise loops."""
 import numpy as np
 import pytest
 
@@ -15,9 +18,15 @@ torch.set_num_threads(1)
 
 from repro.core import allocation as j_alloc  # noqa: E402
 from repro.core import elastic as j_elastic  # noqa: E402
+from repro.core import fleet as j_fleet  # noqa: E402
+from repro.core import utility as j_util  # noqa: E402
 from repro.kernels.knapsack_dp import ops as j_dp  # noqa: E402
+from repro_torch.common import prng  # noqa: E402
 from repro_torch.core import allocation as t_alloc  # noqa: E402
+from repro_torch.core import codec as t_codec  # noqa: E402
 from repro_torch.core import elastic as t_elastic  # noqa: E402
+from repro_torch.core import fleet as t_fleet  # noqa: E402
+from repro_torch.core import utility as t_util  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ops as t_dp  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ref as t_dp_ref  # noqa: E402
 
@@ -241,3 +250,147 @@ def test_solve_refuses_no_device():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         t_dp.solve(util, COSTS[:3], 5)
+
+
+def _greedy_case(r, I, W=None):
+    util = np.sort(r.uniform(0, 1, (I, 6)), axis=1).astype(np.float32)
+    util[:, 3:] = util[:, 3:4]          # a plateau: zero-gain upgrades
+    best_res = r.choice([1.0, 0.75, 0.5], (I, 6)).astype(np.float32)
+    live = r.uniform(size=I) > 0.3
+    live[0] = True
+    if W is None:
+        W = float(r.uniform(-100, 1200 * I))
+    return util, best_res, live, W
+
+
+@pytest.mark.parametrize("W", [0.0, -5.0, 120.0, 1000.0, 2600.0, 6000.0,
+                               None])
+def test_greedy_allocators_match_jax(W):
+    """Host greedy against JAX's ``allocate_greedy``, device greedy against
+    ``allocate_greedy_jax`` (picks, b, r and feasibility exact, the total
+    to float32 rounding): random tables with plateaus and dead cameras, W <= 0 and
+    infeasible capacities included."""
+    r = np.random.default_rng(17 if W is None else int(W) % 89 + 5)
+    for _ in range(8 if W is None else 2):
+        I = int(r.integers(1, 7))
+        util, best_res, live, Wc = _greedy_case(r, I, W)
+        _same_allocation(
+            t_alloc.allocate_greedy_host(util, best_res, BITRATES, Wc,
+                                         live=live),
+            j_alloc.allocate_greedy(util, best_res, BITRATES, Wc, live=live))
+        got = t_alloc.allocate_greedy(
+            torch.from_numpy(util), torch.from_numpy(best_res), BITRATES,
+            torch.tensor(Wc, dtype=torch.float32),
+            live=torch.from_numpy(live))
+        want = j_alloc.allocate_greedy_jax(
+            jnp.asarray(util), jnp.asarray(best_res), BITRATES,
+            jnp.float32(Wc), live=jnp.asarray(live))
+        for name, g, w in zip(("picks", "b", "res", "total", "feasible"),
+                              got, want):
+            if name == "total":     # a float32 sum, in another order
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=1e-6, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                              err_msg=name)
+
+
+def test_update_scan_matches_jax_and_steps():
+    """Borrow, repay and the budget clamp over 16 slots: the port's scan
+    equals its own stepwise ``update`` bitwise and JAX's ``update_scan``
+    to float32 rounding."""
+    cfg_t, cfg_j = t_elastic.ElasticConfig(), j_elastic.ElasticConfig()
+    r = np.random.default_rng(5)
+    areas = r.uniform(0.0, 1.5, 16).astype(np.float32)
+    areas[4:8] = 2.5
+    W = r.uniform(100.0, 3000.0, 16).astype(np.float32)
+    W[4:8] = 200.0
+    W[10:13] = 4000.0
+    tau = (torch.tensor(1500.0), torch.tensor(2500.0))
+    st, extras = t_elastic.update_scan(
+        cfg_t, t_elastic.init_state("cpu"), torch.from_numpy(areas),
+        torch.from_numpy(W), *tau)
+    st_s = t_elastic.init_state("cpu")
+    for t in range(16):
+        st_s, ex = t_elastic.update(cfg_t, st_s, torch.tensor(areas[t]),
+                                    torch.tensor(W[t]), *tau)
+        assert torch.equal(ex, extras[t])
+    for a, b in zip(st, st_s):
+        assert torch.equal(a, b)
+    jst, jex = j_elastic.update_scan(cfg_j, j_elastic.init_state_jax(),
+                                     jnp.asarray(areas), jnp.asarray(W),
+                                     jnp.float32(1500.0), jnp.float32(2500.0))
+    np.testing.assert_allclose(extras.numpy(), np.asarray(jex), rtol=1e-6,
+                               atol=1e-3)
+    for a, b in zip(st, jst):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    assert float(extras.max()) > 0 and float(extras.min()) < 0
+
+
+@pytest.mark.parametrize("method", ["deepstream", "deepstream_no_elastic",
+                                    "jcab", "static"])
+def test_fleet_control_scan_matches_jax_and_steps(method):
+    """T = 6 slots at C = 4 with a dead camera and a reconnect: the scan
+    equals T ``fleet_control_step`` calls bitwise and JAX's
+    ``fleet_control_scan`` (b and r exact, packs and state <= 1e-5)."""
+    from repro_torch.core.elastic import ElasticConfig
+    T, C = 6, 4
+    r = np.random.default_rng(hash(method) % 1000)
+    a = r.uniform(0, 0.6, (T, C)).astype(np.float32)
+    c = r.uniform(0, 1, (T, C)).astype(np.float32)
+    W = r.uniform(150, 4000, T).astype(np.float32)
+    live = np.ones((T, C), bool)
+    live[2:4, 1] = False
+    rec = np.zeros(T, bool)
+    rec[4] = True
+    jcab = np.linspace(0.2, 0.8, 18).reshape(6, 3).astype(np.float32)
+    jcab_util = np.repeat(jcab.max(-1)[None], C, 0).astype(np.float32)
+    res = np.asarray((1.0, 0.75, 0.5), np.float32)
+    jcab_res = np.repeat(res[jcab.argmax(-1)][None], C, 0)
+    lam = np.linspace(0.5, 1.5, C).astype(np.float32)
+    use_elastic = method == "deepstream"
+    w_cap = t_alloc.trace_capacity(BITRATES, W, C,
+                                   elastic_borrow_kbps=1500.0)
+    statics = dict(bitrates=BITRATES, resolutions=(1.0, 0.75, 0.5),
+                   slot_seconds=1.0, use_elastic=use_elastic, w_cap=w_cap,
+                   num_cams=C)
+    deep = method.startswith("deepstream")
+    mlp_t = t_util.init_utility_mlp(prng.PRNGKey(0)) if deep else None
+    tt = lambda x: torch.from_numpy(np.asarray(x))
+    tau = (torch.tensor(600.0), torch.tensor(2400.0))
+    tables = t_codec.device_tables(BITRATES, (1.0, 0.75, 0.5), "cpu")
+    b, rr, packs, est = t_fleet.fleet_control_scan(
+        mlp_t, tt(jcab_util), tt(jcab_res), tt(lam),
+        tt(a) if deep else None, tt(c) if deep else None, tt(W),
+        t_elastic.init_state("cpu"), *tau, tt(live), tt(rec), method=method,
+        ecfg=ElasticConfig(), tables=tables, **statics)
+    est_s = t_elastic.init_state("cpu")
+    for t in range(T):
+        co = t_fleet.fleet_control_step(
+            mlp_t, tt(jcab_util), tt(jcab_res), tt(lam),
+            tt(a[t]) if deep else None, tt(c[t]) if deep else None,
+            tt(W[t]), est_s, *tau, tt(live[t]), tt(rec[t]), method=method,
+            ecfg=ElasticConfig(), tables=tables, **statics)
+        est_s = co.est
+        assert torch.equal(co.b, b[t]) and torch.equal(co.r, rr[t])
+        assert torch.equal(co.pack, packs[t])
+    for x, y in zip(est, est_s):
+        assert torch.equal(x, y)
+    jb, jr, jpacks, jest = j_fleet.fleet_control_scan(
+        method, j_util.init_utility_mlp(jax.random.PRNGKey(0)) if deep
+        else None, jnp.asarray(jcab_util), jnp.asarray(jcab_res),
+        jnp.asarray(lam), jnp.asarray(a) if deep else None,
+        jnp.asarray(c) if deep else None, jnp.asarray(W),
+        j_elastic.init_state_jax(), jnp.float32(600.0), jnp.float32(2400.0),
+        ecfg=j_elastic.ElasticConfig(), use_kernel=True,
+        live_trace=jnp.asarray(live), reconnect_trace=jnp.asarray(rec),
+        **statics)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(rr.numpy(), np.asarray(jr))
+    scale = max(1.0, float(np.abs(np.asarray(jpacks)).max()))
+    np.testing.assert_allclose(packs.numpy(), np.asarray(jpacks), rtol=0,
+                               atol=1e-5 * scale)
+    for x, y in zip(est, jest):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6,
+                                   atol=1e-5)
