@@ -71,6 +71,25 @@ JAX.  In order it prints:
   6. ``alloc="host"`` against device control, and the sequential runner
      against the pipelined one, on the card (no solve on the card takes
      the plain backtrack);
+  6b. crash-safe fleet serving (``serve.stream``) at full width:
+     ``SystemConfig()`` defaults in episode mode, the capacity pinned at
+     8000 Kbps, ``make_soak_stream(64, num_cams=5)`` in windows of 8: each
+     method's windowed logs against one ``run_episode`` over the stream
+     (<= 1e-5, bitwise expected) and deepstream's first 16 slots against
+     the CPU stream; each kernel of the path against its plain version on
+     the inputs the path gives it (one eager window per method, every
+     dispatcher repeated on CPU copies); kill-and-resume (deepstream: a
+     crash before window 3; reducto: the same with the newest generation
+     bit-flipped, so that the restore falls back one generation) equal to
+     the uninterrupted stream with no graph captured after the restore;
+     the ladder down to the slot loop and back, equal; ``EpisodeSupervisor`` degrading to the chunked rung,
+     card = CPU; the checked lane bitwise equal to the unchecked lane
+     (episode and pipelined), no host sync before the episode's harvest
+     under ``set_sync_debug_mode("error")``, a NaN slot raising at the
+     harvest; the launcher (``--fleet-stream``) run twice, the second
+     restoring; and the ``stream C= method=`` lines: window turnaround
+     p50/p99, slots/s, the checkpoint's snapshot, async write and restore
+     ms, and host syncs per window (harvest, checkpoint) at C=5 and 16;
   7. the LM serving tier: the f32 smoke engine run on the card against
      the CPU (tokens identical, logits <= 1e-4), then ``ServeEngine`` over
      granite-8b at its published width and depth with seeded random bf16
@@ -96,13 +115,15 @@ JAX.  In order it prints:
      kernels as the card recorded them (CUPTI kernel records counted by
      name; a replay runs the kernels without their wrappers) must be T per
      kernel of the method's path and none of the others, with no wrapper
-     call; the C=5, T=8 counts go into the kernel records;
+     call; the C=5, T=8 counts go into the kernel records; then one
+     8-slot window of the stream per method, counted the same way;
  10. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; each kernel record carries its launches on the main
-path (``run()``), in the replayed episodes and in the profile.  Any
+path (``run()``), in the replayed episodes, in the profile and in one
+window of the stream per method.  Any
 mismatch ends the run with a non-zero exit code; no phase's failure is
 caught.  Without a CUDA device it exits non-zero before printing a
 result.
@@ -182,13 +203,19 @@ def profile_window(torch, fn, iters: int, name=None) -> tuple:
     return device_us(prof, name), count
 
 
-def device_ms_count(torch, fn, iters: int, name=None):
-    """``device_ms`` and the kernels per call it counted."""
-    us, count = profile_window(torch, fn, iters, name)
-    if not us > 0.0:
-        raise AssertionError(f"the profiler recorded no kernel time for "
-                             f"{name or 'the plain version'}")
-    return us / 1e3 / iters, count / iters
+def device_ms_count(torch, fn, iters: int, name=None, windows: int = 5):
+    """``device_ms`` and the kernels per call it counted.  A window in
+    which the profiler recorded no kernel time (it drops records now and
+    then) is taken again, up to ``windows`` windows; then it raises."""
+    for _ in range(windows):
+        us, count = profile_window(torch, fn, iters, name)
+        if us > 0.0:
+            return us / 1e3 / iters, count / iters
+        print(f"{name or 'the plain version'}: the profiler recorded no "
+              f"kernel time in a window of {iters} calls; taking another")
+    raise AssertionError(f"the profiler recorded no kernel time for "
+                         f"{name or 'the plain version'} in {windows} "
+                         "windows")
 
 
 def one_kernel_ms(torch, fn, iters: int, name=None, what: str = "",
@@ -1616,6 +1643,404 @@ def control_scan_phase(torch, dev, s, reset_counts, read_counts) -> None:
           f"{n['knapsack_dp']} launches; {borrowed:.1f} Kbps borrowed in all")
 
 
+# -- crash-safe fleet serving (slice 8) ------------------------------------
+
+STREAM_SLOTS = 64        # make_soak_stream(64): 8 windows of 8
+STREAM_WINDOW = 8
+STREAM_CPU_SLOTS = 16    # the windowed stream held to the port's CPU stream
+SUPERVISOR_SLOTS = 8     # the supervised run (two chunks of 4 when degraded)
+STREAM_C_WIDE = 16       # the second width the stream is timed at
+
+
+class _InjectedCrash(Exception):
+    """The kill-and-resume check's crash."""
+
+
+def shadow_kernels(torch, s, trace, live, methods, needs) -> dict:
+    """Each kernel of the stream path against its plain version on the
+    inputs the path gives it: one window per method run eagerly on the
+    card with every kernel dispatcher wrapped, so that each launch is
+    repeated by the same dispatcher on CPU copies of its arguments (the
+    plain version) and compared bitwise (knapsack_dp: picks and total).
+    Returns {kernel: (calls, worst |diff|)}."""
+    from repro_torch.data.synthetic import DeviceScene
+    from repro_torch.kernels.cc_label import ops as cc_ops
+    from repro_torch.kernels.edge_motion import ops as em_ops
+    from repro_torch.kernels.knapsack_dp import ops as dp_ops
+    from repro_torch.kernels.tx_codec import ops as tx_ops
+    seen = {}
+    cpu = lambda x: x.cpu() if torch.is_tensor(x) else x  # noqa: E731
+
+    def wrap(mod, attr, name):
+        orig = getattr(mod, attr)
+
+        def shadow(*a, **kw):
+            got = orig(*a, **kw)
+            want = orig(*map(cpu, a), **{k: cpu(v) for k, v in kw.items()})
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got,
+                                                                    want)]
+            err = 0.0
+            for g, w in pairs:
+                g = g.cpu()
+                if not torch.equal(g, w):
+                    raise AssertionError(f"stream path: {name} differs from "
+                                         f"its plain version")
+                err = max(err, float((g.double() - w.double()).abs().max()))
+            n, worst = seen.get(name, (0, 0.0))
+            seen[name] = (n + 1, max(worst, err))
+            return got
+        setattr(mod, attr, shadow)
+        return mod, attr, orig
+
+    patched = [wrap(em_ops, "segment_motion_fleet", "edge_motion"),
+               wrap(tx_ops, "tx_codec", "tx_codec"),
+               wrap(dp_ops, "solve_device", "knapsack_dp"),
+               wrap(cc_ops, "cc_label", "cc_label")]
+    try:
+        for method in methods:
+            seen_before = {k: v[0] for k, v in seen.items()}
+            scene = DeviceScene(s.cfg.scene, device=s.device)
+            s._episode_logs(s._episode_dispatch(
+                scene, trace, method, faults=live, _eager=True), trace)
+            for k in needs(method):
+                if seen.get(k, (0, 0.0))[0] == seen_before.get(k, 0):
+                    raise AssertionError(f"stream {method}: {k} not launched "
+                                         "on the eager window")
+    finally:
+        for mod, attr, orig in patched:
+            setattr(mod, attr, orig)
+    return seen
+
+
+def stream_phase(torch, dev, light_h, server_h, arts, reset_counts,
+                 read_counts, needs, tag) -> tuple:
+    """Crash-safe fleet serving on the card (``serve.stream``) at the
+    fleet's full width: ``SystemConfig()`` defaults (5 cameras, 96 x 160,
+    10 frames, block 8) in episode mode with the capacity pinned at 8000
+    Kbps (scaled by C/5), the committed detectors, the profiled artifacts,
+    ``make_soak_stream(64, num_cams=5)`` in windows of 8.  Checks: each
+    method's windowed logs against one ``run_episode`` over the stream
+    (and deepstream's first 16 slots against the port's CPU stream); each
+    kernel of the path against its plain version on the path's inputs;
+    kill-and-resume (deepstream: a crash before window 3; reducto: the
+    same with the newest generation bit-flipped) with no graph captured
+    after the restore; the
+    ladder down to the slot loop and back; ``EpisodeSupervisor`` against
+    the CPU's; the checked lane (bitwise equal to the unchecked lane in
+    episode and pipelined mode, no host sync before the harvest, a NaN slot
+    raising at the harvest); the launcher run twice.  Times: window
+    turnaround, slots/s, the checkpoint's snapshot, write and restore, and
+    host syncs per window by site, at C=5 (four methods) and C=16.
+    Returns (per-method runners for the CUPTI count of one window's
+    launches in phase 9, the kernels' worst |diff| on the path)."""
+    import collections
+    import os
+    import shutil
+    import warnings
+    import numpy as np
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.core.scheduler import (DeepStreamSystem,
+                                            EpisodeSupervisor,
+                                            SupervisorConfig, SystemConfig)
+    from repro_torch.data.scenarios import make_soak_stream
+    from repro_torch.data.synthetic import DeviceScene, SceneConfig
+    from repro_torch.ft.chaos import ChaosEngine
+    from repro_torch.ft.watchdog import WatchdogConfig
+    from repro_torch.serve.stream import StreamConfig, StreamingFleetRunner
+
+    work = ROOT / "build" / "stream"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    W = STREAM_WINDOW
+
+    def system(C=5, device=dev, **kw):
+        kw.setdefault("episode", True)
+        cfg = SystemConfig(scene=SceneConfig(num_cameras=C),
+                           w_cap_kbps=8000.0 * C / 5, **kw)
+        return give_artifacts(DeepStreamSystem(cfg, light_h, server_h,
+                                               device=device), arts, C)
+
+    def runner(s, method, cfg=None, **kw):
+        return StreamingFleetRunner(
+            s, DeviceScene(s.cfg.scene, device=s.device), method=method,
+            cfg=cfg or StreamConfig(window_slots=W, queue_slots=STREAM_SLOTS),
+            **kw)
+
+    def logs_of(r):
+        return {k: np.asarray(v) for k, v in r.logs.items()}
+
+    def serve_all(r, trace, live):
+        assert r.offer(trace, faults=live) == len(trace)
+        r.serve(flush=True)
+        return logs_of(r)
+
+    def bitwise(a, b) -> bool:
+        return all(np.array_equal(a[k], b[k]) for k in LOG_KEYS)
+
+    trace, live = make_soak_stream(STREAM_SLOTS, num_cams=5)
+    g = system()
+
+    # 1. windowed = continuous, and the path's wrapper calls
+    windowed, continuous = {}, {}
+    for method in METHODS:
+        reset_counts()
+        windowed[method] = serve_all(runner(g, method), trace, live)
+        n = read_counts()
+        if any(n[k] == 0 for k in needs(method)):
+            raise AssertionError(f"stream {method}: a kernel of the path "
+                                 f"was launched no time {n}")
+        check_logs(windowed[method], f"stream {method}")
+        continuous[method] = g.run_episode(
+            DeviceScene(g.cfg.scene, device=dev), trace, method, faults=live)
+        d = max_log_diff(continuous[method], windowed[method], LOG_KEYS,
+                         1e-5, "windowed vs continuous")
+        same = bitwise(continuous[method], windowed[method])
+        print(f"stream {method} C=5 T={STREAM_SLOTS} in windows of {W}: "
+              "wrapper calls at capture "
+              + " ".join(f"{k} {v}" for k, v in n.items())
+              + f"; vs one run_episode {'' if same else 'not '}bitwise, "
+              "max diff " + " ".join(f"{k}={v:.3g}" for k, v in d.items()))
+    cpu_logs = serve_all(runner(system(device="cpu"), "deepstream"),
+                         trace[:STREAM_CPU_SLOTS], live[:STREAM_CPU_SLOTS])
+    d = max_log_diff(cpu_logs, {k: v[:STREAM_CPU_SLOTS] for k, v in
+                                windowed["deepstream"].items()}, LOG_KEYS,
+                     1e-5)
+    print(f"stream deepstream: the first {STREAM_CPU_SLOTS} slots vs the "
+          "port's CPU stream, max diff "
+          + " ".join(f"{k}={v:.3g}" for k, v in d.items()))
+    seen = shadow_kernels(torch, g, trace[:W], live[:W], METHODS, needs)
+    print("stream kernels vs plain on the stream path's inputs (one eager "
+          "window per method): " + "; ".join(
+              f"{k} {n} calls, max |diff| {e}" for k, (n, e) in seen.items()))
+
+    # 2. kill and resume: deepstream crashes before window 3; reducto
+    # (whose carry holds the reference frames, nearly all of a
+    # checkpoint's bytes) the same with the newest generation bit-flipped
+    # after its commit
+    from repro_torch.ckpt import checkpoint as ckpt
+    for method, variant in (("deepstream", "crash"),
+                            ("reducto", "crash + bitflip")):
+        ref = windowed[method]
+        d_ck = work / variant.replace(" + ", "_")
+        eng = (ChaosEngine(0, {"ckpt.bitflip": {"at": [3]}})
+               if "bitflip" in variant else None)
+
+        def crash(window, rung):
+            if window == 3:
+                raise _InjectedCrash(f"window {window}")
+        rA = runner(system(), method, StreamConfig(
+            window_slots=W, queue_slots=STREAM_SLOTS, ckpt_dir=str(d_ck)),
+            fault_hook=crash, chaos=eng)
+        rA.offer(trace, faults=live)
+        try:
+            rA.serve(flush=True)
+            raise AssertionError("the injected crash did not happen")
+        except _InjectedCrash:
+            pass
+        rA.close()
+        graphs = fleet_mod.episode_graph_count()
+        newest = ckpt.latest_committed(d_ck)
+        size = sum(f.stat().st_size for f in newest.glob("data.*.bin"))
+        rB = runner(system(), method, StreamConfig(
+            window_slots=W, queue_slots=STREAM_SLOTS, ckpt_dir=str(d_ck)))
+        if not rB.restore():
+            raise AssertionError(f"{variant}: nothing restored")
+        skips = [e for e in rB.events if e["kind"] == "restore_skip"]
+        want_t = 3 * W if eng is None else 2 * W
+        if rB.t_next != want_t or len(skips) != (eng is not None):
+            raise AssertionError(f"{variant}: restored t_next {rB.t_next}, "
+                                 f"skipped {skips}")
+        t0 = rB.t_next
+        rB.offer(trace[t0:], faults=live[t0:])
+        rB.serve(flush=True)
+        rB.close()
+        if fleet_mod.episode_graph_count() != graphs:
+            raise AssertionError(f"{variant}: a graph was captured after "
+                                 "the restore")
+        got = logs_of(rB)
+        d = max_log_diff(ref, got, LOG_KEYS, 1e-5, f"{variant} resume")
+        print(f"stream kill-and-resume ({variant}) {method}: a checkpoint "
+              f"of {size} bytes ({'zstd' if ckpt.HAVE_ZSTD else 'zlib'}); "
+              f"crashed before window 3, restored t_next {t0}"
+              + (f" (skipped the newest generation: {skips[0]['error']})"
+                 if skips else "")
+              + f" in {rB.restore_s[0] * 1e3:.2f} ms; 0 graphs captured "
+              f"after the restore; vs the uninterrupted stream "
+              f"{'bitwise' if bitwise(ref, got) else 'not bitwise'}, max "
+              "diff " + " ".join(f"{k}={v:.3g}" for k, v in d.items()))
+
+    # 3. the ladder: straggling walls take the runner down to the slot loop,
+    # healthy ones bring it back; episode_small runs chunks of 4
+    walls = {1: 6.0, 3: 6.0}
+    rl = runner(system(episode_buckets=(4, 8, 16, 32)), "deepstream",
+                StreamConfig(window_slots=W, queue_slots=STREAM_SLOTS,
+                             recover_after=2,
+                             watchdog=WatchdogConfig(warmup_steps=1,
+                                                     escalate_after=1)),
+                wall_hook=lambda w, wall: walls.get(w, 1.0))
+    got = serve_all(rl, trace, live)
+    moves = [(e["kind"], e["to"]) for e in rl.events
+             if e["kind"] in ("degrade", "recover")]
+    if moves != [("degrade", "episode_small"), ("degrade", "pipelined"),
+                 ("recover", "episode_small"), ("recover", "episode")]:
+        raise AssertionError(f"ladder: {moves}")
+    rungs = [e["rung"] for e in rl.events if e["kind"] == "window"]
+    d = max_log_diff(windowed["deepstream"], got, LOG_KEYS, 1e-5,
+                     "ladder")
+    print(f"stream ladder deepstream: rungs per window {rungs}; "
+          f"{', '.join(f'{k} to {to}' for k, to in moves)}; vs the "
+          "uninterrupted stream max diff "
+          + " ".join(f"{k}={v:.3g}" for k, v in d.items()))
+
+    # 4. the supervisor: retries, then the chunked rung; card vs CPU
+    def supervised(s):
+        def hook(attempt, mode):
+            if mode == "episode":
+                raise RuntimeError("injected dispatch failure")
+        sup = EpisodeSupervisor(s, SupervisorConfig(max_retries=1),
+                                fault_hook=hook)
+        out = sup.run(DeviceScene(s.cfg.scene, device=s.device),
+                      trace[:SUPERVISOR_SLOTS], "deepstream",
+                      faults=live[:SUPERVISOR_SLOTS])
+        return sup, out
+    sup, got = supervised(system(episode_buckets=(4, 8, 16, 32)))
+    sup_cpu, want = supervised(system(device="cpu",
+                                      episode_buckets=(4, 8, 16, 32)))
+    kinds = [(e["kind"], e["mode"]) for e in sup.events]
+    if kinds != [(e["kind"], e["mode"]) for e in sup_cpu.events] or \
+            sup.mode != "episode_chunked":
+        raise AssertionError(f"supervisor: {kinds} on the card, "
+                             f"{sup_cpu.events} on the CPU")
+    d = max_log_diff(want, got, LOG_KEYS, 1e-5)
+    print(f"supervisor deepstream T={SUPERVISOR_SLOTS}: {kinds}; chunks of "
+          f"{sup._chunk_len(SUPERVISOR_SLOTS)}; card vs CPU max diff "
+          + " ".join(f"{k}={v:.3g}" for k, v in d.items()))
+
+    # 5. the checked lane
+    tr, lv = trace[:W], live[:W]
+    nan_tr = tr.copy()
+    nan_tr[len(tr) // 2] = np.nan
+    for mode, kw in (("episode", {}), ("pipelined", {"episode": False})):
+        plain, chk = system(**kw), system(checked=True, **kw)
+        a = plain.run(DeviceScene(plain.cfg.scene, device=dev), tr,
+                      "deepstream", faults=lv)
+        b = chk.run(DeviceScene(chk.cfg.scene, device=dev), tr,
+                    "deepstream", faults=lv)
+        if not bitwise(a, b):
+            raise AssertionError(f"checked {mode} run differs from the "
+                                 "unchecked run")
+        syncs = "the pipelined loop reads each slot's flags at its harvest"
+        if mode == "episode":
+            scene = DeviceScene(chk.cfg.scene, device=dev)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = chk._episode_dispatch(scene, tr, "deepstream",
+                                            faults=lv)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if not bitwise(a, chk._episode_logs(out, tr)):
+                raise AssertionError("checked replay differs")
+            syncs = "0 host syncs before the harvest"
+        try:
+            if mode == "episode":
+                scene = DeviceScene(chk.cfg.scene, device=dev)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = chk._episode_dispatch(scene, nan_tr, "deepstream",
+                                                faults=lv)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                chk._episode_logs(out, nan_tr)
+            else:
+                chk.run(DeviceScene(chk.cfg.scene, device=dev), nan_tr,
+                        "deepstream", faults=lv)
+            raise AssertionError(f"checked {mode}: a NaN slot did not "
+                                 "raise")
+        except fleet_mod.CheckError as e:
+            msg = str(e)
+        print(f"checked lane {mode} deepstream T={W}: bitwise equal to the "
+              f"unchecked lane; {syncs}; a NaN slot raises at the harvest: "
+              f"{msg!r}")
+
+    # 6. the launcher, twice: the second run restores
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--fleet-stream",
+           "--stream-slots", str(STREAM_SLOTS), "--window-slots", str(W),
+           "--device", dev.type, "--ckpt-dir", str(work / "launcher")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=ROOT, timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"launcher failed:\n{p.stdout}\n{p.stderr}")
+        outs.append((time.perf_counter() - t0, p.stdout.strip().splitlines()))
+    if f"# restored window={STREAM_SLOTS // W} t_next={STREAM_SLOTS}" \
+            not in outs[1][1]:
+        raise AssertionError(f"the launcher's second run did not restore: "
+                             f"{outs[1][1]}")
+    for i, (sec, lines) in enumerate(outs):
+        print(f"launcher run {i + 1} ({sec:.1f} s): " + " | ".join(lines))
+
+    # 7. times: window turnaround, the checkpoint's costs, syncs per window
+    def sync_sites(fn) -> collections.Counter:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return collections.Counter(
+            "checkpoint" if Path(w.filename).name == "checkpoint.py" else
+            "harvest" if Path(w.filename).name == "scheduler.py" else
+            f"{Path(w.filename).name}:{w.lineno}" for w in caught)
+
+    window_runners = {}
+    for C, methods in ((5, METHODS), (STREAM_C_WIDE, ("deepstream",))):
+        s = g if C == 5 else system(C)
+        tr_c, lv_c = make_soak_stream(STREAM_SLOTS, num_cams=C)
+        for method in methods:
+            if C != 5:    # capture this configuration's graphs first
+                serve_all(runner(s, method), tr_c[:W], lv_c[:W])
+            d_t = work / f"timing_C{C}_{method}"
+            cfg = StreamConfig(window_slots=W, queue_slots=STREAM_SLOTS,
+                               ckpt_dir=str(d_t))
+            r = runner(s, method, cfg)
+            serve_all(r, tr_c, lv_c)
+            r.close()
+            st = r.stats()
+            rr = runner(s, method, cfg)
+            rr.restore()
+            sites = sync_sites(lambda: (rr.offer(tr_c[:W], faults=lv_c[:W]),
+                                        rr.serve(), rr.close()))
+            # (the CPU rehearsal records no syncs)
+            if dev.type == "cuda" and (set(sites) - {"harvest",
+                                                     "checkpoint"}
+                                       or sites["checkpoint"] != 1):
+                raise AssertionError(f"stream {method} C={C}: host syncs "
+                                     f"{dict(sites)}")
+            print(f"stream C={C} method={method}: {st['windows']} windows of "
+                  f"{W}; window turnaround p50 {st['p50_window_s'] * 1e3:.2f}"
+                  f" ms, p99 {st['p99_window_s'] * 1e3:.2f} ms; "
+                  f"{st['slots_per_s']:.1f} slots/s; checkpoint snapshot "
+                  f"{st['ckpt_snapshot_ms']:.3f} ms, async write "
+                  f"{st['ckpt_write_ms']:.3f} ms, restore "
+                  f"{rr.stats()['restore_ms']:.3f} ms; host syncs per "
+                  f"window: harvest {sites['harvest']}, checkpoint "
+                  f"{sites['checkpoint']} {tag}")
+            if C == 5:
+                window_runners[method] = (runner(s, method), trace, live)
+    return window_runners, {k: e for k, (_, e) in seen.items()}
+
+
+def stream_window(runner, trace, live) -> None:
+    """Serve the next window of the stream (the trace taken cyclically)."""
+    i = runner.t_next % len(trace)
+    runner.offer(trace[i:i + STREAM_WINDOW], faults=live[i:i + STREAM_WINDOW])
+    runner.serve()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2046,6 +2471,17 @@ def main(argv=None) -> int:
                              f"{launches_run['edge_motion']} times, not "
                              f"{2 * T_SLOTS} (ROIDet and reducto per slot)")
 
+    # -- 6b. crash-safe fleet serving --------------------------------------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 6b: the fleet "
+          "stream")
+    t_new = time.perf_counter()
+    stream_runners, stream_worst = stream_phase(
+        torch, dev, light_h, server_h, arts, reset_counts, read_counts, needs,
+        tag)
+    for k, e in stream_worst.items():
+        worst[k] = max(worst[k], e)
+    print(f"phase 6b (the fleet stream): {time.perf_counter() - t_new:.1f} s")
+
     # -- 7. the LM serving tier: small width card vs CPU, then full width
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 7: LM serving")
     lm_card_vs_cpu(torch, dev)
@@ -2206,10 +2642,28 @@ def main(argv=None) -> int:
         if C == 5 and T == T_SLOTS:
             for k in counters:
                 launches_episode[k] += n[k]
+    # one window of the stream per method (C=5, 8 slots), replayed
+    launches_stream = dict.fromkeys(counters, 0)
+    for method, (r, tr, lv) in stream_runners.items():
+        want = {k: STREAM_WINDOW if k in needs(method) else 0
+                for k in counters}
+        reset_counts()
+        n = recorded_launches(torch, lambda r=r, tr=tr, lv=lv: stream_window(
+            r, tr, lv), want, f"stream {method} window")
+        if any(read_counts().values()):
+            raise AssertionError(f"stream {method}: a replayed window called "
+                                 f"kernel wrappers {read_counts()}")
+        print(f"stream {method} C=5: one window of {STREAM_WINDOW} slots, "
+              "kernels the card ran (CUPTI records) "
+              + " ".join(f"{k} {v}" for k, v in n.items())
+              + ", wrapper calls 0")
+        for k in counters:
+            launches_stream[k] += n[k]
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
         rec["launches_profile"] = prof_launches[rec["name"]]
+        rec["launches_stream"] = launches_stream[rec["name"]]
 
     if args.profile:
         from torch.autograd import DeviceType

@@ -1,85 +1,474 @@
-"""Read-only restore of the JAX package's committed checkpoints.
+"""Atomic, checksummed, self-healing checkpoints in the JAX package's format.
 
-The detector weights ship as checkpoint directories
-(``artifacts/detector_{light,server}/``): ``manifest.json`` lists each leaf
-under its pytree key string (``"['c1']"``) with shape, dtype, codec
-(``zlib``; ``zstd`` where the ``zstandard`` module exists), byte
-``offset``/``nbytes`` into ``data.<pid>.bin`` and, from format 2 on, the
-crc32 and length of the raw bytes.  This module reads that layout with
-numpy and the standard library only, so the port loads its weights on a
-machine with no JAX.
+The counterpart of ``repro.ckpt.checkpoint``, with numpy, the standard
+library and torch only, so the port saves and restores on a machine with
+no JAX.  The layout is the JAX package's format 2, byte for byte:
+
+  * one directory per step: ``manifest.json`` (format, step, user
+    metadata, the leaf keys, and per leaf its shape, dtype, codec,
+    ``offset``/``nbytes`` into ``data.0.bin`` and the crc32 and length of
+    its raw bytes) + ``data.0.bin`` (one compressed frame per leaf:
+    ``zstd`` where the ``zstandard`` module exists, else ``zlib``);
+  * leaves are named by JAX's key strings (``['est'].a_ema``, ``['ref']``;
+    dict keys sorted, NamedTuple fields by name, sequence items by index),
+    so a checkpoint written by either package restores in the other;
+  * atomic commit: everything goes to ``<dir>.tmp``, then the ``COMMITTED``
+    marker, an fsync'd rename and an fsync of the parent; a ``*.tmp``
+    directory is never committed, so a crash mid-save leaves the previous
+    generation as the newest restorable one.
+
+``AsyncSaver`` takes the snapshot on the calling thread (``snapshot``:
+every device tensor of the tree in ONE device-to-host transfer) and hands
+numpy arrays to a writer thread, which compresses, writes and commits;
+the serving loop pays for the snapshot only.  ``restore(path, target)``
+verifies every leaf (bounds, decompression, raw length, crc32) and raises
+``CheckpointCorruptError`` naming the leaf and the field that failed;
+``verify_checkpoint`` runs the same battery without building arrays,
+``latest_valid`` falls back through the generations to the newest one that
+verifies, and ``gc_generations`` keeps the newest N but never deletes the
+newest valid generation.  A leaf whose dtype differs from the target's is
+cast on restore (the run key: uint32 in the file, int64 in the port).
+
+``restore(path)`` without a target reads a flat ``{name: array}``
+checkpoint (the committed detector weights) into numpy.
+
+``AsyncSaver`` accepts a duck-typed ``chaos`` engine (``ft.chaos``) and
+calls ``on_save_start(step)`` before writing and ``on_save_committed(path,
+step)`` after the atomic rename: corruption is injected at the boundaries
+where real storage rot happens, never inside the commit protocol.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
+import threading
+import time
 import zlib
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.common.device import upload
+
+try:
+    import zstandard as zstd
+    HAVE_ZSTD = True
+except ImportError:          # no zstandard: write zlib frames
+    zstd = None
+    HAVE_ZSTD = False
 
 COMMIT_MARKER = "COMMITTED"
-_KEY = re.compile(r"^\['([^']+)'\]$")
+# format 2: per-leaf raw-byte crc32 and length (format-1 checkpoints
+# restore without checksum verification)
+MANIFEST_FORMAT = 2
+_FLAT_KEY = re.compile(r"^\['([^']+)'\]$")
 
 
 class CheckpointCorruptError(RuntimeError):
-    """A leaf failed its bounds, decompression or checksum check."""
+    """A committed checkpoint failed content verification (checksum
+    mismatch, truncated data, torn manifest).  Callers holding generation
+    history fall back (``latest_valid``)."""
+
+
+def _compress(data: bytes) -> Tuple[bytes, str]:
+    if HAVE_ZSTD:
+        return zstd.ZstdCompressor(level=3).compress(data), "zstd"
+    return zlib.compress(data, 3), "zlib"
 
 
 def _decompress(blob: bytes, codec: str) -> bytes:
-    if codec == "zlib":
-        try:
-            return zlib.decompress(blob)
-        except zlib.error as e:
-            raise CheckpointCorruptError(f"zlib: {e}") from e
     if codec == "zstd":
-        import zstandard
-        try:
-            return zstandard.ZstdDecompressor().decompress(blob)
-        except zstandard.ZstdError as e:
-            raise CheckpointCorruptError(f"zstd: {e}") from e
+        if not HAVE_ZSTD:
+            raise RuntimeError("checkpoint was written with zstd but "
+                               "zstandard is not installed")
+        return zstd.ZstdDecompressor().decompress(blob)
+    if codec == "zlib":
+        return zlib.decompress(blob)
     raise ValueError(f"unknown checkpoint codec {codec!r}")
 
 
-def _leaf_name(key: str) -> str:
-    m = _KEY.match(key)
-    if m is None:
-        raise ValueError(f"only flat dict checkpoints are supported, got "
-                         f"leaf key {key!r}")
-    return m.group(1)
+# -- trees ---------------------------------------------------------------------
+# A tree is a nest of dicts, NamedTuples, tuples and lists with tensors,
+# numpy arrays or scalars at the leaves (None is an empty subtree), walked
+# in JAX's order.
+
+def _children(tree) -> Optional[List[Tuple[str, Any]]]:
+    """(key string suffix, child) pairs of an inner node, None for a
+    leaf."""
+    if isinstance(tree, dict):
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (tuple, list)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return None
 
 
-def restore(path) -> Tuple[Dict[str, np.ndarray], Dict]:
-    """Checkpoint directory -> (``{name: array}``, metadata with ``step``).
+def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """[(JAX key string, leaf)] in JAX's flattening order."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [kv for k, v in kids for kv in _flatten(v, prefix + k)]
 
-    Every leaf is bounds-checked and, where the manifest records them, its
-    raw length and crc32 are verified."""
+
+def _rebuild(tree, leaves):
+    """``tree`` with its leaves replaced, in order, from the iterator
+    ``leaves``."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return next(leaves)
+    vals = [_rebuild(v, leaves) for _, v in kids]
+    if isinstance(tree, dict):
+        return dict(zip(sorted(tree), vals))
+    if hasattr(tree, "_fields"):
+        return type(tree)(*vals)
+    return type(tree)(vals)
+
+
+def _np_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((0,), dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def snapshot(tree):
+    """``tree`` with every leaf as a numpy array.  All tensors that lie on
+    a device come back in ONE transfer (their bytes concatenated on the
+    device), so a snapshot waits on the card once; CPU tensors and numpy
+    leaves are copied."""
+    leaves = [v for _, v in _flatten(tree)]
+    on_dev = [x for x in leaves
+              if torch.is_tensor(x) and x.device.type != "cpu"]
+    fetched: Dict[int, np.ndarray] = {}
+    if on_dev:
+        flat = torch.cat([x.detach().contiguous().reshape(-1)
+                          .view(torch.uint8) for x in on_dev])
+        host = flat.cpu().numpy()
+        off = 0
+        for x in on_dev:
+            n = x.numel() * x.element_size()
+            fetched[id(x)] = (host[off:off + n].view(_np_dtype(x.dtype))
+                              .reshape(tuple(x.shape)).copy())
+            off += n
+
+    def host_of(x) -> np.ndarray:
+        if id(x) in fetched:
+            return fetched[id(x)]
+        if torch.is_tensor(x):
+            return x.detach().cpu().numpy().copy()
+        return np.array(x)
+    return _rebuild(tree, iter([host_of(x) for x in leaves]))
+
+
+# -- save ---------------------------------------------------------------------
+
+class AsyncSaver:
+    """Background-thread checkpoint writer with atomic commit, bounded
+    retention (``keep``) and chaos hooks (``chaos``).  ``write_s`` holds
+    the writer's seconds per committed save (compress, write, commit, gc);
+    ``snapshot_s`` the calling thread's seconds per snapshot."""
+
+    def __init__(self, keep: Optional[int] = None, chaos: Any = None):
+        if keep is not None and keep < 1:
+            raise ValueError(f"keep must be >= 1 (got {keep})")
+        self.keep = keep
+        self.chaos = chaos
+        self.gc_removed: List[str] = []   # generation dirs gc deleted
+        self.write_s: List[float] = []
+        self.snapshot_s: List[float] = []
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, tree: Any, path, *, step: int = 0,
+             metadata: Optional[Dict] = None, blocking: bool = False,
+             dtypes: Optional[Dict[str, Any]] = None) -> None:
+        """Snapshot ``tree`` now, write it to ``path`` on the writer thread
+        (or here, ``blocking``).  ``dtypes`` maps leaf key strings to the
+        dtype they are written in (the port's int64 run key as uint32)."""
+        self.wait()  # one outstanding save at a time
+        t0 = time.perf_counter()
+        host = snapshot(tree)
+        self.snapshot_s.append(time.perf_counter() - t0)
+        host_leaves = [(k, v.astype(dtypes[k]) if dtypes and k in dtypes
+                        else v) for k, v in _flatten(host)]
+        # the manifest's tree field (the JAX package writes its PyTreeDef;
+        # restore reads the leaf keys, never this)
+        treedef_str = repr([k for k, _ in host_leaves])
+
+        def _write():
+            try:
+                t1 = time.perf_counter()
+                if self.chaos is not None:
+                    self.chaos.on_save_start(step)
+                _write_checkpoint(host_leaves, treedef_str, Path(path),
+                                  step=step, metadata=metadata or {})
+                if self.chaos is not None:
+                    self.chaos.on_save_committed(Path(path), step)
+                if self.keep is not None:
+                    self.gc_removed.extend(
+                        str(p) for p in gc_generations(Path(path).parent,
+                                                       self.keep))
+                self.write_s.append(time.perf_counter() - t1)
+            except BaseException as e:  # surfaced on the next wait()
+                self._error = e
+
+        if blocking:
+            _write()
+            if self._error:
+                err, self._error = self._error, None
+                raise err
+        else:
+            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread.start()
+
+
+def _write_checkpoint(host_leaves, treedef_str: str, path: Path, *,
+                      step: int, metadata: Dict) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = {"format": MANIFEST_FORMAT, "step": step, "metadata": metadata,
+                "treedef": treedef_str, "leaves": {}}
+    data_path = tmp / "data.0.bin"
+    with open(data_path, "wb") as f:
+        for key, arr in host_leaves:
+            raw = np.ascontiguousarray(arr).tobytes()
+            blob, codec = _compress(raw)
+            off = f.tell()
+            f.write(blob)
+            manifest["leaves"][key] = {
+                "shape": list(arr.shape), "dtype": str(arr.dtype),
+                "offset": off, "nbytes": len(blob), "file": data_path.name,
+                "codec": codec,
+                "crc32": zlib.crc32(raw), "raw_nbytes": len(raw),
+            }
+        f.flush()
+        os.fsync(f.fileno())
+    for name, text in (("manifest.json", json.dumps(manifest)),
+                       (COMMIT_MARKER, "ok")):
+        with open(tmp / name, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+    if path.exists():
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+    dfd = os.open(path.parent, os.O_RDONLY)   # make the rename durable
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+def save(tree: Any, path, *, step: int = 0, metadata: Optional[Dict] = None,
+         dtypes: Optional[Dict[str, Any]] = None) -> None:
+    """Blocking save of ``tree`` to ``path``."""
+    AsyncSaver().save(tree, path, step=step, metadata=metadata, blocking=True,
+                      dtypes=dtypes)
+
+
+# -- generations --------------------------------------------------------------
+
+def is_committed(path) -> bool:
+    """Committed = the atomic rename happened.  A ``*.tmp`` staging
+    directory is never committed, even with its marker file written."""
     path = Path(path)
-    if path.name.endswith(".tmp") or not (path / COMMIT_MARKER).exists():
-        raise FileNotFoundError(f"no committed checkpoint at {path}")
-    manifest = json.loads((path / "manifest.json").read_text())
+    return (not path.name.endswith(".tmp")
+            and (path / COMMIT_MARKER).exists())
+
+
+def generations(root) -> List[Path]:
+    """Every committed checkpoint directory under ``root``, oldest first
+    (names sort by generation: the serving loop's ``window_%08d``)."""
+    root = Path(root)
+    if not root.exists():
+        return []
+    return sorted((p for p in root.iterdir() if is_committed(p)),
+                  key=lambda p: p.name)
+
+
+def latest_committed(root) -> Optional[Path]:
+    cands = generations(root)
+    return cands[-1] if cands else None
+
+
+def _load_manifest(path: Path) -> Dict:
+    """Parse and check a manifest, raising ``CheckpointCorruptError``
+    naming the failed file or field."""
+    mf = path / "manifest.json"
+    if not mf.exists():
+        raise CheckpointCorruptError(f"{path.name}: manifest.json missing")
+    try:
+        manifest = json.loads(mf.read_text())
+    except (json.JSONDecodeError, UnicodeDecodeError) as e:
+        raise CheckpointCorruptError(
+            f"{path.name}: manifest.json unreadable (torn write?): {e}")
+    for field in ("step", "treedef", "leaves"):
+        if field not in manifest:
+            raise CheckpointCorruptError(
+                f"{path.name}: manifest.json missing field {field!r}")
+    for key, ent in manifest["leaves"].items():
+        for field in ("shape", "dtype", "offset", "nbytes", "file"):
+            if field not in ent:
+                raise CheckpointCorruptError(
+                    f"{path.name}: leaf {key}: manifest missing field "
+                    f"{field!r}")
+    return manifest
+
+
+def _read_leaf_raw(path: Path, files: Dict[str, Path], key: str,
+                   ent: Dict) -> bytes:
+    """One leaf's raw bytes, read, decompressed and checked, raising
+    ``CheckpointCorruptError`` naming the leaf and the failed field."""
+    fp = files.get(ent["file"])
+    if fp is None:
+        raise CheckpointCorruptError(
+            f"{path.name}: leaf {key}: data file {ent['file']!r} missing")
+    size = fp.stat().st_size
+    if ent["offset"] + ent["nbytes"] > size:
+        raise CheckpointCorruptError(
+            f"{path.name}: leaf {key}: data file truncated "
+            f"(need {ent['offset'] + ent['nbytes']} bytes, have {size})")
+    with open(fp, "rb") as f:
+        f.seek(ent["offset"])
+        blob = f.read(ent["nbytes"])
+    try:
+        raw = _decompress(blob, ent.get("codec", "zstd"))
+    except Exception as e:
+        raise CheckpointCorruptError(
+            f"{path.name}: leaf {key}: decompress failed "
+            f"(corrupt data.bin?): {e}")
+    if "raw_nbytes" in ent and len(raw) != ent["raw_nbytes"]:
+        raise CheckpointCorruptError(
+            f"{path.name}: leaf {key}: field raw_nbytes mismatch "
+            f"({len(raw)} != {ent['raw_nbytes']})")
+    if "crc32" in ent and zlib.crc32(raw) != ent["crc32"]:
+        raise CheckpointCorruptError(
+            f"{path.name}: leaf {key}: field crc32 checksum mismatch")
+    return raw
+
+
+def verify_checkpoint(path) -> List[str]:
+    """Every check ``restore`` makes, without building arrays: commit
+    marker, manifest, per-leaf bounds, decompression, checksums and the
+    payload size against shape and dtype.  Returns the errors (empty =
+    valid), each naming the leaf or field that failed."""
+    path = Path(path)
+    if not is_committed(path):
+        return [f"{path.name}: not committed (no marker / staging dir)"]
+    try:
+        manifest = _load_manifest(path)
+    except CheckpointCorruptError as e:
+        return [str(e)]
+    files = {p.name: p for p in path.glob("data.*.bin")}
+    errors = []
+    for key, ent in manifest["leaves"].items():
+        try:
+            raw = _read_leaf_raw(path, files, key, ent)
+            expect = (int(np.prod(ent["shape"]))
+                      * np.dtype(ent["dtype"]).itemsize)
+            if len(raw) != expect:
+                errors.append(f"{path.name}: leaf {key}: field shape/dtype "
+                              f"inconsistent with payload ({len(raw)} bytes "
+                              f"!= {expect})")
+        except CheckpointCorruptError as e:
+            errors.append(str(e))
+    return errors
+
+
+def latest_valid(root) -> Optional[Path]:
+    """The newest committed generation that passes ``verify_checkpoint``."""
+    for p in reversed(generations(root)):
+        if not verify_checkpoint(p):
+            return p
+    return None
+
+
+def gc_generations(root, keep: int) -> List[Path]:
+    """Delete committed generations beyond the newest ``keep``, never the
+    newest valid one (when every newer generation is corrupt it is the
+    only restorable state).  Staging directories are never touched.
+    Returns the deleted paths."""
+    gens = generations(root)
+    if keep < 1 or len(gens) <= keep:
+        return []
+    protect = latest_valid(root)
+    removed = []
+    for p in gens[:-keep]:
+        if protect is not None and p == protect:
+            continue
+        shutil.rmtree(p)
+        removed.append(p)
+    return removed
+
+
+# -- restore ------------------------------------------------------------------
+
+def _restore_flat(path: Path, manifest: Dict, files: Dict[str, Path]
+                  ) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for key, ent in manifest["leaves"].items():
-        fp = path / ent["file"]
-        size = fp.stat().st_size
-        if ent["offset"] + ent["nbytes"] > size:
-            raise CheckpointCorruptError(f"{path.name}: leaf {key}: data "
-                                         "file truncated")
-        with open(fp, "rb") as f:
-            f.seek(ent["offset"])
-            blob = f.read(ent["nbytes"])
-        try:
-            raw = _decompress(blob, ent.get("codec", "zstd"))
-        except CheckpointCorruptError as e:
-            raise CheckpointCorruptError(f"{path.name}: leaf {key}: "
-                                         f"decompress failed: {e}") from e
-        if "raw_nbytes" in ent and len(raw) != ent["raw_nbytes"]:
-            raise CheckpointCorruptError(f"{path.name}: leaf {key}: raw "
-                                         "length mismatch")
-        if "crc32" in ent and zlib.crc32(raw) != ent["crc32"]:
-            raise CheckpointCorruptError(f"{path.name}: leaf {key}: crc32 "
-                                         "mismatch")
+        m = _FLAT_KEY.match(key)
+        if m is None:
+            raise ValueError(f"a flat restore needs a dict checkpoint, got "
+                             f"leaf key {key!r}; pass a target")
+        raw = _read_leaf_raw(path, files, key, ent)
+        out[m.group(1)] = np.frombuffer(raw, dtype=ent["dtype"]).reshape(
+            ent["shape"]).copy()
+    return out
+
+
+def restore(path, target: Any = None, *, device=None) -> Tuple[Any, Dict]:
+    """Restore ``path`` -> (tree, metadata with ``step``).
+
+    With ``target`` (a tree of tensors or numpy arrays of the expected
+    shapes), each leaf is read by its key string, checked, cast to the
+    target leaf's dtype when it differs, and returned like the target
+    leaf: a tensor on ``device`` (default: the target tensor's device), or
+    a numpy array.  Without ``target``: a flat ``{name: array}`` of numpy
+    arrays.  A failed check raises ``CheckpointCorruptError`` naming the
+    leaf and the field."""
+    path = Path(path)
+    if not is_committed(path):
+        raise FileNotFoundError(f"no committed checkpoint at {path}")
+    manifest = _load_manifest(path)
+    files = {p.name: p for p in path.glob("data.*.bin")}
+    meta = manifest.get("metadata", {}) | {"step": manifest["step"]}
+    if target is None:
+        return _restore_flat(path, manifest, files), meta
+    out = []
+    for key, tgt in _flatten(target):
+        if key not in manifest["leaves"]:
+            raise KeyError(f"leaf {key} missing from checkpoint")
+        ent = manifest["leaves"][key]
+        raw = _read_leaf_raw(path, files, key, ent)
         arr = np.frombuffer(raw, dtype=ent["dtype"]).reshape(ent["shape"])
-        out[_leaf_name(key)] = arr.copy()
-    return out, manifest.get("metadata", {}) | {"step": manifest["step"]}
+        if tuple(arr.shape) != tuple(tgt.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
+                             f"vs target {tuple(tgt.shape)}")
+        want = _np_dtype(tgt.dtype)
+        arr = arr.astype(want) if arr.dtype != want else arr.copy()
+        if torch.is_tensor(tgt):
+            out.append(upload(arr, tgt.device if device is None else device))
+        else:
+            out.append(arr)
+    return _rebuild(target, iter(out)), meta

@@ -28,6 +28,17 @@ slot step is captured once per (method, configuration, trace bucket) as a
 CUDA graph and replayed for every slot: the counterpart of the JAX
 package's one compiled program per (method, bucket).  Nothing in a slot
 step reads the device from the host.
+
+The ``checked`` diagnostics lane (``SystemConfig.checked``) computes the
+JAX package's checkify invariants on the device, as a row of violation
+flags beside each slot's control pack (``CONTROL_CHECKS``,
+``SLOT_CHECKS``, ``EPISODE_CHECKS``): finite logs, F1 in [0, 1], no dead
+camera granted bandwidth, a feasible allocation within the slot's
+capacity, the elastic debt within its budget.  The rows ride the CUDA
+graphs and the harvest's fetch; ``raise_failed`` raises the first violated
+check in program order with the JAX package's message (``CheckError``)
+after the harvest, so a checked run keeps the episode's one harvest.  An
+unchecked run computes no flags (``checked`` is part of the graph key).
 """
 from __future__ import annotations
 
@@ -59,6 +70,57 @@ MOTION_KEEP_THRESH = 25.0
 CODEC_KEY_SALT = 0x0DEC
 
 Params = Dict[str, torch.Tensor]
+
+# -- the checked diagnostics lane ---------------------------------------------
+# The JAX package's checkify messages, in its program order.
+
+CONTROL_CHECKS: Tuple[str, ...] = (
+    "control: elastic debt outside [0, budget]",
+    "control: no live camera in slot",
+    "control: bandwidth sample not finite/non-negative",
+    "control: non-finite allocation or log pack",
+    "control: dead camera granted bandwidth",
+    "control: feasible allocation exceeds slot capacity",
+)
+SLOT_CHECKS: Tuple[str, ...] = (
+    "slot-step: non-finite F1 or size",
+    "slot-step: F1 outside [0, 1]",
+    "slot-step: negative size",
+    "slot-step: keep mask row with no kept frame",
+    "slot-step: non-transmitting camera produced F1",
+)
+# an episode slot's flag row: the trace check (reduced over the run, since
+# the JAX package checks the whole trace before its scan), the control
+# checks, then the reference body's F1 check
+EPISODE_CHECKS: Tuple[str, ...] = (
+    ("episode: non-finite bandwidth trace",) + CONTROL_CHECKS
+    + ("episode slot-step: non-finite F1 or size",))
+
+
+class CheckError(ValueError):
+    """A checked run violated an invariant (the counterpart of checkify's
+    ``JaxRuntimeError``); the message is the JAX package's."""
+
+
+def raise_failed(flags: np.ndarray, messages: Sequence[str],
+                 run_level: int = 0) -> None:
+    """Raise ``CheckError`` for the first violated check of ``flags`` ((T,
+    K) violation flags, the columns in ``messages``' order) in program
+    order: the first ``run_level`` columns are checks of the whole run
+    (any slot), then slot by slot, column by column."""
+    flags = np.asarray(flags) > 0
+    for k in range(run_level):
+        if flags[:, k].any():
+            raise CheckError(messages[k])
+    for row in flags:
+        for k in range(run_level, len(messages)):
+            if row[k]:
+                raise CheckError(messages[k])
+
+
+def _violated(*ok: torch.Tensor) -> torch.Tensor:
+    """(len(ok),) f32 flags: 1 where a check's 0-d bool condition fails."""
+    return (~torch.stack([o.reshape(()) for o in ok])).to(torch.float32)
 
 
 # default trace-length buckets of the episode: one CUDA graph per (method,
@@ -226,6 +288,7 @@ class FleetSlotOut(NamedTuple):
     f1_frames: torch.Tensor  # (C, F) per-eval-frame F1 on kept frames
     sizes: torch.Tensor      # (C,) encoded bytes
     host_pack: torch.Tensor  # (2, C) [f1; sizes], the one per-slot fetch
+    flags: Optional[torch.Tensor] = None   # (len(SLOT_CHECKS),) if checked
 
 
 def _slot_finish(server_params: Params, st: SlotStaged, *,
@@ -260,19 +323,29 @@ def fleet_slot_step(cfg: CodecConfig, server_params: Params,
                     keep: torch.Tensor, gt_boxes: torch.Tensor,
                     gt_valid: torch.Tensor, live: torch.Tensor, *,
                     eval_frames: int, block_size: int, with_reuse: bool,
-                    tables: CodecTables,
-                    conf_thresh: float = 0.4) -> FleetSlotOut:
+                    tables: CodecTables, conf_thresh: float = 0.4,
+                    checked: bool = False) -> FleetSlotOut:
     """One slot of every method: ``_slot_encode`` then ``_slot_finish``.
     frames (C, N, H, W); masks (C, H/bs, W/bs) bool; b, r (C,); keys
     (C, 2); keep (C, N) bool (all True except for reducto); GT for all N
     frames; live (C,) bool.  ``with_reuse`` adds reducto's reuse arm;
-    ``tables`` are the run's codec tables on the device."""
+    ``tables`` are the run's codec tables on the device; ``checked`` adds
+    the ``SLOT_CHECKS`` flags."""
     st = _slot_encode(cfg, frames, masks, b, r, keys, keep, gt_boxes,
                       gt_valid, live, eval_frames=eval_frames,
                       block_size=block_size, with_reuse=with_reuse,
                       tables=tables)
-    return _slot_finish(server_params, st, conf_thresh=conf_thresh,
-                        with_reuse=with_reuse)
+    out = _slot_finish(server_params, st, conf_thresh=conf_thresh,
+                       with_reuse=with_reuse)
+    if not checked:
+        return out
+    f1, f1_frames, sizes = out.f1, out.f1_frames, out.sizes
+    return out._replace(flags=_violated(
+        torch.isfinite(f1).all() & torch.isfinite(sizes).all(),
+        ((f1 >= -1e-3) & (f1 <= 1.0 + 1e-3)).all(),
+        (sizes >= 0.0).all(),
+        keep.any(dim=1).all(),
+        torch.where(st.tx[:, None], True, f1_frames == 0.0).all()))
 
 
 def reducto_keep_step(frames: torch.Tensor, ref: torch.Tensor,
@@ -302,6 +375,7 @@ class ControlOut(NamedTuple):
     r: torch.Tensor         # (C,) assigned resolutions
     est: ElasticState
     pack: torch.Tensor      # (4,) [extra_kbps, area, alloc_kbps, feasible]
+    flags: Optional[torch.Tensor] = None   # (len(CONTROL_CHECKS),) if checked
 
 
 def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
@@ -311,16 +385,19 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
                        ecfg: ElasticConfig, bitrates: Tuple[int, ...],
                        resolutions: Tuple[float, ...], slot_seconds: float,
                        use_elastic: bool, w_cap: int, num_cams: int,
-                       tables: CodecTables) -> ControlOut:
+                       tables: CodecTables, checked: bool = False
+                       ) -> ControlOut:
     """One slot of the server-side control loop: elastic adjustment ->
     utility table -> allocation, routed by method, left on the device.
     ``a``/``c`` are None for the content-agnostic methods; ``live`` (C,)
     and ``reconnect`` (0-d) are bool tensors.  The effective capacity floor
     is 0 (a hard-outage slot allocates nothing).  ``tables`` holds
     ``bitrates`` and ``resolutions`` on the device (``codec.device_tables``,
-    built once per run)."""
+    built once per run).  ``checked`` adds the ``CONTROL_CHECKS`` flags."""
     dev = W_t.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    debt_ok = None          # checked only where the elastic update runs
+    cap = W_t
     if method in ("deepstream", "deepstream_no_elastic"):
         area = torch.where(live, a, 0.0).sum()
         extra = zero
@@ -330,10 +407,14 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
             extra = extra_kbits / slot_seconds
         util, best_res = util_mod.utility_table(
             mlp_params, a, c, tables.bitrates, tables.resolutions, lam)
-        W_eff = torch.clamp(W_t + extra, min=0.0)
+        W_eff = cap = torch.clamp(W_t + extra, min=0.0)
         _, b, r, _, feasible = alloc_mod.allocate_dp(
             util, best_res, bitrates, W_eff, w_cap=w_cap, live=live,
             rates=tables.bitrates)
+        if checked and use_elastic:
+            debt = est.debt_kbits
+            debt_ok = (torch.isfinite(debt) & (debt >= -1e-3)
+                       & (debt <= ecfg.budget_kbits + 1e-3))
     elif method == "jcab":
         area = extra = zero
         _, b, r, _, feasible = alloc_mod.allocate_dp(
@@ -347,7 +428,16 @@ def fleet_control_step(mlp_params: Optional[Params], jcab_util, jcab_res,
     else:
         raise ValueError(method)
     pack = torch.stack([extra, area, b.sum(), feasible.to(torch.float32)])
-    return ControlOut(b=b, r=r, est=est, pack=pack)
+    flags = None
+    if checked:
+        if debt_ok is None:
+            debt_ok = torch.ones((), dtype=torch.bool, device=dev)
+        flags = _violated(
+            debt_ok, live.any(), torch.isfinite(W_t) & (W_t >= 0.0),
+            torch.isfinite(b).all() & torch.isfinite(pack).all(),
+            torch.where(live, True, b == 0.0).all(),
+            ~feasible | (b.sum() <= cap + 1.0))
+    return ControlOut(b=b, r=r, est=est, pack=pack, flags=flags)
 
 
 def fleet_control_scan(mlp_params: Optional[Params], jcab_util, jcab_res,
@@ -400,7 +490,8 @@ def fleet_control_scan(mlp_params: Optional[Params], jcab_util, jcab_res,
 
 class EpisodeOut(NamedTuple):
     packs: torch.Tensor     # (T, 2, C) stacked [f1; sizes] per slot
-    cpacks: torch.Tensor    # (T, 4) [extra, area, alloc_kbps, feasible]
+    cpacks: torch.Tensor    # (T, 4) [extra, area, alloc_kbps, feasible],
+                            # then the EPISODE_CHECKS flags if checked
     key: torch.Tensor       # the run key, unchanged (codec keys are a pure
                             # per-(slot, camera) fold, ``slot_camera_keys``)
     est: ElasticState       # final elastic state (last active slot's)
@@ -426,6 +517,7 @@ class _Statics:
     conf_thresh: float
     gt_pad: int
     pipelined: bool
+    checked: bool
 
 
 class _Ctx(NamedTuple):
@@ -466,11 +558,14 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
     -> ROIDet -> control -> keep -> encode.  ``t`` (0-d int64), ``W_t``
     (0-d f32) and ``live_t`` (C,) bool are device tensors.  Returns (the
     advanced carry, the staged slot, the (4,) control pack, the inverse
-    camera permutation or None).  The pipelined body compacts the live
-    cameras to the leading rows by a stable sort and zeroes the dead
-    rows' frames; every stage after control is camera-row-local, so the
-    live cameras' outputs are bitwise the reference body's, and ``inv``
-    puts the log columns back in camera order."""
+    camera permutation or None).  A checked slot's control pack carries
+    its flags after the 4 values: the trace check and ``CONTROL_CHECKS``
+    (``_checked_row`` adds the F1 check at finish).  The pipelined body
+    compacts the live cameras to the leading rows by a stable sort and
+    zeroes the dead rows' frames; every stage after control is
+    camera-row-local, so the live cameras' outputs are bitwise the
+    reference body's, and ``inv`` puts the log columns back in camera
+    order."""
     N, H, W = s.scfg.frames_per_segment, s.scfg.height, s.scfg.width
     dev = W_t.device
     deep = s.method in ("deepstream", "deepstream_no_elastic")
@@ -492,7 +587,10 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
         method=s.method, ecfg=s.ecfg, bitrates=s.bitrates,
         resolutions=s.resolutions, slot_seconds=s.ccfg.slot_seconds,
         use_elastic=s.use_elastic, w_cap=s.w_cap, num_cams=s.num_cams,
-        tables=ctx.tables)
+        tables=ctx.tables, checked=s.checked)
+    cpack = co.pack
+    if s.checked:
+        cpack = torch.cat([cpack, _violated(torch.isfinite(W_t)), co.flags])
     ref = carry.ref
     if s.method == "reducto":
         # "first" is per run (t == t_first) and per reconnecting camera
@@ -513,7 +611,7 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
                       eval_frames=s.eval_frames,
                       block_size=s.block_size,
                       with_reuse=s.method == "reducto", tables=ctx.tables)
-    return _Carry(co.est, ref, live_t), st, co.pack, inv
+    return _Carry(co.est, ref, live_t), st, cpack, inv
 
 
 def _finish(s: _Statics, ctx: _Ctx, st: SlotStaged,
@@ -522,6 +620,15 @@ def _finish(s: _Statics, ctx: _Ctx, st: SlotStaged,
     pack = _slot_finish(ctx.server, st, conf_thresh=s.conf_thresh,
                         with_reuse=s.method == "reducto").host_pack
     return pack if inv is None else pack[:, inv]
+
+
+def _checked_row(s: _Statics, cpack: torch.Tensor, pack: torch.Tensor
+                 ) -> torch.Tensor:
+    """A reference-body slot's control pack with, when checked, the
+    episode's F1 check appended (the pack holds [f1; sizes])."""
+    if not s.checked:
+        return cpack
+    return torch.cat([cpack, _violated(torch.isfinite(pack).all())])
 
 
 def _episode_eager(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
@@ -539,11 +646,12 @@ def _episode_eager(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
         if i < T:
             carry, st, cpack, inv = slot_front(s, ctx, carry, xs.t_idx[i],
                                                xs.trace[i], xs.live[i])
-            cpacks.append(cpack)
             if s.pipelined:
+                cpacks.append(cpack)
                 staged = (st, inv)
             else:
                 packs.append(_finish(s, ctx, st, inv))
+                cpacks.append(_checked_row(s, cpack, packs[-1]))
     return torch.stack(packs), torch.stack(cpacks), carry
 
 
@@ -619,7 +727,9 @@ class _EpisodeGraph:
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
         rows = xs.trace.shape[0] + 1
         self.packs = torch.zeros((rows, 2, s.num_cams), device=dev)
-        self.cpacks = torch.zeros((rows, 4), device=dev)
+        self.cpacks = torch.zeros(
+            (rows, 4 + (len(EPISODE_CHECKS) if s.checked else 0)),
+            device=dev)
         self.side = torch.cuda.Stream(dev)
         self.halves = None
         # build the kernels, bind their entry points, let cuDNN and cuBLAS
@@ -660,19 +770,25 @@ class _EpisodeGraph:
                 for kind, fn in (("full", self._full), ("drain", self._drain))
                 for p in (0, 1)}
 
-    def _finish_into(self, half) -> None:
+    def _finish_into(self, half) -> torch.Tensor:
         pack = _finish(self.s, self.ctx, *half)
         self.packs.index_copy_(0, self.counter.view(1), pack[None])
+        return pack
 
     def _front(self):
+        """Slot front into the carry; returns ((staged, inv), cpack)."""
         carry, st, cpack, inv = slot_front(self.s, self.ctx, self.carry,
                                            *self._slot_inputs())
-        self.cpacks.index_copy_(0, self.counter.view(1), cpack[None])
         _copy(self.carry, carry)
-        return st, inv
+        return (st, inv), cpack
+
+    def _put_cpack(self, cpack: torch.Tensor) -> None:
+        self.cpacks.index_copy_(0, self.counter.view(1), cpack[None])
 
     def _step(self) -> None:
-        self._finish_into(self._front())
+        staged, cpack = self._front()
+        pack = self._finish_into(staged)
+        self._put_cpack(_checked_row(self.s, cpack, pack))
         self.counter.add_(1)
 
     def _full(self, p: int) -> None:
@@ -680,7 +796,9 @@ class _EpisodeGraph:
         self.side.wait_stream(main)
         with torch.cuda.stream(self.side):
             self._finish_into(self.halves[1 - p])      # stage B: slot i-1
-        _copy(self.halves[p], self._front())           # stage A: slot i
+        staged, cpack = self._front()                  # stage A: slot i
+        self._put_cpack(cpack)
+        _copy(self.halves[p], staged)
         main.wait_stream(self.side)
         self.counter.add_(1)
 
@@ -740,13 +858,17 @@ def fleet_episode(method: str, *, codec_cfg: CodecConfig,
                   ref0: Optional[torch.Tensor] = None,
                   live_prev0: Optional[np.ndarray] = None,
                   t_first: Optional[int] = None, pipelined: bool = True,
-                  _eager: bool = False) -> EpisodeOut:
+                  checked: bool = False, _eager: bool = False
+                  ) -> EpisodeOut:
     """Run a whole bandwidth trace (``trace`` (T,) f32 on the device) and
     return the stacked logs and the final carry, still on the device.
 
     ``pipelined=True`` (the default, the production body) overlaps slot
     i's front with slot i-1's finish and compacts each slot's live
     cameras; ``pipelined=False`` is the reference body it equals bitwise.
+    ``checked=True`` (the diagnostics lane) runs the reference body and
+    returns each slot's ``EPISODE_CHECKS`` flags after its 4 control-pack
+    values in ``cpacks``; the caller raises after the harvest.
     ``faults`` is the optional (T, C) bool liveness mask (True = live).
     T is padded to ``bucket_len(T, buckets)`` for the per-slot buffers
     (``buckets=None``: no padding); padded slots never run (see
@@ -811,7 +933,8 @@ def fleet_episode(method: str, *, codec_cfg: CodecConfig,
         use_elastic=bool(use_elastic), w_cap=int(w_cap),
         num_cams=int(num_cams), eval_frames=int(eval_frames),
         block_size=int(block_size), conf_thresh=float(conf_thresh),
-        gt_pad=int(gt_pad), pipelined=bool(pipelined))
+        gt_pad=int(gt_pad), pipelined=bool(pipelined) and not checked,
+        checked=bool(checked))
     run = (_episode_graphed if dev.type == "cuda" and not _eager
            else _episode_eager)
     packs, cpacks, carry = run(s, ctx, xs, carry, T)

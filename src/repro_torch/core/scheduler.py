@@ -46,11 +46,25 @@ themselves.
 Kernels are chosen by tensor device (the kernel for CUDA tensors, the plain
 version for CPU tensors), so the JAX package's ``use_kernels`` has no
 counterpart; nor do ``shard`` and ``donate`` (a camera mesh and buffer
-donation have no meaning on one card).  The ``checked`` diagnostics lane
-(checkify) is not ported.
+donation have no meaning on one card).
+
+``SystemConfig.checked`` is the diagnostics lane: the JAX package's
+checkify invariants, computed on the device as a row of violation flags
+per slot (``fleet.CONTROL_CHECKS`` / ``SLOT_CHECKS`` / ``EPISODE_CHECKS``)
+that rides the log packs, inside the episode's CUDA graphs too.  The host
+reads them with the harvest it makes anyway and raises the first violated
+check in program order, with the JAX package's message
+(``fleet.CheckError``); nothing waits on the card before the harvest.  As
+in the JAX package, a checked episode runs the reference body; the
+kernels stay on (the flags are plain tensor ops).
+
+``EpisodeSupervisor`` wraps a system's runs in bounded retries, a
+straggler watchdog (``ft.watchdog``) and a degraded-mode ladder
+(``episode`` -> ``episode_chunked`` -> ``pipelined``).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -70,6 +84,7 @@ from repro_torch.core.elastic import (ElasticConfig, ElasticState,
 from repro_torch.core import utility as util_mod
 from repro_torch.data.synthetic import (DeviceScene, MultiCameraScene,
                                         SceneConfig)
+from repro_torch.ft import watchdog as ft_watchdog
 from repro_torch.kernels.edge_motion import ops as em_ops
 from repro_torch.models import detector as det
 
@@ -127,6 +142,10 @@ class SystemConfig:
     episode_buckets: Optional[Tuple[int, ...]] = fleet_mod.EPISODE_BUCKETS
     # optional bandwidth ceiling (Kbps) pinning the DP capacity across runs
     w_cap_kbps: Optional[float] = None
+    # the diagnostics lane: the JAX package's checkify invariants as device
+    # flags read with the harvest; off by default, and an unchecked run
+    # computes no flags (``checked`` is part of the episode graph's key)
+    checked: bool = False
 
     def __post_init__(self):
         if self.alloc not in ("device", "host"):
@@ -351,7 +370,8 @@ class DeepStreamSystem:
                        tables: codec_mod.CodecTables,
                        keep: Optional[torch.Tensor] = None,
                        gt_dev: Optional[Tuple[torch.Tensor,
-                                              torch.Tensor]] = None
+                                              torch.Tensor]] = None,
+                       checked: bool = False
                        ) -> fleet_mod.FleetSlotOut:
         """Dispatch the fleet slot step without waiting for it.  GT: the
         padded device arrays ``gt_dev`` when the segment has them (a
@@ -359,7 +379,8 @@ class DeepStreamSystem:
         padded to G (``fleet.pad_gt_all``) and uploaded.  masks None = no
         cropping; b, r (C,) tensors or arrays; keep None = every frame kept
         and no reuse arm (every method but reducto); ``tables`` the run's
-        codec tables on the device."""
+        codec tables on the device; ``checked`` adds the slot checks'
+        flags."""
         C, N, H, W = frames.shape
         dev = frames.device
         if gt_dev is None:
@@ -377,7 +398,7 @@ class DeepStreamSystem:
             keep, gt_dev[0], gt_dev[1], live,
             eval_frames=self.cfg.eval_frames,
             block_size=self.cfg.block_size, with_reuse=with_reuse,
-            tables=tables)
+            tables=tables, checked=checked)
 
     def fleet_encode_eval(self, frames: torch.Tensor, gts,
                           masks: Optional[torch.Tensor], b, r, *,
@@ -576,9 +597,12 @@ class DeepStreamSystem:
             resolutions=tuple(cfgc.resolutions),
             slot_seconds=cfgc.slot_seconds, use_elastic=use_elastic,
             w_cap=ctx["w_cap"], num_cams=self.cfg.scene.num_cameras,
-            tables=tables)
+            tables=tables, checked=self.cfg.checked)
         ctx["est"] = co.est
-        return co.b, co.r, masks, co.pack
+        pack = co.pack
+        if self.cfg.checked:
+            pack = torch.cat([pack, co.flags])
+        return co.b, co.r, masks, pack
 
     def _slot_allocation(self, method: str, frames: torch.Tensor, W_t: float,
                          est: HostElasticState, use_elastic: bool,
@@ -691,7 +715,9 @@ class DeepStreamSystem:
         ``pipeline`` is on.  Host control: one (2, C) harvest per slot plus
         deepstream's (a, c) fetch.  ``carry`` (device control only) seeds
         the run as it seeds ``run_episode``, and every device-control run
-        records ``last_carry``."""
+        records ``last_carry``.  A checked run reads each slot's flags
+        with its control pack (host control: one more fetch) and raises
+        at that slot's harvest."""
         lam = self.cfg.lam()
         C = self.cfg.scene.num_cameras
         dev = self.device
@@ -708,6 +734,9 @@ class DeepStreamSystem:
         tables = self._tables
         cam_ids = torch.arange(C, device=dev)
         logs: Dict[str, List[float]] = {k: [] for k in LOG_KEYS}
+        checked = self.cfg.checked
+        checks = ((fleet_mod.CONTROL_CHECKS if device_ctrl else ())
+                  + fleet_mod.SLOT_CHECKS)
 
         def harvest(item) -> None:
             out, cpack = item
@@ -720,6 +749,11 @@ class DeepStreamSystem:
                 logs["extra"].append(float(cp[0]))
                 logs["area"].append(float(cp[1]))
                 logs["alloc_kbps"].append(float(cp[2]))
+                flags = cp[4:]
+            elif checked:
+                flags = _d2h(out.flags, "harvest")
+            if checked:
+                fleet_mod.raise_failed(flags[None], checks)
 
         self._reducto_ref = None if carry is None else carry.ref
         # the liveness mask goes up once per run; per slot the fault
@@ -764,7 +798,9 @@ class DeepStreamSystem:
             out = self._slot_dispatch(
                 frames, None if gt_dev is not None else seg["boxes"], masks,
                 b, r, keys=keys, live=live_t, tables=tables, keep=keep,
-                gt_dev=gt_dev)
+                gt_dev=gt_dev, checked=checked)
+            if checked and cpack is not None:
+                cpack = torch.cat([cpack, out.flags])
             live_prev = live_t
             logs["W"].append(W_t)
             if pending is not None:
@@ -880,7 +916,8 @@ class DeepStreamSystem:
             ref0=None if carry is None else carry.ref,
             live_prev0=None if carry is None else carry.live_prev,
             t_first=None if carry is None else carry.t_first,
-            pipelined=self.cfg.episode_pipelined, _eager=_eager)
+            pipelined=self.cfg.episode_pipelined, checked=self.cfg.checked,
+            _eager=_eager)
         scene._t += len(trace_kbps)
         self.last_carry = EpisodeCarry(
             est=out.est, ref=out.ref,
@@ -891,10 +928,14 @@ class DeepStreamSystem:
 
     def _episode_logs(self, out: fleet_mod.EpisodeOut,
                       trace_kbps: np.ndarray) -> Dict[str, np.ndarray]:
-        """The one harvest of an episode's stacked logs."""
+        """The one harvest of an episode's stacked logs; a checked run
+        raises here on the first violated check (``fleet.CheckError``)."""
         lam = self.cfg.lam()
         packs = _d2h(out.packs, "harvest")
         cpacks = _d2h(out.cpacks, "harvest")
+        if cpacks.shape[1] > 4:
+            fleet_mod.raise_failed(cpacks[:, 4:], fleet_mod.EPISODE_CHECKS,
+                                   run_level=1)
         return {
             "utility": packs[:, 0] @ lam,
             "mean_f1": packs[:, 0].mean(axis=1),
@@ -904,3 +945,176 @@ class DeepStreamSystem:
             "area": cpacks[:, 1].astype(float),
             "alloc_kbps": cpacks[:, 2].astype(float),
         }
+
+
+# -- watchdog-supervised runs ---------------------------------------------------
+
+@dataclass
+class SupervisorConfig:
+    """Policy of ``EpisodeSupervisor``: ``max_retries`` re-dispatches of
+    one run at a rung; ``backoff_s`` the base of an exponential retry
+    backoff (0 = retry at once); ``degrade`` allows falling down the
+    ladder when retries run out or the watchdog escalates;
+    ``recover_after`` consecutive healthy runs at a degraded rung climb one
+    rung back (0 = rungs stay degraded); ``watchdog`` the straggler gate
+    fed with each run's wall time."""
+    max_retries: int = 2
+    backoff_s: float = 0.0
+    degrade: bool = True
+    recover_after: int = 3
+    watchdog: ft_watchdog.WatchdogConfig = field(
+        default_factory=ft_watchdog.WatchdogConfig)
+
+
+class EpisodeSupervisor:
+    """``DeepStreamSystem`` runs under bounded retry with backoff, a
+    straggler watchdog on each run's wall time, and a degraded-mode ladder
+    (the JAX package's, for an episode-mode system):
+
+      ``episode``          the whole trace in one episode (CUDA graphs on
+                           the card)
+      ``episode_chunked``  the same episode per next-smaller-bucket chunk;
+                           the elastic and reducto state re-seed at chunk
+                           boundaries, the JAX package's documented
+                           degraded-mode approximation
+      ``pipelined``        the fleet slot loop (``_run_batched``)
+
+    A run that raises is retried up to ``max_retries`` times at its rung,
+    then the supervisor degrades one rung and retries there; a run whose
+    wall time draws the watchdog's ``'replace'`` degrades the next run.
+    Rungs stick across runs, and ``recover_after`` healthy runs at a
+    degraded rung climb one back.  Every rung change rebaselines the
+    watchdog.  Every decision is appended to ``events``.
+    ``fault_hook(attempt=, mode=)`` runs before each dispatch; raising
+    from it fails that attempt."""
+
+    LADDER_EPISODE = ("episode", "episode_chunked", "pipelined")
+
+    def __init__(self, system: DeepStreamSystem,
+                 cfg: Optional[SupervisorConfig] = None,
+                 fault_hook: Optional[Any] = None):
+        self.system = system
+        self.cfg = cfg if cfg is not None else SupervisorConfig()
+        self.fault_hook = fault_hook
+        self.watchdog = ft_watchdog.Watchdog(self.cfg.watchdog)
+        self.events: List[Dict[str, Any]] = []
+        self._step = 0          # watchdog step counter (successful runs)
+        self._rung = 0          # position on the ladder
+        self._ok_streak = 0     # consecutive healthy runs at a degraded rung
+
+    @property
+    def mode(self) -> str:
+        return self._ladder()[min(self._rung, len(self._ladder()) - 1)]
+
+    def _ladder(self) -> Tuple[str, ...]:
+        if self.system.cfg.episode:
+            return self.LADDER_EPISODE
+        return ("pipelined",)
+
+    def run(self, scene, trace_kbps: np.ndarray, method: str = "deepstream",
+            use_elastic: Optional[bool] = None,
+            faults: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+        """One supervised run; the signature and logs of
+        ``DeepStreamSystem.run``."""
+        ladder = self._ladder()
+        last_err: Optional[BaseException] = None
+        for rung in range(min(self._rung, len(ladder) - 1), len(ladder)):
+            mode = ladder[rung]
+            for attempt in range(self.cfg.max_retries + 1):
+                if attempt and self.cfg.backoff_s > 0.0:
+                    time.sleep(self.cfg.backoff_s * (2.0 ** (attempt - 1)))
+                t0 = time.perf_counter()
+                try:
+                    if self.fault_hook is not None:
+                        self.fault_hook(attempt=attempt, mode=mode)
+                    logs = self._dispatch(mode, scene, trace_kbps, method,
+                                          use_elastic, faults)
+                except Exception as e:   # the retry boundary
+                    last_err = e
+                    self.events.append({"kind": "retry", "mode": mode,
+                                        "attempt": attempt,
+                                        "error": repr(e)})
+                    continue
+                wall = time.perf_counter() - t0
+                self._step += 1
+                verdict = self.watchdog.record(self._step, wall)
+                self.events.append({"kind": "ok", "mode": mode,
+                                    "attempt": attempt, "wall_s": wall,
+                                    "verdict": verdict})
+                if (verdict == "replace" and self.cfg.degrade
+                        and rung + 1 < len(ladder)):
+                    # sustained straggling: degrade the NEXT run
+                    self._rung = rung + 1
+                    self._ok_streak = 0
+                    self.watchdog.rebaseline()
+                    self.events.append({"kind": "degrade", "mode": mode,
+                                        "to": ladder[self._rung],
+                                        "cause": "watchdog"})
+                elif (verdict == "ok" and rung > 0
+                        and self.cfg.recover_after > 0):
+                    self._ok_streak += 1
+                    if self._ok_streak >= self.cfg.recover_after:
+                        self._rung = rung - 1
+                        self._ok_streak = 0
+                        self.watchdog.rebaseline()
+                        self.events.append({"kind": "recover", "mode": mode,
+                                            "to": ladder[self._rung],
+                                            "after_ok":
+                                                self.cfg.recover_after})
+                else:
+                    self._ok_streak = 0
+                return logs
+            if self.cfg.degrade and rung + 1 < len(ladder):
+                self._rung = rung + 1
+                self._ok_streak = 0
+                self.watchdog.rebaseline()
+                self.events.append({"kind": "degrade", "mode": mode,
+                                    "to": ladder[self._rung],
+                                    "cause": "retries_exhausted"})
+            else:
+                break
+        raise RuntimeError(
+            f"supervised run failed at every mode rung (last mode "
+            f"{self.mode!r}, {self.cfg.max_retries} retries each)"
+        ) from last_err
+
+    def _dispatch(self, mode: str, scene, trace_kbps: np.ndarray, method: str,
+                  use_elastic: Optional[bool],
+                  faults: Optional[np.ndarray]) -> Dict[str, np.ndarray]:
+        if use_elastic is None:
+            use_elastic = method == "deepstream"
+        if mode == "episode":
+            return self.system.run_episode(scene, trace_kbps, method,
+                                           use_elastic, faults=faults)
+        if mode == "episode_chunked":
+            return self._run_chunked(scene, trace_kbps, method, use_elastic,
+                                     faults)
+        if mode == "pipelined":
+            return self.system._run_batched(scene, trace_kbps, method,
+                                            use_elastic, faults=faults)
+        raise ValueError(mode)
+
+    def _chunk_len(self, T: int) -> int:
+        """The degraded chunk: the bucket below the one a T-slot episode
+        uses, floored at the smallest bucket (T // 2 without buckets)."""
+        buckets = self.system.cfg.episode_buckets
+        if not buckets:
+            return max(1, T // 2)
+        below = [b for b in sorted(buckets)
+                 if b < fleet_mod.bucket_len(T, buckets)]
+        return below[-1] if below else sorted(buckets)[0]
+
+    def _run_chunked(self, scene, trace_kbps: np.ndarray, method: str,
+                     use_elastic: bool, faults: Optional[np.ndarray]
+                     ) -> Dict[str, np.ndarray]:
+        """The episode per chunk of the trace, each chunk a fresh run (no
+        carry), as the JAX package's ``_run_chunked``."""
+        T = len(trace_kbps)
+        step = self._chunk_len(T)
+        parts: List[Dict[str, np.ndarray]] = []
+        for i0 in range(0, T, step):
+            i1 = min(i0 + step, T)
+            parts.append(self.system.run_episode(
+                scene, np.asarray(trace_kbps)[i0:i1], method, use_elastic,
+                faults=None if faults is None else faults[i0:i1]))
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}

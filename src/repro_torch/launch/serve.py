@@ -1,14 +1,33 @@
-"""LM serving launcher: continuous-batched decode over a dense backbone.
+"""Serving launcher: the LM engine, or the crash-safe fleet stream.
+
+LM engine (continuous-batched decode over a dense backbone)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         [--smoke] [--device cpu] --requests 6 --slots 4 --prompt-len 24 \
         --max-new 8
 
 Weights are a random initialisation from seed 0, made on the device;
-without ``--device`` it runs on the card and raises if there is none.
-Prompts are random tokens from seed 0.  The fleet stream mode of the JAX
-launcher (``--fleet-stream``) is not ported yet (``ROADMAP.md``, Queue A
-item 9).
+prompts are random tokens from seed 0.
+
+Fleet stream (``serve.stream``: windowed serving over the episode's CUDA
+graphs, the carry checkpointed at every window boundary; run the same
+command again after a kill and it restores from the newest valid
+checkpoint and goes on)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet-stream \
+        [--device cpu] --stream-slots 64 --window-slots 8 \
+        --method deepstream --ckpt-dir artifacts/serve_ckpt --ckpt-keep 8
+
+The fleet is the JAX launcher's: ``SceneConfig(seed=33)`` (3 cameras,
+96 x 160, 10 frames a segment), ``eval_frames=3``, the capacity pinned at
+8000 Kbps, the committed detectors (``artifacts/detector_{light,
+server}``), the utility MLP of ``init_utility_mlp(PRNGKey(0))``,
+thresholds 10 / 50 Kbps and the linspace jcab table; the stream is
+``make_soak_stream(--stream-slots)``.  ``--source file:PATH`` tails a
+line-protocol file and ``--source HOST:PORT`` reads the protocol over TCP
+(``serve.ingest``: quarantine, slot sequencing, read backoff), one
+``"<t> <kbps> <live-bits>"`` record per slot.  Without ``--device`` both
+modes run on the card and raise if there is none.
 """
 from __future__ import annotations
 
@@ -18,24 +37,65 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.configs import get_config, smoke_config
-from repro_torch.models.model import LM
-from repro_torch.serve.engine import Request, ServeEngine
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true",
-                    help="the reduced config of the same family")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
-    ap.add_argument("--requests", type=int, default=6)
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=24)
-    ap.add_argument("--max-new", type=int, default=8)
-    ap.add_argument("--max-seq", type=int, default=64)
-    args = ap.parse_args(argv)
+def run_fleet_stream(args) -> None:
+    """Windowed fleet serving of the soak stream: build the episode-mode
+    system, restore if ``--ckpt-dir`` holds a checkpoint, offer the stream
+    window by window, and print the serving stats."""
+    from repro_torch.common import prng
+    from repro_torch.core import utility as util_mod
+    from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
+    from repro_torch.data.scenarios import make_soak_stream
+    from repro_torch.data.synthetic import DeviceScene, SceneConfig
+    from repro_torch.models.detector import load_detector
+    from repro_torch.serve import ingest as ingest_mod
+    from repro_torch.serve.stream import StreamConfig, StreamingFleetRunner
+
+    dev = resolve_device(args.device)
+    scene_cfg = SceneConfig(seed=33)
+    sys_cfg = SystemConfig(scene=scene_cfg, episode=True, eval_frames=3,
+                           w_cap_kbps=8000.0)
+    system = DeepStreamSystem(sys_cfg, load_detector("light", dev),
+                              load_detector("server", dev), device=dev)
+    system.mlp = util_mod.init_utility_mlp(prng.PRNGKey(0, device=dev))
+    system.tau_wl, system.tau_wh = 10.0, 50.0
+    system.jcab_table = np.linspace(0.2, 0.8, 18).reshape(6, 3).astype(
+        np.float32)
+    trace, live = make_soak_stream(args.stream_slots,
+                                   num_cams=scene_cfg.num_cameras)
+    runner = StreamingFleetRunner(
+        system, DeviceScene(scene_cfg, device=dev), method=args.method,
+        cfg=StreamConfig(window_slots=args.window_slots,
+                         ckpt_dir=args.ckpt_dir, ckpt_keep=args.ckpt_keep,
+                         install_signal=args.ckpt_dir is not None))
+    with runner:
+        if runner.restore():
+            print(f"# restored window={runner.window} t_next={runner.t_next}")
+        if args.source:
+            if args.source.startswith("file:"):
+                src = ingest_mod.FileTailSource(args.source[len("file:"):])
+            else:
+                host, _, port = args.source.rpartition(":")
+                src = ingest_mod.SocketLineSource(host or "127.0.0.1",
+                                                  int(port))
+            ing = ingest_mod.StreamIngestor(runner, src)
+            ing.pump(until_t=args.stream_slots, flush=True)
+        else:
+            t = runner.t_next
+            while t < len(trace):
+                t += runner.offer(trace[t:t + args.window_slots],
+                                  faults=live[t:t + args.window_slots])
+                runner.serve()
+            runner.serve(flush=True)
+        print({k: round(v, 4) if isinstance(v, float) else v
+               for k, v in runner.stats().items()})
+
+
+def run_lm(args) -> None:
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Request, ServeEngine
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -52,6 +112,41 @@ def main(argv=None) -> None:
     stats = eng.run(reqs)
     print({k: round(v, 3) if isinstance(v, float) else v
            for k, v in stats.items()})
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config of the same family")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--fleet-stream", action="store_true",
+                    help="serve the multi-camera fleet stream "
+                         "(serve.stream) instead of the LM engine")
+    ap.add_argument("--stream-slots", type=int, default=64)
+    ap.add_argument("--window-slots", type=int, default=8)
+    ap.add_argument("--method", default="deepstream")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-keep", type=int, default=None,
+                    help="retention: keep the newest N checkpoint "
+                         "generations (never the newest valid one)")
+    ap.add_argument("--source", default=None,
+                    help="hardened ingest source: file:PATH (tail a "
+                         "line-protocol file) or HOST:PORT (TCP)")
+    args = ap.parse_args(argv)
+    if args.fleet_stream:
+        run_fleet_stream(args)
+        return
+    if not args.arch:
+        ap.error("--arch is required for the LM engine "
+                 "(or pass --fleet-stream)")
+    run_lm(args)
 
 
 if __name__ == "__main__":
