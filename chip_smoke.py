@@ -117,13 +117,35 @@ JAX.  In order it prints:
      kernel of the method's path and none of the others, with no wrapper
      call; the C=5, T=8 counts go into the kernel records; then one
      8-slot window of the stream per method, counted the same way;
- 10. the wall time, one JSON line of kernel records, then the device line
+ 10. training (no hand-written kernel on its path: every launch counter
+     stays 0 in the trainers): (a) the light detector trained on the
+     card and on the port's CPU (``train_detector``, seed 0, 8 steps at
+     batch 4, cuDNN TF32 off): each step's loss within 1e-5 relative, the
+     weights within 1e-5 of max |w| a leaf; (b) the server detector at
+     the JAX harness's settings (600 steps, batch 12): ms/step (CUDA
+     events), the numpy scene's share, 0 host syncs in the loop
+     (``set_sync_debug_mode("warn")`` from the first batch on), the final
+     loss beside the committed checkpoint's, then the C=5 deepstream
+     episode (8 slots, graph-replayed) with it: mean F1 per camera no
+     more than 0.05 below the committed weights' run, its kernels counted
+     on the card; (c) granite-8b at its published width with 8 of its 36
+     layers (seeded random bf16 weights, float32 moments, remat minimal,
+     2 microbatches, 4 rows of 4096 tokens): the loss falls over 3 steps
+     on a fixed batch, the microbatched step's loss within 1e-2 of the
+     single step's (one forward of all rows), then 5 steps on the
+     loader's batches after a warm-up: median ms/step (CUDA events),
+     tokens/s, MFU (6 N + 12 L H hd S FLOPs a token over 989 TFLOP/s),
+     peak memory, and one profiled step's kernels and busy share; (d)
+     ``repro_torch.launch.train --smoke`` for 4 steps, then again with
+     ``--resume``: the second run prints ``resumed from ... at step 4``;
+ 11. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; each kernel record carries its launches on the main
-path (``run()``), in the replayed episodes, in the profile and in one
-window of the stream per method.  Any
+path (``run()``), in the replayed episodes, in the profile, in one
+window of the stream per method, in the trainers (0) and in the episode
+with the card-trained server detector.  Any
 mismatch ends the run with a non-zero exit code; no phase's failure is
 caught.  Without a CUDA device it exits non-zero before printing a
 result.
@@ -2041,6 +2063,283 @@ def stream_window(runner, trace, live) -> None:
     runner.serve()
 
 
+# -- 10. training --------------------------------------------------------------
+TRAIN_LIGHT = dict(steps=8, batch=4)      # (a): card vs the port's CPU
+TRAIN_SERVER = dict(steps=600, batch=12)  # (b): tests/harness.py:112
+DET_LOSS_RTOL = 1e-5     # (a): each step's loss, card vs CPU
+DET_PARAM_TOL = 1e-5     # (a): weights after 8 steps, / max(|w|, 1e-3) a leaf
+UTILITY_DROP = 0.05      # (b): the card-trained server detector's mean
+                         # utility per camera (F1) below the committed one's
+LM_TRAIN_LAYERS = 8      # (c): of granite-8b's 36 (the AdamW state of 36
+LM_TRAIN_ROWS = 4        # layers does not fit in 80 GB); rows of 4096 tokens
+LM_TRAIN_SEQ = 4096      # (train_4k: 256 rows)
+LM_MB_RTOL = 1e-2        # (c): microbatched loss vs the single step's (bf16)
+LM_TIMED = 5             # (c): timed steps after one warm-up
+H100_BF16_FLOPS = 989e12   # dense bf16, H100 SXM data sheet
+
+
+def recorded_losses(dt) -> tuple:
+    """(losses, wrapper): ``detector_train.value_and_grad`` that keeps each
+    step's loss tensor (no host read)."""
+    losses = []
+    plain = dt.value_and_grad
+
+    def wrapper(*args):
+        out = plain(*args)
+        losses.append(out[0])
+        return out
+    return losses, wrapper
+
+
+def train_phase(torch, dev, tag: str, reset_counts, read_counts,
+                system_with, scene_of, trace, committed_logs,
+                episode_want: dict) -> dict:
+    """The training path on the card: (a) the light detector trained on
+    the card and on the port's CPU, step by step; (b) the server detector
+    at the harness's settings, timed, with no host sync in its loop, then
+    put into the graph-replayed deepstream episode; (c) granite-8b at its
+    published width and 8 layers: loss falling on a fixed batch, the
+    microbatched step against the single step's loss, then timed steps on
+    the loader's batches; (d) the launcher, twice.  Every launch counter
+    is 0 after the trainers.  Returns the launch counts."""
+    import collections
+    import os
+    import shutil
+    import warnings
+    from unittest import mock
+    import numpy as np
+    from repro_torch.common.config import OptimizerConfig, RunConfig
+    from repro_torch.common.convert import params_to_numpy
+    from repro_torch.common.params import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.configs import granite_8b
+    from repro_torch.data.pipeline import (DataConfig, PrefetchLoader,
+                                           SyntheticTokenSource)
+    from repro_torch.models.model import LM
+    from repro_torch.train import detector_train as dt
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    reset_counts()
+    # (a) the light detector, card vs the port's CPU
+    runs = {}
+    for where in ("cpu", dev):
+        losses, wrapper = recorded_losses(dt)
+        with mock.patch.object(dt, "value_and_grad", wrapper):
+            params = dt.train_detector("light", seed=0, cache=False,
+                                       device=where, **TRAIN_LIGHT)
+        runs[str(where)] = (torch.stack(losses).cpu().numpy(),
+                            params_to_numpy(params, "detector"))
+    (cl, cp), (gl, gp) = runs["cpu"], runs[str(dev)]
+    loss_err = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+    param_err = max(float(np.abs(gp[k] - cp[k]).max())
+                    / max(float(np.abs(cp[k]).max()), 1e-3) for k in cp)
+    print(f"train light detector card vs CPU ({TRAIN_LIGHT['steps']} steps, "
+          f"batch {TRAIN_LIGHT['batch']}, seed 0): losses "
+          f"{[round(float(x), 6) for x in gl]}; max relative loss diff "
+          f"{loss_err:.3g} (limit {DET_LOSS_RTOL}); weights max |diff| / "
+          f"max |w| {param_err:.3g} (limit {DET_PARAM_TOL})")
+    if not (loss_err <= DET_LOSS_RTOL and param_err <= DET_PARAM_TOL):
+        raise AssertionError("the card's detector training differs from "
+                             "the CPU's")
+
+    # (b) the server detector at the harness's settings
+    losses, wrapper = recorded_losses(dt)
+    plain_batch = dt.make_training_batch
+    scene_s, first = [], []
+
+    def timed_batch(*args, **kw):
+        if not first:
+            first.append(len(caught))   # the loop starts here
+        t0 = time.perf_counter()
+        out = plain_batch(*args, **kw)
+        scene_s.append(time.perf_counter() - t0)
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught, \
+            mock.patch.object(dt, "value_and_grad", wrapper), \
+            mock.patch.object(dt, "make_training_batch", timed_batch):
+        warnings.simplefilter("always")
+        start.record()
+        server = dt.train_detector("server", seed=0, cache=False, device=dev,
+                                   **TRAIN_SERVER)
+        end.record()
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    in_loop = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                  for w in caught[first[0]:])
+    total_ms = start.elapsed_time(end)
+    steps = TRAIN_SERVER["steps"]
+    final = float(losses[-1])
+    committed = json.loads((ROOT / "artifacts" / "detector_server" /
+                            "manifest.json").read_text())["metadata"]["loss"]
+    print(f"train server detector ({steps} steps, batch "
+          f"{TRAIN_SERVER['batch']}, seed 0, 96 x 160): "
+          f"{total_ms / steps:.3f} ms/step (CUDA events around the call), "
+          f"{100 * sum(scene_s) * 1e3 / total_ms:.1f}% of it in the numpy "
+          f"scene ({sum(scene_s) * 1e3 / steps:.3f} ms/step); host syncs in "
+          f"the loop {sum(in_loop.values())} {dict(in_loop)}; final loss "
+          f"{final:.4f} (the committed JAX checkpoint's {committed:.4f}) "
+          f"{tag}")
+    if in_loop:
+        raise AssertionError("the detector's training loop waits on the "
+                             "card")
+    if any(read_counts().values()):
+        raise AssertionError(f"a detector trainer launched a hand-written "
+                             f"kernel {read_counts()}")
+    t_sys = system_with(server)
+    logs = t_sys.run_episode(scene_of(t_sys), trace, "deepstream")
+    check_logs(logs, "episode deepstream, card-trained server detector")
+    # a camera's utility is its F1; "utility" is their lambda-weighted sum
+    # over the 5 cameras, so the limit holds the per-camera mean
+    got_u = float(np.mean(logs["mean_f1"]))
+    want_u = float(np.mean(committed_logs["mean_f1"]))
+    got_sum = float(np.mean(logs["utility"]))
+    want_sum = float(np.mean(committed_logs["utility"]))
+    reset_counts()
+    ep_launches = recorded_launches(
+        torch, lambda: t_sys.run_episode(scene_of(t_sys), trace,
+                                         "deepstream"),
+        episode_want, "episode deepstream (card-trained server)")
+    print(f"episode deepstream C=5 T={len(trace)} graph-replayed with the "
+          f"card-trained server detector: mean utility per camera (F1) "
+          f"{got_u:.4f} vs {want_u:.4f} with the committed weights (limit: "
+          f"{UTILITY_DROP} below), summed over the cameras {got_sum:.4f} vs "
+          f"{want_sum:.4f}; kernels the card ran (CUPTI) "
+          + " ".join(f"{k} {v}" for k, v in ep_launches.items()))
+    if got_u < want_u - UTILITY_DROP:
+        raise AssertionError("the card-trained server detector loses "
+                             "utility")
+    del server, t_sys
+
+    # (c) granite-8b at its published width, LM_TRAIN_LAYERS layers
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("granite-8b").replace(num_layers=LM_TRAIN_LAYERS)
+    run = RunConfig(model=cfg, opt=OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=100,
+        moment_dtype=granite_8b.MOMENT_DTYPE),
+        microbatches=granite_8b.MICROBATCHES["train_4k"])
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params, opt = init_train_state(lm, run, torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(lm.param_defs())
+    step = make_train_step(lm, run, donate=True)
+    src = SyntheticTokenSource(DataConfig(LM_TRAIN_ROWS, LM_TRAIN_SEQ,
+                                          cfg.vocab_size))
+    fixed = {k: torch.as_tensor(v, device=dev)
+             for k, v in src.batch_at(0).items()}
+    with torch.no_grad():      # the single step's loss: one forward of
+        single = float(lm.loss(params, fixed)[0])   # all 4 rows
+    curve = []
+    for _ in range(3):
+        params, opt, m = step(params, opt, fixed)
+        curve.append(m["loss"])
+    with torch.no_grad():
+        curve.append(lm.loss(params, fixed)[0])
+    curve = torch.stack(curve).tolist()
+    mb_err = abs(curve[0] - single) / abs(single)
+    print(f"granite-8b train ({LM_TRAIN_LAYERS} of 36 layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params:,} parameters, "
+          f"bf16 weights, float32 moments, remat {cfg.remat_policy}, "
+          f"{run.microbatches} microbatches; init {init_s:.2f} s): fixed "
+          f"batch ({LM_TRAIN_ROWS} x {LM_TRAIN_SEQ}) loss before each of 3 "
+          f"steps and after: {[round(x, 4) for x in curve]}; the "
+          f"microbatched step's loss {curve[0]:.5f} vs the single step's "
+          f"{single:.5f} (relative {mb_err:.3g}, limit {LM_MB_RTOL}) {tag}")
+    if not all(b < a for a, b in zip(curve, curve[1:])):
+        raise AssertionError("granite-8b: 3 steps did not lower the loss")
+    if not mb_err <= LM_MB_RTOL:
+        raise AssertionError("granite-8b: the microbatched step's loss "
+                             "differs from the single step's")
+    loader = PrefetchLoader(src, dev)
+    it = iter(loader)
+    params, opt, m = step(params, opt, next(it))     # warm-up
+    ms = []
+    for _ in range(LM_TIMED):
+        batch = next(it)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = next(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.05)    # the card's activity records arrive late
+    loader.close()
+    busy = device_us(prof) / 1e3
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation)
+    med = statistics.median(ms)
+    tokens = LM_TRAIN_ROWS * LM_TRAIN_SEQ
+    # 6 N per token for the matrices (the embedding lookup does none) and
+    # 12 L H hd S per token for attention (PaLM's count, no causal halving)
+    n_matmul = n_params - cfg.padded_vocab * cfg.d_model
+    flops = tokens * (6 * n_matmul + 12 * cfg.num_layers * cfg.num_heads
+                      * cfg.resolved_head_dim * LM_TRAIN_SEQ)
+    print(f"granite-8b train step on the loader's batches: median "
+          f"{med:.1f} ms (min {min(ms):.1f}, max {max(ms):.1f}, {LM_TIMED} "
+          f"steps after a warm-up, CUDA events); {tokens / med * 1e3:,.0f} "
+          f"tokens/s; MFU {100 * flops / (med / 1e3) / H100_BF16_FLOPS:.1f}% "
+          f"({flops / 1e12:.1f} TFLOP a step over 989 TFLOP/s); peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak} bytes); last loss "
+          f"{float(m['loss']):.4f} {tag}")
+    print(f"granite-8b one profiled train step: wall {wall:.1f} ms, "
+          f"{n_kernels} kernels on the card taking {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}% busy) {tag}")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=12))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the LM trainer launched a hand-written kernel "
+                             f"{counts}")
+    del params, opt, m, fixed, batch, prof
+    torch.cuda.empty_cache()
+
+    # (d) the launcher, twice: the second run resumes
+    work = ROOT / "build" / "train"
+    if work.exists():
+        shutil.rmtree(work)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = []
+    for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "granite-8b", "--smoke", "--device", dev.type, "--ckpt-dir",
+               str(work)] + extra
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=ROOT, timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"launcher failed:\n{p.stdout}\n{p.stderr}")
+        outs.append((time.perf_counter() - t0, p.stdout.strip().splitlines()))
+    want = f"resumed from {work / 'step_00000004'} at step 4"
+    if outs[1][1][0] != want:
+        raise AssertionError(f"the launcher's second run did not resume: "
+                             f"{outs[1][1]}")
+    for i, (sec, lines) in enumerate(outs):
+        print(f"train launcher run {i + 1} ({sec:.1f} s): "
+              + " | ".join(lines))
+    return {"train": 0, "train_episode": ep_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2659,11 +2958,28 @@ def main(argv=None) -> int:
               + ", wrapper calls 0")
         for k in counters:
             launches_stream[k] += n[k]
+    # -- 10. training: the detectors' trainer, granite-8b, the launcher.
+    # Last: profiling a graph replay leaves later one-kernel windows of
+    # phase 8 recording 85 of their 100 launches, and this phase counts
+    # the replayed episode it runs
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 10: training")
+    t_new = time.perf_counter()
+    train_launches = train_phase(
+        torch, dev, tag, reset_counts, read_counts,
+        lambda server: give_artifacts(DeepStreamSystem(SystemConfig(
+            scene=SceneConfig(seed=7, num_cameras=5)), light_h, server,
+            device=dev), arts, 5),
+        scene_of, trace, episode_logs["deepstream"],
+        {k: T_SLOTS if k in needs("deepstream") else 0 for k in counters})
+    print(f"phase 10 (training): {time.perf_counter() - t_new:.1f} s")
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
         rec["launches_profile"] = prof_launches[rec["name"]]
         rec["launches_stream"] = launches_stream[rec["name"]]
+        rec["launches_train"] = train_launches["train"]
+        rec["launches_train_episode"] = train_launches["train_episode"][
+            rec["name"]]
 
     if args.profile:
         from torch.autograd import DeviceType

@@ -28,6 +28,9 @@ verifies every leaf (bounds, decompression, raw length, crc32) and raises
 verifies, and ``gc_generations`` keeps the newest N but never deletes the
 newest valid generation.  A leaf whose dtype differs from the target's is
 cast on restore (the run key: uint32 in the file, int64 in the port).
+A bfloat16 leaf (the LM's weights) is written with JAX's dtype name
+``"bfloat16"`` and its 2-byte patterns; numpy has no bfloat16 of its own,
+so on the host it is a ``Bf16Bits`` array of those patterns (uint16).
 
 ``restore(path)`` without a target reads a flat ``{name: array}``
 checkpoint (the committed detector weights) into numpy.
@@ -66,6 +69,28 @@ COMMIT_MARKER = "COMMITTED"
 # restore without checksum verification)
 MANIFEST_FORMAT = 2
 _FLAT_KEY = re.compile(r"^\['([^']+)'\]$")
+BF16 = "bfloat16"
+
+
+class Bf16Bits(np.ndarray):
+    """A bfloat16 leaf on the host: its bit patterns as uint16."""
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return BF16 if isinstance(arr, Bf16Bits) else str(arr.dtype)
+
+
+def _itemsize(name: str) -> int:
+    return 2 if name == BF16 else np.dtype(name).itemsize
+
+
+def _from_raw(raw: bytes, ent: Dict) -> np.ndarray:
+    """A leaf's raw bytes as an array of its manifest dtype and shape."""
+    if ent["dtype"] == BF16:
+        arr = np.frombuffer(raw, np.uint16).view(Bf16Bits)
+    else:
+        arr = np.frombuffer(raw, dtype=ent["dtype"])
+    return arr.reshape(ent["shape"])
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -141,6 +166,13 @@ def _np_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def _bytes_as(raw: np.ndarray, x: torch.Tensor) -> np.ndarray:
+    """``x``'s bytes (uint8) as a host array of its dtype and shape."""
+    if x.dtype == torch.bfloat16:
+        return raw.view(np.uint16).reshape(tuple(x.shape)).view(Bf16Bits)
+    return raw.view(_np_dtype(x.dtype)).reshape(tuple(x.shape))
+
+
 def snapshot(tree):
     """``tree`` with every leaf as a numpy array.  All tensors that lie on
     a device come back in ONE transfer (their bytes concatenated on the
@@ -157,15 +189,16 @@ def snapshot(tree):
         off = 0
         for x in on_dev:
             n = x.numel() * x.element_size()
-            fetched[id(x)] = (host[off:off + n].view(_np_dtype(x.dtype))
-                              .reshape(tuple(x.shape)).copy())
+            fetched[id(x)] = _bytes_as(host[off:off + n], x).copy()
             off += n
 
     def host_of(x) -> np.ndarray:
         if id(x) in fetched:
             return fetched[id(x)]
         if torch.is_tensor(x):
-            return x.detach().cpu().numpy().copy()
+            x = x.detach().contiguous().cpu()
+            return _bytes_as(x.reshape(-1).view(torch.uint8).numpy(),
+                             x).copy()
         return np.array(x)
     return _rebuild(tree, iter([host_of(x) for x in leaves]))
 
@@ -256,7 +289,7 @@ def _write_checkpoint(host_leaves, treedef_str: str, path: Path, *,
             off = f.tell()
             f.write(blob)
             manifest["leaves"][key] = {
-                "shape": list(arr.shape), "dtype": str(arr.dtype),
+                "shape": list(arr.shape), "dtype": _dtype_name(arr),
                 "offset": off, "nbytes": len(blob), "file": data_path.name,
                 "codec": codec,
                 "crc32": zlib.crc32(raw), "raw_nbytes": len(raw),
@@ -384,8 +417,7 @@ def verify_checkpoint(path) -> List[str]:
     for key, ent in manifest["leaves"].items():
         try:
             raw = _read_leaf_raw(path, files, key, ent)
-            expect = (int(np.prod(ent["shape"]))
-                      * np.dtype(ent["dtype"]).itemsize)
+            expect = int(np.prod(ent["shape"])) * _itemsize(ent["dtype"])
             if len(raw) != expect:
                 errors.append(f"{path.name}: leaf {key}: field shape/dtype "
                               f"inconsistent with payload ({len(raw)} bytes "
@@ -431,10 +463,29 @@ def _restore_flat(path: Path, manifest: Dict, files: Dict[str, Path]
         if m is None:
             raise ValueError(f"a flat restore needs a dict checkpoint, got "
                              f"leaf key {key!r}; pass a target")
-        raw = _read_leaf_raw(path, files, key, ent)
-        out[m.group(1)] = np.frombuffer(raw, dtype=ent["dtype"]).reshape(
-            ent["shape"]).copy()
+        out[m.group(1)] = _from_raw(_read_leaf_raw(path, files, key, ent),
+                                    ent).copy()
     return out
+
+
+def _leaf_like(arr: np.ndarray, tgt: Any, device) -> Any:
+    """A restored host leaf as the target leaf is: a tensor of its dtype
+    on ``device`` (default: the target's), or a numpy array of its
+    dtype."""
+    if torch.is_tensor(tgt):
+        dev = tgt.device if device is None else device
+        if isinstance(arr, Bf16Bits):
+            t = upload(arr.view(np.int16), dev).view(torch.bfloat16)
+        elif tgt.dtype == torch.bfloat16:
+            t = upload(arr, dev)
+        else:
+            want = _np_dtype(tgt.dtype)
+            t = upload(arr.astype(want) if arr.dtype != want else arr, dev)
+        return t.to(tgt.dtype)
+    want = _np_dtype(tgt.dtype)
+    if isinstance(arr, Bf16Bits):   # exact: bfloat16 is float32's top half
+        arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return arr.astype(want) if arr.dtype != want else arr.copy()
 
 
 def restore(path, target: Any = None, *, device=None) -> Tuple[Any, Dict]:
@@ -460,15 +511,9 @@ def restore(path, target: Any = None, *, device=None) -> Tuple[Any, Dict]:
         if key not in manifest["leaves"]:
             raise KeyError(f"leaf {key} missing from checkpoint")
         ent = manifest["leaves"][key]
-        raw = _read_leaf_raw(path, files, key, ent)
-        arr = np.frombuffer(raw, dtype=ent["dtype"]).reshape(ent["shape"])
+        arr = _from_raw(_read_leaf_raw(path, files, key, ent), ent)
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs target {tuple(tgt.shape)}")
-        want = _np_dtype(tgt.dtype)
-        arr = arr.astype(want) if arr.dtype != want else arr.copy()
-        if torch.is_tensor(tgt):
-            out.append(upload(arr, tgt.device if device is None else device))
-        else:
-            out.append(arr)
+        out.append(_leaf_like(arr, tgt, device))
     return _rebuild(target, iter(out)), meta

@@ -4,13 +4,15 @@ its sub-configs, copied so the port imports nothing of ``repro``).
 One ``ModelConfig`` describes every architecture family (dense / moe /
 ssm / hybrid / vlm / audio enc-dec); ``repro_torch/configs/`` instantiates
 it with the published hyper-parameters.  ``OptimizerConfig`` is copied as
-data for ``train/optimizer.py``.  The run, dry-run and hardware configs of
-the JAX module are not copied: nothing in the port uses them yet.
+data for ``train/optimizer.py`` and ``RunConfig`` for the LM trainer
+(``train/steps.py``, ``launch/train.py``).  The dry-run shape cells and
+the hardware constants of the JAX module are not copied: they describe
+the TPU dry run, which the port does not have.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -183,3 +185,14 @@ class OptimizerConfig:
     grad_clip: float = 1.0
     moment_dtype: str = "float32"   # bf16 for the giant archs
     compress_grads: bool = False    # int8 error-feedback DP all-reduce
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    opt: OptimizerConfig = field(default_factory=OptimizerConfig)
+    microbatches: int = 1           # grad-accumulation steps per train_step
+    seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -3,7 +3,8 @@
 ``detector``: convolution kernels go from HWIO (``lax.conv_general_dilated``
 layout) to OIHW (``torch.nn.functional.conv2d``); biases stay as they are.
 ``mlp``: the utility MLP keeps its ``x @ w`` matrices as they are.
-Both are flat and come out float32.
+Both are flat and come out float32; ``params_to_numpy`` takes a detector
+back to the JAX layout (a port-trained detector saves as JAX's does).
 ``lm``: the LM's nested tree keeps its structure, its stacked layer axis,
 its ``(d_in, d_out)`` matrices and each leaf's dtype.  A bfloat16 leaf
 arrives as numpy's ``bfloat16`` extension type, which ``torch.from_numpy``
@@ -47,4 +48,19 @@ def params_from_numpy(tree: Mapping[str, Any], kind: str, *,
         if kind == "detector" and name in _DETECTOR_CONVS:
             a = np.transpose(a, (3, 2, 0, 1))          # HWIO -> OIHW
         out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor], kind: str
+                    ) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_numpy`` for the detector: float32
+    numpy in JAX's layout (kernels OIHW -> HWIO)."""
+    if kind != "detector":
+        raise ValueError(f"unknown parameter kind {kind!r}")
+    out = {}
+    for name, t in params.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if name in _DETECTOR_CONVS:
+            a = np.transpose(a, (2, 3, 1, 0))          # OIHW -> HWIO
+        out[name] = np.ascontiguousarray(a)
     return out

@@ -5,7 +5,7 @@
 (same family/block pattern, tiny dims) for CPU tests.  The port's ``LM``
 runs the ``dense`` family with a bfloat16 or float32 cache; the others
 are data here until their modules are ported (``ROADMAP.md``, Queue A
-item 12).
+item 7).
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ v1) outside it: through ``decode_attention_with_new`` (plain), or with
 the card, its plain version on the CPU).  Layouts are JAX's: q
 ``(B, 1, H, hd)``, a cache view ``(B, S, KV, hd)``, the cache itself
 ``k``/``v`` of shape ``(B, S, KV*hd)``.  The int8 cache (quantise and
-dequantise) is not ported yet (``ROADMAP.md``, Queue A item 12).
+dequantise) is not ported yet (``ROADMAP.md``, Queue A item 7): it
+raises where a cache is made, never in training.
 """
 from __future__ import annotations
 
@@ -180,7 +181,7 @@ def _check_cache(cfg: ModelConfig) -> None:
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "the int8 KV cache is not ported yet (ROADMAP.md, Queue A item "
-            "12)")
+            "7)")
 
 
 def kv_cache_defs(cfg: ModelConfig, batch: int, max_seq: int

@@ -3,14 +3,21 @@
 The counterpart of ``repro.models.detector``.  Two widths share the code:
 ``light`` (8, 16, 32, 32), the on-camera ROIDet model, and ``server``
 (16, 32, 64, 64), whose F1 is the system's utility.  Weights are the JAX
-package's committed checkpoints (``load_detector``), converted to OIHW.
+package's committed checkpoints (``load_detector``), converted to OIHW,
+or trained by ``train/detector_train.py`` from ``init_detector`` on
+``detection_loss``.
 
 Numerics that must follow XLA to keep discrete outputs equal:
   * ``"SAME"`` padding at stride 2 pads (lo, hi) = (0, 1) on even sizes;
     ``_same_pad`` computes XLA's split for any size;
   * ``lax.top_k`` and ``jnp.argsort`` put the lowest index first among
     equal values (saturated sigmoids tie at exactly 1.0, unmatched preds at
-    -1), so both are stable sorts here.
+    -1), so both are stable sorts here;
+  * gradients at exact ties follow JAX's: at init the biases are zero, so
+    an objectness logit can be exactly 0, where ``jnp.abs`` has gradient 1
+    (``torch.abs`` 0) and ``jnp.maximum(x, 0)`` splits 0.5/0.5 (as
+    ``torch.maximum``; ``clamp(min=0)`` gives 1): ``detection_loss``
+    writes ``|x|`` as ``where(x >= 0, x, -x)`` and uses ``torch.maximum``.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.common.convert import params_from_numpy
+from repro_torch.common.params import ParamDef, init_params
 
 STRIDE = 16
 WIDTHS = {"light": (8, 16, 32, 32), "server": (16, 32, 64, 64)}
@@ -39,6 +47,30 @@ def load_detector(variant: str, device) -> Params:
         raise ValueError(f"checkpoint width {params['c1'].shape[0]} does "
                          f"not match the {variant} detector")
     return params
+
+
+def _conv_def(cin: int, cout: int, k: int = 3) -> ParamDef:
+    return ParamDef((k, k, cin, cout), "normal", 1.4)
+
+
+def detector_defs(variant: str = "light") -> Dict[str, ParamDef]:
+    """The JAX declaration: convolution kernels in HWIO, zero biases."""
+    c1, c2, c3, c4 = WIDTHS[variant]
+    return {
+        "c1": _conv_def(1, c1), "b1": ParamDef((c1,), "zeros"),
+        "c2": _conv_def(c1, c2), "b2": ParamDef((c2,), "zeros"),
+        "c3": _conv_def(c2, c3), "b3": ParamDef((c3,), "zeros"),
+        "c4": _conv_def(c3, c4), "b4": ParamDef((c4,), "zeros"),
+        "head": _conv_def(c4, 5, k=1), "bh": ParamDef((5,), "zeros"),
+    }
+
+
+def init_detector(key: torch.Tensor, variant: str = "light") -> Params:
+    """JAX's ``init_detector(key, variant)`` bit for bit: the threefry
+    draws of ``init_params`` in HWIO, then the kernels moved to OIHW, on
+    the key's device."""
+    return {k: v.permute(3, 2, 0, 1).contiguous() if v.dim() == 4 else v
+            for k, v in init_params(key, detector_defs(variant)).items()}
 
 
 def _same_pad(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -62,6 +94,41 @@ def forward(params: Params, frames: torch.Tensor) -> torch.Tensor:
         x = torch.relu(_conv(x, params[f"c{i}"], params[f"b{i}"], 2))
     y = _conv(x, params["head"], params["bh"], 1)
     return y.permute(0, 2, 3, 1)
+
+
+def encode_targets(boxes: List[Tuple[int, int, int, int]], gy: int, gx: int
+                   ) -> np.ndarray:
+    """GT boxes (xyxy) -> target grid (Gy, Gx, 5) [obj, dy, dx, logw, logh]."""
+    t = np.zeros((gy, gx, 5), np.float32)
+    for (x0, y0, x1, y1) in boxes:
+        cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+        gxi = int(np.clip(cx // STRIDE, 0, gx - 1))
+        gyi = int(np.clip(cy // STRIDE, 0, gy - 1))
+        t[gyi, gxi, 0] = 1.0
+        t[gyi, gxi, 1] = cy / STRIDE - gyi
+        t[gyi, gxi, 2] = cx / STRIDE - gxi
+        t[gyi, gxi, 3] = np.log(max(x1 - x0, 1) / STRIDE)
+        t[gyi, gxi, 4] = np.log(max(y1 - y0, 1) / STRIDE)
+    return t
+
+
+def detection_loss(params: Params, frames: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """4 x the objectness BCE (mean over cells) + the box regression's
+    squared error summed over positive cells / their count."""
+    grid = forward(params, frames)
+    obj_t = targets[..., 0]
+    x = grid[..., 0]
+    abs_x = torch.where(x >= 0, x, -x)     # gradient 1 at 0, as jnp.abs
+    bce = torch.mean(torch.maximum(x, torch.zeros_like(x)) - x * obj_t
+                     + torch.log1p(torch.exp(-abs_x)))
+    pos = obj_t > 0.5
+    pred_off = torch.stack([torch.sigmoid(grid[..., 1]),
+                            torch.sigmoid(grid[..., 2]),
+                            grid[..., 3], grid[..., 4]], -1)
+    sq = torch.where(pos[..., None], (pred_off - targets[..., 1:]) ** 2, 0.0)
+    l2 = torch.sum(sq) / torch.clamp(pos.sum().to(torch.float32), min=1.0)
+    return bce * 4.0 + l2
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -2,14 +2,19 @@
 
 Each layer is a ``*_defs`` function declaring its ParamDefs and a plain
 function of (params, x).  Linear weights keep the JAX layout
-``(d_in, d_out)`` and apply as ``x @ w``.  The cross-entropy functions
-belong to training and are not ported yet.
+``(d_in, d_out)`` and apply as ``x @ w``.  The training loss is the mean
+token cross-entropy in float32 with the padded vocab rows masked out of
+the partition function; ``chunked_cross_entropy`` unembeds a chunk of
+positions at a time and recomputes each chunk's logits in backward
+(``torch.utils.checkpoint``, JAX's ``@jax.checkpoint``), so only one
+(B, chunk, V) block of logits is alive.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import ParamDef
@@ -109,3 +114,52 @@ def unembed(params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
         return x @ params["unembed"]
     return x @ params["tok"].T
+
+
+# -- recomputation -------------------------------------------------------------
+
+def recomputed(fn, **kw):
+    """``fn`` whose activations are recomputed in backward (non-reentrant
+    ``torch.utils.checkpoint``; ``kw``: its ``context_fn``)."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+# -- training loss ---------------------------------------------------------------
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
+              logical_vocab: Optional[int]) -> torch.Tensor:
+    """Per-token ``logsumexp - logit[label]`` in float32, padded vocab
+    rows (>= ``logical_vocab``) masked to -1e30."""
+    logits = logits.to(torch.float32)
+    if logical_vocab is not None and logical_vocab < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= logical_vocab
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - tgt
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  logical_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy of logits (..., V) against labels (...)."""
+    return torch.mean(_token_ce(logits, labels, logical_vocab))
+
+
+def chunked_cross_entropy(embed_params, x: torch.Tensor,
+                          labels: torch.Tensor, logical_vocab: int,
+                          chunk: int) -> torch.Tensor:
+    """Unembed + cross-entropy over sequence chunks of ``chunk``
+    positions (the last one may be shorter), each chunk's logits
+    recomputed in backward; the sum over every token / (B * S)."""
+    B, S, _ = x.shape
+
+    def one(xc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+        return torch.sum(_token_ce(unembed(embed_params, xc), lc,
+                                   logical_vocab))
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    one = recomputed(one)
+    for i in range(0, S, chunk):
+        total = total + one(x[:, i:i + chunk], labels[:, i:i + chunk])
+    return total / float(B * S)

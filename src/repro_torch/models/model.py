@@ -1,4 +1,4 @@
-"""The LM of the serving tier (``repro.models.model.LM``), dense family.
+"""The LM (``repro.models.model.LM``), dense family: training and serving.
 
 Parameters are a nested dict of tensors with the JAX tree's names and
 layout: the per-layer parameters stacked on a leading layer axis under
@@ -8,18 +8,31 @@ layout: the per-layer parameters stacked on a leading layer axis under
 the stacked tensors.  ``_constrain`` and the mesh have no counterpart:
 the port runs on one card, where nothing is sharded.
 
+Training: ``forward`` (final hidden states), ``logits`` and ``loss``
+(``(total, aux)`` with ``aux["ce"]``, through ``chunked_cross_entropy``
+when ``cfg.loss_chunk > 0``); gradients come from autograd.  Each layer
+is wrapped by ``_remat`` as JAX wraps its scan body: ``"none"`` keeps
+every activation, ``"dots"`` saves the outputs of the matrix products
+with no batch dimension (``aten.mm``: the projections and the MLP) and
+recomputes the rest, anything else (``"minimal"``) saves only the
+layer's input and recomputes the layer in backward.
+
 ``decode`` takes the flash-decode kernel route (``use_kernel=True``, the
 JAX option of ``decode_self_attention_read``) and writes each layer's
 fresh token into the cache in place, in the rows asked for; the JAX
 ``LM.decode`` returns a new cache with every row written.  Other families
-(moe, ssm, hybrid, vlm, audio) and the int8 cache are not ported yet
-(``ROADMAP.md``, Queue A item 12).
+(moe, ssm, hybrid, vlm, audio) are not ported yet, nor is the int8
+cache, which raises where a cache is made, so an int8-cache config still
+trains (``ROADMAP.md``, Queue A item 7).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import (ParamDef, init_params_generator,
@@ -40,13 +53,29 @@ def _index(tree: Any, i: int) -> Any:
     return {k: _index(v, i) for k, v in tree.items()}
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``checkpoint_dots_with_no_batch_dims``: keep the products of 2-D
+    operands (``x @ w`` is ``mm``; a batched einsum is ``bmm``), recompute
+    the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        return L.recomputed(fn, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    return L.recomputed(fn)
+
+
 class LM:
     def __init__(self, cfg: ModelConfig):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue "
-                f"A item 12); the port's LM runs the dense family")
-        A._check_cache(cfg)
+                f"A item 7); the port's LM runs the dense family")
         self.cfg = cfg
 
     # -- construction ----------------------------------------------------------
@@ -96,6 +125,42 @@ class LM:
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return self._mask_pad(L.unembed(params["embed"], x))
+
+    # -- training: full-sequence forward and loss --------------------------------
+
+    def _apply_dense(self, p, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = x + A.self_attention(cfg, p["attn"],
+                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+        return h + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], h, cfg.norm_eps))
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Final hidden states (B, S, d) after the final norm, and aux
+        metrics (none for the dense family)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        block = _remat(cfg, self._apply_dense)
+        for p in self._layers(params):
+            x = block(p, x)
+        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), {}
+
+    def logits(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        x, aux = self.forward(params, batch)
+        return self._mask_pad(L.unembed(params["embed"], x)), aux
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """(mean token cross-entropy, aux with ``ce``)."""
+        cfg = self.cfg
+        if cfg.loss_chunk > 0:
+            x, aux = self.forward(params, batch)
+            ce = L.chunked_cross_entropy(params["embed"], x, batch["labels"],
+                                         cfg.vocab_size, cfg.loss_chunk)
+        else:
+            logits, aux = self.logits(params, batch)
+            ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        aux["ce"] = ce
+        return ce, aux
 
     # -- prefill -----------------------------------------------------------------
 
