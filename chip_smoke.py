@@ -22,8 +22,9 @@ JAX.  In order it prints:
      against the CPU's and the exhaustive oracle), flash_decode in bf16
      and f32 at granite-8b's
      decode shape (B=4, S=2048, 32/8 heads, hd=128) and at the GQA groups
-     and head sizes of the other configs (G = 1, 7, 16; hd 64, 112, 128),
-     valid lengths 0 to 2048 and one on a range boundary, with and
+     and head sizes of the other configs (G = 1, 7, 8, 16; hd 64, 112,
+     128; the vlm's cross decode at S = 4096), valid lengths 0 to S and
+     one on a range boundary, with and
      without the fresh token; cc_label bitwise (labels, and the boxes
      built on them) on the scenes' motion masks at C = 5 and 16, empty
      and full masks, serpentines at 12 x 20 and 68 x 120 and random masks
@@ -138,14 +139,29 @@ JAX.  In order it prints:
      peak memory, and one profiled step's kernels and busy share; (d)
      ``repro_torch.launch.train --smoke`` for 4 steps, then again with
      ``--resume``: the second run prints ``resumed from ... at step 4``;
- 11. the wall time, one JSON line of kernel records, then the device line
+ 11. the other LM families and the int8 KV cache at their published
+     widths with seeded random bf16 weights: ``ServeEngine`` over
+     olmoe-1b-7b (16 layers), zamba2-7b (81), xlstm-125m (12), qwen1.5-4b
+     (40, int8 cache) and llama-3.2-vision-90b (2 of its 20 superblocks,
+     int8 cache, 4096 image tokens; also at the LM level with seeded
+     image embeddings), 4 requests of 256/192 tokens on 4 slots, 8 new
+     tokens each; seamless-m4t-large-v2 (24 + 24 layers) at the LM level
+     (the engine refuses the audio family): each drains, flash_decode runs
+     once per attention layer (self and cross) and decode call and never
+     in prefill, decode = teacher forcing and the kernel route = the
+     plain one within 5e-2 of max |logit|; prefill and decode ms, tokens/s,
+     host syncs per decode call, peak memory.  Then training at full
+     width: xlstm-125m (12 layers) and olmoe-1b-7b (4 of 16 layers): the
+     loss falls over 3 steps, ms/step, tokens/s, MFU, peak memory.  Every
+     cut depth is printed with its reason;
+ 12. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; each kernel record carries its launches on the main
 path (``run()``), in the replayed episodes, in the profile, in one
-window of the stream per method, in the trainers (0) and in the episode
-with the card-trained server detector.  Any
+window of the stream per method, in the trainers (0), in the episode
+with the card-trained server detector and in the families phase.  Any
 mismatch ends the run with a non-zero exit code; no phase's failure is
 caught.  Without a CUDA device it exits non-zero before printing a
 result.
@@ -340,10 +356,13 @@ def fd_inputs(torch, dev, dtype, B, S, H, KV, hd, seed=0):
 # B4's parity shapes (B, S, H, KV, hd): granite-8b's decode, then the GQA
 # groups and head sizes of the other configs: G = 1 at hd 128, G = 7
 # (yi-34b, 56/8), G = 16 (llama3-405b, 128/8), G = 1 at hd 64
-# (seamless-m4t) and at hd 112 (zamba2)
+# (seamless-m4t) and at hd 112 (zamba2), G = 8 (llama-3.2-vision's and
+# kimi's self-attention, 64/8), and the vlm's cross-attention decode over
+# 4096 image tokens (every position valid: S is among its lengths)
 FD_PARITY = (FD_SHAPE, (4, 2048, 8, 8, 128), (2, 2048, 56, 8, 128),
              (1, 2048, 128, 8, 128), (2, 2048, 16, 16, 64),
-             (1, 2048, 32, 32, 112))
+             (1, 2048, 32, 32, 112), (4, 2048, 64, 8, 128),
+             (4, 4096, 64, 8, 128))
 
 
 def range_boundary_len(fd_ops, B, S, KV, G, hd, elem, sms) -> int:
@@ -358,8 +377,8 @@ def range_boundary_len(fd_ops, B, S, KV, G, hd, elem, sms) -> int:
 
 def check_flash_decode(torch, dev) -> dict:
     """B4 against its plain version on the card at every FD_PARITY shape
-    in bf16 and f32, at valid lengths FD_VALID and one that ends on a range
-    boundary: ``flash_decode`` (out, m, l) and ``flash_decode_with_new``
+    in bf16 and f32, at valid lengths FD_VALID, S and one that ends on a
+    range boundary: ``flash_decode`` (out, m, l) and ``flash_decode_with_new``
     (against the same merge of the plain version's stats).  out to <= 1e-5
     in float32 and 2e-2 in bfloat16 (tests/test_kernels.py's rules), m to
     <= 1e-5, l to <= 1e-5 of max(1, max l) (a sum of up to S exponentials;
@@ -385,7 +404,8 @@ def check_flash_decode(torch, dev) -> dict:
             tol = 1e-5 if dt == torch.float32 else 2e-2
             edge = range_boundary_len(fd_ops, B, S, KV, H // KV, hd, elem,
                                       sms)
-            for vl in FD_VALID + (edge,):
+            for vl in FD_VALID + (edge,) + ((S,) if S not in FD_VALID
+                                            else ()):
                 before = fd_ops.LAUNCHES
                 out, m, l = fd_ops.flash_decode_cuda(q, k, v, vl)
                 torch.cuda.synchronize()
@@ -1078,25 +1098,84 @@ def _to(torch, tree, device):
 
 
 
+def engine_run(torch, dev, lm, params, prompts, new: int, slots: int,
+               max_seq: int, reset_counts, read_counts) -> dict:
+    """ServeEngine over ``lm`` on ``params``: requests of ``prompts``
+    tokens (seeded), ``new`` tokens each, on ``slots`` slots, every launch
+    counter set to 0 just before the run and read just after.  Checks
+    that every request drains, that flash_decode ran once per attention
+    layer (``b4_per_decode``) and decode call and never in prefill, that
+    no other kernel launched, that request 0's last decode logits agree
+    with a prefill of the same tokens (teacher forcing) and that the
+    kernel route agrees with ``use_kernel=False`` at the third decode,
+    both within 5e-2 of max |logit| (tests/test_archs.py's bf16 rule).
+    Returns the readings and the engine."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = lm.cfg
+    arch = cfg.arch_id
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=new)
+            for i, n in enumerate(prompts)]
+    rec = TimedLM(torch, lm, compare_at=2)
+    eng = ServeEngine(rec, params, batch_slots=slots, max_seq=max_seq,
+                      device=dev)
+    reset_counts()
+    stats = eng.run(reqs)
+    counts = read_counts()
+    launches = counts.pop("flash_decode")
+    pre = [c for c in rec.calls if c[0] == "prefill"]
+    dec = [c for c in rec.calls if c[0] == "decode"]
+    per_call = b4_per_decode(cfg)
+    if not (stats["requests"] == len(reqs) and all(
+            r.done and len(r.out_tokens) == new for r in reqs)):
+        raise AssertionError(f"{arch}: not every request drained: {stats}")
+    if launches != per_call * len(dec) or not dec or any(counts.values()):
+        raise AssertionError(f"{arch}: flash_decode launched {launches} "
+                             f"times for {len(dec)} decode calls of "
+                             f"{per_call}; others {counts}")
+    V = cfg.vocab_size
+    # teacher forcing: request 0 (slot 0) made its last token at decode
+    # position len(prompt) + new - 2, from out_tokens[-2] (a later
+    # request in slot 0 may pass the same position)
+    r0 = reqs[0]
+    last = len(r0.prompt) + new - 2
+    lg_dec = [c for c in dec if c[2] == last and (
+        c[3] is None or 0 in c[3])][0][4][0, 0, :V]
+    if int(lg_dec.argmax()) != r0.out_tokens[-1]:
+        raise AssertionError(f"{arch}: the recorded decode logits did not "
+                             "pick the emitted token")
+    toks = np.concatenate([r0.prompt, r0.out_tokens[:-1]]).astype(np.int64)
+    lg_pre, _ = lm.prefill(params, family_batch(
+        torch, dev, cfg, torch.as_tensor(toks[None], device=dev)), max_seq)
+    lg_pre = lg_pre.float().cpu()[0, 0, :V]
+    pos_c, plain, kern = rec.compared
+    out = {"stats": stats, "pre": pre, "dec": dec, "launches": launches,
+           "per_call": per_call, "last": last, "pos_c": pos_c,
+           "tf": (float((lg_dec - lg_pre).abs().max()),
+                  float(lg_pre.abs().max())),
+           "route": (float((plain[..., :V] - kern[..., :V]).abs().max()),
+                     float(plain[..., :V].abs().max())),
+           "engine": eng, "requests": reqs}
+    if not (out["tf"][0] / out["tf"][1] < 5e-2
+            and out["route"][0] / out["route"][1] < 5e-2):
+        raise AssertionError(f"{arch}: decode disagrees with teacher "
+                             f"forcing or with the plain route: {out['tf']}, "
+                             f"{out['route']}")
+    return out
+
+
 def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
-    """ServeEngine over granite-8b at its published config (36 layers,
+    """``engine_run`` over granite-8b at its published config (36 layers,
     d_model 4096, 32/8 heads, d_ff 14336, vocab 49152, bf16), weights from
     a seeded torch.Generator on the card: 4 slots, max_seq 2048, prompts of
-    512, 512, 384, 384, 512 and 256 tokens, 16 new tokens each.  Checks
-    that every request drains, that flash_decode ran 36 times per decode
-    call and never in prefill, that one request's last decode logits agree
-    with a prefill of the same tokens (teacher forcing) and that the kernel
-    route agrees with ``use_kernel=False`` at one decode, both within 5e-2
-    of max |logit| (tests/test_archs.py's bf16 rule).  Every launch
-    counter is set to 0 just before the engine run and read just after;
-    no other kernel may have launched.  Returns the flash_decode launches
-    of the engine run."""
-    import numpy as np
+    512, 512, 384, 384, 512 and 256 tokens, 16 new tokens each; then one
+    profiled decode and the host syncs of one decode call.  Returns the
+    flash_decode launches of the engine run."""
     from repro_torch.common.params import param_count
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.models.model import LM
-    from repro_torch.serve.engine import Request, ServeEngine
     cfg = get_config("granite-8b")
     lm = LM(cfg)
     torch.cuda.synchronize()
@@ -1106,48 +1185,12 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count(lm.param_defs())
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
-                    .astype(np.int32), max_new_tokens=FULL_NEW)
-            for i, n in enumerate(FULL_PROMPTS)]
-    rec = TimedLM(torch, lm, compare_at=2)
-    eng = ServeEngine(rec, params, batch_slots=FULL_SLOTS, max_seq=FULL_SEQ,
-                      device=dev)
-    reset_counts()
-    stats = eng.run(reqs)
-    counts = read_counts()
-    launches = counts.pop("flash_decode")
+    run = engine_run(torch, dev, lm, params, FULL_PROMPTS, FULL_NEW,
+                     FULL_SLOTS, FULL_SEQ, reset_counts, read_counts)
     peak = torch.cuda.max_memory_allocated()
-    pre = [c for c in rec.calls if c[0] == "prefill"]
-    dec = [c for c in rec.calls if c[0] == "decode"]
-    if not (stats["requests"] == len(reqs) and all(
-            r.done and len(r.out_tokens) == FULL_NEW for r in reqs)):
-        raise AssertionError(f"not every request drained: {stats}")
-    if launches != cfg.num_layers * len(dec) or not dec or any(
-            counts.values()):
-        raise AssertionError(f"flash_decode launched {launches} times for "
-                             f"{len(dec)} decode calls of {cfg.num_layers} "
-                             f"layers; others {counts}")
-    V = cfg.vocab_size
-    # teacher forcing: request 0 (slot 0) made its last token at decode
-    # position len(prompt) + FULL_NEW - 2, from out_tokens[-2]
-    r0 = reqs[0]
-    last = len(r0.prompt) + FULL_NEW - 2
-    # (request 4 reuses slot 0 later and passes the same position)
-    lg_dec = [c for c in dec if c[2] == last and (
-        c[3] is None or 0 in c[3])][0][4][0, 0, :V]
-    if int(lg_dec.argmax()) != r0.out_tokens[-1]:
-        raise AssertionError("the recorded decode logits did not pick the "
-                             "emitted token")
-    toks = np.concatenate([r0.prompt, r0.out_tokens[:-1]]).astype(np.int64)
-    lg_pre, _ = lm.prefill(params, {"tokens": torch.as_tensor(
-        toks[None], device=dev)}, FULL_SEQ)
-    lg_pre = lg_pre.float().cpu()[0, 0, :V]
-    scale = float(lg_pre.abs().max())
-    e_tf = float((lg_dec - lg_pre).abs().max())
-    pos_c, plain, kern = rec.compared
-    e_route = float((plain[..., :V] - kern[..., :V]).abs().max())
-    s_route = float(plain[..., :V].abs().max())
+    stats, pre, dec, launches = (run["stats"], run["pre"], run["dec"],
+                                 run["launches"])
+    eng = run["engine"]
     pre_ms = [c[1] for c in pre]
     dec_ms = [c[1] for c in dec]
     step_ms = (stats["wall_s"] * 1e3 - sum(pre_ms)) / stats["steps"]
@@ -1165,14 +1208,12 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
           f"{step_ms:.3f} ms; {stats['tok_per_s']:.2f} tokens/s over "
           f"{stats['wall_s']:.3f} s; peak memory "
           f"{peak / 2**30:.3f} GiB ({peak} bytes) {tag}")
-    print(f"granite-8b teacher forcing (request 0, position {last}): max "
-          f"|decode - prefill| {e_tf:.4g} of max |logit| {scale:.4g} "
+    (e_tf, scale), (e_route, s_route) = run["tf"], run["route"]
+    print(f"granite-8b teacher forcing (request 0, position {run['last']}): "
+          f"max |decode - prefill| {e_tf:.4g} of max |logit| {scale:.4g} "
           f"({e_tf / scale:.4g}); kernel vs plain route at decode position "
-          f"{pos_c}: {e_route:.4g} of {s_route:.4g} "
+          f"{run['pos_c']}: {e_route:.4g} of {s_route:.4g} "
           f"({e_route / s_route:.4g})")
-    if not (e_tf / scale < 5e-2 and e_route / s_route < 5e-2):
-        raise AssertionError("granite-8b decode disagrees with teacher "
-                             "forcing or with the plain route")
     # one profiled decode of all 4 slots at the position the run reached
     from torch.profiler import ProfilerActivity, profile
     # (a masked decode, as the engine ran; the run is over, so writing the
@@ -1211,18 +1252,11 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
           f"{2 * n_params / HBM_BYTES_PER_S * 1e3:.3f} ms {tag}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12))
-    import collections
-    import warnings
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        lm.decode(params, tokens, eng.cache, pos, rows=[0, 1])
-    torch.cuda.set_sync_debug_mode("default")
-    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
-                                for w in caught)
+    sites = syncs_of(torch, lambda: lm.decode(params, tokens, eng.cache, pos,
+                                              rows=[0, 1]))
     print(f"granite-8b host syncs in one decode call: "
-          f"{sum(sites.values())} {dict(sites.most_common())}")
-    del params, eng, rec
+          f"{sum(sites.values())} {sites}")
+    del params, eng, run
     torch.cuda.empty_cache()
     return launches
 
@@ -1293,6 +1327,401 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
             "bf16_products": products, "sass": sass,
             "at_valid": {str(vl): per[vl] for vl in FD_TIMED[1:]}}
 
+
+
+# -- the other LM families and the int8 cache (slice 10) -----------------
+
+# served through ServeEngine at full width: (arch, layers kept or None)
+FAM_SERVE = (("olmoe-1b-7b", None), ("zamba2-7b", None),
+             ("xlstm-125m", None), ("qwen1.5-4b", None),
+             ("llama-3.2-vision-90b", 10))
+FAM_PROMPTS = (256, 256, 192, 192)   # two position groups on 4 slots
+FAM_NEW, FAM_SLOTS, FAM_SEQ = 8, 4, 1024
+AUDIO_ROWS, AUDIO_PROMPT = 2, 256    # seamless: prefill + decode, LM level
+# trained: (arch, layers kept or None, rows, tokens a row)
+FAM_TRAIN = (("xlstm-125m", None, 8, 512), ("olmoe-1b-7b", 4, 4, 4096))
+FAM_TIMED = 3            # timed train steps after one warm-up
+# why a depth is cut (the published config does not fit in 80 GB)
+FAM_CUTS = {
+    ("serve", "llama-3.2-vision-90b"): "20 superblocks of 4 self + 1 "
+    "cross layer are 87.7 B parameters (175 GB in bf16); 2 superblocks "
+    "keep every shape",
+    ("train", "xlstm-125m"): "rows of 512 tokens, not train_4k's 4096: "
+    "the sLSTM steps token by token (~10 s a step at 4 x 1024 tokens)",
+    ("train", "olmoe-1b-7b"): "16 layers are 6.9 B parameters: bf16 "
+    "weights and gradients plus float32 AdamW moments (~12 bytes a "
+    "parameter, 83 GB) do not fit beside the activations"}
+
+
+def b4_per_decode(cfg) -> int:
+    """flash_decode launches in one decode call: one per self-attention
+    layer and one per cross-attention layer."""
+    f = cfg.family
+    if f in ("dense", "moe"):
+        return cfg.num_layers
+    if f == "ssm":
+        return 0
+    if f == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    if f == "vlm":
+        return cfg.num_layers // cfg.vlm.cross_attn_every * \
+            cfg.vlm.cross_attn_every
+    return 2 * cfg.encdec.dec_layers
+
+
+def matmul_params(lm) -> int:
+    """Parameters a token meets in matrix products: every leaf of two or
+    more axes but the embedding table, of the MoE experts top_k of
+    num_experts."""
+    import numpy as np
+    cfg = lm.cfg
+
+    def walk(defs, path):
+        if hasattr(defs, "shape"):
+            n = int(np.prod(defs.shape))
+            if len(defs.shape) < 2 or path[-2:] == ("embed", "tok"):
+                return 0
+            if path[-1] in ("w_gate", "w_up", "w_down"):
+                return n * cfg.moe.top_k // cfg.moe.num_experts
+            return n
+        return sum(walk(v, path + (k,)) for k, v in defs.items())
+    return walk(lm.param_defs(), ())
+
+
+def syncs_of(torch, fn) -> dict:
+    """Host syncs of one call of ``fn`` per site
+    (``set_sync_debug_mode("warn")``)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                    for w in caught))
+
+
+def family_config(arch: str, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def family_batch(torch, dev, cfg, tokens, seed=None) -> dict:
+    """A prefill batch: the vlm's image embeddings (zero, as the engine
+    gives them, or seeded normals) and the audio family's encoder
+    embeddings (seeded normals, one per prompt position)."""
+    batch = {"tokens": tokens}
+    g = None if seed is None else torch.Generator(device=dev).manual_seed(
+        seed)
+    dt = getattr(torch, cfg.dtype)
+
+    def embeds(n):
+        shape = (tokens.shape[0], n, cfg.d_model)
+        if g is None:
+            return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+    if cfg.family == "vlm":
+        batch["img_embeds"] = embeds(cfg.vlm.num_image_tokens)
+    if cfg.family == "audio":
+        batch["enc_embeds"] = embeds(tokens.shape[1])
+    return batch
+
+
+def lm_loop(torch, dev, lm, params, batch, new: int, max_seq: int) -> dict:
+    """LM-level serving of one batch: prefill, then ``new`` greedy decode
+    steps through the kernel route; at the second step the plain route
+    (writing nothing) is held to the kernel route, and the last step's
+    logits to a prefill of every token (teacher forcing), both within
+    5e-2 of max |logit|.  Returns the readings."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    V = lm.cfg.vocab_size
+    n = batch["tokens"].shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = lm.prefill(params, batch, max_seq)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    toks = [batch["tokens"], lg[:, :, :V].argmax(-1)]
+    dec_ms, e_route, s_route = [], None, None
+    fd0 = fd_ops.LAUNCHES
+    for i in range(new):
+        if i == 1:
+            plain, _ = lm.decode(params, toks[-1], cache, n + i, rows=[],
+                                 use_kernel=False)
+            launched = fd_ops.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = lm.decode(params, toks[-1], cache, n + i)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            per_call = fd_ops.LAUNCHES - launched
+            e_route = float((plain - lg)[..., :V].float().abs().max())
+            s_route = float(plain[..., :V].float().abs().max())
+        toks.append(lg[:, :, :V].argmax(-1))
+    full = dict(batch, tokens=torch.cat(toks[:-1], dim=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg_tf, _ = lm.prefill(params, full, max_seq)
+    torch.cuda.synchronize()
+    pre_ms = (pre_ms, (time.perf_counter() - t0) * 1e3)
+    e_tf = float((lg_tf - lg)[..., :V].float().abs().max())
+    s_tf = float(lg_tf[..., :V].float().abs().max())
+    if not (e_tf / s_tf < 5e-2 and e_route / s_route < 5e-2):
+        raise AssertionError(f"{lm.cfg.arch_id}: decode disagrees with "
+                             "teacher forcing or with the plain route")
+    return {"prefill_ms": pre_ms, "decode_ms": dec_ms, "tf": (e_tf, s_tf),
+            "route": (e_route, s_route), "b4_per_call": per_call,
+            "b4": fd_ops.LAUNCHES - fd0,
+            "tokens": toks[1:], "cache": cache}
+
+
+def serve_family(torch, dev, tag: str, arch: str, layers, reset_counts,
+                 read_counts) -> int:
+    """``engine_run`` over one config at its published width (depth as
+    given), seeded random bf16 weights made on the card: 4 requests of
+    FAM_PROMPTS tokens on 4 slots (two position groups, so grouped
+    decodes run), FAM_NEW new tokens each.  For the vlm, an LM-level run
+    with seeded image embeddings too (the engine gives zeros, as JAX's
+    does).  Returns the flash_decode launches of the runs."""
+    import numpy as np
+    from repro_torch.common.params import param_count
+    from repro_torch.models.model import LM
+    cfg = family_config(arch, layers)
+    lm = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(lm.param_defs())
+    run = engine_run(torch, dev, lm, params, FAM_PROMPTS, FAM_NEW,
+                     FAM_SLOTS, FAM_SEQ, reset_counts, read_counts)
+    peak = torch.cuda.max_memory_allocated()
+    stats, pre, dec, launches = (run["stats"], run["pre"], run["dec"],
+                                 run["launches"])
+    dec_ms = [c[1] for c in dec]
+    tokens = torch.zeros((FAM_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = max(FAM_PROMPTS) + FAM_NEW
+    syncs = syncs_of(torch, lambda: lm.decode(
+        params, tokens, run["engine"].cache, pos, rows=[0, 1]))
+    full_layers = family_config(arch, None).num_layers
+    (e_tf, s_tf), (e_route, s_route) = run["tf"], run["route"]
+    print(f"families serve {arch} ({cfg.family}, {cfg.num_layers} of "
+          f"{full_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+          f"parameters, bf16, {cfg.kv_cache_dtype} cache; init {init_s:.2f} s"
+          f" on the card): {stats['requests']} requests, {stats['tokens']} "
+          f"tokens, {stats['steps']} steps, {len(dec)} decode calls; prefill "
+          f"ms {[round(c[1], 2) for c in pre]} (prompts "
+          f"{[c[2] for c in pre]}); decode ms per call median "
+          f"{statistics.median(dec_ms):.3f} (min {min(dec_ms):.3f}, max "
+          f"{max(dec_ms):.3f}); {stats['tok_per_s']:.2f} tokens/s; "
+          f"flash_decode {run['per_call']} per decode call ({launches} in "
+          f"all, none in prefill); host syncs in one decode call "
+          f"{sum(syncs.values())} {syncs}; peak memory {peak / 2**30:.3f} GiB"
+          f" {tag}")
+    print(f"families serve {arch}: teacher forcing (request 0, position "
+          f"{run['last']}) max |decode - prefill| {e_tf:.4g} of {s_tf:.4g} "
+          f"({e_tf / s_tf:.4g}); kernel vs plain route at position "
+          f"{run['pos_c']}: {e_route:.4g} of {s_route:.4g} "
+          f"({e_route / s_route:.4g})")
+    cut = FAM_CUTS.get(("serve", arch))
+    if cut:
+        print(f"families reduced: serve {arch} at {cfg.num_layers} of "
+              f"{full_layers} layers: {cut}")
+    if cfg.family == "vlm":
+        toks = torch.as_tensor(np.stack([r.prompt[:FAM_PROMPTS[-1]]
+                                         for r in run["requests"]]
+                                        ).astype(np.int64), device=dev)
+        del run
+        out = lm_loop(torch, dev, lm, params,
+                      family_batch(torch, dev, cfg, toks, seed=1), FAM_NEW,
+                      FAM_SEQ)
+        launches += out["b4"]
+        print(f"families serve {arch} LM level with seeded image embeddings "
+              f"({toks.shape[0]} rows, {cfg.vlm.num_image_tokens} image "
+              f"tokens, every one valid in the cross decode): prefill "
+              f"{out['prefill_ms'][0]:.2f} ms ({FAM_PROMPTS[-1]} tokens; "
+              f"{out['prefill_ms'][1]:.2f} ms for {FAM_PROMPTS[-1] + FAM_NEW})"
+              f", decode ms per call median "
+              f"{statistics.median(out['decode_ms']):.3f}; teacher forcing "
+              f"{out['tf'][0]:.4g} of {out['tf'][1]:.4g}; kernel vs plain "
+              f"route {out['route'][0]:.4g} of {out['route'][1]:.4g}; "
+              f"flash_decode {out['b4_per_call']} per decode call")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def audio_family(torch, dev, tag: str, reset_counts, read_counts) -> int:
+    """seamless-m4t-large-v2 at its published width and depth (24
+    encoder + 24 decoder layers), seeded random bf16 weights, at the LM
+    level (the engine refuses the family): AUDIO_ROWS prompts of
+    AUDIO_PROMPT tokens with seeded encoder embeddings, prefill, FAM_NEW
+    greedy decode steps; decode = teacher forcing and the kernel route =
+    the plain one within 5e-2 of max |logit|.  Returns the flash_decode
+    launches of the run."""
+    from repro_torch.common.params import param_count
+    from repro_torch.models.model import LM
+    cfg = family_config("seamless-m4t-large-v2", None)
+    lm = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (AUDIO_ROWS, AUDIO_PROMPT),
+                         generator=g, device=dev)
+    reset_counts()
+    out = lm_loop(torch, dev, lm, params,
+                  family_batch(torch, dev, cfg, toks, seed=1), FAM_NEW,
+                  2 * AUDIO_PROMPT)
+    counts = read_counts()
+    launches = counts.pop("flash_decode")
+    per_call = b4_per_decode(cfg)
+    # FAM_NEW kernel-route calls; the plain-route call launches none
+    if out["b4_per_call"] != per_call or launches != per_call * FAM_NEW \
+            or any(counts.values()):
+        raise AssertionError(f"seamless: flash_decode launched {launches} "
+                             f"({out['b4_per_call']} a call), not "
+                             f"{per_call} x {FAM_NEW}; others {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    x = out["tokens"][-1]
+    syncs = syncs_of(torch, lambda: lm.decode(
+        params, x, out["cache"], AUDIO_PROMPT + FAM_NEW, rows=[]))
+    d = out["decode_ms"]
+    print(f"families serve seamless-m4t-large-v2 (audio, {cfg.encdec.enc_layers}"
+          f" + {cfg.encdec.dec_layers} layers, d_model {cfg.d_model}, "
+          f"{param_count(lm.param_defs()):,} parameters, bf16; LM level, "
+          f"{AUDIO_ROWS} rows of {AUDIO_PROMPT} tokens and encoder "
+          f"embeddings): prefill {out['prefill_ms'][0]:.2f} ms (the first "
+          f"call; the teacher-forcing prefill of {AUDIO_PROMPT + FAM_NEW} "
+          f"tokens {out['prefill_ms'][1]:.2f} ms); decode ms per "
+          f"call median {statistics.median(d):.3f} (min {min(d):.3f}, max "
+          f"{max(d):.3f}); {AUDIO_ROWS * FAM_NEW / (sum(d) / 1e3):.2f} "
+          f"tokens/s over the decode calls; flash_decode {per_call} per "
+          f"decode call (self and cross); host syncs in one decode call "
+          f"{sum(syncs.values())} {syncs}; peak memory {peak / 2**30:.3f} GiB"
+          f" {tag}")
+    print(f"families serve seamless-m4t-large-v2: teacher forcing "
+          f"{out['tf'][0]:.4g} of {out['tf'][1]:.4g} "
+          f"({out['tf'][0] / out['tf'][1]:.4g}); kernel vs plain route "
+          f"{out['route'][0]:.4g} of {out['route'][1]:.4g}")
+    del params, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_family(torch, dev, tag: str, arch: str, layers, rows: int,
+                 seq: int, reset_counts, read_counts) -> None:
+    """One config at its published width (depth as given), seeded random
+    bf16 weights, its own MICROBATCHES["train_4k"] and MOMENT_DTYPE, rows
+    of ``seq`` tokens: the loss falls over 3 steps on a fixed batch, then
+    FAM_TIMED steps on the loader's batches after a warm-up: median
+    ms/step (CUDA events), tokens/s, MFU (6 x the parameters a token
+    meets in matrix products, plus 12 L H hd S for attention, over 989
+    TFLOP/s), peak memory; no hand-written kernel launched."""
+    import importlib
+    from repro_torch.common.config import OptimizerConfig, RunConfig
+    from repro_torch.configs import canonical
+    from repro_torch.data.pipeline import (DataConfig, PrefetchLoader,
+                                           SyntheticTokenSource)
+    from repro_torch.models.model import LM
+    from repro_torch.train.steps import init_train_state, make_train_step
+    mod = importlib.import_module(f"repro_torch.configs.{canonical(arch)}")
+    cfg = family_config(arch, layers)
+    mb = mod.MICROBATCHES["train_4k"]
+    run = RunConfig(model=cfg, opt=OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=100,
+        moment_dtype=mod.MOMENT_DTYPE), microbatches=mb)
+    lm = LM(cfg)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(lm, run, torch.Generator(
+        device=dev).manual_seed(0))
+    step = make_train_step(lm, run, donate=True)
+    src = SyntheticTokenSource(DataConfig(rows, seq, cfg.vocab_size))
+    fixed = {k: torch.as_tensor(v, device=dev)
+             for k, v in src.batch_at(0).items()}
+    curve = []
+    for _ in range(3):
+        params, opt, m = step(params, opt, fixed)
+        curve.append(m["loss"])
+    with torch.no_grad():
+        curve.append(lm.loss(params, fixed)[0])
+    curve = torch.stack(curve).tolist()
+    aux = {k: float(v) for k, v in m.items() if k.startswith("moe_")}
+    loader = PrefetchLoader(src, dev)
+    it = iter(loader)
+    params, opt, m = step(params, opt, next(it))     # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(FAM_TIMED):
+        batch = next(it)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    loader.close()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(ms)
+    tokens = rows * seq
+    n_mm = matmul_params(lm)
+    n_attn = cfg.num_layers if cfg.family in ("dense", "moe") else 0
+    flops = tokens * (6 * n_mm + 12 * n_attn * cfg.num_heads
+                      * cfg.resolved_head_dim * seq)
+    counts = read_counts()
+    cut = FAM_CUTS.get(("train", arch))
+    full_layers = family_config(arch, None).num_layers
+    print(f"families train {arch} ({cfg.family}, {cfg.num_layers} of "
+          f"{full_layers} layers, d_model {cfg.d_model}, bf16 weights, "
+          f"{mod.MOMENT_DTYPE} moments, remat {cfg.remat_policy}, {mb} "
+          f"microbatch{'es' if mb > 1 else ''}, {rows} x {seq} tokens): fixed "
+          f"batch loss before each of 3 steps and after "
+          f"{[round(x, 4) for x in curve]} {aux}; median {med:.1f} ms/step "
+          f"(min {min(ms):.1f}, max {max(ms):.1f}, {FAM_TIMED} steps after a "
+          f"warm-up, CUDA events); {tokens / med * 1e3:,.0f} tokens/s; MFU "
+          f"{100 * flops / (med / 1e3) / BF16_FLOPS_PER_S:.2f}% "
+          f"({flops / 1e12:.2f} TFLOP a step, {n_mm:,} matmul parameters a "
+          f"token); peak memory {peak / 2**30:.2f} GiB; hand-written "
+          f"kernels {counts} {tag}")
+    if cut:
+        print(f"families reduced: train {arch} at {cfg.num_layers} of "
+              f"{full_layers} layers, {rows} x {seq} tokens: {cut}")
+    if not all(b < a for a, b in zip(curve, curve[1:])):
+        raise AssertionError(f"{arch}: 3 steps did not lower the loss")
+    if any(counts.values()):
+        raise AssertionError(f"{arch}: the trainer launched a hand-written "
+                             f"kernel {counts}")
+    del params, opt, m, fixed, batch
+    torch.cuda.empty_cache()
+
+
+def families_phase(torch, dev, tag: str, reset_counts, read_counts) -> int:
+    """Every family but the dense one, and the int8 cache, at published
+    width: serving (FAM_SERVE through the engine, the audio family at the
+    LM level) and training (FAM_TRAIN).  Returns the flash_decode
+    launches of the serving runs."""
+    launches = 0
+    for arch, layers in FAM_SERVE:
+        launches += serve_family(torch, dev, tag, arch, layers,
+                                 reset_counts, read_counts)
+    launches += audio_family(torch, dev, tag, reset_counts, read_counts)
+    for arch, layers, rows, seq in FAM_TRAIN:
+        train_family(torch, dev, tag, arch, layers, rows, seq, reset_counts,
+                     read_counts)
+    return launches
 
 
 # -- offline profiling, Fig. 3 and the control scan (slice 7) -------------
@@ -2972,6 +3401,14 @@ def main(argv=None) -> int:
         scene_of, trace, episode_logs["deepstream"],
         {k: T_SLOTS if k in needs("deepstream") else 0 for k in counters})
     print(f"phase 10 (training): {time.perf_counter() - t_new:.1f} s")
+    # -- 11. the other LM families and the int8 cache, serving and
+    # training.  After phase 8: with this phase before it, every
+    # one-kernel profiler window of phase 8 recorded 87 of its 100
+    # launches
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 11: LM families")
+    t_new = time.perf_counter()
+    fam_launches = families_phase(torch, dev, tag, reset_counts, read_counts)
+    print(f"phase 11 (LM families): {time.perf_counter() - t_new:.1f} s")
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
@@ -2980,6 +3417,8 @@ def main(argv=None) -> int:
         rec["launches_train"] = train_launches["train"]
         rec["launches_train_episode"] = train_launches["train_episode"][
             rec["name"]]
+        rec["launches_families"] = (fam_launches
+                                    if rec["name"] == "flash_decode" else 0)
 
     if args.profile:
         from torch.autograd import DeviceType

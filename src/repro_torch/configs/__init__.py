@@ -3,9 +3,7 @@
 ``get_config(arch_id)`` returns the full published config;
 ``smoke_config(arch_id)`` returns a structurally identical reduced config
 (same family/block pattern, tiny dims) for CPU tests.  The port's ``LM``
-runs the ``dense`` family with a bfloat16 or float32 cache; the others
-are data here until their modules are ported (``ROADMAP.md``, Queue A
-item 7).
+runs every one of them, with a bfloat16, float32 or int8 KV cache.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Serving launcher: the LM engine, or the crash-safe fleet stream.
 
-LM engine (continuous-batched decode over a dense backbone)::
+LM engine (continuous-batched decode over any config of
+``repro_torch.configs`` but the audio family, which the engine refuses)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         [--smoke] [--device cpu] --requests 6 --slots 4 --prompt-len 24 \
         --max-new 8
 
 Weights are a random initialisation from seed 0, made on the device;
-prompts are random tokens from seed 0.
+prompts are random tokens from seed 0; a vlm request sees zero image
+embeddings.
 
 Fleet stream (``serve.stream``: windowed serving over the episode's CUDA
 graphs, the carry checkpointed at every window boundary; run the same

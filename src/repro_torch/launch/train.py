@@ -5,10 +5,12 @@
 
 Wires: config -> LM -> data pipeline (prefetch) -> train step (parameters
 and optimizer state updated in place) -> watchdog -> async checkpointing
-(atomic, in the JAX package's format 2).  ``--smoke`` runs the reduced
-config of the same family; without it the published config runs, which
-at full depth needs more memory than one card has for most
-architectures.  Without ``--device`` it runs on the card and raises if
+(atomic, in the JAX package's format 2).  Every config of
+``repro_torch.configs`` trains; the vlm's batches get zero image
+embeddings and the audio family's zero encoder embeddings, as in the JAX
+launcher.  ``--smoke`` runs the reduced config of the same family;
+without it the published config runs, which at full depth needs more
+memory than one card has for most architectures.  Without ``--device`` it runs on the card and raises if
 there is none.  ``--resume`` restores the newest committed
 ``step_*`` checkpoint under ``--ckpt-dir``, the JAX launcher's too.
 Each step waits on the card once, to print its metrics.
@@ -85,8 +87,17 @@ def main(argv=None) -> None:
                                           cfg.vocab_size))
     loader = PrefetchLoader(src, dev)
     it = iter(loader)
+    embed_dtype = getattr(torch, cfg.dtype)
     for step in range(start_step, args.steps):
         batch = next(it)
+        if cfg.family == "vlm":
+            batch["img_embeds"] = torch.zeros(
+                (args.batch, cfg.vlm.num_image_tokens, cfg.d_model),
+                dtype=embed_dtype, device=dev)
+        if cfg.family == "audio":
+            batch["enc_embeds"] = torch.zeros(
+                (args.batch, args.seq, cfg.d_model), dtype=embed_dtype,
+                device=dev)
         t0 = time.perf_counter()
         params, opt_state, metrics = train_step(params, opt_state, batch)
         loss, gnorm, lr = torch.stack([metrics["loss"], metrics["grad_norm"],

@@ -8,9 +8,14 @@ v1) outside it: through ``decode_attention_with_new`` (plain), or with
 ``use_kernel=True`` through ``kernels/flash_decode`` (the CUDA kernel on
 the card, its plain version on the CPU).  Layouts are JAX's: q
 ``(B, 1, H, hd)``, a cache view ``(B, S, KV, hd)``, the cache itself
-``k``/``v`` of shape ``(B, S, KV*hd)``.  The int8 cache (quantise and
-dequantise) is not ported yet (``ROADMAP.md``, Queue A item 7): it
-raises where a cache is made, never in training.
+``k``/``v`` of shape ``(B, S, KV*hd)``.  The int8 cache
+(``kv_cache_dtype="int8"``) stores int8 ``k``/``v`` with one bfloat16
+scale per (position, kv head) in ``k_scale``/``v_scale`` (B, S, KV); the
+decode dequantises the whole cache in the model dtype and attends over
+that view, through the kernel too.  ``cross_attention`` (the vlm's image
+layers, the audio decoder) is not causal and has no rope; its decode
+(``decode_cross_attention``) attends over a fixed cross cache, every
+position valid.
 """
 from __future__ import annotations
 
@@ -29,8 +34,8 @@ F32 = torch.float32
 
 
 def attn_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Self-attention projections (the cross-attention form waits for the
-    vlm and audio families)."""
+    """q/k/v/o projections; cross-attention takes the same (its keys and
+    values come from d_model-wide states too)."""
     d, hd, dt, b = cfg.d_model, cfg.resolved_head_dim, dtype_of(cfg), \
         cfg.qkv_bias
     qf, kvf = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -177,37 +182,96 @@ def self_attention(cfg: ModelConfig, params, x: torch.Tensor, *,
     return linear(params["o"], out.reshape(B, S, -1))
 
 
-def _check_cache(cfg: ModelConfig) -> None:
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, Queue A item "
-            "7)")
+def cross_attention(cfg: ModelConfig, params, x: torch.Tensor,
+                    kv_src: torch.Tensor, *, q_chunk: int = 512,
+                    kv_chunk: int = 2048) -> torch.Tensor:
+    """x (B, S, d) attends to kv_src (B, Skv, d): encoder states or image
+    patch embeddings."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = _split_heads(linear(params["q"], x), cfg.num_heads, hd)
+    k = _split_heads(linear(params["k"], kv_src), cfg.num_kv_heads, hd)
+    v = _split_heads(linear(params["v"], kv_src), cfg.num_kv_heads, hd)
+    out = chunked_attention(q, k, v, causal=False, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+    return linear(params["o"], out.reshape(B, S, -1))
+
+
+def decode_cross_attention(cfg: ModelConfig, params, x: torch.Tensor,
+                           cache: Dict[str, torch.Tensor],
+                           use_kernel: bool = False) -> torch.Tensor:
+    """One query position x (B, 1, d) over a fixed cross cache k/v
+    (B, Skv, KV*hd), every position valid: ``decode_attention`` (plain,
+    JAX's route) or the flash-decode kernel."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = _split_heads(linear(params["q"], x), cfg.num_heads, hd)
+    k = cache["k"].reshape(B, -1, cfg.num_kv_heads, hd)
+    v = cache["v"].reshape(B, -1, cfg.num_kv_heads, hd)
+    if use_kernel:
+        out = fd_ops.flash_decode(q, k, v, kv_valid_len=k.shape[1])[0]
+    else:
+        out = decode_attention(q, k, v, kv_valid_len=k.shape[1])
+    return linear(params["o"], out.reshape(B, 1, -1))
 
 
 def kv_cache_defs(cfg: ModelConfig, batch: int, max_seq: int
                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """{"k", "v"}: ((batch, max_seq, KV*hd), dtype) in the model dtype."""
-    _check_cache(cfg)
+    """{"k", "v"}: ((batch, max_seq, KV*hd), the model dtype); the int8
+    cache: int8 ``k``/``v`` and bfloat16 ``k_scale``/``v_scale`` of shape
+    (batch, max_seq, KV)."""
     kvf = cfg.num_kv_heads * cfg.resolved_head_dim
+    if cfg.kv_cache_dtype == "int8":
+        q = ((batch, max_seq, kvf), torch.int8)
+        s = ((batch, max_seq, cfg.num_kv_heads), torch.bfloat16)
+        return {"k": q, "v": q, "k_scale": s, "v_scale": s}
     spec = ((batch, max_seq, kvf), dtype_of(cfg))
     return {"k": spec, "v": spec}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, KV, hd) -> (int8 values, per-(token, head) bfloat16
+    scales): divided by the float32 scale, rounded half to even."""
+    x = x.to(F32)
+    scale = torch.amax(torch.abs(x), dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, kv_heads: int,
+                   hd: int, dt: torch.dtype) -> torch.Tensor:
+    """(B, S, kvf) int8 and (B, S, KV) scales -> (B, S, KV, hd), the
+    product taken in ``dt`` (the model dtype)."""
+    B, S, _ = q.shape
+    return q.reshape(B, S, kv_heads, hd).to(dt) * scale[..., None].to(dt)
+
+
+def _cache_entries(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """Cache entries of k/v (B, S, KV, hd): flat (B, S, kvf), quantised
+    with their scales for the int8 cache."""
+    B, S = k.shape[:2]
+    if cfg.kv_cache_dtype == "int8":
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        return {"k": kq.reshape(B, S, -1), "v": vq.reshape(B, S, -1),
+                "k_scale": ks, "v_scale": vs}
+    return {"k": k.reshape(B, S, -1), "v": v.reshape(B, S, -1)}
 
 
 def prefill_self_attention(cfg: ModelConfig, params, x: torch.Tensor,
                            max_seq: int, **chunks
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal self-attention over the prompt; returns the output and the
-    prompt's k/v zero-padded to ``max_seq``."""
-    _check_cache(cfg)
+    prompt's cache entries zero-padded to ``max_seq``."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(cfg, params, x, positions)
     out = chunked_attention(q, k, v, causal=True, **chunks)
     out = linear(params["o"], out.reshape(B, S, -1))
     cache = {}
-    for name, t in (("k", k), ("v", v)):
-        buf = t.new_zeros((B, max_seq, t.shape[2] * t.shape[3]))
-        buf[:, :S] = t.reshape(B, S, -1)
+    for name, t in _cache_entries(cfg, k, v).items():
+        buf = t.new_zeros((B, max_seq) + tuple(t.shape[2:]))
+        buf[:, :S] = t
         cache[name] = buf
     return out, cache
 
@@ -218,23 +282,30 @@ def decode_self_attention_read(cfg: ModelConfig, params, x: torch.Tensor,
                                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode that only READS the cache: attends over the cache
     below ``pos`` plus the fresh token, and returns the fresh (k1, v1)
-    flat tokens for the caller to write.
+    cache entries for the caller to write.
 
-    x (B,1,d); cache k/v (B,S,kvf).  Returns (attn_out, {"k": k1
-    (B,1,kvf), "v": v1})."""
-    _check_cache(cfg)
+    x (B,1,d); cache k/v (B,S,kvf) (and the int8 cache's scales, the
+    whole cache dequantised first).  Returns (attn_out, {"k": k1
+    (B,1,kvf), "v": v1, and for the int8 cache their scales})."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     positions = torch.full((B, 1), pos, device=x.device)
     q, k1, v1 = _qkv(cfg, params, x, positions)
     S = cache["k"].shape[1]
-    k = cache["k"].reshape(B, S, cfg.num_kv_heads, hd)
-    v = cache["v"].reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.kv_cache_dtype == "int8":
+        dt = dtype_of(cfg)
+        k = _dequantize_kv(cache["k"], cache["k_scale"], cfg.num_kv_heads,
+                           hd, dt)
+        v = _dequantize_kv(cache["v"], cache["v_scale"], cfg.num_kv_heads,
+                           hd, dt)
+    else:
+        k = cache["k"].reshape(B, S, cfg.num_kv_heads, hd)
+        v = cache["v"].reshape(B, S, cfg.num_kv_heads, hd)
     attend = (fd_ops.flash_decode_with_new if use_kernel
               else decode_attention_with_new)
     out = attend(q, k, v, k1, v1, kv_valid_len=pos)
     out = linear(params["o"], out.reshape(B, 1, -1))
-    return out, {"k": k1.reshape(B, 1, -1), "v": v1.reshape(B, 1, -1)}
+    return out, _cache_entries(cfg, k1, v1)
 
 
 def decode_self_attention(cfg: ModelConfig, params, x: torch.Tensor,

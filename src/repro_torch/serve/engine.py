@@ -9,7 +9,16 @@ at the same sequence position.
 The JAX engine's masked decode writes every row at ``pos`` into a new
 cache and then restores the rows of slots outside the group from the old
 one.  Here the cache is written in place, and a grouped decode writes only
-its group's rows at ``pos``: the same cache, with no copy of it.
+its group's rows, of every leaf (recurrent states too): the same cache,
+with no copy of it.  ``admit`` splices a request's prefilled cache (one
+row) into its slot along each leaf's own batch axis, the axis on which
+the two leaves' shapes differ (JAX diffs against a batch-1 cache too);
+with one slot they are the same shape and the row is the leaf.  A vlm request
+is prefilled with zero image embeddings, as in JAX.  The audio family is
+refused: JAX's engine sizes its cross cache at ``max_seq *
+enc_seq_factor`` positions while a prefill fills it at the prompt's
+length, and its splice fails with a broadcast error; padding the cross
+cache would change what decode attends to.
 """
 from __future__ import annotations
 
@@ -21,7 +30,27 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models.model import LM
+
+AUDIO_CAVEAT = (
+    "the serving engine does not serve the audio (encoder-decoder) family: "
+    "its cross cache holds max_seq * enc_seq_factor positions while a "
+    "prefill fills it at the prompt's length, and padding it would change "
+    "what decode attends to (the JAX engine fails the same way, at admit); "
+    "drive LM.prefill / LM.decode directly")
+
+
+def _splice(big: Any, small: Any, slot: int) -> None:
+    """Copy ``small`` (one row) into row ``slot`` of ``big`` along each
+    leaf's batch axis, in place."""
+    if isinstance(big, torch.Tensor):
+        axis = next((i for i, (a, b) in enumerate(zip(big.shape, small.shape))
+                     if a != b), None)
+        (big if axis is None else big.narrow(axis, slot, 1)).copy_(small)
+        return
+    for k in big:
+        _splice(big[k], small[k], slot)
 
 
 @dataclass
@@ -43,6 +72,8 @@ class ServeEngine:
         self.params = params
         self.slots = batch_slots
         self.max_seq = max_seq
+        if lm.cfg.family == "audio":
+            raise ValueError(AUDIO_CAVEAT)
         self.device = resolve_device(device)
         self.cache = lm.init_cache(batch_slots, max_seq, self.device)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
@@ -61,12 +92,15 @@ class ServeEngine:
         if slot is None:
             return False
         S = len(req.prompt)
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
-                                 device=self.device)
-        logits, cache1 = self.lm.prefill(self.params, {"tokens": tokens},
-                                         self.max_seq)
-        for name, buf in self.cache["blocks"].items():
-            buf[:, slot] = cache1["blocks"][name][:, 0]
+        cfg = self.lm.cfg
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(req.prompt, np.int64)[None, :], device=self.device)}
+        if cfg.family == "vlm":
+            batch["img_embeds"] = torch.zeros(
+                (1, cfg.vlm.num_image_tokens, cfg.d_model),
+                dtype=L.dtype_of(cfg), device=self.device)
+        logits, cache1 = self.lm.prefill(self.params, batch, self.max_seq)
+        _splice(self.cache, cache1, slot)
         self.slot_req[slot] = req
         self.slot_pos[slot] = S
         req.out_tokens.append(int(torch.argmax(logits[0, -1])))

@@ -320,12 +320,13 @@ def test_tx_codec_crf_matches_jax(blur, with_res):
 # the shapes of tests/test_kernels.py::test_flash_decode_matches_oracle
 # (with its block size), one more with G = 1, then the GQA groups and head
 # sizes of the configs at small S: G = 7 at hd 128 (yi-34b), G = 16 at
-# hd 64 (llama3-405b's group), G = 1 at hd 112 (zamba2)
+# hd 64 (llama3-405b's group), G = 1 at hd 112 (zamba2), G = 8 at hd 128
+# (llama-3.2-vision's and kimi's self-attention)
 FD_SHAPES = [(2, 256, 8, 2, 64, 64, "f32"), (1, 512, 16, 4, 128, 128, "f32"),
              (3, 128, 8, 8, 32, 64, "f32"), (2, 256, 8, 2, 64, 64, "bf16"),
              (2, 192, 4, 4, 16, 64, "f32"), (1, 128, 14, 2, 128, 64, "f32"),
              (1, 128, 32, 2, 64, 64, "f32"), (2, 64, 4, 4, 112, 64, "f32"),
-             (1, 128, 14, 2, 128, 64, "bf16")]
+             (1, 128, 14, 2, 128, 64, "bf16"), (2, 128, 16, 2, 128, 64, "f32")]
 FD_DT = {"f32": (jnp.float32, torch.float32),
          "bf16": (jnp.bfloat16, torch.bfloat16)}
 

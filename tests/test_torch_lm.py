@@ -257,15 +257,3 @@ def test_decode_matches_teacher_forcing(dtype, use_kernel):
     else:
         scale = max(float(w.abs().max()) for w, _ in pairs) + 1e-9
         assert max(errs) / scale < 5e-2, errs
-
-
-@pytest.mark.parametrize("arch,kw,what", [
-    ("olmoe-1b-7b", {}, "family 'moe'"),
-    ("xlstm-125m", {}, "family 'ssm'"),
-    ("qwen1.5-4b", {}, "int8 KV cache"),
-    ("granite-8b", {"kv_cache_dtype": "int8"}, "int8 KV cache")])
-def test_unported_configs_raise(arch, kw, what):
-    """An unported family raises when the LM is built; the int8 cache
-    where a cache is made (such a config still trains)."""
-    with pytest.raises(NotImplementedError, match=what):
-        LM(smoke_config(arch).replace(**kw)).init_cache(B, S, "cpu")

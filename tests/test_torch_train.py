@@ -1,6 +1,7 @@
 """The port's LM training path against the JAX package's, on the CPU: the
 cross-entropy functions, ``LM.logits``/``loss`` on carried-across weights
-(granite-8b's and qwen1.5-4b's smoke configs), the train step with one and
+(granite-8b's and qwen1.5-4b's smoke configs, the latter's int8 cache
+held to JAX's too), the train step with one and
 two microbatches, the remat policies, AdamW on nested trees, the token
 pipeline and the launcher (a resume of its own checkpoint and of one the
 JAX launcher wrote).  Every JAX side runs live."""
@@ -148,21 +149,38 @@ def test_logits_and_loss_match_jax(dtype, chunk):
 
 
 def test_qwen_int8_config_trains_and_its_decode_raises():
-    """qwen1.5-4b (QKV bias, int8 KV cache): the loss equals JAX's; only
-    the cache is unported."""
+    """qwen1.5-4b (QKV bias, int8 KV cache): the loss equals JAX's, and so
+    do its int8 prefill (logits, the int8 values exactly, the bfloat16
+    scales) and three decode steps (logits and the whole cache).  The
+    name dates from when the int8 cache raised; it no longer does."""
     jlm, jp, tlm, tp = _models("qwen1.5-4b", dtype="float32")
     assert tlm.cfg.kv_cache_dtype == "int8" and tlm.cfg.qkv_bias
     batch = _batch(jlm.cfg)
     jloss, _ = jlm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tloss, _ = tlm.loss(tp, _tb(batch))
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=F32_TOL)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tlm.init_cache(B, S, "cpu")
-    kvf = tlm.cfg.num_kv_heads * tlm.cfg.resolved_head_dim
-    cache = {"blocks": {n: torch.zeros(tlm.cfg.num_layers, B, S, kvf)
-                        for n in ("k", "v")}}
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tlm.decode(tp, _tb(batch)["tokens"][:, :1], cache, 3)
+    tok, t0 = _tb(batch)["tokens"], 10
+
+    def check(jl, jc, tl, tc):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=1e-4)
+        assert set(tc["blocks"]) == set(jc["blocks"]) == {
+            "k", "v", "k_scale", "v_scale"}
+        for k, want in jc["blocks"].items():
+            got = tc["blocks"][k]
+            assert got.dtype == (torch.int8 if k in ("k", "v")
+                                 else torch.bfloat16)
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(want, np.float32))
+
+    jl, jc = jlm.prefill(jp, {"tokens": jnp.asarray(tok[:, :t0])}, S)
+    tl, tc = tlm.prefill(tp, {"tokens": tok[:, :t0]}, S)
+    check(jl, jc, tl, tc)
+    for i in range(t0, t0 + 3):
+        jl, jc = jlm.decode(jp, jnp.asarray(tok[:, i:i + 1]), jc,
+                            jnp.int32(i))
+        tl, tc = tlm.decode(tp, tok[:, i:i + 1], tc, i)
+        check(jl, jc, tl, tc)
 
 
 # -- the train step -------------------------------------------------------------------
