@@ -105,7 +105,15 @@ JAX.  In order it prints:
      (CUDA events around each whole run, the four in turns, median, min
      and max of 5 runs after a warm-up), and each kernel's time beside
      its plain version's and its bound (and, for flash_decode,
-     scaled_dot_product_attention's as the library yardstick), tagged with the card and power limit:
+     scaled_dot_product_attention's as the library yardstick), tagged with
+     the card and power limit; the kernel times are taken first, right
+     after the build, in two passes (``kernel_time_records``): the
+     one-kernel windows of all five kernels, then the plain versions' and
+     the library calls' windows, so that no profiled phase and no plain
+     version's window thins their CUPTI records: each one-kernel window
+     must record all 100 of its launches (one that does not is taken
+     again, and printed), and one opened after any other profiler session
+     of the run raises:
      edge_motion at the ROIDet, reducto and C = 16 shapes and one block's
      chain; tx_codec at (5, 10, 96, 160) and at the sweep's (30, 10, 96,
      160); knapsack_dp's fused solve at I = 5, 16 and 1 with its kernels
@@ -135,7 +143,8 @@ JAX.  In order it prints:
      on a fixed batch, the microbatched step's loss within 1e-2 of the
      single step's (one forward of all rows), then 5 steps on the
      loader's batches after a warm-up: median ms/step (CUDA events),
-     tokens/s, MFU (6 N + 12 L H hd S FLOPs a token over 989 TFLOP/s),
+     tokens/s, MFU both ways (6 N + 12 L H hd S FLOPs a token, and the
+     analytic roofline's model_flops, over H100_SXM's 989 TFLOP/s),
      peak memory, and one profiled step's kernels and busy share; (d)
      ``repro_torch.launch.train --smoke`` for 4 steps, then again with
      ``--resume``: the second run prints ``resumed from ... at step 4``;
@@ -154,8 +163,29 @@ JAX.  In order it prints:
      width: xlstm-125m (12 layers) and olmoe-1b-7b (4 of 16 layers): the
      loss falls over 3 steps, ms/step, tokens/s, MFU, peak memory.  Every
      cut depth is printed with its reason;
- 12. the wall time, one JSON line of kernel records, then the device line
+ 12. the static audit, the dry run, the quickstart and the roofline (no
+     profiler): the host-sync lint over ``src/repro_torch`` (0 findings);
+     the graph audit (``repro_torch.analysis.graph_audit``) on the card:
+     every registered program run once under ``NoHostReads``, 12 episode
+     programs, two harvests each, the same key ops at C=5 and 9; every
+     graph key phase 4 captured at C=5 is an entry of the audit's
+     registry (``repro_torch.analysis.programs``) with its 4 graphs, and
+     ``slot_camera_keys`` runs the same aten ops at C=5 and 16; the dry
+     run (``repro_torch.launch.dryrun``) beside each ``reduced`` line, the
+     weights and AdamW state phases 10 and 11 allocated at each cut depth
+     equal to its bytes exactly; ``examples/quickstart_torch.py`` on the
+     card (one slot: B1, B2, B3 and cc_label launched); the analytic
+     roofline's one-card terms (``H100_SXM``) beside granite-8b's measured
+     train step and decode;
+ 13. the wall time, one JSON line of kernel records, then the device line
      (last).
+
+Phase 8's kernel times come first, and the script enforces it: a
+one-kernel profiler window opened after any other profiler session of the
+run has lost records (23 to 99 of 100 launches on an H100, even in a
+fresh process started after the profiled work), so ``profile_window``
+raises if one follows other profiled work.  Every other phase may run in
+any order.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; each kernel record carries its launches on the main
@@ -178,7 +208,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+# the card's HBM rate and dense bf16 peak come from
+# repro_torch.common.config.H100_SXM; HWConfig has no float32 rate
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 METHODS = ("deepstream", "jcab", "reducto", "static")
 EP_METHODS = METHODS + ("deepstream_no_elastic",)
@@ -187,6 +218,10 @@ T_CPU = 4                    # slots of the CPU runs the card is held to
 TIMED_ROUNDS = 5             # timed runs per runner, after a warm-up
 LOG_KEYS = ("utility", "bytes", "alloc_kbps", "extra", "area")
 DP_COSTS = (1, 2, 4, 8, 16, 20)   # the default codec's grid (d = 50 Kbps)
+# what a phase measured or allocated that phase 12 reads: the bytes of the
+# weights and AdamW state of each cut model ("allocated", by (arch, kind,
+# layers)) and granite-8b's train step and decode ms ("measured")
+RECORDED = {"allocated": {}, "measured": {}}
 
 
 def cuda_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
@@ -214,22 +249,59 @@ def device_us(prof, name=None) -> float:
                and (name is None or name in e.key))
 
 
+# which windows a pass of ``kernel_time_records`` takes: "kernel" (the
+# one-kernel windows and the kernels' back-to-back times) or "plain" (the
+# plain versions' and the library calls' windows); a number the pass does
+# not take reads NaN until the two passes are merged
+PART = None
+NAN = float("nan")
+# the share of its launches a one-kernel window must record, or it is
+# taken again: all of them (each runs before any other profiled work)
+MIN_RECORDED = 1.0
+# the profiler sessions this process opened other than one-kernel
+# windows.  A one-kernel window opened after profiled work loses kernel
+# records (23 to 99 of 100 on an H100, even in a fresh process started
+# after it), so every one-kernel window comes first in the run:
+# ``profile_window`` raises if one opens after any of these
+PROFILED = []
+
+
+def timed(part: str, fn):
+    """``fn()``, or NaN when this pass does not take ``part``."""
+    return fn() if PART in (None, part) else NAN
+
+
+def profiler(torch, what):
+    """A torch.profiler session over the host and the card, noted in
+    PROFILED as ``what`` (a one-kernel window: None, not noted)."""
+    from torch.profiler import ProfilerActivity, profile
+    if what is not None:
+        PROFILED.append(what)
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def device_ms(torch, fn, iters: int, name=None) -> float:
     """Mean kernel time on the card per call of ``fn`` (launch gaps on the
     host excluded), from torch.profiler."""
-    return device_ms_count(torch, fn, iters, name)[0]
+    return timed("plain", lambda: device_ms_count(torch, fn, iters, name)[0])
 
 
-def profile_window(torch, fn, iters: int, name=None) -> tuple:
+def profile_window(torch, fn, iters: int, name=None,
+                   one_kernel: bool = False) -> tuple:
     """(kernel us, kernels) the profiler recorded on the card over ``iters``
     calls of ``fn`` after one warm-up call: every kernel, or those whose
-    name contains ``name``."""
+    name contains ``name``.  A ``one_kernel`` window raises if the process
+    has profiled anything but one-kernel windows before it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    if one_kernel and PROFILED:
+        raise AssertionError(
+            f"a one-kernel window ({name}) after other profiled work "
+            f"({', '.join(sorted(set(PROFILED)))}): the kernel times must "
+            "be taken before any other profiler window of the run")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler(torch, None if one_kernel
+                  else "the plain versions' windows") as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -256,21 +328,28 @@ def device_ms_count(torch, fn, iters: int, name=None, windows: int = 5):
                          "windows")
 
 
+# every one-kernel window taken: (what, kernels recorded, calls)
+WINDOWS = []
+
+
 def one_kernel_ms(torch, fn, iters: int, name=None, what: str = "",
                   windows: int = 5):
     """Kernel time on the card per recorded kernel of ``fn``, which must
     launch one kernel per call (those whose name contains ``name``, or
     every kernel): (ms, kernels per call).  Raises if a window records
-    more than one per call.  A window that records fewer than 90% of its
-    launches (the profiler drops records now and then) is taken again, up
-    to ``windows`` windows; then it raises."""
+    more than one per call.  A window that records fewer than
+    MIN_RECORDED of its launches (the profiler drops records now and then)
+    is taken again (printed), up to ``windows`` windows; then it raises."""
+    if PART == "plain":
+        return NAN, NAN
     for _ in range(windows):
-        us, count = profile_window(torch, fn, iters, name)
+        us, count = profile_window(torch, fn, iters, name, one_kernel=True)
+        WINDOWS.append((what or name, count, iters))
         per_call = count / iters
         if per_call > 1.0:
             raise AssertionError(f"{what or name} ran {per_call} kernels per "
                                  "call, not one")
-        if per_call >= 0.9:
+        if per_call >= MIN_RECORDED:
             return us / 1e3 / count, per_call
         print(f"{what or name}: the profiler recorded {per_call:g} kernels "
               f"per call in a window of {iters}; taking another")
@@ -337,7 +416,6 @@ FD_VALID = (0, 1, 511, 1500, 2048)
 # where the run sits; a full cache; one tile in one range (the latency of
 # a single block: launch, q, one tile, no merge)
 FD_TIMED = (528, 2048, 64)
-BF16_FLOPS_PER_S = 989e12                  # H100 SXM bf16 tensor cores
 SMALL_PROMPTS = (8, 8, 12, 12, 5, 8)       # tests/test_torch_serve.py
 FULL_PROMPTS = (512, 512, 384, 384, 512, 256)
 FULL_NEW, FULL_SLOTS, FULL_SEQ = 16, 4, 2048
@@ -647,14 +725,16 @@ def kernel_times(torch, fn, plain, kname):
     and plain ms per call back to back on CUDA events, which include the
     host's launch gaps)."""
     return (one_kernel_ms(torch, fn, 100, kname)[0],
-            device_ms(torch, plain, 10), cuda_ms(torch, fn),
-            cuda_ms(torch, plain, iters=20))
+            device_ms(torch, plain, 10),
+            timed("kernel", lambda: cuda_ms(torch, fn)),
+            timed("plain", lambda: cuda_ms(torch, plain, iters=20)))
 
 
 def bound(nbytes: float, ops: float) -> tuple:
     """(bound ms, what bounds it): bytes over the HBM rate or float32
     operations over the CUDA cores' rate, the larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    from repro_torch.common.config import H100_SXM
+    t_bytes, t_ops = nbytes / H100_SXM.hbm_bw, ops / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -678,8 +758,141 @@ def em_timed_frames(torch, dev, C: int, M: int, H: int, W: int):
     return fr[:, :M].contiguous()
 
 
-def edge_motion_record(torch, dev, launches: dict, worst: float, bs: int,
-                       thr: float, tag: str) -> dict:
+def tx_codec_record(torch, dev, tag: str) -> dict:
+    """B2's times at (5, 10, 96, 160) (a slot of the C=5 scene, the three
+    blur branches), with the identity branch alone, and at the profiling
+    sweep's (30, 10, 96, 160) under ``at_shape``, each beside its plain
+    version and its bound.  ``ms`` is the kernel time on the card;
+    ``stream_ms`` back-to-back calls on CUDA events, the host's launch
+    gaps included."""
+    from repro_torch.common import prng
+    from repro_torch.data.synthetic import (DeviceScene, SceneConfig,
+                                            segments_device)
+    from repro_torch.kernels.tx_codec import ops as tx_ops
+    from repro_torch.kernels.tx_codec import ref as tx_ref
+    scene = DeviceScene(SceneConfig(seed=7, num_cameras=5), device=dev)
+    frames = segments_device(scene.cfg, scene.params, scene.key, 3,
+                             gt_pad=scene.G)[0].contiguous()
+    C = frames.shape[0]
+    keys = prng.fold_in(prng.PRNGKey(11, device=dev),
+                        torch.arange(C, device=dev))
+    noise = prng.normal(keys, frames.shape[1:])
+    levels = torch.full((C,), 64.0, device=dev)
+    sigma = torch.full((C,), 0.01, device=dev)
+    kcam = torch.tensor([1, 2, 4, 1, 2], dtype=torch.int32, device=dev)
+    sw_frames, sw_noise, sw_terms, sw_kcam = sweep_codec_inputs(torch, dev)
+    out = {}
+    for label, ops in (
+            ("", (frames, noise, levels, sigma, kcam)),
+            ("sweep ", (sw_frames, sw_noise, *sw_terms[0], sw_kcam))):
+        ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
+            torch, lambda o=ops: tx_ops.tx_codec_cuda(*o),
+            lambda o=ops: tx_ref.tx_codec_ref(*o), "tx_codec_kernel")
+        px = ops[0].numel()
+        # frames and noise read once, decoded frames written once; pool sum
+        # (up to 15 adds) + divide, quantise (3), fma, clip (2)
+        bound_ms, bound_by = bound(4 * 3 * px, px * 8)
+        print(f"kernel tx_codec {label}{tuple(ops[0].shape)}: "
+              f"{ms * 1e3:.2f} us on the card ({stream_ms * 1e3:.2f} us per "
+              f"call back to back), plain {plain_ms * 1e3:.2f} us "
+              f"({plain_stream_ms * 1e3:.2f} us), bound "
+              f"{bound_ms * 1e3:.4f} us ({bound_by}; "
+              f"{100 * bound_ms / ms:.1f}% of it) {tag}")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms,
+                      "plain_stream_ms": plain_stream_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    # with every camera on the identity branch: no staged band, one round
+    # of loads
+    ones = torch.ones(C, dtype=torch.int32, device=dev)
+    identity_ms = one_kernel_ms(torch, lambda: tx_ops.tx_codec_cuda(
+        frames, noise, levels, sigma, ones), 100, "tx_codec_kernel")[0]
+    print(f"kernel tx_codec {tuple(frames.shape)} identity branch only: "
+          f"{identity_ms * 1e3:.2f} us on the card {tag}")
+    return {"name": "tx_codec", "route": "cuda",
+            "source": "src/repro_torch/csrc/tx_codec.cu",
+            "replaces": "src/repro/kernels/tx_codec/tx_codec.py:78",
+            "shape": list(frames.shape), **out[""], "library_ms": None,
+            "identity_ms": identity_ms,
+            "at_shape": {str(tuple(sw_frames.shape)): out["sweep "]}}
+
+
+def scene_motion_masks(torch, dev, bs: int, thr: float) -> dict:
+    """ROIDet's motion masks of slot 3 of the C = 5 and 16 scenes (seed
+    7): what cc_label labels on the main path."""
+    from repro_torch.core import roidet
+    from repro_torch.data.synthetic import (DeviceScene, SceneConfig,
+                                            segments_device)
+    from repro_torch.kernels.edge_motion import ops as em_ops
+    out = {}
+    for C in (5, 16):
+        scene = DeviceScene(SceneConfig(seed=7, num_cameras=C), device=dev)
+        frames = segments_device(scene.cfg, scene.params, scene.key, 3,
+                                 gt_pad=scene.G)[0]
+        motion = (em_ops.segment_motion_fleet(
+            frames, block_size=bs, edge_thresh=thr)
+            > roidet.MOTION_THRESH).any(dim=1)
+        out[f"C={C} scene {tuple(motion.shape)}"] = motion
+    return out
+
+
+def kernel_time_records(torch, dev, tag: str) -> list:
+    """Phase 8's kernel times, taken first in the run: every kernel's
+    record in two passes, the one-kernel windows of all five kernels
+    (each held to all of its launches) before any other profiler window,
+    then the plain versions' and the library calls' windows; each pass
+    leaves the other's numbers NaN, and the two are merged."""
+    global PART
+    bs, thr = 8, 0.35
+
+    def records() -> list:
+        return [edge_motion_record(torch, dev, bs, thr, tag),
+                tx_codec_record(torch, dev, tag),
+                knapsack_record(torch, dev, tag),
+                flash_decode_record(torch, dev, tag),
+                cc_label_record(torch, dev, cc_cases(
+                    torch, dev, scene_motion_masks(torch, dev, bs, thr)),
+                    tag)]
+    PART = "kernel"
+    first = records()
+    again = [w for w in WINDOWS if w[1] != w[2]]
+    print(f"kernel times: {len(WINDOWS)} one-kernel windows, "
+          f"{sum(c for _, c, _ in WINDOWS)} of "
+          f"{sum(i for _, _, i in WINDOWS)} launches recorded; taken again "
+          f"(fewer than all of their launches): {again or 'none'}")
+    PART = "plain"
+    merged = merge_records(first, records())
+    PART = None
+    json.dumps(merged, allow_nan=False)    # every number measured
+    return merged
+
+
+def merge_records(a, b):
+    """The two passes' records of the same kernels, each number taken from
+    the pass that measured it (the other holds NaN)."""
+    if isinstance(a, dict):
+        return {k: merge_records(v, b[k]) for k, v in a.items()}
+    if isinstance(a, list):
+        return [merge_records(x, y) for x, y in zip(a, b, strict=True)]
+    if isinstance(a, float) and a != a:
+        return b
+    return a
+
+
+def print_kernel_times(records: list, tag: str) -> None:
+    for rec in records:
+        shapes = {str(rec.get("shape")): rec, **rec.get("at_shape", {}),
+                  **{f"valid {k}": v for k, v in rec.get("at_valid",
+                                                         {}).items()}}
+        for shape, r in shapes.items():
+            lib = ("" if r.get("library_ms") is None else
+                   f", library {r['library_ms'] * 1e3:.2f} us")
+            print(f"kernel times {rec['name']} {shape}: "
+                  f"{r['ms'] * 1e3:.2f} us on the card, plain "
+                  f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
+                  f"{r['bound_ms'] * 1e3:.5f} us ({r['bound_by']}) {tag}")
+
+
+def edge_motion_record(torch, dev, bs: int, thr: float, tag: str) -> dict:
     """B1's times at EM_TIMED (``em_timed_frames``), each beside its plain
     version and its bound.  The record holds the first shape; the others
     ride along under ``at_shape``."""
@@ -715,13 +928,11 @@ def edge_motion_record(torch, dev, launches: dict, worst: float, bs: int,
     return {"name": "edge_motion", "route": "cuda",
             "source": "src/repro_torch/csrc/edge_motion.cu",
             "replaces": "src/repro/kernels/edge_motion/edge_motion.py:48",
-            "shape": list(EM_TIMED[0]), "launches": launches["run"],
-            "launches_episode": launches["episode"], "max_abs_err": worst,
-            **first, "library_ms": None, "at_shape": per}
+            "shape": list(EM_TIMED[0]), **first, "library_ms": None,
+            "at_shape": per}
 
 
-def knapsack_record(torch, dev, launches: dict, worst: float, tag: str
-                    ) -> dict:
+def knapsack_record(torch, dev, tag: str) -> dict:
     """B3's times: the fused solve (what the main path launches) at
     DP_TIMED and the sweep alone at (5, 6, 128), each beside its plain
     version (``knapsack_dp_ref``, then ``backtrack_device`` for the solve)
@@ -750,8 +961,9 @@ def knapsack_record(torch, dev, launches: dict, worst: float, tag: str
         ms, per_solve = one_kernel_ms(torch, solve, 100,
                                       what="a device solve")
         plain_ms = device_ms(torch, plain, 10)
-        stream_ms = cuda_ms(torch, solve)
-        plain_stream_ms = cuda_ms(torch, plain, iters=20)
+        stream_ms = timed("kernel", lambda: cuda_ms(torch, solve))
+        plain_stream_ms = timed("plain", lambda: cuda_ms(torch, plain,
+                                                         iters=20))
         # util, costs and Wg read once, picks and total written once; per
         # (i, w, j) an add, a compare and a select, then the walk
         nbytes = 4 * (I * J + J + 1) + 8 * I + 4
@@ -786,10 +998,8 @@ def knapsack_record(torch, dev, launches: dict, worst: float, tag: str
     return {"name": "knapsack_dp", "route": "cuda",
             "source": "src/repro_torch/csrc/knapsack_dp.cu",
             "replaces": "src/repro/kernels/knapsack_dp/knapsack_dp.py:54",
-            "shape": [DP_TIMED[0][0], J, DP_TIMED[0][1]],
-            "launches": launches["run"],
-            "launches_episode": launches["episode"], "max_abs_err": worst,
-            **first, "library_ms": None, "at_shape": per}
+            "shape": [DP_TIMED[0][0], J, DP_TIMED[0][1]], **first,
+            "library_ms": None, "at_shape": per}
 
 
 # -- the labeler (cc_label) and the graph-replayed episode (slice 6) -----
@@ -870,8 +1080,7 @@ def label_passes(torch, mask) -> int:
     return M * N
 
 
-def cc_label_record(torch, dev, launches: dict, worst: float, cases: dict,
-                    tag: str) -> dict:
+def cc_label_record(torch, dev, cases: dict, tag: str) -> dict:
     """cc_label's times at CC_TIMED, each beside its plain version and its
     bound.  The record holds the first shape; the others ride along."""
     from repro_torch.kernels.cc_label import ops as cc_ops
@@ -899,10 +1108,8 @@ def cc_label_record(torch, dev, launches: dict, worst: float, cases: dict,
     first = per.pop(CC_TIMED[0])
     return {"name": "cc_label", "route": "cuda",
             "source": "src/repro_torch/csrc/cc_label.cu",
-            "replaces": "src/repro/core/cc.py:63",
-            "launches": launches["run"],
-            "launches_episode": launches["episode"], "max_abs_err": worst,
-            **first, "library_ms": None, "at_shape": per}
+            "replaces": "src/repro/core/cc.py:63", **first,
+            "library_ms": None, "at_shape": per}
 
 
 def event_ms(torch, run) -> float:
@@ -933,11 +1140,9 @@ def recorded_launches(torch, run, want: dict, what: str,
     profiler drops records now and then) is taken again, up to
     ``windows``; one that records more raises at once."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(windows):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiler(torch, "the episodes' launch counts") as prof:
             run()
             torch.cuda.synchronize()
             time.sleep(0.05)    # the card's activity records arrive late
@@ -1173,6 +1378,7 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
     512, 512, 384, 384, 512 and 256 tokens, 16 new tokens each; then one
     profiled decode and the host syncs of one decode call.  Returns the
     flash_decode launches of the engine run."""
+    from repro_torch.common.config import H100_SXM
     from repro_torch.common.params import param_count
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -1202,6 +1408,7 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
           f"{tag}")
     print(f"granite-8b prefill ms per request (prompt "
           f"{[c[2] for c in pre]}): {[round(x, 3) for x in pre_ms]} {tag}")
+    RECORDED["measured"]["granite-8b decode"] = statistics.median(dec_ms)
     print(f"granite-8b decode ms per call: median "
           f"{statistics.median(dec_ms):.3f} (min {min(dec_ms):.3f}, max "
           f"{max(dec_ms):.3f}, {len(dec_ms)} calls); per engine step "
@@ -1215,15 +1422,13 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
           f"{run['pos_c']}: {e_route:.4g} of {s_route:.4g} "
           f"({e_route / s_route:.4g})")
     # one profiled decode of all 4 slots at the position the run reached
-    from torch.profiler import ProfilerActivity, profile
     # (a masked decode, as the engine ran; the run is over, so writing the
     # two rows at this position changes nothing that is read again)
     tokens = torch.zeros((FULL_SLOTS, 1), dtype=torch.long, device=dev)
     pos = max(FULL_PROMPTS) + FULL_NEW
     lm.decode(params, tokens, eng.cache, pos, rows=[0, 1])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler(torch, "granite-8b's profiled decode") as prof:
         t0 = time.perf_counter()
         lm.decode(params, tokens, eng.cache, pos, rows=[0, 1])
         torch.cuda.synchronize()
@@ -1249,7 +1454,7 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
           f"({100 * busy / wall:.1f}% busy) in {n_kernels} kernels, "
           f"flash_decode {fd:.3f} ms in {n_fd} kernels (one per layer), "
           f"matrix products {gemm:.3f} ms, weights-read floor "
-          f"{2 * n_params / HBM_BYTES_PER_S * 1e3:.3f} ms {tag}")
+          f"{2 * n_params / H100_SXM.hbm_bw * 1e3:.3f} ms {tag}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12))
     sites = syncs_of(torch, lambda: lm.decode(params, tokens, eng.cache, pos,
@@ -1261,14 +1466,14 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
     return launches
 
 
-def flash_decode_record(torch, dev, launches: int, worst: float,
-                        tag: str) -> dict:
+def flash_decode_record(torch, dev, tag: str) -> dict:
     """B4's times at the LM decode's shape in bf16, at the valid lengths
     FD_TIMED: the kernel (profiler), the plain version, and
     scaled_dot_product_attention with the same mask (enable_gqa) as the
     library yardstick, beside the bound.  The record holds the first
     length (where the run sits); the others ride along under
     ``at_valid``."""
+    from repro_torch.common.config import H100_SXM
     from repro_torch.common.device import sm_count
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
@@ -1294,8 +1499,8 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
         # K and V rows below vl read once; q read, out, m and l written
         nbytes = 2 * B * vl * KV * hd * 2 + 2 * B * H * hd * 2 + 2 * B * H * 4
         flops = 4 * B * H * vl * hd
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / BF16_FLOPS_PER_S
+        t_bytes = nbytes / H100_SXM.hbm_bw
+        t_ops = flops / H100_SXM.peak_flops
         bound_ms = max(t_bytes, t_ops) * 1e3
         tiles, nsplit, stages = fd_ops.split_plan(
             vl, B * KV, sm_count(dev), H // KV, hd, 2)
@@ -1322,8 +1527,7 @@ def flash_decode_record(torch, dev, launches: int, worst: float,
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:66",
-            "shape": list(FD_SHAPE), "valid_len": FD_TIMED[0],
-            "launches": launches, "max_abs_err": worst, **first,
+            "shape": list(FD_SHAPE), "valid_len": FD_TIMED[0], **first,
             "bf16_products": products, "sass": sass,
             "at_valid": {str(vl): per[vl] for vl in FD_TIMED[1:]}}
 
@@ -1386,6 +1590,28 @@ def matmul_params(lm) -> int:
             return n
         return sum(walk(v, path + (k,)) for k, v in defs.items())
     return walk(lm.param_defs(), ())
+
+
+def mfu_text(cfg, rows: int, seq: int, microbatches: int, flops: float,
+             ms: float) -> str:
+    """A train step's MFU over H100_SXM's dense bf16 peak, counted as
+    ``flops`` (6 x the parameters a token meets in matrix products + 12 L
+    H hd S: the products the step runs, the input embedding's gather out
+    and every masked attention chunk in, as the chunked attention computes
+    them), beside the analytic roofline's ``model_flops`` (6 N with the
+    input embedding + causal attention at half) and the roofline's
+    one-card step time."""
+    from repro_torch.common.config import H100_SXM, ShapeCell
+    from repro_torch.roofline.analytic import MeshDims, analytic_terms
+    terms = analytic_terms(cfg, ShapeCell("chip_smoke", seq, rows, "train"),
+                           microbatches, MeshDims(1, 1, 1), H100_SXM)
+    sec, peak = ms / 1e3, H100_SXM.peak_flops
+    return (f"MFU {100 * flops / sec / peak:.2f}% (6 N_matmul + 12 L H hd "
+            f"S: {flops / 1e12:.2f} TFLOP a step); "
+            f"{100 * terms['model_flops'] / sec / peak:.2f}% by the analytic "
+            f"model_flops ({terms['model_flops'] / 1e12:.2f} TFLOP) over "
+            f"{peak / 1e12:.0f} TFLOP/s; roofline step "
+            f"{terms['a_step_s'] * 1e3:.1f} ms ({terms['a_bottleneck']})")
 
 
 def syncs_of(torch, fn) -> dict:
@@ -1491,6 +1717,7 @@ def serve_family(torch, dev, tag: str, arch: str, layers, reset_counts,
     does).  Returns the flash_decode launches of the runs."""
     import numpy as np
     from repro_torch.common.params import param_count
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.models.model import LM
     cfg = family_config(arch, layers)
     lm = LM(cfg)
@@ -1501,6 +1728,9 @@ def serve_family(torch, dev, tag: str, arch: str, layers, reset_counts,
     params = lm.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    if layers is not None:
+        RECORDED["allocated"][(arch, "serve", layers)] = {
+            "weights_bytes": tree_bytes(params)}
     n_params = param_count(lm.param_defs())
     run = engine_run(torch, dev, lm, params, FAM_PROMPTS, FAM_NEW,
                      FAM_SLOTS, FAM_SEQ, reset_counts, read_counts)
@@ -1633,6 +1863,7 @@ def train_family(torch, dev, tag: str, arch: str, layers, rows: int,
     from repro_torch.configs import canonical
     from repro_torch.data.pipeline import (DataConfig, PrefetchLoader,
                                            SyntheticTokenSource)
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.models.model import LM
     from repro_torch.train.steps import init_train_state, make_train_step
     mod = importlib.import_module(f"repro_torch.configs.{canonical(arch)}")
@@ -1648,6 +1879,10 @@ def train_family(torch, dev, tag: str, arch: str, layers, rows: int,
     torch.cuda.reset_peak_memory_stats()
     params, opt = init_train_state(lm, run, torch.Generator(
         device=dev).manual_seed(0))
+    if layers is not None:
+        RECORDED["allocated"][(arch, "train", layers)] = {
+            "weights_bytes": tree_bytes(params),
+            "adamw_bytes": tree_bytes(opt)}
     step = make_train_step(lm, run, donate=True)
     src = SyntheticTokenSource(DataConfig(rows, seq, cfg.vocab_size))
     fixed = {k: torch.as_tensor(v, device=dev)
@@ -1691,10 +1926,10 @@ def train_family(torch, dev, tag: str, arch: str, layers, rows: int,
           f"batch loss before each of 3 steps and after "
           f"{[round(x, 4) for x in curve]} {aux}; median {med:.1f} ms/step "
           f"(min {min(ms):.1f}, max {max(ms):.1f}, {FAM_TIMED} steps after a "
-          f"warm-up, CUDA events); {tokens / med * 1e3:,.0f} tokens/s; MFU "
-          f"{100 * flops / (med / 1e3) / BF16_FLOPS_PER_S:.2f}% "
-          f"({flops / 1e12:.2f} TFLOP a step, {n_mm:,} matmul parameters a "
-          f"token); peak memory {peak / 2**30:.2f} GiB; hand-written "
+          f"warm-up, CUDA events); {tokens / med * 1e3:,.0f} tokens/s; "
+          f"{mfu_text(cfg, rows, seq, mb, flops, med)}; {n_mm:,} matmul "
+          f"parameters a token; peak memory {peak / 2**30:.2f} GiB; "
+          f"hand-written "
           f"kernels {counts} {tag}")
     if cut:
         print(f"families reduced: train {arch} at {cfg.num_layers} of "
@@ -1778,9 +2013,9 @@ def sweep_codec_inputs(torch, dev):
     return cropped, noise, terms, kcam
 
 
-def check_tx_codec_sweep(torch, dev) -> tuple:
+def check_tx_codec_sweep(torch, dev) -> float:
     """B2 against its plain version at the sweep's shape, once per bitrate
-    of a profiled slot: bitwise.  Returns (worst |diff|, the operands)."""
+    of a profiled slot: bitwise.  Returns the worst |diff|."""
     from repro_torch.core import codec
     from repro_torch.kernels.tx_codec import ops as tx_ops
     from repro_torch.kernels.tx_codec import ref as tx_ref
@@ -1798,7 +2033,7 @@ def check_tx_codec_sweep(torch, dev) -> tuple:
         if not torch.equal(got, want):
             raise AssertionError("tx_codec differs from its plain version "
                                  "at the sweep's shape")
-    return worst, (frames, noise, terms[0][0], terms[0][1], kcam)
+    return worst
 
 
 class FitWatch:
@@ -2504,7 +2739,6 @@ LM_TRAIN_ROWS = 4        # layers does not fit in 80 GB); rows of 4096 tokens
 LM_TRAIN_SEQ = 4096      # (train_4k: 256 rows)
 LM_MB_RTOL = 1e-2        # (c): microbatched loss vs the single step's (bf16)
 LM_TIMED = 5             # (c): timed steps after one warm-up
-H100_BF16_FLOPS = 989e12   # dense bf16, H100 SXM data sheet
 
 
 def recorded_losses(dt) -> tuple:
@@ -2544,6 +2778,7 @@ def train_phase(torch, dev, tag: str, reset_counts, read_counts,
     from repro_torch.configs import granite_8b
     from repro_torch.data.pipeline import (DataConfig, PrefetchLoader,
                                            SyntheticTokenSource)
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.models.model import LM
     from repro_torch.train import detector_train as dt
     from repro_torch.train.steps import init_train_state, make_train_step
@@ -2659,6 +2894,8 @@ def train_phase(torch, dev, tag: str, reset_counts, read_counts,
         device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    RECORDED["allocated"][("granite-8b", "train", cfg.num_layers)] = {
+        "weights_bytes": tree_bytes(params), "adamw_bytes": tree_bytes(opt)}
     n_params = param_count(lm.param_defs())
     step = make_train_step(lm, run, donate=True)
     src = SyntheticTokenSource(DataConfig(LM_TRAIN_ROWS, LM_TRAIN_SEQ,
@@ -2702,11 +2939,9 @@ def train_phase(torch, dev, tag: str, reset_counts, read_counts,
         ms.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     batch = next(it)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler(torch, "granite-8b's profiled train step") as prof:
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         torch.cuda.synchronize()
@@ -2718,17 +2953,19 @@ def train_phase(torch, dev, tag: str, reset_counts, read_counts,
                     if e.device_type == DeviceType.CUDA
                     and not e.is_user_annotation)
     med = statistics.median(ms)
+    RECORDED["measured"]["granite-8b train"] = med
     tokens = LM_TRAIN_ROWS * LM_TRAIN_SEQ
     # 6 N per token for the matrices (the embedding lookup does none) and
     # 12 L H hd S per token for attention (PaLM's count, no causal halving)
     n_matmul = n_params - cfg.padded_vocab * cfg.d_model
     flops = tokens * (6 * n_matmul + 12 * cfg.num_layers * cfg.num_heads
                       * cfg.resolved_head_dim * LM_TRAIN_SEQ)
+    mfu = mfu_text(cfg, LM_TRAIN_ROWS, LM_TRAIN_SEQ, run.microbatches,
+                   flops, med)
     print(f"granite-8b train step on the loader's batches: median "
           f"{med:.1f} ms (min {min(ms):.1f}, max {max(ms):.1f}, {LM_TIMED} "
           f"steps after a warm-up, CUDA events); {tokens / med * 1e3:,.0f} "
-          f"tokens/s; MFU {100 * flops / (med / 1e3) / H100_BF16_FLOPS:.1f}% "
-          f"({flops / 1e12:.1f} TFLOP a step over 989 TFLOP/s); peak memory "
+          f"tokens/s; {mfu}; peak memory "
           f"{peak / 2**30:.2f} GiB ({peak} bytes); last loss "
           f"{float(m['loss']):.4f} {tag}")
     print(f"granite-8b one profiled train step: wall {wall:.1f} ms, "
@@ -2768,6 +3005,167 @@ def train_phase(torch, dev, tag: str, reset_counts, read_counts,
               + " | ".join(lines))
     return {"train": 0, "train_episode": ep_launches}
 
+# -- 12. the static audit, the dry run, the quickstart, the roofline -------
+
+# (arch, shape cell, kind of the phase's run, depth it ran at, why): each
+# `reduced` line of phases 10 and 11 and the dry run of its model
+DRYRUN_CUTS = (
+    ("granite-8b", "train_4k", "train", LM_TRAIN_LAYERS,
+     "the AdamW state of 36 layers does not fit (phase 10)"),
+    ("olmoe-1b-7b", "train_4k", "train", 4, FAM_CUTS[("train",
+                                                      "olmoe-1b-7b")]),
+    ("llama-3.2-vision-90b", "decode_32k", "serve", 10,
+     FAM_CUTS[("serve", "llama-3.2-vision-90b")]),
+    ("xlstm-125m", "train_4k", "train", None,
+     FAM_CUTS[("train", "xlstm-125m")] + " (rows: activations, which the "
+     "dry run does not model)"))
+
+
+def audit_phase(torch, dev, tag: str, system, trace, phase4_keys) -> None:
+    """Phase 12, no profiler: the host-sync lint over the port (0
+    findings); the graph audit on the card (every registered program of
+    the canonical deployment run once under ``NoHostReads``, the matrix
+    count, two harvests per episode, the key ops at C=5 and 9); every key
+    phase 4 captured at C=5 a registry entry of that configuration, with
+    its four graphs, and
+    ``slot_camera_keys`` runs the same aten ops at C=5 and 16 on the
+    card); the dry run beside each cut (the weights and AdamW state the
+    phases allocated equal the dry run's at the cut depth, to the byte);
+    ``examples/quickstart_torch.py`` on the card (its slot launches B1,
+    B2, B3 and cc_label); and the roofline's one-card terms for
+    granite-8b's train step and decode beside their measured ms."""
+    import importlib.util
+    from repro_torch.analysis import graph_audit, lint
+    from repro_torch.analysis.programs import (Canonical, canonical_system,
+                                               get_programs, graph_names)
+    from repro_torch.common.config import H100_SXM, ShapeCell
+    from repro_torch.configs import get_config
+    from repro_torch.core import fleet
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analytic import MeshDims, analytic_terms
+
+    findings = lint.lint_tree()
+    print(f"lint (python -m repro_torch.analysis.lint): {len(findings)} "
+          f"findings over {len(lint.TRACED_SCOPES)} registered files")
+    for f in findings:
+        print(f"  {f}")
+    if findings:
+        raise AssertionError("the port's registered scopes do not lint "
+                             "clean")
+
+    t0 = time.perf_counter()
+    registry = get_programs(canon=Canonical(canonical_system(dev)))
+    failures = graph_audit.audit(registry, device=dev)
+    for f in failures:
+        print(f"  FAIL {f}")
+    if failures:
+        raise AssertionError("the graph audit fails on the card")
+    print(f"graph audit on the card (python -m repro_torch.analysis."
+          f"graph_audit): {len(registry)} programs of the canonical "
+          f"deployment (C={registry[0].statics.num_cams}), each run once "
+          f"under NoHostReads: no host read; "
+          f"{sum(p.kind == 'episode' for p in registry)} episode programs, "
+          f"two harvests each; key ops at C=5 = C=9 "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    progs = get_programs(kinds=["episode"], canon=Canonical(system, trace),
+                         methods=EP_METHODS)
+    entries = {(p.statics, tuple((tuple(t.shape), t.dtype)
+                                 for t in p.inputs.values())): p
+               for p in progs}
+    matched = []
+    for key in phase4_keys:
+        prog = entries.get((key[0], tuple((tuple(sh), dt)
+                                          for sh, dt in key[2:])))
+        if prog is None:
+            raise AssertionError(f"phase 4 captured a graph key the "
+                                 f"registry has no entry for: {key[0]}")
+        graphs = tuple(fleet._GRAPHS[key].graphs)
+        if len(graphs) != 4 or set(graphs) != set(prog.graphs) or \
+                prog.graphs != graph_names(True):
+            raise AssertionError(f"{prog.name}: graphs {graphs}, registry "
+                                 f"{prog.graphs}")
+        matched.append(prog.name)
+    if len(matched) != len(EP_METHODS) * 2:      # T = 8 and 11: b8, b16
+        raise AssertionError(f"phase 4 keys at C=5: {matched}")
+    key_ops = graph_audit.key_op_multiset(5, dev)
+    bad = graph_audit.check_key_ops(
+        key_ops, graph_audit.key_op_multiset(16, dev), "C=5 vs C=16")
+    if bad:
+        raise AssertionError(bad)
+    print(f"graph audit live: {len(phase4_keys)} keys phase 4 captured at "
+          f"C=5, each a registry entry ({', '.join(sorted(matched))}) with "
+          f"its 4 graphs {graph_names(True)}; slot_camera_keys on the card: "
+          f"{sum(key_ops.values())} aten ops at C=5 = at C=16 "
+          f"({graph_audit.FOLDS} threefry fold-ins)")
+
+    def gb(x) -> str:
+        return f"{x / 1e9:.2f} GB"
+    for arch, shape, kind, layers, why in DRYRUN_CUTS:
+        res = dryrun.run_cell(arch, shape, layers)
+        pub = res["published"]
+        line = (f"dryrun {arch} {shape} (python -m repro_torch.launch.dryrun"
+                f"): published {pub['layers']} layers: weights "
+                f"{gb(pub['weights_bytes'])}, AdamW {gb(pub['adamw_bytes'])}"
+                f", cache {gb(pub['cache_bytes'])}, total "
+                f"{gb(pub['total_bytes'])} of {gb(H100_SXM.hbm_bytes)} "
+                f"({'fits' if pub['fits'] else 'does not fit'})")
+        if layers is not None:
+            cut = res["cut"]
+            line += (f"; at {layers} layers: weights "
+                     f"{gb(cut['weights_bytes'])}, AdamW "
+                     f"{gb(cut['adamw_bytes'])}, cache "
+                     f"{gb(cut['cache_bytes'])}, total "
+                     f"{gb(cut['total_bytes'])}")
+        print(f"{line}; activations not modelled. reduced: {kind} at "
+              f"{layers or pub['layers']} of {pub['layers']} layers: {why}")
+        if layers is None:
+            continue
+        got = RECORDED["allocated"].get((arch, kind, layers))
+        if got is None:
+            raise AssertionError(f"no allocation recorded for {arch} "
+                                 f"{kind} at {layers} layers")
+        for k, v in got.items():
+            if v != res["cut"][k]:
+                raise AssertionError(f"{arch} at {layers} layers: {k} "
+                                     f"{v} allocated vs {res['cut'][k]} in "
+                                     "the dry run")
+        print(f"dryrun {arch} at {layers} layers = the phase's allocation "
+              "on the card: " + ", ".join(f"{k} {v}" for k, v in
+                                          got.items()))
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quick = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quick)
+    t0 = time.perf_counter()
+    out = quick.main(["--device", dev.type])
+    if any(v == 0 for v in out["launches"].values()):
+        raise AssertionError(f"the quickstart's slot skipped a kernel "
+                             f"{out['launches']}")
+    print(f"quickstart (examples/quickstart_torch.py on the card, "
+          f"{time.perf_counter() - t0:.1f} s): slot utility "
+          f"{out['logs']['utility'][0]:.4f}, mean F1 "
+          f"{out['logs']['mean_f1'][0]:.4f}; wrapper counts "
+          + " ".join(f"{k} {v}" for k, v in out["launches"].items()))
+
+    granite = get_config("granite-8b")
+    for what, cfg, cell, mb in (
+            ("train step", granite.replace(num_layers=LM_TRAIN_LAYERS),
+             ShapeCell("phase 10", LM_TRAIN_SEQ, LM_TRAIN_ROWS, "train"), 2),
+            ("decode", granite, ShapeCell("phase 7", FULL_SEQ, FULL_SLOTS,
+                                          "decode"), 1)):
+        t = analytic_terms(cfg, cell, mb, MeshDims(1, 1, 1), H100_SXM)
+        ms = RECORDED["measured"][f"granite-8b {what.split()[0]}"]
+        print(f"roofline granite-8b {what} ({cfg.num_layers} layers, "
+              f"{cell.global_batch} x {cell.seq_len}, one card): compute "
+              f"{t['a_compute_s'] * 1e3:.3f} ms, memory "
+              f"{t['a_memory_s'] * 1e3:.3f} ms, collective "
+              f"{t['a_collective_s'] * 1e3:.3f} ms -> {t['a_bottleneck']}, "
+              f"step {t['a_step_s'] * 1e3:.3f} ms; measured {ms:.3f} ms "
+              f"(the roofline step is {100 * t['a_step_s'] * 1e3 / ms:.1f}% "
+              f"of it) {tag}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2787,7 +3185,6 @@ def main(argv=None) -> int:
     from repro_torch.common import prng
     from repro_torch.core import codec
     from repro_torch.core import fleet as fleet_mod
-    from repro_torch.core import roidet
     from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
     from repro_torch.data.scenarios import make_faults
     from repro_torch.data.synthetic import (DeviceScene, MultiCameraScene,
@@ -2835,21 +3232,24 @@ def main(argv=None) -> int:
         if log.exists():   # written by the nvcc run of this build
             print(f"ptxas {name}: " + "; ".join(ptxas_lines(log.read_text())))
 
+    # -- 8 (kernel times), taken first: a one-kernel window opened after
+    # any other profiled work loses records (``profile_window`` raises)
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 8 (first): kernel "
+          "times")
+    kernel_records = kernel_time_records(torch, dev, tag)
+    print_kernel_times(kernel_records, tag)
+
     # -- 3. kernels vs their plain versions on the card -----------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 3: kernels vs plain")
     bs, thr = 8, 0.35
     worst = {"edge_motion": 0.0, "tx_codec": 0.0, "knapsack_dp": 0.0}
     em_cases = {}
-    scene_masks = {}
+    # ROIDet's motion masks of the scenes' slot: what cc_label labels
+    scene_masks = scene_motion_masks(torch, dev, bs, thr)
     for C in (5, 16):
         scene = DeviceScene(SceneConfig(seed=7, num_cameras=C), device=dev)
         frames = segments_device(scene.cfg, scene.params, scene.key, 3,
                                  gt_pad=scene.G)[0]
-        # ROIDet's motion mask of this slot: what cc_label labels
-        motion = (em_ops.segment_motion_fleet(
-            frames, block_size=bs, edge_thresh=thr)
-            > roidet.MOTION_THRESH).any(dim=1)
-        scene_masks[f"C={C} scene {tuple(motion.shape)}"] = motion
         ref_frames = segments_device(scene.cfg, scene.params, scene.key, 2,
                                      gt_pad=scene.G)[0][:, -1:]
         gen = torch.Generator(device=dev).manual_seed(C)
@@ -2956,7 +3356,7 @@ def main(argv=None) -> int:
     worst["flash_decode"] = max(check_flash_decode(torch, dev).values())
     cc_parity = cc_cases(torch, dev, scene_masks)
     worst["cc_label"] = check_cc_label(torch, dev, cc_parity)
-    sweep_err, sweep_ops = check_tx_codec_sweep(torch, dev)
+    sweep_err = check_tx_codec_sweep(torch, dev)
     worst["tx_codec"] = max(worst["tx_codec"], sweep_err)
 
     # -- 3b-3d. the offline profile at full width, whose artifacts every
@@ -3014,6 +3414,7 @@ def main(argv=None) -> int:
     replays = []     # (what, C, T, run, launches each kernel must make)
     episode_logs = {}
     n_graphs = fleet_mod.episode_graph_count()
+    keys_before = set(fleet_mod._GRAPHS)
     for C in (5, 16):
         g_sys = gpu_sys if C == 5 else make_system(C, dev)
         e_sys = make_system(C, dev, episode_pipelined=False)
@@ -3056,9 +3457,7 @@ def main(argv=None) -> int:
                 check_logs(logs, f"episode {method}")
                 # the kernels a replayed run launched, as the card records
                 # them (once per slot for each kernel of the method's
-                # path), are counted in phase 9, after the kernel times: in
-                # a run that profiled the replays here, every one-kernel
-                # window of phase 8 then recorded 85 of its 100 launches
+                # path), are counted in phase 9
                 replays.append((what, C, T, lambda g=g_sys, tr=tr, m=method:
                                 g.run_episode(scene_of(g), tr, m),
                                 {k: T if k in needs(method) else 0
@@ -3083,6 +3482,9 @@ def main(argv=None) -> int:
     print(f"episode graphs captured: "
           f"{fleet_mod.episode_graph_count() - n_graphs} (4 per method, C "
           "and bucket: two halves of the pipelined step and two drains)")
+    # the C=5 graph keys phase 12 holds against the audit's registry
+    phase4_keys = [k for k in fleet_mod._GRAPHS
+                   if k not in keys_before and k[0].num_cams == 5]
 
     # a fault family, then a chain of two windows through the carry
     T = T_SLOTS
@@ -3272,87 +3674,20 @@ def main(argv=None) -> int:
               f"{statistics.median(v):.3f} (min {min(v):.3f}, max "
               f"{max(v):.3f}, {TIMED_ROUNDS} runs) {tag}")
 
-    scene = DeviceScene(SceneConfig(seed=7, num_cameras=5), device=dev)
-    frames = segments_device(scene.cfg, scene.params, scene.key, 3,
-                             gt_pad=scene.G)[0].contiguous()
-    C, N, H, W = frames.shape
-    keys = prng.fold_in(prng.PRNGKey(11, device=dev),
-                        torch.arange(C, device=dev))
-    noise = prng.normal(keys, frames.shape[1:])
-    levels = torch.full((C,), 64.0, device=dev)
-    sigma = torch.full((C,), 0.01, device=dev)
-    kcam = torch.tensor([1, 2, 4, 1, 2], dtype=torch.int32, device=dev)
-    px = C * N * H * W
-    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
-          "edge_motion")
-    records = [edge_motion_record(
-        torch, dev, {"run": launches_run["edge_motion"], "episode": None},
-        worst["edge_motion"], bs, thr, tag)]
-    # B2: ms is the kernel time on the card; stream_ms: back-to-back calls
-    # timed with CUDA events, which includes the host's launch gaps
-    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: tx_codec")
-    ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
-        torch, lambda: tx_ops.tx_codec_cuda(frames, noise, levels, sigma,
-                                            kcam),
-        lambda: tx_ref.tx_codec_ref(frames, noise, levels, sigma, kcam),
-        "tx_codec_kernel")
-    # frames and noise read once, decoded frames written once; pool sum (up
-    # to 15 adds) + divide, quantise (3), fma, clip (2)
-    bound_ms, bound_by = bound(4 * 3 * px, px * 8)
-    print(f"kernel tx_codec {tuple(frames.shape)}: {ms * 1e3:.2f} us on the "
-          f"card ({stream_ms * 1e3:.2f} us per call back to back), plain "
-          f"{plain_ms * 1e3:.2f} us ({plain_stream_ms * 1e3:.2f} us), bound "
-          f"{bound_ms * 1e3:.4f} us ({bound_by}) {tag}")
-    records.append({
-        "name": "tx_codec", "route": "cuda",
-        "source": "src/repro_torch/csrc/tx_codec.cu",
-        "replaces": "src/repro/kernels/tx_codec/tx_codec.py:78",
-        "shape": list(frames.shape), "launches": launches_run["tx_codec"],
-        "launches_episode": None,
-        "max_abs_err": worst["tx_codec"], "ms": ms, "plain_ms": plain_ms,
-        "stream_ms": stream_ms, "plain_stream_ms": plain_stream_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    # B2 at the profiling sweep's shape (30 entries: 5 cameras x 3
-    # resolutions x masked/full), the operands of a profiled slot
-    sw_frames, sw_noise, sw_levels, sw_sigma, sw_kcam = sweep_ops
-    ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
-        torch, lambda: tx_ops.tx_codec_cuda(sw_frames, sw_noise, sw_levels,
-                                            sw_sigma, sw_kcam),
-        lambda: tx_ref.tx_codec_ref(sw_frames, sw_noise, sw_levels, sw_sigma,
-                                    sw_kcam), "tx_codec_kernel")
-    sw_px = sw_frames.numel()
-    bound_ms, bound_by = bound(4 * 3 * sw_px, sw_px * 8)
-    print(f"kernel tx_codec sweep {tuple(sw_frames.shape)}: {ms * 1e3:.2f} us "
-          f"on the card ({stream_ms * 1e3:.2f} us per call back to back), "
-          f"plain {plain_ms * 1e3:.2f} us ({plain_stream_ms * 1e3:.2f} us), "
-          f"bound {bound_ms * 1e3:.4f} us ({bound_by}; "
-          f"{100 * bound_ms / ms:.1f}% of it); {prof_launches['tx_codec']} "
-          f"launches in the {PROFILE_SLOTS}-slot profile {tag}")
-    records[1]["at_shape"] = {str(tuple(sw_frames.shape)): {
-        "ms": ms, "plain_ms": plain_ms, "stream_ms": stream_ms,
-        "plain_stream_ms": plain_stream_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "launches_profile": prof_launches["tx_codec"]}}
-    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
-          "knapsack_dp")
-    records.append(knapsack_record(
-        torch, dev, {"run": launches_run["knapsack_dp"], "episode": None},
-        worst["knapsack_dp"], tag))
-    # B2 with every camera on the identity branch: no staged band, one
-    # round of loads
-    ones = torch.ones(C, dtype=torch.int32, device=dev)
-    tx_id_ms = one_kernel_ms(torch, lambda: tx_ops.tx_codec_cuda(
-        frames, noise, levels, sigma, ones), 100, "tx_codec_kernel")[0]
-    print(f"kernel tx_codec {tuple(frames.shape)} identity branch only: "
-          f"{tx_id_ms * 1e3:.2f} us on the card {tag}")
-    records[1]["identity_ms"] = tx_id_ms
-    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: "
-          "flash_decode")
-    records.append(flash_decode_record(torch, dev, lm_launches,
-                                       worst["flash_decode"], tag))
-    print(f"[{time.perf_counter() - t_begin:.1f} s] kernel times: cc_label")
-    records.append(cc_label_record(
-        torch, dev, {"run": launches_run["cc_label"], "episode": None},
-        worst["cc_label"], cc_parity, tag))
+    # each kernel's times (taken first, in the child processes); the
+    # launch counts and the parity errors come from the phases above
+    records = kernel_records
+    for rec, launches in zip(records, (
+            launches_run["edge_motion"], launches_run["tx_codec"],
+            launches_run["knapsack_dp"], lm_launches,
+            launches_run["cc_label"])):
+        rec.update(launches=launches, max_abs_err=worst[rec["name"]])
+        if rec["name"] != "flash_decode":
+            rec["launches_episode"] = None      # counted in phase 9
+    for at in records[1]["at_shape"].values():
+        at["launches_profile"] = prof_launches["tx_codec"]
+    print(f"kernel tx_codec sweep: {prof_launches['tx_codec']} launches in "
+          f"the {PROFILE_SLOTS}-slot profile")
 
     # -- 9. the replayed episodes' launches as the card recorded them ----
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 9: episode launches "
@@ -3387,10 +3722,7 @@ def main(argv=None) -> int:
               + ", wrapper calls 0")
         for k in counters:
             launches_stream[k] += n[k]
-    # -- 10. training: the detectors' trainer, granite-8b, the launcher.
-    # Last: profiling a graph replay leaves later one-kernel windows of
-    # phase 8 recording 85 of their 100 launches, and this phase counts
-    # the replayed episode it runs
+    # -- 10. training: the detectors' trainer, granite-8b, the launcher
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 10: training")
     t_new = time.perf_counter()
     train_launches = train_phase(
@@ -3402,13 +3734,18 @@ def main(argv=None) -> int:
         {k: T_SLOTS if k in needs("deepstream") else 0 for k in counters})
     print(f"phase 10 (training): {time.perf_counter() - t_new:.1f} s")
     # -- 11. the other LM families and the int8 cache, serving and
-    # training.  After phase 8: with this phase before it, every
-    # one-kernel profiler window of phase 8 recorded 87 of its 100
-    # launches
+    # training
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 11: LM families")
     t_new = time.perf_counter()
     fam_launches = families_phase(torch, dev, tag, reset_counts, read_counts)
     print(f"phase 11 (LM families): {time.perf_counter() - t_new:.1f} s")
+    # -- 12. the static audit, the dry run, the quickstart, the roofline
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 12: audit, "
+          "roofline, dry run, examples")
+    t_new = time.perf_counter()
+    audit_phase(torch, dev, tag, gpu_sys, trace11, phase4_keys)
+    print(f"phase 12 (audit, roofline, dry run, examples): "
+          f"{time.perf_counter() - t_new:.1f} s")
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
@@ -3422,7 +3759,6 @@ def main(argv=None) -> int:
 
     if args.profile:
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         for C, label, run in (
                 (5, "graph", lambda sc: gpu_sys.run_episode(
                     sc, trace, "deepstream")),
@@ -3431,8 +3767,7 @@ def main(argv=None) -> int:
                                               _eager=True), trace))):
             scene = scene_of(gpu_sys)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profiler(torch, "--profile's episodes") as prof:
                 t0 = time.perf_counter()
                 run(scene)
                 wall = time.perf_counter() - t0
@@ -3486,7 +3821,7 @@ def main(argv=None) -> int:
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_begin:.1f} s "
           f"{tag}")
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

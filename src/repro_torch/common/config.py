@@ -5,15 +5,45 @@ One ``ModelConfig`` describes every architecture family (dense / moe /
 ssm / hybrid / vlm / audio enc-dec); ``repro_torch/configs/`` instantiates
 it with the published hyper-parameters.  ``OptimizerConfig`` is copied as
 data for ``train/optimizer.py`` and ``RunConfig`` for the LM trainer
-(``train/steps.py``, ``launch/train.py``).  The dry-run shape cells and
-the hardware constants of the JAX module are not copied: they describe
-the TPU dry run, which the port does not have.
+(``train/steps.py``, ``launch/train.py``).  The four shape cells
+(``ShapeCell``, ``SHAPE_CELLS``, ``SHAPES_BY_NAME``) and ``HWConfig`` with
+``TPU_V5E`` are copied field for field for the one-card dry run
+(``launch/dryrun.py``) and the analytic roofline (``roofline/``);
+``H100_SXM`` is the card's instance beside them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the four assigned shape cells).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (workload) input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPE_CELLS}
 
 
 @dataclass(frozen=True)
@@ -196,3 +226,22 @@ class RunConfig:
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Hardware constants (roofline denominators).  The defaults are TPU v5e's,
+# as in the JAX package; H100_SXM is the card the port runs on.
+@dataclass(frozen=True)
+class HWConfig:
+    peak_flops: float = 197e12       # bf16 FLOP/s per chip
+    hbm_bw: float = 819e9            # bytes/s per chip
+    ici_bw: float = 50e9             # bytes/s per link (~per-chip injection)
+    hbm_bytes: float = 16e9          # HBM capacity per chip (v5e)
+
+
+TPU_V5E = HWConfig()
+
+# NVIDIA H100 SXM data sheet: dense bf16 on the tensor cores, HBM3, 80 GB;
+# ici_bw is NVLink 4's 450 GB/s a direction (the collective term is 0 on
+# one card)
+H100_SXM = HWConfig(peak_flops=989e12, hbm_bw=3.35e12, ici_bw=450e9,
+                    hbm_bytes=80e9)

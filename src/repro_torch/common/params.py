@@ -21,6 +21,11 @@ fan-in is the product of every axis but the last (for a stacked
 ``(layers, d_in, d_out)`` matrix that includes the layer axis, as in
 JAX), ``embed`` a normal of std ``0.02 * scale``, ``zeros`` and ``ones``
 constants; each is drawn in float32 and stored in the leaf's dtype.
+
+``abstract_params`` is the counterpart of JAX's allocation-free
+``ShapeDtypeStruct`` tree: the same nest of tensors on
+``torch.device("meta")``, which hold a shape and a dtype and no memory
+(the one-card dry run, ``launch/dryrun.py``, sums their bytes).
 """
 from __future__ import annotations
 
@@ -70,6 +75,13 @@ def map_defs(fn, defs: Any) -> Any:
     if isinstance(defs, ParamDef):
         return fn(defs)
     return {k: map_defs(fn, defs[k]) for k in sorted(defs)}
+
+
+def abstract_params(defs: Any) -> Any:
+    """The tree of ParamDefs as tensors on the meta device: shapes and
+    dtypes, nothing allocated."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
 
 
 def param_count(defs: Any) -> int:

@@ -70,6 +70,7 @@ def trace_capacity(bitrates: Sequence[int], trace_kbps, num_cams: int, *,
     return dp_capacity(bitrates, W_max)
 
 
+# audit: allow(host-sync) the host allocator's table: one designed fetch
 def build_utility_table(mlp_params, a: np.ndarray, c: np.ndarray,
                         bitrates: Sequence[int], resolutions: Sequence[float],
                         weights: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -229,7 +230,9 @@ def allocate_dp(util: torch.Tensor, best_res: torch.Tensor,
     costs_np = (bitr // d).astype(np.int64)
     I, J = util.shape
     dev = util.device
+    # audit: allow(host-sync) the static numpy grid, not a device value
     jmin = int(np.argmin(costs_np))
+    # audit: allow(host-sync) the static numpy grid, not a device value
     cmin = int(costs_np[jmin])
     if cmin * I > w_cap:
         raise ValueError(f"w_cap={w_cap} cannot express the all-minimum "

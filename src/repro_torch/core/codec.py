@@ -71,6 +71,7 @@ def _avg_pool(frames: torch.Tensor, k: int) -> torch.Tensor:
         for j in range(k):
             v = x[..., :, i, :, j]
             s = v if s is None else s + v
+    # audit: allow(host-sync) k is the static pool factor, a Python int
     return s / float(k * k)
 
 

@@ -164,6 +164,7 @@ def _key_chain(key: torch.Tensor, n: int
     (the advanced key, the n subkeys stacked (n, 2)): the keys a host loop
     of ``split`` draws, in its order, with no read of the device."""
     subs = []
+    # audit: allow(host-sync) n is a host int, the chain's length
     for _ in range(int(n)):
         key, sub = prng.split(key)
         subs.append(sub)
@@ -463,11 +464,13 @@ def fleet_control_scan(mlp_params: Optional[Params], jcab_util, jcab_res,
     dev = W_trace.device
     T = int(W_trace.shape[0])
     if live_trace is None:
+        # audit: allow(host-sync) num_cams is a static int
         live_trace = torch.ones((T, int(num_cams)), dtype=torch.bool,
                                 device=dev)
     if reconnect_trace is None:
         reconnect_trace = torch.zeros((T,), dtype=torch.bool, device=dev)
     if a_trace is None:
+        # audit: allow(host-sync) num_cams is a static int
         a_trace = c_trace = torch.zeros((T, int(num_cams)),
                                         dtype=torch.float32, device=dev)
     deep = method in ("deepstream", "deepstream_no_elastic")
@@ -841,51 +844,37 @@ def _episode_graphed(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry,
         return graph.run(ctx, xs, carry, T)
 
 
-def fleet_episode(method: str, *, codec_cfg: CodecConfig,
-                  scene_cfg: SceneConfig, server_params: Params,
-                  light_params: Params, mlp_params: Optional[Params],
-                  jcab_util, jcab_res, lam: torch.Tensor,
-                  scene_params: DeviceSceneParams, trace: torch.Tensor,
-                  key0: torch.Tensor, skey: torch.Tensor, tau_wl, tau_wh,
-                  est0: ElasticState, ecfg: ElasticConfig,
-                  bitrates: Sequence[int], resolutions: Sequence[float],
-                  use_elastic: bool, w_cap: int, num_cams: int,
-                  eval_frames: int, block_size: int,
-                  conf_thresh: float = 0.4, gt_pad: int = 16,
-                  t_start: int = 0,
-                  buckets: Optional[Sequence[int]] = EPISODE_BUCKETS,
-                  faults: Optional[np.ndarray] = None,
-                  ref0: Optional[torch.Tensor] = None,
-                  live_prev0: Optional[np.ndarray] = None,
-                  t_first: Optional[int] = None, pipelined: bool = True,
-                  checked: bool = False, _eager: bool = False
-                  ) -> EpisodeOut:
-    """Run a whole bandwidth trace (``trace`` (T,) f32 on the device) and
-    return the stacked logs and the final carry, still on the device.
+class EpisodeInputs(NamedTuple):
+    """``episode_inputs``' result."""
+    statics: _Statics
+    ctx: _Ctx
+    xs: _Xs
+    carry: _Carry
+    T: int
 
-    ``pipelined=True`` (the default, the production body) overlaps slot
-    i's front with slot i-1's finish and compacts each slot's live
-    cameras; ``pipelined=False`` is the reference body it equals bitwise.
-    ``checked=True`` (the diagnostics lane) runs the reference body and
-    returns each slot's ``EPISODE_CHECKS`` flags after its 4 control-pack
-    values in ``cpacks``; the caller raises after the harvest.
-    ``faults`` is the optional (T, C) bool liveness mask (True = live).
-    T is padded to ``bucket_len(T, buckets)`` for the per-slot buffers
-    (``buckets=None``: no padding); padded slots never run (see
-    ``bucket_len``), and the logs come back sliced to T.  ``w_cap`` must
-    come from the active trace.
 
-    Streaming carry: ``est0``, ``ref0`` ((C, H, W) reducto reference),
-    ``live_prev0`` ((C,) bool previous liveness row) and ``t_first`` (the
-    stream's first slot, distinct from this window's ``t_start``) seed the
-    episode from the previous window, so a chain of windows is slot for
-    slot one long episode; the defaults are a standalone run's (zeros,
-    all live, ``t_start``).
-
-    On a CUDA device the slot step runs as CUDA graphs (``_EpisodeGraph``)
-    and no slot reads the device from the host; on the CPU it runs
-    eagerly.  ``_eager`` runs the eager loop on the card too, for
-    comparison only."""
+def episode_inputs(method: str, *, codec_cfg: CodecConfig,
+                   scene_cfg: SceneConfig, server_params: Params,
+                   light_params: Params, mlp_params: Optional[Params],
+                   jcab_util, jcab_res, lam: torch.Tensor,
+                   scene_params: DeviceSceneParams, trace: torch.Tensor,
+                   key0: torch.Tensor, skey: torch.Tensor, tau_wl, tau_wh,
+                   est0: ElasticState, ecfg: ElasticConfig,
+                   bitrates: Sequence[int], resolutions: Sequence[float],
+                   use_elastic: bool, w_cap: int, num_cams: int,
+                   eval_frames: int, block_size: int,
+                   conf_thresh: float = 0.4, gt_pad: int = 16,
+                   t_start: int = 0,
+                   buckets: Optional[Sequence[int]] = EPISODE_BUCKETS,
+                   faults: Optional[np.ndarray] = None,
+                   ref0: Optional[torch.Tensor] = None,
+                   live_prev0: Optional[np.ndarray] = None,
+                   t_first: Optional[int] = None, pipelined: bool = True,
+                   checked: bool = False) -> EpisodeInputs:
+    """What ``fleet_episode`` runs, before it runs: the statics (the
+    graph key's), the context, the run's per-slot inputs padded to the
+    bucket, the carry and T.  ``analysis.programs`` builds its registry
+    from it, so the registry describes the graphs the episode captures."""
     N, H, W = (scene_cfg.frames_per_segment, scene_cfg.height,
                scene_cfg.width)
     dev = trace.device
@@ -935,11 +924,45 @@ def fleet_episode(method: str, *, codec_cfg: CodecConfig,
         block_size=int(block_size), conf_thresh=float(conf_thresh),
         gt_pad=int(gt_pad), pipelined=bool(pipelined) and not checked,
         checked=bool(checked))
-    run = (_episode_graphed if dev.type == "cuda" and not _eager
-           else _episode_eager)
-    packs, cpacks, carry = run(s, ctx, xs, carry, T)
-    return EpisodeOut(packs=packs, cpacks=cpacks, key=key0, est=carry.est,
-                      ref=carry.ref)
+    return EpisodeInputs(s, ctx, xs, carry, T)
+
+
+def fleet_episode(method: str, *, _eager: bool = False, **kw
+                  ) -> EpisodeOut:
+    """Run a whole bandwidth trace (``trace`` (T,) f32 on the device) and
+    return the stacked logs and the final carry, still on the device.
+    ``kw`` are ``episode_inputs``' keyword arguments.
+
+    ``pipelined=True`` (the default, the production body) overlaps slot
+    i's front with slot i-1's finish and compacts each slot's live
+    cameras; ``pipelined=False`` is the reference body it equals bitwise.
+    ``checked=True`` (the diagnostics lane) runs the reference body and
+    returns each slot's ``EPISODE_CHECKS`` flags after its 4 control-pack
+    values in ``cpacks``; the caller raises after the harvest.
+    ``faults`` is the optional (T, C) bool liveness mask (True = live).
+    T is padded to ``bucket_len(T, buckets)`` for the per-slot buffers
+    (``buckets=None``: no padding); padded slots never run (see
+    ``bucket_len``), and the logs come back sliced to T.  ``w_cap`` must
+    come from the active trace.
+
+    Streaming carry: ``est0``, ``ref0`` ((C, H, W) reducto reference),
+    ``live_prev0`` ((C,) bool previous liveness row) and ``t_first`` (the
+    stream's first slot, distinct from this window's ``t_start``) seed the
+    episode from the previous window, so a chain of windows is slot for
+    slot one long episode; the defaults are a standalone run's (zeros,
+    all live, ``t_start``).
+
+    On a CUDA device the slot step runs as CUDA graphs (``_EpisodeGraph``)
+    and no slot reads the device from the host; on the CPU it runs
+    eagerly.  ``_eager`` runs the eager loop on the card too, for
+    comparison only."""
+    inp = episode_inputs(method, **kw)
+    run = (_episode_graphed if inp.xs.trace.device.type == "cuda"
+           and not _eager else _episode_eager)
+    packs, cpacks, carry = run(inp.statics, inp.ctx, inp.xs, inp.carry,
+                               inp.T)
+    return EpisodeOut(packs=packs, cpacks=cpacks, key=inp.ctx.key0,
+                      est=carry.est, ref=carry.ref)
 
 
 def eval_indices(n: int, eval_frames: int) -> np.ndarray:

@@ -875,6 +875,46 @@ class DeepStreamSystem:
                                      faults, carry)
         return self._episode_logs(out, trace_kbps)
 
+    def _episode_kwargs(self, scene: DeviceScene, trace_kbps: np.ndarray,
+                        method: str, use_elastic: Optional[bool] = None,
+                        faults: Optional[np.ndarray] = None,
+                        carry: Optional[EpisodeCarry] = None
+                        ) -> Dict[str, Any]:
+        """The keyword arguments of ``fleet.fleet_episode`` (and of
+        ``fleet.episode_inputs``) for an episode of ``scene`` from its
+        cursor: the run's uploads (through pinned memory) and statics."""
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}")
+        if not (self.cfg.batched and self.cfg.alloc == "device"):
+            raise ValueError("episode mode requires batched=True and "
+                             "alloc='device'")
+        if use_elastic is None:
+            use_elastic = method == "deepstream"
+        self._check_scene(scene, device_only=True)
+        ctx = self._control_context(method, trace_kbps, use_elastic)
+        if carry is not None:
+            ctx["est"] = carry.est
+        deep = method in ("deepstream", "deepstream_no_elastic")
+        return dict(
+            codec_cfg=self.cfg.codec, scene_cfg=scene.cfg,
+            server_params=self.server, light_params=self.light,
+            mlp_params=self.mlp if deep else None,
+            jcab_util=ctx["jcab_util"], jcab_res=ctx["jcab_res"],
+            lam=ctx["lam"], scene_params=scene.params, trace=ctx["trace"],
+            key0=self._key, skey=scene.key, tau_wl=ctx["tau_wl"],
+            tau_wh=ctx["tau_wh"], est0=ctx["est"], ecfg=self.cfg.elastic,
+            bitrates=tuple(self.cfg.codec.bitrates_kbps),
+            resolutions=tuple(self.cfg.codec.resolutions),
+            use_elastic=use_elastic, w_cap=ctx["w_cap"],
+            num_cams=self.cfg.scene.num_cameras,
+            eval_frames=self.cfg.eval_frames, block_size=self.cfg.block_size,
+            gt_pad=self._G, t_start=scene._t,
+            buckets=self.cfg.episode_buckets, faults=faults,
+            ref0=None if carry is None else carry.ref,
+            live_prev0=None if carry is None else carry.live_prev,
+            t_first=None if carry is None else carry.t_first,
+            pipelined=self.cfg.episode_pipelined, checked=self.cfg.checked)
+
     def _episode_dispatch(self, scene: DeviceScene, trace_kbps: np.ndarray,
                           method: str, use_elastic: Optional[bool] = None,
                           faults: Optional[np.ndarray] = None,
@@ -885,42 +925,15 @@ class DeepStreamSystem:
         ``last_carry``; returns the device logs.  On a warm configuration
         nothing here waits on the card.  ``_eager`` runs the slot loop
         eagerly on the card (for comparison with the graph only)."""
-        if method not in METHODS:
-            raise ValueError(f"unknown method {method!r}")
-        if not (self.cfg.batched and self.cfg.alloc == "device"):
-            raise ValueError("episode mode requires batched=True and "
-                             "alloc='device'")
-        if use_elastic is None:
-            use_elastic = method == "deepstream"
-        self._check_scene(scene, device_only=True)
+        kw = self._episode_kwargs(scene, trace_kbps, method, use_elastic,
+                                  faults, carry)
         C = self.cfg.scene.num_cameras
         t_begin = scene._t
-        ctx = self._control_context(method, trace_kbps, use_elastic)
-        if carry is not None:
-            ctx["est"] = carry.est
-        deep = method in ("deepstream", "deepstream_no_elastic")
-        out = fleet_mod.fleet_episode(
-            method, codec_cfg=self.cfg.codec, scene_cfg=scene.cfg,
-            server_params=self.server, light_params=self.light,
-            mlp_params=self.mlp if deep else None,
-            jcab_util=ctx["jcab_util"], jcab_res=ctx["jcab_res"],
-            lam=ctx["lam"], scene_params=scene.params, trace=ctx["trace"],
-            key0=self._key, skey=scene.key, tau_wl=ctx["tau_wl"],
-            tau_wh=ctx["tau_wh"], est0=ctx["est"], ecfg=self.cfg.elastic,
-            bitrates=tuple(self.cfg.codec.bitrates_kbps),
-            resolutions=tuple(self.cfg.codec.resolutions),
-            use_elastic=use_elastic, w_cap=ctx["w_cap"], num_cams=C,
-            eval_frames=self.cfg.eval_frames, block_size=self.cfg.block_size,
-            gt_pad=self._G, t_start=scene._t,
-            buckets=self.cfg.episode_buckets, faults=faults,
-            ref0=None if carry is None else carry.ref,
-            live_prev0=None if carry is None else carry.live_prev,
-            t_first=None if carry is None else carry.t_first,
-            pipelined=self.cfg.episode_pipelined, checked=self.cfg.checked,
-            _eager=_eager)
+        out = fleet_mod.fleet_episode(method, **kw, _eager=_eager)
         scene._t += len(trace_kbps)
         self.last_carry = EpisodeCarry(
             est=out.est, ref=out.ref,
+            # audit: allow(host-sync) faults is the caller's host mask
             live_prev=(np.asarray(faults[-1], bool) if faults is not None
                        else np.ones(C, bool)),
             t_first=carry.t_first if carry is not None else t_begin)

@@ -107,4 +107,5 @@ def fit(params: Params, features: np.ndarray, targets: np.ndarray, *,
             params, opt, _ = adamw_update(
                 opt_cfg, {k: p[k].detach() for k in names},
                 dict(zip(names, grads)), opt)
+    # audit: allow(host-sync) one designed fetch: the final loss, after the loop
     return params, float(loss.detach())

@@ -521,7 +521,7 @@ class LM:
         empty): the other rows' cache is left as it was, every leaf.
         Returns (logits (B, 1, V), cache)."""
         cfg = self.cfg
-        pos = int(pos)
+        pos = int(pos)   # audit: allow(host-sync) the caller's host position
         x = self._embed(params, tokens)
         if rows is not None:
             rows = torch.as_tensor(list(rows), dtype=torch.long,

@@ -81,6 +81,7 @@ def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
     # every expert is local: the stable partition keeps pair order, and
     # the first ``capacity`` pairs are taken
     sel = torch.arange(min(capacity, n * top_k), device=x.device)
+    # audit: allow(host-sync) static counts (rows, top_k, capacity)
     drops = torch.full((), float(n * top_k - sel.shape[0]), dtype=F32,
                        device=x.device)
 
@@ -92,6 +93,7 @@ def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
     g_order = torch.argsort(e_loc, stable=True)
     xs_g = xs[g_order]
     # (bincount would read the largest id on the host as well)
+    # audit: allow(host-sync) the group sizes: one designed read a layer
     sizes = torch.zeros(num_experts, dtype=torch.long, device=x.device
                         ).index_add_(0, e_loc, torch.ones_like(e_loc)
                                      ).tolist()                    # host

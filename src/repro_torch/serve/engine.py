@@ -119,22 +119,26 @@ class ServeEngine:
         # position; one group decodes the full batch and writes every row
         groups: Dict[int, List[int]] = {}
         for i in live:
+            # audit: allow(host-sync) slot positions are host numpy
             groups.setdefault(int(self.slot_pos[i]), []).append(i)
         if len(groups) == 1:
             pos = next(iter(groups))
             logits, self.cache = self.lm.decode(self.params, tokens,
                                                 self.cache, pos)
+            # audit: allow(host-sync) the sampled tokens: the call's one fetch
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         else:
             nxt = np.zeros(self.slots, np.int64)
             for pos, idxs in sorted(groups.items()):
                 logits, self.cache = self.lm.decode(
                     self.params, tokens, self.cache, pos, rows=idxs)
+                # audit: allow(host-sync) the sampled tokens of a group
                 sub = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
                 nxt[idxs] = sub[idxs]
         finished = []
         for i in live:
             r = self.slot_req[i]
+            # audit: allow(host-sync) nxt is the fetched host array
             r.out_tokens.append(int(nxt[i]))
             self.slot_pos[i] += 1
             if (len(r.out_tokens) >= r.max_new_tokens

@@ -30,9 +30,9 @@ of the whole leaf.  ``inplace=True`` writes the new parameters and
 moments into the tensors passed in (the JAX launcher's
 ``donate_argnums``), so a step holds one copy of the training state.
 
-The JAX module's ``abstract_opt_state`` has no counterpart: it builds
-``ShapeDtypeStruct`` stand-ins for the TPU dry run, which the port does
-not have.
+``abstract_opt_state`` is the state of ``init_opt_state`` on the meta
+device (shapes and dtypes, nothing allocated), for the one-card dry run
+(``launch/dryrun.py``), as JAX's builds ``ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -75,6 +75,17 @@ def init_opt_state(cfg: OptimizerConfig, params: Tree) -> OptState:
     zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def abstract_opt_state(cfg: OptimizerConfig, params_abs: Tree) -> OptState:
+    """``init_opt_state``'s shapes and dtypes on the meta device."""
+    dt = getattr(torch, cfg.moment_dtype)
+    meta = lambda p: torch.empty(p.shape, dtype=dt,  # noqa: E731
+                                 device="meta")
+    return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                    m=tree_map(meta, params_abs), v=tree_map(meta, params_abs))
+
+
 def _f32(x: float) -> float:
     """A Python float rounded to float32, as XLA holds its constants."""
     return float(torch.tensor(x, dtype=torch.float32))

@@ -118,6 +118,9 @@ def test_no_jax_or_repro_imports_in_source():
     pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = list((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 3, examples
+    files += examples
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f

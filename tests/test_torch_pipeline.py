@@ -15,7 +15,6 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
-from torch.overrides import TorchFunctionMode  # noqa: E402
 
 # one intra-op thread: the suite runs several pytest workers at once, and
 # PyTorch's default of one thread per core oversubscribes the machine
@@ -24,6 +23,8 @@ torch.set_num_threads(1)
 import harness  # noqa: E402
 from repro.core import cc as j_cc  # noqa: E402
 from repro.core import fleet as j_fleet  # noqa: E402
+from repro_torch.analysis.graph_audit import (HostRead,  # noqa: E402
+                                              NoHostReads, kernel_calls)
 from repro_torch.common import prng  # noqa: E402
 from repro_torch.core import cc as t_cc  # noqa: E402
 from repro_torch.core import fleet as t_fleet  # noqa: E402
@@ -35,9 +36,6 @@ from repro_torch.data.synthetic import (DeviceScene,  # noqa: E402
                                         DeviceSceneParams, SceneConfig)
 from repro_torch.kernels.cc_label import ops as cc_ops  # noqa: E402
 from repro_torch.kernels.cc_label import ref as cc_ref  # noqa: E402
-from repro_torch.kernels.edge_motion import ops as em_ops  # noqa: E402
-from repro_torch.kernels.knapsack_dp import ops as dp_ops  # noqa: E402
-from repro_torch.kernels.tx_codec import ops as tx_ops  # noqa: E402
 from repro_torch.models.detector import load_detector  # noqa: E402
 
 C = 3
@@ -262,68 +260,13 @@ def test_labeler_refuses_what_the_kernel_does_not_take():
 
 # -- no host read in an episode's dispatch ----------------------------------
 
-class HostRead(AssertionError):
-    pass
-
-
-class NoHostReads(TorchFunctionMode):
-    """Raises on every call that reads a device tensor from the host or
-    sends host data up inside the region: what would make the card wait
-    (``set_sync_debug_mode("error")``) or break a graph capture.  Inside
-    ``opaque`` (a kernel's plain version, which on the card is one launch)
-    nothing is checked."""
-
-    READS = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.tolist,
-             torch.Tensor.numpy, torch.Tensor.cpu, torch.Tensor.__int__,
-             torch.Tensor.__float__, torch.Tensor.__index__, torch.equal,
-             torch.nonzero, torch.Tensor.nonzero, torch.masked_select,
-             torch.unique, torch.Tensor.unique}
-
-    def __init__(self):
-        super().__init__()
-        self.depth = 0
-
-    def opaque(self, fn):
-        @functools.wraps(fn)
-        def run(*a, **kw):
-            self.depth += 1
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.depth -= 1
-        return run
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if self.depth == 0:
-            self._check(func, args)
-        return func(*args, **kwargs)
-
-    def _check(self, func, args) -> None:
-        if func in self.READS:
-            raise HostRead(f"host read: {func.__name__}")
-        if func in (torch.tensor, torch.as_tensor) and not \
-                torch.is_tensor(args[0]):
-            raise HostRead(f"upload: {func.__name__} of host data")
-        if func is torch.where and len(args) == 1:
-            raise HostRead("torch.where(cond) reads the device")
-        if func in (torch.Tensor.__getitem__, torch.Tensor.__setitem__):
-            idx = args[1] if isinstance(args[1], tuple) else (args[1],)
-            if any(torch.is_tensor(i) and i.dtype == torch.bool
-                   and i.dim() > 0 for i in idx):
-                raise HostRead("boolean-mask indexing reads the device")
-
-
 @pytest.fixture
 def guard(monkeypatch):
-    """The mode, with each kernel's plain version marked opaque (on the
-    card each is one launch that reads its operands where they lie)."""
+    """The mode (``analysis.graph_audit.NoHostReads``), with each kernel's
+    launch and plain version marked opaque (on the card each is one launch
+    that reads its operands where they lie)."""
     mode = NoHostReads()
-    for mod, name in ((cc_ops.ref, "cc_label_ref"),
-                      (tx_ops.ref, "tx_codec_ref"),
-                      (em_ops.ref, "segment_motion_ref"),
-                      (dp_ops.ref, "knapsack_dp_ref"),
-                      (dp_ops.ref, "backtrack_device")):
+    for mod, name in kernel_calls():
         monkeypatch.setattr(mod, name, mode.opaque(getattr(mod, name)))
     return mode
 
