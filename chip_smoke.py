@@ -177,7 +177,18 @@ JAX.  In order it prints:
      card (one slot: B1, B2, B3 and cc_label launched); the analytic
      roofline's one-card terms (``H100_SXM``) beside granite-8b's measured
      train step and decode;
- 13. the wall time, one JSON line of kernel records, then the device line
+ 13. the camera mesh (``sharding.rules``) on a one-rank NCCL group in
+     this process: the C=5 / T=8 and C=16 / T=11 episodes of the five
+     methods graph-replayed on the mesh (the (a, c) all-gather captured in
+     the graphs), each capture through every wrapper of its path, a
+     second run with 0 captures and 0 host syncs up to its harvest, logs
+     equal to the unsharded graphs' bitwise; the sharded graph keys at
+     C=5 each a registry entry; ms/slot on the mesh beside the unsharded
+     system, in turns; two stream windows on the mesh with checkpoints,
+     restored with no mesh, equal to the unsharded stream; and the fleet
+     stream launcher under ``torch.distributed.run --nproc-per-node 1``
+     for 16 slots;
+ 14. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Phase 8's kernel times come first, and the script enforces it: a
@@ -3167,6 +3178,267 @@ def audit_phase(torch, dev, tag: str, system, trace, phase4_keys) -> None:
               f"of it) {tag}")
 
 
+MESH_EPISODES = ((5, T_SLOTS), (16, 11))   # (C, T) of phase 13's episodes
+MESH_SLOTS = 16          # the torchrun launcher's stream (two windows of 8)
+
+
+def mesh_phase(torch, dev, tag: str, light_h, server_h, arts, trace11,
+               needs, reset_counts, read_counts) -> dict:
+    """Phase 13, the camera mesh on one card: a one-rank NCCL group in
+    this process (``launch.mesh.init_distributed``, an in-process store)
+    and its ("camera",) mesh (``sharding.rules.camera_mesh(1)``).  The
+    C=5 / T=8 and C=16 / T=11 episodes of the five methods run on the
+    mesh as CUDA graphs with the (a, c) gather captured inside: the
+    capture goes through each kernel's wrapper of the path, a second run
+    captures nothing and has no host sync up to its harvest under
+    ``set_sync_debug_mode("error")``, and its logs equal the unsharded
+    graphs' bit for bit; every sharded graph key captured at C=5 is an
+    entry of the audit's registry built on the mesh system; ms/slot of
+    the mesh and the unsharded system in turns; ``run()`` with device and
+    with host control and the profiling sweep on the mesh, each equal to
+    the unsharded system's bit for bit; two stream windows on the mesh
+    with checkpoints, restored with no mesh and served on, equal to the
+    unsharded stream; then ``python -m torch.distributed.run
+    --standalone --nproc-per-node 1 -m repro_torch.launch.serve
+    --fleet-stream`` for 16 slots.  Returns the kernels' launch counts
+    of the mesh's C=5 / T=8 captures."""
+    import os
+    import shutil
+    import numpy as np
+    from repro_torch.analysis.programs import Canonical, get_programs
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
+    from repro_torch.data.scenarios import make_soak_stream
+    from repro_torch.data.synthetic import (DeviceScene, MultiCameraScene,
+                                            SceneConfig)
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.serve.stream import StreamConfig, StreamingFleetRunner
+    from repro_torch.sharding import rules
+
+    work = ROOT / "build" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mesh_mod.init_distributed(dev.type, rank=0, world_size=1)
+    mesh = rules.camera_mesh(min_devices=1)
+    nccl = (f", NCCL {torch.cuda.nccl.version()}" if dev.type == "cuda"
+            else "")
+    print(f"camera mesh: {mesh} over a one-rank "
+          f"{torch.distributed.get_backend()} group{nccl}, key "
+          f"{rules.mesh_cache_key(mesh)} ({time.perf_counter() - t0:.1f} s)")
+    launches = dict.fromkeys(read_counts(), 0)
+    try:
+        def make(C: int, shard: str = "off", **kw) -> DeepStreamSystem:
+            return give_artifacts(DeepStreamSystem(SystemConfig(
+                scene=SceneConfig(seed=7, num_cameras=C), shard=shard,
+                **kw), light_h, server_h, device=dev), arts, C)
+
+        def scene_of(s):
+            return DeviceScene(s.cfg.scene, device=dev, mesh=s.mesh)
+
+        keys_before = set(fleet_mod._GRAPHS)
+        timed = []
+        c_first = MESH_EPISODES[0][0]
+        for C, T in MESH_EPISODES:
+            m_sys, u_sys = make(C, "on"), make(C)
+            if m_sys.mesh is None:
+                raise AssertionError("the mesh system is unsharded")
+            tr = trace11[:T] * C / 5
+            for method in EP_METHODS:
+                what = f"mesh episode {method} C={C} T={T}"
+                reset_counts()
+                m_sys.run_episode(scene_of(m_sys), tr, method)
+                n_capture = read_counts()
+                if any(n_capture[k] == 0 for k in needs(method)):
+                    raise AssertionError(f"{what}: the capture went through "
+                                         f"no wrapper of {needs(method)}: "
+                                         f"{n_capture}")
+                if C == c_first:
+                    for k, v in n_capture.items():
+                        launches[k] += v
+                captured = fleet_mod.episode_graph_count()
+                scene = scene_of(m_sys)
+                reset_counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = m_sys._episode_dispatch(scene, tr, method)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                logs = m_sys._episode_logs(out, tr)
+                if fleet_mod.episode_graph_count() != captured:
+                    raise AssertionError(f"{what}: a second run captured")
+                if any(read_counts().values()):
+                    raise AssertionError(f"{what}: the replay called "
+                                         f"wrappers {read_counts()}")
+                want = u_sys.run_episode(DeviceScene(u_sys.cfg.scene,
+                                                     device=dev), tr, method)
+                same_logs(want, logs, f"{what} vs the unsharded graphs")
+                check_logs(logs, what)
+                print(f"{what}: wrapper calls at capture "
+                      + " ".join(f"{k} {v}" for k, v in n_capture.items())
+                      + "; second run: 0 captures, no host sync under "
+                      "set_sync_debug_mode('error') up to the harvest; logs "
+                      "= the unsharded graphs' bitwise; mean F1 "
+                      f"{float(np.mean(logs['mean_f1'])):.4f}")
+                if method in METHODS:
+                    timed.append((C, T, method, m_sys, u_sys, tr))
+        sharded = [k for k in fleet_mod._GRAPHS if k not in keys_before
+                   and k[0].mesh_key == (1, 0)]
+        if len(sharded) != len(MESH_EPISODES) * len(EP_METHODS):
+            raise AssertionError(f"mesh graph keys: {len(sharded)} sharded "
+                                 "keys captured")
+        progs = get_programs(kinds=["episode"], canon=Canonical(
+            make(c_first, "on"), trace11), methods=EP_METHODS)
+        entries = {(p.statics, tuple((tuple(t.shape), t.dtype)
+                                     for t in p.inputs.values())): p
+                   for p in progs}
+        matched = []
+        for key in sharded:
+            if key[0].num_cams != c_first:
+                continue
+            prog = entries.get((key[0], tuple((tuple(sh), dt)
+                                              for sh, dt in key[2:])))
+            if prog is None or set(fleet_mod._GRAPHS[key].graphs) != set(
+                    prog.graphs):
+                raise AssertionError(f"a sharded graph key has no registry "
+                                     f"entry: {key[0]}")
+            matched.append(prog.name)
+        print(f"mesh graph keys: {len(sharded)} captured, key (world, rank) "
+              f"= (1, 0); the {len(matched)} at C={c_first} each a registry "
+              "entry "
+              f"of the mesh system ({', '.join(sorted(matched))})")
+
+        # run() on the mesh (device and host control) and the profiling
+        # sweep: the sharded system's other NCCL call sites on the card,
+        # each held bitwise to the unsharded system
+        tr = trace11[:T_SLOTS]
+        for ctl, kw, methods in (("device", {}, EP_METHODS),
+                                 ("host", dict(alloc="host", pipeline=False),
+                                  ("deepstream", "reducto"))):
+            m_sys, u_sys = make(c_first, "on", **kw), make(c_first, **kw)
+            t0 = time.perf_counter()
+            for method in methods:
+                what = (f"mesh run() {ctl} control {method} C={c_first} "
+                        f"T={T_SLOTS}")
+                got = m_sys.run(scene_of(m_sys), tr, method)
+                same_logs(u_sys.run(scene_of(u_sys), tr, method), got,
+                          f"{what} vs the unsharded run()")
+                check_logs(got, what)
+            print(f"mesh run() {ctl} control C={c_first} T={T_SLOTS} "
+                  f"({', '.join(methods)}): logs = the unsharded run()'s "
+                  f"bitwise ({time.perf_counter() - t0:.1f} s for both)")
+        got = []
+        t0 = time.perf_counter()
+        for shard in ("on", "off"):
+            p = make(c_first, shard)
+            info = p.profile(MultiCameraScene(SceneConfig(seed=42)),
+                             num_slots=1, mlp_steps=PROFILE_CPU_STEPS)
+            got.append((info, p))
+        (im, pm), (iu, pu) = got
+        for k in iu:
+            if not np.array_equal(np.asarray(im[k]), np.asarray(iu[k])):
+                raise AssertionError(f"mesh profile: {k} differs")
+        for k in pu.mlp:
+            if not torch.equal(pm.mlp[k], pu.mlp[k]):
+                raise AssertionError(f"mesh profile: MLP {k} differs")
+        if ((pm.tau_wl, pm.tau_wh) != (pu.tau_wl, pu.tau_wh)
+                or not np.array_equal(pm.jcab_table, pu.jcab_table)
+                or not torch.equal(pm._key, pu._key)):
+            raise AssertionError("mesh profile: thresholds, jcab table or "
+                                 "key differ")
+        print(f"mesh profile C={c_first} 1 slot, {PROFILE_CPU_STEPS} fit "
+              "steps (the sweep's entries split over the mesh and gathered "
+              "per bitrate): info, MLP, thresholds, jcab table and key = "
+              f"the unsharded profile's bitwise "
+              f"({time.perf_counter() - t0:.1f} s for both)")
+
+        # ms/slot, the mesh and the unsharded system in turns
+        for C, T, method, m_sys, u_sys, tr in timed:
+            runs = {"mesh": m_sys, "unsharded": u_sys}
+            ms = {k: [] for k in runs}
+            for rnd in range(TIMED_ROUNDS + 1):
+                for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+                    s = runs[k]
+                    scene = scene_of(s)
+                    t_ms = event_ms(torch, lambda: s.run_episode(
+                        scene, tr, method)) / T
+                    if rnd > 0:
+                        ms[k].append(t_ms)
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            print(f"ms/slot episode graph {method} C={C} T={T}: mesh median "
+                  f"{med['mesh']:.3f} (min {min(ms['mesh']):.3f}, max "
+                  f"{max(ms['mesh']):.3f}), unsharded median "
+                  f"{med['unsharded']:.3f} (min {min(ms['unsharded']):.3f}, "
+                  f"max {max(ms['unsharded']):.3f}), {TIMED_ROUNDS} runs in "
+                  f"turns; mesh / unsharded {med['mesh'] / med['unsharded']:.3f}"
+                  f" {tag}")
+
+        # two stream windows on the mesh with checkpoints, restored with
+        # no mesh and served on: the unsharded stream's logs
+        W = STREAM_WINDOW
+        trace, live = make_soak_stream(3 * W, num_cams=5)
+
+        def stream_system(shard):
+            return make(5, shard, episode=True, w_cap_kbps=8000.0)
+
+        def runner(s, method, ckpt=None):
+            return StreamingFleetRunner(
+                s, scene_of(s), method=method, cfg=StreamConfig(
+                    window_slots=W, queue_slots=3 * W,
+                    ckpt_dir=None if ckpt is None else str(ckpt)))
+
+        for method in ("deepstream", "reducto"):
+            ref = runner(stream_system("off"), method)
+            ref.offer(trace, faults=live)
+            ref.serve()
+            ref.close()
+            d = work / f"stream_{method}"
+            ra = runner(stream_system("on"), method, d)
+            ra.offer(trace[:2 * W], faults=live[:2 * W])
+            ra.serve()
+            ra.close()
+            rb = runner(stream_system("off"), method, d)
+            if not rb.restore() or rb.t_next != 2 * W:
+                raise AssertionError(f"stream {method}: the mesh's "
+                                     "checkpoint did not restore")
+            rb.offer(trace[2 * W:], faults=live[2 * W:])
+            rb.serve()
+            rb.close()
+            got = {k: np.asarray(v) for k, v in rb.logs.items()}
+            same_logs({k: np.asarray(v) for k, v in ref.logs.items()}, got,
+                      f"mesh stream {method}")
+            print(f"mesh stream {method} C=5: two windows of {W} on the "
+                  "mesh, checkpointed (the (C, H, W) reference gathered, "
+                  "rank 0 writing), restored with no mesh and served on: "
+                  "the unsharded stream's logs bitwise")
+    finally:
+        mesh_mod.shutdown()
+    left = [k for k in fleet_mod._GRAPHS if k[0].mesh_key is not None]
+    if left:
+        raise AssertionError(f"shutdown left {len(left)} sharded graphs")
+    print(f"mesh shutdown: the {len(sharded)} sharded episode graphs "
+          "dropped with the group")
+
+    # the stream launcher under torchrun, one process on the card
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+           "--fleet-stream", "--num-cameras", "5", "--stream-slots",
+           str(MESH_SLOTS), "--window-slots", str(STREAM_WINDOW),
+           "--device", dev.type, "--ckpt-dir", str(work / "launcher")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=600)
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not any(f"'slots': {MESH_SLOTS}" in ln
+                                    for ln in lines):
+        raise AssertionError(f"the torchrun launcher failed ({p.returncode})"
+                             f":\n{p.stdout}\n{p.stderr[-4000:]}")
+    print(f"torchrun launcher (--nproc-per-node 1, {MESH_SLOTS} slots, "
+          f"{time.perf_counter() - t0:.1f} s): " + " | ".join(lines))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3746,6 +4018,12 @@ def main(argv=None) -> int:
     audit_phase(torch, dev, tag, gpu_sys, trace11, phase4_keys)
     print(f"phase 12 (audit, roofline, dry run, examples): "
           f"{time.perf_counter() - t_new:.1f} s")
+    # -- 13. the camera mesh: the sharded fleet on a one-rank NCCL group
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 13: camera mesh")
+    t_new = time.perf_counter()
+    mesh_launches = mesh_phase(torch, dev, tag, light_h, server_h, arts,
+                               trace11, needs, reset_counts, read_counts)
+    print(f"phase 13 (camera mesh): {time.perf_counter() - t_new:.1f} s")
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
@@ -3756,6 +4034,7 @@ def main(argv=None) -> int:
             rec["name"]]
         rec["launches_families"] = (fam_launches
                                     if rec["name"] == "flash_decode" else 0)
+        rec["launches_mesh"] = mesh_launches[rec["name"]]
 
     if args.profile:
         from torch.autograd import DeviceType

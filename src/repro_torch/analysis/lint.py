@@ -56,7 +56,12 @@ TRACED_SCOPES: Dict[str, Union[str, Set[str]]] = {
     "kernels/tx_codec/ops.py": {"encode_fleet", "encode_fleet_crf"},
     "core/elastic.py": {"init_state", "update", "update_scan"},
     "core/codec.py": "*",
-    "core/scheduler.py": {"_episode_kwargs", "_episode_dispatch"},
+    "core/scheduler.py": {"_episode_kwargs", "_episode_dispatch",
+                          "_local_features"},
+    # the camera mesh: its layout and the gather inside the episode graphs
+    "sharding/rules.py": {"pad_cameras", "local_count", "camera_rows",
+                          "pad_leading", "scatter", "expect_rows", "gather"},
+    "launch/mesh.py": "*",
     "core/utility.py": {"predict", "predict_grid", "utility_table", "fit"},
     "core/allocation.py": {
         "allocate_dp", "allocate_greedy", "allocate_fair",

@@ -7,7 +7,11 @@ The counterpart of ``repro.analysis.programs``.  One canonical deployment
 entry, the same deployment as the JAX registry.  The episode entries come
 from ``fleet.episode_inputs`` on the system's own ``_episode_kwargs``, so
 an entry's statics and input shapes are those of the CUDA graphs that
-``fleet_episode`` captures for it (``fleet._GRAPHS``' key).
+``fleet_episode`` captures for it (``fleet._GRAPHS``' key).  A
+``Canonical`` built on a system with a camera mesh
+(``DeepStreamSystem.mesh``) names the sharded graphs the same way: their
+statics carry ``c_pad`` and the mesh's (world size, rank), their inputs
+the rank's rows.
 
 The registry enumerates:
 
@@ -141,7 +145,8 @@ class Canonical:
         """``fleet.EpisodeInputs`` of a run of ``bucket`` slots."""
         from repro_torch.core import fleet
         from repro_torch.data.synthetic import DeviceScene
-        scene = DeviceScene(self.cfg.scene, device=self.device)
+        scene = DeviceScene(self.cfg.scene, device=self.device,
+                            mesh=self.system.mesh)
         kw = self.system._episode_kwargs(scene, self.trace_of(bucket),
                                          method)
         return fleet.episode_inputs(method, **kw)

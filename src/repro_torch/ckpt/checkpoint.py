@@ -32,6 +32,10 @@ A bfloat16 leaf (the LM's weights) is written with JAX's dtype name
 ``"bfloat16"`` and its 2-byte patterns; numpy has no bfloat16 of its own,
 so on the host it is a ``Bf16Bits`` array of those patterns (uint16).
 
+Under a camera mesh the caller hands ``save`` the whole fleet's tree and
+calls it on rank 0 only (``serve.stream`` gathers the carry first); every
+rank restores from the same files, at any world size.
+
 ``restore(path)`` without a target reads a flat ``{name: array}``
 checkpoint (the committed detector weights) into numpy.
 

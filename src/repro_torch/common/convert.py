@@ -17,6 +17,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
+
 _DETECTOR_CONVS = ("c1", "c2", "c3", "c4", "head")
 
 
@@ -35,9 +37,11 @@ def _lm_tree(tree: Any, device) -> Any:
 
 
 def params_from_numpy(tree: Mapping[str, Any], kind: str, *,
-                      device="cpu") -> Dict[str, Any]:
+                      device=None) -> Dict[str, Any]:
     """``{name: array}`` (nested for ``lm``) -> the same names as tensors on
-    ``device``."""
+    ``device`` (``resolve_device``: the card unless the caller asks for the
+    CPU)."""
+    device = resolve_device(device)
     if kind == "lm":
         return _lm_tree(tree, device)
     if kind not in ("detector", "mlp"):

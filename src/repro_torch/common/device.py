@@ -1,4 +1,8 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs: the card unless the caller asks for the CPU.
+
+Under a camera mesh each process owns one card: ``launch.mesh`` calls
+``torch.cuda.set_device(LOCAL_RANK)``, so ``cuda`` is the rank's card.
+"""
 from __future__ import annotations
 
 import numpy as np

@@ -29,6 +29,20 @@ CUDA graph and replayed for every slot: the counterpart of the JAX
 package's one compiled program per (method, bucket).  Nothing in a slot
 step reads the device from the host.
 
+Camera mesh (``sharding.rules``; one process per card under
+``torch.distributed``): every per-camera stage (synthesis, ROIDet, the
+reducto keep, encode, detect, score) runs on the rank's contiguous block
+of the fleet padded to ``c_pad`` with inert cameras, and the live-camera
+compaction sorts within that block.  Control is the one cross-camera
+stage: (a, c) are all-gathered over the camera group (inside the CUDA
+graph, on NCCL), ``fleet_control_step`` runs replicated on every rank
+(it is deterministic, so every rank holds the same (b, r) and elastic
+state) and each rank slices its rows out.  The JAX package placed its
+control on one device only because interpret-mode Pallas is slow on fake
+CPU devices; on the card a replicated solve costs a few microseconds of
+B3.  The stacked (T, 2, n_local) log packs are all-gathered once after
+the last slot; every rank returns the same logs.
+
 The ``checked`` diagnostics lane (``SystemConfig.checked``) computes the
 JAX package's checkify invariants on the device, as a row of violation
 flags beside each slot's control pack (``CONTROL_CHECKS``,
@@ -62,6 +76,7 @@ from repro_torch.data import synthetic as synth_mod
 from repro_torch.data.synthetic import DeviceSceneParams, SceneConfig
 from repro_torch.kernels.edge_motion import ops as em_ops
 from repro_torch.models import detector as det
+from repro_torch.sharding import rules
 
 # block-motion mass above which a frame counts as "changed" (reducto)
 MOTION_KEEP_THRESH = 25.0
@@ -493,19 +508,24 @@ def fleet_control_scan(mlp_params: Optional[Params], jcab_util, jcab_res,
 
 class EpisodeOut(NamedTuple):
     packs: torch.Tensor     # (T, 2, C) stacked [f1; sizes] per slot
+                            # (gathered from every rank under a mesh)
     cpacks: torch.Tensor    # (T, 4) [extra, area, alloc_kbps, feasible],
                             # then the EPISODE_CHECKS flags if checked
     key: torch.Tensor       # the run key, unchanged (codec keys are a pure
                             # per-(slot, camera) fold, ``slot_camera_keys``)
     est: ElasticState       # final elastic state (last active slot's)
-    ref: torch.Tensor       # (C, H, W) final reducto reference frames, the
+    ref: torch.Tensor       # (n_local, H, W) final reducto reference (the
+                            # rank's rows; all C unsharded), the
                             # carry a windowed run hands to the next window
 
 
 @dataclasses.dataclass(frozen=True)
 class _Statics:
     """What a slot step's code depends on besides its tensors: the key of
-    its CUDA graph (the JAX package's episode cache key, less the mesh)."""
+    its CUDA graph (the JAX package's episode cache key).  ``c_pad`` is
+    the fleet padded to the camera mesh and ``mesh_key`` the mesh's
+    (world size, rank) (None unsharded); ``mesh`` itself rides along
+    outside the key."""
     method: str
     scfg: SceneConfig
     ccfg: CodecConfig
@@ -521,6 +541,16 @@ class _Statics:
     gt_pad: int
     pipelined: bool
     checked: bool
+    c_pad: int
+    mesh_key: Optional[Tuple[int, int]] = None
+    mesh: object = dataclasses.field(default=None, compare=False,
+                                     hash=False, repr=False)
+
+    @property
+    def n_local(self) -> int:
+        """Cameras of this rank (all of them when unsharded)."""
+        return self.c_pad // (1 if self.mesh_key is None
+                              else self.mesh_key[0])
 
 
 class _Ctx(NamedTuple):
@@ -531,7 +561,7 @@ class _Ctx(NamedTuple):
     jcab_util: torch.Tensor      # (C, J)
     jcab_res: torch.Tensor       # (C, J)
     lam: torch.Tensor            # (C,)
-    scene: DeviceSceneParams
+    scene: DeviceSceneParams     # this rank's rows of the padded fleet
     key0: torch.Tensor
     skey: torch.Tensor
     tau_wl: torch.Tensor
@@ -549,7 +579,7 @@ class _Xs(NamedTuple):
 
 class _Carry(NamedTuple):
     est: ElasticState
-    ref: torch.Tensor            # (C, H, W) reducto reference frames
+    ref: torch.Tensor            # (n_local, H, W) reducto reference frames
     live_prev: torch.Tensor      # (C,) bool previous slot's liveness
 
 
@@ -568,7 +598,10 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
     zeroes the dead rows' frames; every stage after control is
     camera-row-local, so the live cameras' outputs are bitwise the
     reference body's, and ``inv`` puts the log columns back in camera
-    order."""
+    order.  Under a camera mesh every per-camera tensor is the rank's
+    rows (``s.n_local``) and ``live_t``, the control step and its packs
+    are global; (a, c) are gathered before control and (b, r) sliced
+    after it."""
     N, H, W = s.scfg.frames_per_segment, s.scfg.height, s.scfg.width
     dev = W_t.device
     deep = s.method in ("deepstream", "deepstream_no_elastic")
@@ -576,13 +609,18 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
         s.scfg, ctx.scene, ctx.skey, t, gt_pad=s.gt_pad)
     keys = slot_camera_keys(ctx.key0, t, ctx.scene.cam_ids)
     reconnect = live_t & ~carry.live_prev
+    live_l = rules.scatter(live_t, s.mesh, False)
     a = c = None
     if deep:
         roi = roidet_mod.roidet_fleet(frames, ctx.light,
                                       block_size=s.block_size)
         masks, a, c = roi.mask, roi.area_ratio, roi.confidence
+        if s.mesh is not None:
+            # the one cross-camera stage's inputs: one gather per slot
+            a, c = rules.gather(torch.stack([a, c]), s.mesh,
+                                dim=1)[:, :s.num_cams]
     else:
-        masks = roidet_mod.full_frame_mask(s.num_cams, H, W, s.block_size,
+        masks = roidet_mod.full_frame_mask(s.n_local, H, W, s.block_size,
                                            dev)
     co = fleet_control_step(
         ctx.mlp if deep else None, ctx.jcab_util, ctx.jcab_res, ctx.lam, a,
@@ -594,21 +632,24 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
     cpack = co.pack
     if s.checked:
         cpack = torch.cat([cpack, _violated(torch.isfinite(W_t)), co.flags])
+    b = rules.scatter(co.b, s.mesh, 1.0)
+    r = rules.scatter(co.r, s.mesh, 1.0)
     ref = carry.ref
     if s.method == "reducto":
         # "first" is per run (t == t_first) and per reconnecting camera
         keep, ref = reducto_keep_step(
-            frames, ref, reconnect | (t == ctx.t_first),
+            frames, ref,
+            rules.scatter(reconnect, s.mesh, False) | (t == ctx.t_first),
             block_size=s.block_size, edge_thresh=roidet_mod.EDGE_THRESH)
     else:
-        keep = torch.ones((s.num_cams, N), dtype=torch.bool, device=dev)
-    rows = (masks, co.b, co.r, keys, keep, gtb, gtv)
-    live_e, inv = live_t, None
+        keep = torch.ones((s.n_local, N), dtype=torch.bool, device=dev)
+    rows = (masks, b, r, keys, keep, gtb, gtv)
+    live_e, inv = live_l, None
     if s.pipelined:
-        order = torch.argsort((~live_t).to(torch.uint8), stable=True)
+        order = torch.argsort((~live_l).to(torch.uint8), stable=True)
         inv = torch.argsort(order, stable=True)
         rows = tuple(x[order] for x in rows)
-        live_e = live_t[order]
+        live_e = live_l[order]
         frames = torch.where(live_e[:, None, None, None], frames[order], 0.0)
     st = _slot_encode(s.ccfg, frames, *rows, live_e,
                       eval_frames=s.eval_frames,
@@ -619,7 +660,8 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
 
 def _finish(s: _Statics, ctx: _Ctx, st: SlotStaged,
             inv: Optional[torch.Tensor]) -> torch.Tensor:
-    """A staged slot's (2, C) [f1; sizes] log pack, in camera order."""
+    """A staged slot's (2, n_local) [f1; sizes] log pack, in camera
+    order."""
     pack = _slot_finish(ctx.server, st, conf_thresh=s.conf_thresh,
                         with_reuse=s.method == "reducto").host_pack
     return pack if inv is None else pack[:, inv]
@@ -638,7 +680,7 @@ def _episode_eager(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, _Carry]:
     """The episode as a Python loop over the first T slots: the CPU's
     path, and on the card the comparison the graph is held to.  Returns
-    ((T, 2, C) packs, (T, 4) control packs, the final carry)."""
+    ((T, 2, n_local) packs, (T, 4) control packs, the final carry)."""
     packs: List[torch.Tensor] = []
     cpacks: List[torch.Tensor] = []
     staged = None
@@ -704,6 +746,21 @@ def episode_graph_count() -> int:
     return _CAPTURES
 
 
+def drop_mesh_graphs() -> int:
+    """Forget every sharded episode graph (a key with a ``mesh_key``) and
+    return how many went.  Such a graph holds its process group's
+    communicator, so it must not outlive the group: a later group of the
+    same (world size, rank) would otherwise replay a destroyed one.
+    ``launch.mesh.shutdown`` calls this before it leaves the group."""
+    with _GRAPHS_LOCK:
+        keys = [k for k in _GRAPHS if k[0].mesh_key is not None]
+        if keys and torch.cuda.is_initialized():
+            torch.cuda.synchronize()    # no replay of them is in flight
+        for k in keys:
+            del _GRAPHS[k]
+    return len(keys)
+
+
 class _EpisodeGraph:
     """The slot step of one (statics, bucket, input shapes) on the card,
     captured as CUDA graphs that read and write static buffers: the run's
@@ -729,7 +786,7 @@ class _EpisodeGraph:
                                          for v in (ctx, xs, carry))
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
         rows = xs.trace.shape[0] + 1
-        self.packs = torch.zeros((rows, 2, s.num_cams), device=dev)
+        self.packs = torch.zeros((rows, 2, s.n_local), device=dev)
         self.cpacks = torch.zeros(
             (rows, 4 + (len(EPISODE_CHECKS) if s.checked else 0)),
             device=dev)
@@ -753,9 +810,15 @@ class _EpisodeGraph:
         torch.cuda.current_stream(dev).wait_stream(warm)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         pool = None
+        # a sharded slot gathers over NCCL, whose watchdog thread keeps
+        # querying its events while this thread captures; "thread_local"
+        # confines the capture's checks of unsafe calls to this thread
+        # (the default "global" mode would hold that thread's calls to
+        # them too; it was not tried)
+        mode = "global" if s.mesh is None else "thread_local"
         for name, body in bodies.items():
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool):
+            with torch.cuda.graph(g, pool=pool, capture_error_mode=mode):
                 body()
             pool = g.pool()
             self.graphs[name] = g
@@ -870,14 +933,24 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
                    ref0: Optional[torch.Tensor] = None,
                    live_prev0: Optional[np.ndarray] = None,
                    t_first: Optional[int] = None, pipelined: bool = True,
-                   checked: bool = False) -> EpisodeInputs:
+                   checked: bool = False, mesh=None) -> EpisodeInputs:
     """What ``fleet_episode`` runs, before it runs: the statics (the
     graph key's), the context, the run's per-slot inputs padded to the
     bucket, the carry and T.  ``analysis.programs`` builds its registry
-    from it, so the registry describes the graphs the episode captures."""
+    from it, so the registry describes the graphs the episode captures.
+    With a camera ``mesh`` the fleet pads to the mesh, and
+    ``scene_params`` and ``ref0`` are the rank's rows of it
+    (``synthetic.init_device_scene(..., mesh)``, ``EpisodeOut.ref``)."""
+    if checked and mesh is not None:
+        raise ValueError("checked episodes run unsharded "
+                         "(SystemConfig.checked forces shard='off')")
     N, H, W = (scene_cfg.frames_per_segment, scene_cfg.height,
                scene_cfg.width)
     dev = trace.device
+    c_pad = rules.pad_cameras(num_cams, mesh)
+    n_local = rules.local_count(num_cams, mesh)
+    rules.expect_rows(scene_params.backgrounds, num_cams, mesh,
+                      "scene_params")
     T = int(trace.shape[0])
     T_b = bucket_len(T, buckets)
     live_np = np.ones((T_b, num_cams), bool)
@@ -897,8 +970,9 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
         live=upload(live_np, dev))
     carry = _Carry(
         est=est0,
-        ref=(torch.zeros((num_cams, H, W), dtype=torch.float32, device=dev)
-             if ref0 is None else ref0.to(dev, torch.float32)),
+        ref=(torch.zeros((n_local, H, W), dtype=torch.float32, device=dev)
+             if ref0 is None else rules.expect_rows(
+                 ref0.to(dev, torch.float32), num_cams, mesh, "ref0")),
         live_prev=(torch.ones((num_cams,), dtype=torch.bool, device=dev)
                    if live_prev0 is None else upload(live_prev0, dev, bool)))
     J = len(bitrates)
@@ -923,7 +997,8 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
         num_cams=int(num_cams), eval_frames=int(eval_frames),
         block_size=int(block_size), conf_thresh=float(conf_thresh),
         gt_pad=int(gt_pad), pipelined=bool(pipelined) and not checked,
-        checked=bool(checked))
+        checked=bool(checked), c_pad=int(c_pad),
+        mesh_key=rules.mesh_cache_key(mesh), mesh=mesh)
     return EpisodeInputs(s, ctx, xs, carry, T)
 
 
@@ -952,6 +1027,11 @@ def fleet_episode(method: str, *, _eager: bool = False, **kw
     slot one long episode; the defaults are a standalone run's (zeros,
     all live, ``t_start``).
 
+    ``mesh`` (a camera mesh, ``sharding.rules.camera_mesh``) runs the
+    rank's rows of the fleet padded to the mesh: the returned packs are
+    gathered from every rank and sliced to C (every rank returns the
+    same), ``ref`` is the rank's rows.
+
     On a CUDA device the slot step runs as CUDA graphs (``_EpisodeGraph``)
     and no slot reads the device from the host; on the CPU it runs
     eagerly.  ``_eager`` runs the eager loop on the card too, for
@@ -961,6 +1041,10 @@ def fleet_episode(method: str, *, _eager: bool = False, **kw
            and not _eager else _episode_eager)
     packs, cpacks, carry = run(inp.statics, inp.ctx, inp.xs, inp.carry,
                                inp.T)
+    if inp.statics.mesh is not None:
+        # the harvest's one gather: every rank's (T, 2, n_local) logs
+        packs = rules.gather(packs, inp.statics.mesh,
+                             dim=2)[:, :, :inp.statics.num_cams].contiguous()
     return EpisodeOut(packs=packs, cpacks=cpacks, key=inp.ctx.key0,
                       est=carry.est, ref=carry.ref)
 

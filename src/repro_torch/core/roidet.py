@@ -68,11 +68,21 @@ def roidet_fleet(frames: torch.Tensor, det_params: Dict[str, torch.Tensor],
                  *, block_size: int = 8, motion_thresh: float = MOTION_THRESH,
                  edge_thresh: float = EDGE_THRESH,
                  conf_thresh: float = CONF_THRESH,
-                 max_boxes: int = MAX_BOXES) -> ROIResult:
+                 max_boxes: int = MAX_BOXES, mesh=None) -> ROIResult:
     """Fleet ROIDet: frames (C, N, H, W) -> camera-batched ROIResult (one
     light-detector forward on the 2C first/last frames, one edge-motion
-    launch over every frame pair)."""
+    launch over every frame pair).  With a camera ``mesh``
+    (``sharding.rules``) ``frames`` are the whole fleet's: each rank runs
+    its rows of the padded fleet and every field is gathered and sliced
+    back to C."""
     C = frames.shape[0]
+    if mesh is not None:
+        from repro_torch.sharding import rules
+        res = roidet_fleet(rules.scatter(frames, mesh), det_params,
+                           block_size=block_size, motion_thresh=motion_thresh,
+                           edge_thresh=edge_thresh, conf_thresh=conf_thresh,
+                           max_boxes=max_boxes)
+        return ROIResult(*(rules.gather(x, mesh)[:C] for x in res))
     grid = det.forward(det_params, torch.cat([frames[:, 0], frames[:, -1]]))
     b2, s2, v2 = det.decode_boxes(grid, conf_thresh=conf_thresh)  # (2C, K)
     dboxes = torch.cat([b2[:C], b2[C:]], dim=1)                    # (C, 2K, 4)

@@ -45,8 +45,27 @@ themselves.
 
 Kernels are chosen by tensor device (the kernel for CUDA tensors, the plain
 version for CPU tensors), so the JAX package's ``use_kernels`` has no
-counterpart; nor do ``shard`` and ``donate`` (a camera mesh and buffer
-donation have no meaning on one card).
+counterpart; nor does ``donate`` (the caching allocator reuses the slot's
+buffers).
+
+``SystemConfig.shard`` keeps the JAX package's meaning: ``"auto"`` (the
+default) runs the batched runners on a ("camera",) mesh over every rank of
+the ``torch.distributed`` group when it has two or more
+(``sharding.rules.camera_mesh``: one process per card, started by
+``torchrun``; a single process has no mesh and runs as before), ``"off"``
+never shards, and ``"on"`` shards over the group whatever its size (a
+one-rank group runs every collective of the sharded path).  Under a mesh each rank holds
+its contiguous block of the fleet, padded to a multiple of the world size
+with inert cameras (dead in every liveness row, zero background, no GT),
+and runs every per-camera stage on it; the control step, the one
+cross-camera stage, all-gathers (a, c) and runs replicated, each rank
+slicing its (b, r) rows out; the log packs are gathered before the
+harvest, so every rank returns the same logs.  ``run()`` gathers once per
+slot, the episode once per slot inside its CUDA graphs and once at the
+end; the profiling sweep splits its C*R*2 entries over the ranks and
+gathers each bitrate's F1s (the key chain stays replicated).  The
+sequential runner and ``checked`` runs stay unsharded, as in the JAX
+package.
 
 ``SystemConfig.checked`` is the diagnostics lane: the JAX package's
 checkify invariants, computed on the device as a row of violation flags
@@ -87,6 +106,7 @@ from repro_torch.data.synthetic import (DeviceScene, MultiCameraScene,
 from repro_torch.ft import watchdog as ft_watchdog
 from repro_torch.kernels.edge_motion import ops as em_ops
 from repro_torch.models import detector as det
+from repro_torch.sharding import rules
 
 METHODS = ("deepstream", "deepstream_no_elastic", "jcab", "reducto",
            "static")
@@ -130,6 +150,10 @@ class SystemConfig:
     weights: Optional[np.ndarray] = None      # lambda_i (default: ones)
     eval_frames: int = 4                      # frames scored per segment
     batched: bool = True                      # fleet slot loop vs per camera
+    # "auto": a camera mesh over the torch.distributed group when it has
+    # > 1 rank; "on": over the group whatever its size (one rank too);
+    # "off": never sharded
+    shard: str = "auto"
     pipeline: bool = True                     # deferred-harvest slot loop
     alloc: str = "device"                     # control loop: "device" | "host"
     episode: bool = False                     # run() goes to run_episode()
@@ -151,6 +175,12 @@ class SystemConfig:
         if self.alloc not in ("device", "host"):
             raise ValueError(f"alloc must be 'device' or 'host': "
                              f"{self.alloc!r}")
+        if self.shard not in ("auto", "on", "off"):
+            raise ValueError(f"shard must be 'auto', 'on' or 'off': "
+                             f"{self.shard!r}")
+        if self.checked:
+            # the diagnostics lane runs unsharded, as in the JAX package
+            self.shard = "off"
         if self.episode:
             if not self.batched:
                 raise ValueError("episode mode requires batched=True")
@@ -175,19 +205,34 @@ class EpisodeCarry(NamedTuple):
     fold of the run key) and the scene (pure in seed and cursor) need no
     carry.  ``t_first`` is the stream's first global slot: reducto
     force-keeps frame 0 only there, so later windows keep the reference
-    the carry hands them."""
+    the carry hands them.  Under a camera mesh ``ref`` holds the rank's
+    rows of the padded fleet (a checkpoint's whole fleet is split on
+    restore)."""
     est: ElasticState            # device elastic EMA / variance / debt
-    ref: torch.Tensor            # (C, H, W) reducto reference frames
+    ref: torch.Tensor            # (n_local, H, W) reducto references
     live_prev: np.ndarray        # (C,) bool last served liveness row
     t_first: int                 # stream-origin slot index
 
 
 class DeepStreamSystem:
+    """The fleet's entry point (see the module docstring).  ``mesh`` is
+    the camera mesh ``cfg.shard`` chose (``rules.camera_mesh``; None when
+    unsharded, and always for a sequential system).  A sharded system
+    serves a ``DeviceScene`` built on its mesh
+    (``DeviceScene(cfg, mesh=system.mesh)``)."""
+
     def __init__(self, cfg: SystemConfig, light_params: Dict[str, Any],
                  server_params: Dict[str, Any], mlp_params=None, *,
                  device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = None
+        if cfg.batched and cfg.shard != "off":
+            self.mesh = rules.camera_mesh(
+                min_devices=1 if cfg.shard == "on" else 2)
+            if self.mesh is None and cfg.shard == "on":
+                raise ValueError("shard='on' needs a torch.distributed "
+                                 "group (launch.mesh.init_distributed)")
         to_dev = lambda p: (None if p is None else
                             {k: torch.as_tensor(v).to(self.device)
                              for k, v in p.items()})
@@ -234,9 +279,40 @@ class DeepStreamSystem:
     # -- camera side ----------------------------------------------------------
 
     def camera_features(self, frames: torch.Tensor) -> roidet_mod.ROIResult:
-        """frames (C, N, H, W) -> the fleet ROIDet result (no sync)."""
+        """frames (C, N, H, W) -> the fleet ROIDet result (no sync), each
+        rank running its rows under a camera mesh."""
         return roidet_mod.roidet_fleet(frames, self.light,
-                                       block_size=self.cfg.block_size)
+                                       block_size=self.cfg.block_size,
+                                       mesh=self.mesh)
+
+    def _local_features(self, frames: torch.Tensor):
+        """The rank's frames (n_local, N, H, W) -> (its ROI masks, the
+        whole fleet's (a, c), (C,) each): ROIDet on the rank's rows, then
+        one gather of (a, c) under a camera mesh."""
+        roi = roidet_mod.roidet_fleet(frames, self.light,
+                                      block_size=self.cfg.block_size)
+        a, c = roi.area_ratio, roi.confidence
+        if self.mesh is not None:
+            a, c = rules.gather(torch.stack([a, c]), self.mesh,
+                                dim=1)[:, :self.cfg.scene.num_cameras]
+        return roi.mask, a, c
+
+    def _segment(self, scene) -> Dict:
+        """The scene's next segment, under a camera mesh the rank's rows:
+        a DeviceScene's (built on the mesh, it holds only those), a host
+        scene's rendered whole (its draws are the fleet's) and sliced, an
+        inert padding camera black and without boxes."""
+        if self.mesh is None or isinstance(scene, DeviceScene):
+            return scene.segment()
+        seg = scene.segment()
+        fr = seg["frames"]
+        C, N = fr.shape[:2]
+        lo, hi = rules.camera_rows(C, self.mesh)
+        pad = rules.pad_cameras(C, self.mesh) - C
+        frames = np.concatenate([fr, np.zeros((pad,) + fr.shape[1:],
+                                              fr.dtype)])[lo:hi]
+        boxes = (list(seg["boxes"]) + [[[] for _ in range(N)]] * pad)[lo:hi]
+        return {"frames": frames, "t": seg["t"], "boxes": boxes}
 
     # -- sequential path: one camera at a time --------------------------------
 
@@ -493,8 +569,10 @@ class DeepStreamSystem:
         B = C*R*2 entries laid out (camera, resolution, masked/full).  The
         slot's GT is padded and uploaded once and repeated on the device.
         Keys: C*J*R*2 of the split chain, reshaped (C, J, R, 2), the order
-        of the sequential branch's nesting.  Returns (masked_f1, full_f1),
-        each (C, J, R)."""
+        of the sequential branch's nesting.  Under a camera mesh each rank
+        runs its block of the B entries (padded to the mesh) and each
+        bitrate's F1s are gathered; the key chain is drawn whole on every
+        rank.  Returns (masked_f1, full_f1), each (C, J, R)."""
         cfgc = self.cfg.codec
         C, N = frames.shape[:2]
         J = len(cfgc.bitrates_kbps)
@@ -510,13 +588,24 @@ class DeepStreamSystem:
         gtb, gtv = fleet_mod.pad_gt_all(seg["boxes"], N, G=self._G)
         gt_b = (upload(gtb, dev).repeat_interleave(R * 2, dim=0),
                 upload(gtv, dev).repeat_interleave(R * 2, dim=0))
+        # this rank's entries (all of them when unsharded)
+        mesh = self.mesh
+        rows = lambda x, fill=0: rules.scatter(x, mesh, fill)
+        frames_l, masks_l, r_l = (rows(frames_b), rows(masks_b, True),
+                                  rows(r_b, 1.0))
+        gt_l = (rows(gt_b[0]), rows(gt_b[1], False))
+        live_l = rows(torch.ones((B,), dtype=torch.bool, device=dev), False)
+        n_l = frames_l.shape[0]
         masked_f1 = np.zeros((C, J, R), np.float32)
         full_f1 = np.zeros((C, J, R), np.float32)
         for j, b in enumerate(cfgc.bitrates_kbps):
-            f1f, _, _ = self.fleet_encode_eval(
-                frames_b, None, masks_b,
-                torch.full((B,), float(b), dtype=torch.float32, device=dev),
-                r_b, keys=keyseq[:, j].reshape(B, 2), gt_dev=gt_b)
+            out = self._slot_dispatch(
+                frames_l, None, masks_l,
+                torch.full((n_l,), float(b), dtype=torch.float32,
+                           device=dev),
+                r_l, keys=rows(keyseq[:, j].reshape(B, 2)), live=live_l,
+                tables=self._tables, gt_dev=gt_l)
+            f1f = rules.gather(out.f1_frames, mesh)[:B].cpu().numpy()
             f1 = f1f.mean(axis=1).reshape(C, R, 2)
             masked_f1[:, j] = f1[:, :, 0]
             full_f1[:, j] = f1[:, :, 1]
@@ -528,7 +617,7 @@ class DeepStreamSystem:
         threaded through ``self._reducto_ref``; ``first`` (C,) bool marks
         cameras that seed the reference from frame 0 (run start,
         reconnect)."""
-        C, _, H, W = frames.shape
+        C, _, H, W = frames.shape       # C: the rank's rows under a mesh
         if self._reducto_ref is None:
             self._reducto_ref = torch.zeros((C, H, W), dtype=torch.float32,
                                             device=frames.device)
@@ -583,11 +672,12 @@ class DeepStreamSystem:
         the elastic -> utility -> allocation step directly; ``live`` (C,)
         and ``reconnect`` (0-d) are device tensors, ``tables`` the run's
         codec tables.  Returns (b, r, masks, control pack), all tensors;
-        the elastic state threads through ``ctx``."""
+        the elastic state threads through ``ctx``.  Under a camera mesh
+        ``frames`` and ``masks`` are the rank's rows, (a, c) are gathered
+        and (b, r) and the pack are the whole fleet's."""
         a = c = masks = None
         if method in ("deepstream", "deepstream_no_elastic"):
-            roi = self.camera_features(frames)
-            masks, a, c = roi.mask, roi.area_ratio, roi.confidence
+            masks, a, c = self._local_features(frames)
         cfgc = self.cfg.codec
         co = fleet_mod.fleet_control_step(
             self.mlp if a is not None else None, ctx["jcab_util"],
@@ -612,7 +702,8 @@ class DeepStreamSystem:
         packed (a, c) fetch) -> float64 elastic -> host allocation.  Dead
         cameras leave the area signal and every allocator; ``reconnect``
         clears the elastic debt first.  Returns (b, r, masks, extra, area,
-        alloc_kbps, est)."""
+        alloc_kbps, est); under a camera mesh ``frames`` and ``masks`` are
+        the rank's rows and (a, c) are gathered before their fetch."""
         cfgc = self.cfg.codec
         lam = self.cfg.lam()
         C = self.cfg.scene.num_cameras
@@ -621,9 +712,8 @@ class DeepStreamSystem:
         masks = None
         extra = area = 0.0
         if method in ("deepstream", "deepstream_no_elastic"):
-            roi = self.camera_features(frames)
-            ac = _d2h(torch.stack([roi.area_ratio, roi.confidence]),
-                      "control")
+            masks, a, c = self._local_features(frames)
+            ac = _d2h(torch.stack([a, c]), "control")
             a, c = ac[0], ac[1]
             area = float(a[live].sum())
             if use_elastic:
@@ -636,7 +726,6 @@ class DeepStreamSystem:
             al = alloc.allocate_dp_host(util, best_res, bitrates,
                                         max(W_t + extra, 0.0), live=live,
                                         device=self.device)
-            masks = roi.mask
         elif method == "jcab":
             util, best_res = self._jcab_utility_table()
             al = alloc.allocate_dp_host(util, best_res, bitrates, W_t,
@@ -669,6 +758,11 @@ class DeepStreamSystem:
         if scene.device != self.device:
             raise ValueError(f"scene lives on {scene.device}, the system on "
                              f"{self.device}")
+        if rules.mesh_cache_key(scene.mesh) != rules.mesh_cache_key(
+                self.mesh):
+            raise ValueError(
+                "the scene was built on another camera mesh than the "
+                "system's: build it with DeviceScene(cfg, mesh=system.mesh)")
         if scene.G != self._G:
             raise ValueError(f"scene GT capacity {scene.G} != {self._G}")
 
@@ -717,10 +811,13 @@ class DeepStreamSystem:
         the run as it seeds ``run_episode``, and every device-control run
         records ``last_carry``.  A checked run reads each slot's flags
         with its control pack (host control: one more fetch) and raises
-        at that slot's harvest."""
+        at that slot's harvest.  Under a camera mesh each rank runs its
+        rows and the slot's (2, C) pack is gathered before its harvest."""
         lam = self.cfg.lam()
         C = self.cfg.scene.num_cameras
         dev = self.device
+        mesh = self.mesh
+        lo, hi = rules.camera_rows(C, mesh)
         device_ctrl = self.cfg.alloc == "device"
         if carry is not None and not device_ctrl:
             raise ValueError("carry-seeded runs need alloc='device' (the "
@@ -732,15 +829,15 @@ class DeepStreamSystem:
         if carry is not None:
             ctx["est"] = carry.est
         tables = self._tables
-        cam_ids = torch.arange(C, device=dev)
+        cam_ids = torch.arange(lo, hi, device=dev)
         logs: Dict[str, List[float]] = {k: [] for k in LOG_KEYS}
         checked = self.cfg.checked
         checks = ((fleet_mod.CONTROL_CHECKS if device_ctrl else ())
                   + fleet_mod.SLOT_CHECKS)
 
         def harvest(item) -> None:
-            out, cpack = item
-            pack = _d2h(out.host_pack, "harvest")
+            pack, flags, cpack = item
+            pack = _d2h(pack, "harvest")
             logs["utility"].append(float(np.dot(lam, pack[0])))
             logs["mean_f1"].append(float(np.mean(pack[0])))
             logs["bytes"].append(float(np.sum(pack[1])))
@@ -751,11 +848,12 @@ class DeepStreamSystem:
                 logs["alloc_kbps"].append(float(cp[2]))
                 flags = cp[4:]
             elif checked:
-                flags = _d2h(out.flags, "harvest")
+                flags = _d2h(flags, "harvest")
             if checked:
                 fleet_mod.raise_failed(flags[None], checks)
 
-        self._reducto_ref = None if carry is None else carry.ref
+        self._reducto_ref = (None if carry is None else rules.expect_rows(
+            carry.ref, C, mesh, "carry.ref"))
         # the liveness mask goes up once per run; per slot the fault
         # signals are derived on the device (host control reads the mask)
         live_np = (np.ones((len(trace_kbps), C), bool) if faults is None
@@ -767,7 +865,7 @@ class DeepStreamSystem:
         pending = None
         for t in range(len(trace_kbps)):
             W_t = float(trace_kbps[t])
-            seg = scene.segment()
+            seg = self._segment(scene)
             # a DeviceScene's frames and padded GT are on the device; a host
             # scene's frames go up here once and its GT in the dispatch
             frames = self._frames_of(seg)
@@ -779,6 +877,8 @@ class DeepStreamSystem:
                 b, r, masks, cpack = self._slot_control_device(
                     method, frames, t, ctx, use_elastic, live=live_t,
                     reconnect=reconnect.any(), tables=tables)
+                b = rules.scatter(b, mesh, 1.0)
+                r = rules.scatter(r, mesh, 1.0)
             else:
                 rejoin = t > 0 and bool((live_np[t] & ~live_np[t - 1]).any())
                 b, r, masks, extra, area, alloc_kbps, est = \
@@ -789,34 +889,42 @@ class DeepStreamSystem:
                 logs["extra"].append(extra)
                 logs["area"].append(area)
                 logs["alloc_kbps"].append(alloc_kbps)
+                if mesh is not None:    # the rank's rows of the allocation
+                    b, r = (rules.scatter(torch.from_numpy(np.asarray(x)),
+                                          mesh, 1.0) for x in (b, r))
             keep = None
             if method == "reducto":
                 # a carried run's reference is live: only reconnecting
                 # cameras re-seed it
                 keep = self._reducto_keep(
-                    frames, reconnect | (t == 0 and carry is None))
+                    frames, rules.scatter(reconnect, mesh, False)
+                    | (t == 0 and carry is None))
             out = self._slot_dispatch(
                 frames, None if gt_dev is not None else seg["boxes"], masks,
-                b, r, keys=keys, live=live_t, tables=tables, keep=keep,
-                gt_dev=gt_dev, checked=checked)
+                b, r, keys=keys, live=rules.scatter(live_t, mesh, False),
+                tables=tables, keep=keep, gt_dev=gt_dev, checked=checked)
             if checked and cpack is not None:
                 cpack = torch.cat([cpack, out.flags])
+            # the slot's logs from every rank, sliced to the fleet
+            item = (rules.gather(out.host_pack, mesh,
+                                 dim=1)[:, :C].contiguous(), out.flags, cpack)
             live_prev = live_t
             logs["W"].append(W_t)
             if pending is not None:
                 harvest(pending)
             if self.cfg.pipeline:
-                pending = (out, cpack)
+                pending = item
             else:
-                harvest((out, cpack))
+                harvest(item)
         if pending is not None:
             harvest(pending)
         if device_ctrl:
             ref = self._reducto_ref
             if ref is None:     # non-reducto: the reference passes through
                 ref = (carry.ref if carry is not None else torch.zeros(
-                    (C, self.cfg.scene.height, self.cfg.scene.width),
-                    dtype=torch.float32, device=dev))
+                           (hi - lo, self.cfg.scene.height,
+                            self.cfg.scene.width),
+                           dtype=torch.float32, device=dev))
             self.last_carry = EpisodeCarry(
                 est=ctx["est"], ref=ref,
                 live_prev=(live_np[-1].copy() if len(trace_kbps)
@@ -900,7 +1008,8 @@ class DeepStreamSystem:
             server_params=self.server, light_params=self.light,
             mlp_params=self.mlp if deep else None,
             jcab_util=ctx["jcab_util"], jcab_res=ctx["jcab_res"],
-            lam=ctx["lam"], scene_params=scene.params, trace=ctx["trace"],
+            lam=ctx["lam"], scene_params=scene.params,
+            trace=ctx["trace"],
             key0=self._key, skey=scene.key, tau_wl=ctx["tau_wl"],
             tau_wh=ctx["tau_wh"], est0=ctx["est"], ecfg=self.cfg.elastic,
             bitrates=tuple(self.cfg.codec.bitrates_kbps),
@@ -913,7 +1022,8 @@ class DeepStreamSystem:
             ref0=None if carry is None else carry.ref,
             live_prev0=None if carry is None else carry.live_prev,
             t_first=None if carry is None else carry.t_first,
-            pipelined=self.cfg.episode_pipelined, checked=self.cfg.checked)
+            pipelined=self.cfg.episode_pipelined, checked=self.cfg.checked,
+            mesh=self.mesh)
 
     def _episode_dispatch(self, scene: DeviceScene, trace_kbps: np.ndarray,
                           method: str, use_elastic: Optional[bool] = None,
@@ -999,7 +1109,12 @@ class EpisodeSupervisor:
     degraded rung climb one back.  Every rung change rebaselines the
     watchdog.  Every decision is appended to ``events``.
     ``fault_hook(attempt=, mode=)`` runs before each dispatch; raising
-    from it fails that attempt."""
+    from it fails that attempt.
+
+    Under a camera mesh every rank runs the supervisor and each rung
+    issues its own collectives, so the ranks agree (``rules.agree``) on
+    each attempt's outcome and wall time and all retry, degrade and
+    recover together (``_attempt``)."""
 
     LADDER_EPISODE = ("episode", "episode_chunked", "pipelined")
 
@@ -1036,19 +1151,15 @@ class EpisodeSupervisor:
             for attempt in range(self.cfg.max_retries + 1):
                 if attempt and self.cfg.backoff_s > 0.0:
                     time.sleep(self.cfg.backoff_s * (2.0 ** (attempt - 1)))
-                t0 = time.perf_counter()
-                try:
-                    if self.fault_hook is not None:
-                        self.fault_hook(attempt=attempt, mode=mode)
-                    logs = self._dispatch(mode, scene, trace_kbps, method,
-                                          use_elastic, faults)
-                except Exception as e:   # the retry boundary
-                    last_err = e
+                logs, err, wall = self._attempt(
+                    mode, attempt, (scene, trace_kbps, method, use_elastic,
+                                    faults))
+                if err is not None:     # the retry boundary
+                    last_err = err
                     self.events.append({"kind": "retry", "mode": mode,
                                         "attempt": attempt,
-                                        "error": repr(e)})
+                                        "error": repr(err)})
                     continue
-                wall = time.perf_counter() - t0
                 self._step += 1
                 verdict = self.watchdog.record(self._step, wall)
                 self.events.append({"kind": "ok", "mode": mode,
@@ -1090,6 +1201,36 @@ class EpisodeSupervisor:
             f"supervised run failed at every mode rung (last mode "
             f"{self.mode!r}, {self.cfg.max_retries} retries each)"
         ) from last_err
+
+    def _attempt(self, mode: str, attempt: int, args: tuple
+                 ) -> Tuple[Optional[Dict[str, np.ndarray]],
+                            Optional[BaseException], float]:
+        """One attempt at ``mode``: (logs, None, wall) or (None, error,
+        wall).  Unsharded, what the hook and the dispatch did.  Under a
+        camera mesh the ranks agree twice: after the fault hook, so that
+        a hook failing on one rank fails the attempt on every rank before
+        any collective; and after the dispatch, on whether any rank
+        failed and on the slowest rank's wall.  A dispatch failing on
+        every rank alike (an argument check) is then retried together; a
+        rank failing alone inside a collective leaves the others waiting
+        in it until the group's timeout ends the job."""
+        mesh, dev = self.system.mesh, self.system.device
+        t0 = time.perf_counter()
+        logs = err = None
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook(attempt=attempt, mode=mode)
+        except Exception as e:
+            err = e
+        err, _ = rules.agree(err, (), mesh, dev)
+        if err is None:
+            try:
+                logs = self._dispatch(mode, *args)
+            except Exception as e:
+                err = e
+        err, (wall,) = rules.agree(err, (time.perf_counter() - t0,), mesh,
+                                   dev)
+        return (None if err is not None else logs), err, float(wall)
 
     def _dispatch(self, mode: str, scene, trace_kbps: np.ndarray, method: str,
                   use_elastic: Optional[bool],

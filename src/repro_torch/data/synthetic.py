@@ -196,9 +196,16 @@ class DeviceSceneParams(NamedTuple):
                                 #   w, h, val, phase, period, ttl]
 
 
-def init_device_scene(cfg: SceneConfig, device) -> DeviceSceneParams:
+def init_device_scene(cfg: SceneConfig, device, mesh=None
+                      ) -> DeviceSceneParams:
     """Draw the scene geometry once on the host (numpy, the JAX package's
-    seed discipline) and place it on ``device``."""
+    seed discipline) and place it on ``device``.  With a camera ``mesh``
+    the whole fleet is drawn (the draws' order is the fleet's) and only
+    this rank's rows of its padded form go up (``scene_rows``)."""
+    if mesh is not None:
+        host = init_device_scene(cfg, "cpu")
+        return DeviceSceneParams(*(x.to(device) for x in scene_rows(
+            host, mesh, cfg.num_cameras)))
     rng = np.random.default_rng(cfg.seed)
     C, H, W = cfg.num_cameras, cfg.height, cfg.width
     backgrounds = np.zeros((C, H, W), np.float32)
@@ -243,6 +250,40 @@ def init_device_scene(cfg: SceneConfig, device) -> DeviceSceneParams:
         objects=t(objects))
 
 
+def pad_scene_params(params: DeviceSceneParams, c_pad: int
+                     ) -> DeviceSceneParams:
+    """Pad the camera axis to ``c_pad`` with inert cameras (zero
+    background, invalid stationary GT, fresh global cam ids); the object
+    pool is shared world state and stays as it is."""
+    from repro_torch.sharding.rules import pad_leading
+    C = params.backgrounds.shape[0]
+    if c_pad == C:
+        return params
+    return DeviceSceneParams(
+        backgrounds=pad_leading(params.backgrounds, c_pad),
+        stat_boxes=pad_leading(params.stat_boxes, c_pad),
+        stat_valid=pad_leading(params.stat_valid, c_pad, False),
+        offsets=pad_leading(params.offsets, c_pad),
+        lags=pad_leading(params.lags, c_pad),
+        cam_ids=torch.arange(c_pad, dtype=params.cam_ids.dtype,
+                             device=params.cam_ids.device),
+        objects=params.objects)
+
+
+def scene_rows(params: DeviceSceneParams, mesh, num_cams: int
+               ) -> DeviceSceneParams:
+    """This rank's rows of an n-camera scene's whole-fleet params (padded
+    to the mesh, then sliced; the object pool is shared); the params
+    themselves when unsharded."""
+    from repro_torch.sharding import rules
+    if mesh is None:
+        return params
+    lo, hi = rules.camera_rows(num_cams, mesh)
+    params = pad_scene_params(params, rules.pad_cameras(num_cams, mesh))
+    return DeviceSceneParams(*(x[lo:hi] for x in params[:-1]),
+                             params.objects)
+
+
 def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
                     key: torch.Tensor, t, *, gt_pad: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -250,7 +291,9 @@ def segments_device(cfg: SceneConfig, params: DeviceSceneParams,
     (C, N, G, 4), gt_valid (C, N, G)); G = ``gt_pad`` holds the stationary
     boxes then the object pool, invalid entries zeroed.  ``t`` is a Python
     int or a 0-d integer tensor on the params' device (the episode's slot
-    index): either way nothing goes between host and device."""
+    index): either way nothing goes between host and device.  C comes
+    from ``params``: a rank's rows of a camera mesh (``scene_rows``) make
+    that rank's frames."""
     C = params.backgrounds.shape[0]
     N, H, W = cfg.frames_per_segment, cfg.height, cfg.width
     K, S = params.objects.shape[0], params.stat_boxes.shape[1]
@@ -358,12 +401,15 @@ class DeviceScene:
     """A scene's device params, base key and slot cursor (``_t``), the
     counterpart of ``repro.data.synthetic.DeviceScene``.  ``segment()``
     yields slot ``_t`` and advances the cursor; its frames are bitwise what
-    ``fleet_episode`` synthesises for the same (seed, t)."""
+    ``fleet_episode`` synthesises for the same (seed, t).  With a camera
+    ``mesh`` (``sharding.rules.camera_mesh``) the params hold this rank's
+    rows of the padded fleet only, and a segment is those rows."""
 
-    def __init__(self, cfg: SceneConfig, device=None):
+    def __init__(self, cfg: SceneConfig, device=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = init_device_scene(cfg, self.device)
+        self.mesh = mesh
+        self.params = init_device_scene(cfg, self.device, mesh)
         self.key = prng.PRNGKey(cfg.seed, device=self.device)
         K = self.params.objects.shape[0]
         S = self.params.stat_boxes.shape[1]

@@ -132,11 +132,19 @@ class PreemptionCheckpointer:
     def __exit__(self, *exc) -> None:
         self.close()
 
-    def maybe_save(self, step: int) -> bool:
-        if self.preempted or (step % self.every == 0 and step != self.last_saved):
+    def maybe_save(self, step: int, preempted: Optional[bool] = None
+                   ) -> bool:
+        """Save at every ``every``-th step and, when preempted, save now
+        and exit.  ``preempted`` (default: the signal's flag as it reads
+        now) lets a caller decide on a flag read once and agreed with
+        other processes: a signal landing after that read waits for the
+        next step."""
+        if preempted is None:
+            preempted = self.preempted
+        if preempted or (step % self.every == 0 and step != self.last_saved):
             self.save_fn(step)
             self.last_saved = step
-            if self.preempted:
+            if preempted:
                 # conventional 128+signum exit status (143 for SIGTERM)
                 raise SystemExit(128 + (self.preempt_signum
                                         or signal.SIGTERM))

@@ -20,7 +20,7 @@ checkpoint and goes on)::
         [--device cpu] --stream-slots 64 --window-slots 8 \
         --method deepstream --ckpt-dir artifacts/serve_ckpt --ckpt-keep 8
 
-The fleet is the JAX launcher's: ``SceneConfig(seed=33)`` (3 cameras,
+The fleet is the JAX launcher's: ``SceneConfig(seed=33)`` (5 cameras,
 96 x 160, 10 frames a segment), ``eval_frames=3``, the capacity pinned at
 8000 Kbps, the committed detectors (``artifacts/detector_{light,
 server}``), the utility MLP of ``init_utility_mlp(PRNGKey(0))``,
@@ -30,6 +30,18 @@ line-protocol file and ``--source HOST:PORT`` reads the protocol over TCP
 (``serve.ingest``: quarantine, slot sequencing, read backoff), one
 ``"<t> <kbps> <live-bits>"`` record per slot.  Without ``--device`` both
 modes run on the card and raise if there is none.
+
+The fleet stream over several cards, one process per card, each serving
+its block of the camera mesh (``sharding.rules``; rank 0 alone prints
+and writes the checkpoints, which restore at any world size)::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --fleet-stream --stream-slots 64 \
+        --ckpt-dir artifacts/serve_ckpt
+
+Under ``torchrun`` the mesh spans every rank, one rank included (a
+one-card mesh exercises the collectives); ``--num-cameras`` sets the
+fleet (5 by default).
 """
 from __future__ import annotations
 
@@ -54,12 +66,21 @@ def run_fleet_stream(args) -> None:
     from repro_torch.serve import ingest as ingest_mod
     from repro_torch.serve.stream import StreamConfig, StreamingFleetRunner
 
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.sharding import rules
+
+    launched = mesh_mod.under_launcher()
+    if launched:
+        mesh_mod.init_distributed("cpu" if args.device == "cpu" else "cuda")
     dev = resolve_device(args.device)
-    scene_cfg = SceneConfig(seed=33)
+    scene_cfg = SceneConfig(seed=33, num_cameras=args.num_cameras)
     sys_cfg = SystemConfig(scene=scene_cfg, episode=True, eval_frames=3,
-                           w_cap_kbps=8000.0)
+                           w_cap_kbps=8000.0,
+                           shard="on" if launched else "auto")
     system = DeepStreamSystem(sys_cfg, load_detector("light", dev),
                               load_detector("server", dev), device=dev)
+    mesh = system.mesh
+    say = print if rules.is_writer(mesh) else (lambda *a, **k: None)
     system.mlp = util_mod.init_utility_mlp(prng.PRNGKey(0, device=dev))
     system.tau_wl, system.tau_wh = 10.0, 50.0
     system.jcab_table = np.linspace(0.2, 0.8, 18).reshape(6, 3).astype(
@@ -67,13 +88,14 @@ def run_fleet_stream(args) -> None:
     trace, live = make_soak_stream(args.stream_slots,
                                    num_cams=scene_cfg.num_cameras)
     runner = StreamingFleetRunner(
-        system, DeviceScene(scene_cfg, device=dev), method=args.method,
+        system, DeviceScene(scene_cfg, device=dev, mesh=mesh),
+        method=args.method,
         cfg=StreamConfig(window_slots=args.window_slots,
                          ckpt_dir=args.ckpt_dir, ckpt_keep=args.ckpt_keep,
                          install_signal=args.ckpt_dir is not None))
     with runner:
         if runner.restore():
-            print(f"# restored window={runner.window} t_next={runner.t_next}")
+            say(f"# restored window={runner.window} t_next={runner.t_next}")
         if args.source:
             if args.source.startswith("file:"):
                 src = ingest_mod.FileTailSource(args.source[len("file:"):])
@@ -90,8 +112,10 @@ def run_fleet_stream(args) -> None:
                                   faults=live[t:t + args.window_slots])
                 runner.serve()
             runner.serve(flush=True)
-        print({k: round(v, 4) if isinstance(v, float) else v
-               for k, v in runner.stats().items()})
+        say({k: round(v, 4) if isinstance(v, float) else v
+             for k, v in runner.stats().items()})
+    if launched:
+        mesh_mod.shutdown()
 
 
 def run_lm(args) -> None:
@@ -134,6 +158,8 @@ def main(argv=None) -> None:
     ap.add_argument("--stream-slots", type=int, default=64)
     ap.add_argument("--window-slots", type=int, default=8)
     ap.add_argument("--method", default="deepstream")
+    ap.add_argument("--num-cameras", type=int, default=5,
+                    help="cameras of the fleet stream")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-keep", type=int, default=None,
                     help="retention: keep the newest N checkpoint "

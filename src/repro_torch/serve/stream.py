@@ -33,7 +33,21 @@ an unbounded bandwidth/liveness stream through the episodes a
     same carry chain, so a rung change moves latency, never the logs.
 
 Per window the host waits on the card at the episode's harvest and, when
-the window checkpoints, once more for the snapshot; nothing else.
+the window checkpoints, once more for the snapshot; under a camera mesh
+also at the two agreements; nothing else.
+
+Under a camera mesh (the system's, ``sharding.rules``) every rank runs
+the same runner over its rows of the fleet and holds the same logs.  The
+checkpoint holds the whole fleet's (C, H, W) reducto reference, as the
+JAX package's does: the ranks gather it at the window boundary and rank 0
+alone writes.  Every rank restores from the files, at any world size or
+with no mesh, and takes its rows.  Each rung and each checkpoint issues
+its own collectives, so every rank must take the same branch: the ranks
+agree (``rules.agree``, one MAX all-reduce) before each window on whether
+a fault hook failed on any rank (then every rank raises and restores),
+and after it on the slowest rank's turnaround, which the watchdog reads,
+and on any rank's preemption flag, which ``maybe_save`` reads.  A signal
+that lands after the agreement is taken at the next boundary.
 
 Window lifecycle::
 
@@ -63,6 +77,7 @@ from repro_torch.core import elastic as elastic_mod
 from repro_torch.core import fleet as fleet_mod
 from repro_torch.core.scheduler import DeepStreamSystem, EpisodeCarry
 from repro_torch.data.synthetic import DeviceScene
+from repro_torch.sharding import rules
 from repro_torch.ft.watchdog import (PreemptionCheckpointer, Watchdog,
                                      WatchdogConfig)
 
@@ -240,17 +255,23 @@ class StreamingFleetRunner:
 
     def _serve_window(self, n: int) -> None:
         W, live = self._take(n)
+        mesh = self.system.mesh
         t0 = time.perf_counter()
-        if self.fault_hook is not None:
-            self.fault_hook(window=self.window, rung=self.rung)
-        if self.chaos is not None:
-            # consumed-once: a recovered runner re-serving this window
-            # does not crash again
-            self.chaos.pre_window(self.window)
+        self._pre_window()
         logs = self._dispatch_window(W, live)
         wall = time.perf_counter() - t0
         if self.wall_hook is not None:
             wall = self.wall_hook(self.window, wall)
+        preempted = None
+        if mesh is not None:
+            # the slowest rank's turnaround and any rank's preemption,
+            # read once: every rank takes the same rung and saves alike
+            _, (wall, flag) = rules.agree(
+                None, (wall, self.checkpointer.preempted), mesh,
+                self.system.device)
+            wall, preempted = float(wall), bool(flag)
+            if preempted:
+                self.checkpointer.preempted = True
         self.carry = self.system.last_carry
         for k in LOG_KEYS:
             self.logs[k].extend(float(v) for v in logs[k])
@@ -258,7 +279,30 @@ class StreamingFleetRunner:
         self.window_walls.append(wall)
         self._supervise(wall)
         if self.cfg.ckpt_dir is not None:
-            self.checkpointer.maybe_save(self.window)
+            self.checkpointer.maybe_save(self.window, preempted=preempted)
+
+    def _pre_window(self) -> None:
+        """The window's fault hooks.  Under a camera mesh a hook that
+        raises on one rank raises on every rank (the others a
+        RuntimeError naming it) before any collective of the window, so
+        the ranks crash, and restore, together."""
+        mesh = self.system.mesh
+        err = None
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook(window=self.window, rung=self.rung)
+            if self.chaos is not None:
+                # consumed-once: a recovered runner re-serving this window
+                # does not crash again
+                self.chaos.pre_window(self.window)
+        except Exception as e:
+            if mesh is None:
+                raise
+            err = e
+        if mesh is not None:
+            err, _ = rules.agree(err, (), mesh, self.system.device)
+            if err is not None:
+                raise err
 
     def _dispatch_window(self, W: np.ndarray, live: np.ndarray
                          ) -> Dict[str, np.ndarray]:
@@ -321,9 +365,14 @@ class StreamingFleetRunner:
 
     def _carry_tree(self) -> Dict[str, Any]:
         """The checkpointed tree under the JAX package's leaf names: the
-        carry and the codec run key (the rest is host metadata, or pure)."""
+        carry and the codec run key (the rest is host metadata, or pure).
+        The reference is the whole fleet's (C, H, W): under a camera mesh
+        it is gathered from every rank (a collective)."""
         c = self.carry
-        return {"est": c.est, "ref": c.ref,
+        mesh = self.system.mesh
+        ref = (c.ref if mesh is None
+               else rules.gather(c.ref, mesh)[:self._C])
+        return {"est": c.est, "ref": ref,
                 "live_prev": np.asarray(c.live_prev, bool),
                 "key": self.system._key}
 
@@ -344,8 +393,12 @@ class StreamingFleetRunner:
     def _checkpoint(self, window: int) -> None:
         """The carry's checkpoint at a window boundary: one snapshot on
         this thread, then an async write (blocking when preempted: the
-        process is about to exit)."""
+        process is about to exit).  Under a camera mesh every rank takes
+        part in the gather and rank 0 alone writes."""
         if self.carry is None:
+            return
+        tree = self._carry_tree()
+        if not rules.is_writer(self.system.mesh):
             return
         meta = {"window": window, "t_next": int(self.t_next),
                 "t_first": int(self.carry.t_first), "rung": self.rung,
@@ -358,7 +411,7 @@ class StreamingFleetRunner:
                 "out_of_order": self.out_of_order,
                 "logs": {k: list(v) for k, v in self.logs.items()}}
         # the file holds the run key as the JAX package does: uint32
-        self.saver.save(self._carry_tree(), self._ckpt_path(window),
+        self.saver.save(tree, self._ckpt_path(window),
                         step=window, metadata=meta,
                         blocking=self.checkpointer.preempted,
                         dtypes={"['key']": np.uint32})
@@ -370,7 +423,9 @@ class StreamingFleetRunner:
         failed.  Rebuilds the carry, the run key, the scene cursor, the
         logs, the counters and the rung; the caller re-offers the stream
         from ``t_next``.  The restored carry re-enters the graphs the
-        process already captured."""
+        process already captured.  Under a camera mesh each rank reads the
+        files and takes its rows of the reference, whatever world wrote
+        them."""
         if self.cfg.ckpt_dir is None:
             return False
         t0 = time.perf_counter()
@@ -387,7 +442,8 @@ class StreamingFleetRunner:
             return False
         self.system._key = tree["key"]
         self.carry = EpisodeCarry(
-            est=tree["est"], ref=tree["ref"],
+            est=tree["est"],
+            ref=rules.scatter(tree["ref"], self.system.mesh, 0.0),
             live_prev=np.asarray(tree["live_prev"], bool),
             t_first=int(meta["t_first"]))
         self.scene._t = int(meta["t_next"])

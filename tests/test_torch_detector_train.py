@@ -57,7 +57,7 @@ def test_init_detector_matches_jax(variant):
     assert set(got) == set(want)
     for k, w in want.items():
         assert got[k].shape == params_from_numpy(
-            {k: w}, "detector")[k].shape
+            {k: w}, "detector", device="cpu")[k].shape
         np.testing.assert_array_equal(params_to_numpy(got, "detector")[k], w)
 
 
@@ -89,7 +89,7 @@ def test_detection_loss_and_grads_match_jax(case):
     fr, tg = _batch(8)
     jl, jg = jax.jit(jax.value_and_grad(j_det.detection_loss))(
         jp, jnp.asarray(fr), jnp.asarray(tg))
-    tp = params_from_numpy(_hwio(jp), "detector")
+    tp = params_from_numpy(_hwio(jp), "detector", device="cpu")
     (tl, tgr) = t_train.value_and_grad(t_det.detection_loss, tp,
                                        torch.from_numpy(fr),
                                        torch.from_numpy(tg))

@@ -78,8 +78,8 @@ def _models(arch, dtype, kw_items=()):
     jlm = JLM(j_smoke(arch).replace(**kw))
     jp = _perturbed(jlm.init(jax.random.PRNGKey(0)))
     tlm = LM(smoke_config(arch).replace(**kw))
-    return jlm, jax.tree.map(jnp.asarray, jp), tlm, params_from_numpy(jp,
-                                                                      "lm")
+    return jlm, jax.tree.map(jnp.asarray, jp), tlm, params_from_numpy(
+        jp, "lm", device="cpu")
 
 
 def _get(arch, kw, dtype="float32"):

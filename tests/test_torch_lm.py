@@ -42,7 +42,8 @@ def f32():
     jlm = JLM(j_smoke("granite-8b").replace(**F32_KW))
     jp = jlm.init(jax.random.PRNGKey(0))
     tlm = LM(smoke_config("granite-8b").replace(**F32_KW))
-    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm")
+    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm",
+                                         device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +51,8 @@ def bf16():
     jlm = JLM(j_smoke("granite-8b"))
     jp = jlm.init(jax.random.PRNGKey(0))
     tlm = LM(smoke_config("granite-8b"))
-    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm")
+    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm",
+                                         device="cpu")
 
 
 @pytest.mark.parametrize("layer", ["rmsnorm", "apply_rope", "swiglu"])

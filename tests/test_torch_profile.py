@@ -163,7 +163,7 @@ def test_fit_matches_jax_from_the_same_init():
     tgts = np.clip(0.3 + feats[:, 0] + 0.05 * np.log(feats[:, 2])
                    + r.normal(0, 0.05, n), 0, 1)
     init = j_util.init_utility_mlp(jax.random.PRNGKey(3))
-    t_init = params_from_numpy(_np_tree(init), "mlp")
+    t_init = params_from_numpy(_np_tree(init), "mlp", device="cpu")
     assert _max_diff(init, t_util.init_utility_mlp(prng.PRNGKey(3))) == 0.0
     for steps, tol in ((1, STEP_TOL), (120, FIT_TOL)):
         jp, jl = j_util.fit(init, feats, tgts, steps=steps)
@@ -266,7 +266,7 @@ def test_profile_rejects_device_scene(profiled):
 def _with_artifacts(ts, js):
     """The port system holding the JAX profile's artifacts, carried
     across, so that run() is compared on the same control inputs."""
-    ts.mlp = params_from_numpy(_np_tree(js.mlp), "mlp")
+    ts.mlp = params_from_numpy(_np_tree(js.mlp), "mlp", device="cpu")
     ts.tau_wl, ts.tau_wh = js.tau_wl, js.tau_wh
     ts.jcab_table = np.array(js.jcab_table)
     return ts

@@ -43,7 +43,8 @@ def models():
     jlm = JLM(j_smoke("granite-8b").replace(**F32_KW))
     jp = jlm.init(jax.random.PRNGKey(0))
     tlm = LM(smoke_config("granite-8b").replace(**F32_KW))
-    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm")
+    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm",
+                                         device="cpu")
 
 
 def _requests(cls, vocab, lens, max_new=6):
@@ -119,7 +120,8 @@ def test_convert_lm_keeps_tree_shapes_dtypes_and_values(dtype):
     dtype kept (bfloat16 through float32, exact), the values equal."""
     jlm = JLM(j_smoke("granite-8b").replace(dtype=dtype))
     jp = jlm.init(jax.random.PRNGKey(1))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "lm")
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "lm",
+                                         device="cpu")
     want_dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     assert len(flat) == len(jax.tree.leaves(tp))

@@ -73,7 +73,7 @@ def test_checkpoint_restore_matches_jax(variant):
     assert sorted(pt) == sorted(pj) and mt["step"] == mj["step"]
     for k in pj:
         np.testing.assert_array_equal(np.asarray(pj[k]), pt[k], err_msg=k)
-    conv = params_from_numpy(pt, "detector")
+    conv = params_from_numpy(pt, "detector", device="cpu")
     np.testing.assert_array_equal(conv["c2"].numpy(),
                                   np.transpose(pt["c2"], (3, 2, 0, 1)))
 

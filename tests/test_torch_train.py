@@ -69,7 +69,8 @@ def _models(arch="granite-8b", **kw):
     jlm = JLM(j_smoke(arch).replace(**kw))
     jp = jlm.init(jax.random.PRNGKey(0))
     tlm = LM(smoke_config(arch).replace(**kw))
-    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm")
+    return jlm, jp, tlm, params_from_numpy(jax.tree.map(np.asarray, jp), "lm",
+                                         device="cpu")
 
 
 def _leaves(tree):
