@@ -188,7 +188,25 @@ JAX.  In order it prints:
      restored with no mesh, equal to the unsharded stream; and the fleet
      stream launcher under ``torch.distributed.run --nproc-per-node 1``
      for 16 slots;
- 14. the wall time, one JSON line of kernel records, then the device line
+ 14. the LM on one-rank NCCL (data, model) meshes in this process
+     (``launch.mesh.make_host_mesh``): phase 7's six granite-8b requests
+     at 36 layers on phase 7's weights (the mesh's pieces are the same
+     tensors) through ``ServeEngine(LM(cfg, mesh))`` right after phase 7's
+     engine, on the plain one-rank mesh (no collective: the unsharded
+     ops) and with ``one_rank_groups=True`` (the tensor-parallel path at
+     n = 1, every collective issued on NCCL, B4 on rank 0's cache slice
+     merged over "model"): tokens equal, every prefill's and decode's
+     logits bitwise, flash_decode 36 launches a decode call, ms per decode
+     call of the three in turns; after phase 13, one granite-8b train step at phase 10's 8
+     layers on the mesh = the unsharded step bitwise (loss, grad norm,
+     every updated parameter) and its ms/step; B4 over granite's decode
+     cache cut into 4 position ranges (each range its clamped valid length,
+     the ranges merged by ``merge_ranges`` in this process) against one
+     call over the whole cache at valid lengths 0, 300, 512, 528 and 2048
+     (out within 4 bf16 ulps of max |out|);
+     the per-rank dry run of granite-8b ``train_4k`` at 36 layers on
+     (1, 4), (2, 2) and (4, 1);
+ 15. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Phase 8's kernel times come first, and the script enforces it: a
@@ -202,7 +220,8 @@ Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; each kernel record carries its launches on the main
 path (``run()``), in the replayed episodes, in the profile, in one
 window of the stream per method, in the trainers (0), in the episode
-with the card-trained server detector and in the families phase.  Any
+with the card-trained server detector, in the families phase, on the
+camera mesh and in the LM mesh's tensor-parallel engine run.  Any
 mismatch ends the run with a non-zero exit code; no phase's failure is
 caught.  Without a CUDA device it exits non-zero before printing a
 result.
@@ -211,6 +230,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1229,6 +1249,9 @@ class TimedLM:
         self.calls, self.compare_at, self.compared = [], compare_at, None
         self.n_decode = 0
 
+    def __getattr__(self, name):
+        return getattr(self.lm, name)
+
     def init_cache(self, *a, **kw):
         return self.lm.init_cache(*a, **kw)
 
@@ -1239,23 +1262,23 @@ class TimedLM:
         self.torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    def prefill(self, params, batch, max_seq):
+    def prefill(self, params, batch, max_seq, **kw):
         from repro_torch.kernels.flash_decode import ops as fd_ops
         before = fd_ops.LAUNCHES
         (logits, cache), ms = self._timed(self.lm.prefill, params, batch,
-                                          max_seq)
+                                          max_seq, **kw)
         if fd_ops.LAUNCHES != before:
             raise AssertionError("prefill launched flash_decode")
         self.calls.append(("prefill", ms, batch["tokens"].shape[1], None,
                            logits.float().cpu()))
         return logits, cache
 
-    def decode(self, params, tokens, cache, pos, rows=None):
+    def decode(self, params, tokens, cache, pos, rows=None, **kw):
         if self.n_decode == self.compare_at:
             plain, _ = self.lm.decode(params, tokens, cache, pos, rows=[],
-                                      use_kernel=False)
+                                      use_kernel=False, **kw)
         (logits, cache), ms = self._timed(self.lm.decode, params, tokens,
-                                          cache, pos, rows=rows)
+                                          cache, pos, rows=rows, **kw)
         if self.n_decode == self.compare_at:
             self.compared = (pos, plain.float().cpu(), logits.float().cpu())
         self.n_decode += 1
@@ -1472,9 +1495,15 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
                                               rows=[0, 1]))
     print(f"granite-8b host syncs in one decode call: "
           f"{sum(sites.values())} {sites}")
+    # phase 14 (1) runs here, on these weights
+    t0 = time.perf_counter()
+    mesh_launches = lm_mesh_serving(torch, dev, tag, lm, params, run,
+                                    reset_counts, read_counts)
+    print(f"phase 14 (1), the LM mesh's engine on phase 7's weights: "
+          f"{time.perf_counter() - t0:.1f} s")
     del params, eng, run
     torch.cuda.empty_cache()
-    return launches
+    return launches, mesh_launches
 
 
 def flash_decode_record(torch, dev, tag: str) -> dict:
@@ -3439,6 +3468,281 @@ def mesh_phase(torch, dev, tag: str, light_h, server_h, arts, trace11,
     return launches
 
 
+LM_MESH_TIMED = 5        # phase 14: decode calls timed per side, in turns
+LM_MESH_STEPS = 3        # phase 14: timed mesh train steps after the compared one
+SPLIT_N = 4              # phase 14: position ranges of B4's cut cache
+SPLIT_VALID = (0, 300, 512, 528, 2048)
+# B4 over 4 ranges merged vs one call over the cache (bf16): each range's
+# out is rounded to bf16 and its P rows to bf16 against its own max (the
+# whole call's against the global one), so the two outs may differ by a
+# few bf16 ulps of max |out| (``SPLIT_OUT_ULPS``, an ulp being 2^(e - 7)
+# for max |out| in [2^e, 2^(e+1))); m is the max of the same float32
+# scores, l sums the same unrounded exponentials in another grouping
+SPLIT_OUT_ULPS = 4
+SPLIT_M_BOUND = 1e-5             # |m| differences (scores ~ 10)
+SPLIT_L_RTOL = 1e-4
+LM_DRYRUN_MESHES = ((1, 4), (2, 2), (4, 1))
+
+
+def bf16_ulps(n: int, amax: float) -> float:
+    """``n`` bfloat16 ulps at the magnitude ``amax``."""
+    return n * 2.0 ** (math.floor(math.log2(amax)) - 7)
+
+
+def lm_mesh_serving(torch, dev, tag: str, lm, params, run, reset_counts,
+                    read_counts) -> int:
+    """Phase 14 (1): phase 7's requests on the same weights through
+    ``ServeEngine(LM(cfg, mesh))`` on two one-rank NCCL (1, 1) meshes:
+    ``make_host_mesh()`` (no group along an axis of one rank: the
+    unsharded ops, no collective) and ``make_host_mesh(one_rank_groups=
+    True)`` (a one-rank NCCL group along each axis: the LM's
+    tensor-parallel path at n = 1 with every collective issued, each a
+    copy: the FSDP gathers, the vocab-parallel lookup and logits, the
+    decode's B4 over rank 0's slice (the whole cache) with its clamped
+    valid length, the ranges merged over "model" by NCCL MAX and SUM
+    all-reduces (``merge_ranges``: one range gives its own out exactly),
+    ``merge_new``, and the vocab-parallel argmax).  For each, every
+    launch counter set to 0 just before the run and read just after
+    (flash_decode 36 a decode call, nothing else), the tokens and every
+    prefill's and decode's logits equal to phase 7's engine's bit for bit
+    (both run the same ops on the same inputs), then ms per decode call
+    of the unsharded LM and the two meshes' in turns (CUDA events, 4
+    slots, 2 rows written, median of ``LM_MESH_TIMED``).  Returns the
+    flash_decode launches of the tensor-parallel run (the split path)."""
+    import numpy as np
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = lm.cfg
+    mesh_mod.init_distributed(dev.type, rank=0, world_size=1)
+    try:
+        sides = {"unsharded": (lm, params, run["engine"].cache)}
+        launches = {}
+        for name, one_rank_groups in (("mesh", False), ("mesh tp1", True)):
+            mesh = mesh_mod.make_host_mesh(one_rank_groups=one_rank_groups)
+            lm_m = LM(cfg, mesh)
+            if (lm_m.tp is not None) != one_rank_groups:
+                raise AssertionError(f"LM {name}: tensor parallelism "
+                                     f"{lm_m.tp}")
+            p = lm_m.shard(params)
+            if not all(a is b for a, b in zip(tree_leaves(p),
+                                              tree_leaves(params))):
+                raise AssertionError("the one-rank mesh's pieces are not "
+                                     "phase 7's tensors")
+            rng = np.random.default_rng(0)
+            reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                            .astype(np.int32), max_new_tokens=FULL_NEW)
+                    for i, n in enumerate(FULL_PROMPTS)]
+            rec = TimedLM(torch, lm_m)
+            eng = ServeEngine(rec, p, batch_slots=FULL_SLOTS,
+                              max_seq=FULL_SEQ, device=dev)
+            reset_counts()
+            stats = eng.run(reqs)
+            counts = read_counts()
+            n_fd = counts.pop("flash_decode")
+            dec = [c for c in rec.calls if c[0] == "decode"]
+            pre = [c for c in rec.calls if c[0] == "prefill"]
+            if (n_fd != cfg.num_layers * len(dec) or not dec
+                    or any(counts.values())):
+                raise AssertionError(f"LM {name}: flash_decode launched "
+                                     f"{n_fd} times for {len(dec)} decode "
+                                     f"calls; others {counts}")
+            ref = run["requests"]
+            if [r.out_tokens for r in reqs] != [r.out_tokens for r in ref]:
+                raise AssertionError(f"LM {name}: the engine's tokens differ "
+                                     "from phase 7's")
+            ref_calls = run["pre"] + run["dec"]
+            same = [torch.equal(a[4], b[4]) and a[2:4] == b[2:4]
+                    for a, b in zip(ref_calls, pre + dec)]
+            if len(ref_calls) != len(pre + dec) or not all(same):
+                worst = max(float((a[4] - b[4]).abs().max())
+                            for a, b in zip(ref_calls, pre + dec))
+                raise AssertionError(f"LM {name}: {same.count(False)} of "
+                                     f"{len(same)} calls' logits differ from"
+                                     f" phase 7's (max |diff| {worst:.4g})")
+            route = ("tensor-parallel path at n = 1, every collective on "
+                     "NCCL, B4 on rank 0's slice merged over 'model'"
+                     if one_rank_groups else
+                     "no group to talk over: the unsharded ops")
+            print(f"lm {name} serve granite-8b on a one-rank "
+                  f"{torch.distributed.get_backend()} mesh {mesh} ({route}): "
+                  f"{stats['requests']} requests, {stats['tokens']} tokens, "
+                  f"{len(dec)} decode calls, flash_decode launches {n_fd} "
+                  f"(= {cfg.num_layers} x {len(dec)}); tokens = phase 7's, "
+                  f"the logits of {len(pre)} prefills and {len(dec)} decodes "
+                  "bitwise")
+            launches[name] = n_fd
+            sides[name] = (lm_m, p, eng.cache)
+            del rec
+        # ms per decode call, unsharded and the meshes in turns
+        tokens = torch.zeros((FULL_SLOTS, 1), dtype=torch.long, device=dev)
+        pos = max(FULL_PROMPTS) + FULL_NEW
+        ms = {k: [] for k in sides}
+        order = list(sides)
+        for rnd in range(LM_MESH_TIMED + 1):
+            for k in (order if rnd % 2 == 0 else order[::-1]):
+                lm_k, p_k, cache_k = sides[k]
+                t = event_ms(torch, lambda: lm_k.decode(
+                    p_k, tokens, cache_k, pos, rows=[0, 1],
+                    global_batch=FULL_SLOTS))
+                if rnd > 0:
+                    ms[k].append(t)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print("lm mesh decode ms per call (4 slots, 2 rows written, "
+              f"position {pos}, in turns, median of {LM_MESH_TIMED}): "
+              + ", ".join(f"{k} {med[k]:.3f} (min {min(ms[k]):.3f})"
+                          for k in sides)
+              + "; / unsharded: " + ", ".join(
+                  f"{k} {med[k] / med['unsharded']:.3f}" for k in order[1:])
+              + f" {tag}")
+        del sides
+    finally:
+        mesh_mod.shutdown()
+    return launches["mesh tp1"]
+
+
+def lm_mesh_train(torch, dev, tag: str) -> None:
+    """Phase 14 (2): granite-8b at phase 10's ``LM_TRAIN_LAYERS`` layers,
+    one train step from the same seeded weights and batch unsharded and on
+    the one-rank (1, 1) mesh: loss, grad norm and every updated parameter
+    equal bit for bit; then the mesh step's ms/step (CUDA events, median
+    of ``LM_MESH_STEPS``)."""
+    from repro_torch.common.config import OptimizerConfig, RunConfig
+    from repro_torch.configs import get_config, granite_8b
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenSource
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = get_config("granite-8b").replace(num_layers=LM_TRAIN_LAYERS)
+    run = RunConfig(model=cfg, opt=OptimizerConfig(
+        lr=3e-4, warmup_steps=2, total_steps=100,
+        moment_dtype=granite_8b.MOMENT_DTYPE),
+        microbatches=granite_8b.MICROBATCHES["train_4k"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    params, opt = init_train_state(lm, run, torch.Generator(
+        device=dev).manual_seed(0))
+    src = SyntheticTokenSource(DataConfig(LM_TRAIN_ROWS, LM_TRAIN_SEQ,
+                                          cfg.vocab_size))
+    fixed = {k: torch.as_tensor(v, device=dev)
+             for k, v in src.batch_at(0).items()}
+    p_u, o_u, m_u = make_train_step(lm, run)(params, opt, fixed)
+    del o_u
+    mesh_mod.init_distributed(dev.type, rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        lm_m = LM(cfg, mesh)
+        step = make_train_step(lm_m, run, donate=True)
+        p_m, o_m, m_m = step(lm_m.shard(params), opt, fixed)
+        same = {k: torch.equal(m_m[k], m_u[k]) for k in ("loss",
+                                                         "grad_norm")}
+        leaves = [torch.equal(a, b) for a, b in zip(tree_leaves(p_m),
+                                                    tree_leaves(p_u))]
+        if not (all(same.values()) and all(leaves)):
+            raise AssertionError(f"LM mesh train: {same}, "
+                                 f"{leaves.count(False)} parameters differ")
+        del p_u
+        ms = []
+        for _ in range(LM_MESH_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p_m, o_m, m = step(p_m, o_m, fixed)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"lm mesh train granite-8b ({LM_TRAIN_LAYERS} of 36 layers, "
+              f"{run.microbatches} microbatches, {LM_TRAIN_ROWS} x "
+              f"{LM_TRAIN_SEQ}) on {mesh}: loss {float(m_m['loss']):.6f}, "
+              f"grad norm {float(m_m['grad_norm']):.6f} and all "
+              f"{len(leaves)} updated parameters = the unsharded step's "
+              f"bitwise; ms/step median {statistics.median(ms):.1f} "
+              f"({[round(x, 1) for x in ms]}), peak memory "
+              f"{peak / 2**30:.2f} GiB (both steps' state) {tag}")
+        del p_m, o_m, params, opt
+    finally:
+        mesh_mod.shutdown()
+    torch.cuda.empty_cache()
+
+
+def b4_split_cache(torch, dev, tag: str) -> float:
+    """Phase 14 (3): B4 at granite's decode shape (bf16) over the cache cut
+    into ``SPLIT_N`` position ranges, each range its clamped valid length,
+    the ranges' (out, m, l) merged in this process by
+    ``flash_decode.ops.merge_ranges`` (the sharded decode's merge, with
+    stacking for the collective) and the fresh token merged after,
+    against one call over the whole cache, at ``SPLIT_VALID`` (none
+    valid, only range 0, a range boundary, past it, all).  Returns the
+    largest |out| difference."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    B, S, H, KV, hd = FD_SHAPE
+    q, k, v, k1, v1 = fd_inputs(torch, dev, torch.bfloat16, B, S, H, KV,
+                                hd, seed=5)
+    n_loc = S // SPLIT_N
+    ks = [k[:, i * n_loc:(i + 1) * n_loc].contiguous()
+          for i in range(SPLIT_N)]
+    vs = [v[:, i * n_loc:(i + 1) * n_loc].contiguous()
+          for i in range(SPLIT_N)]
+    worst = 0.0
+    for valid in SPLIT_VALID:
+        parts = [fd_ops.flash_decode(q, ks[i], vs[i], kv_valid_len=min(
+            max(valid - i * n_loc, 0), n_loc)) for i in range(SPLIT_N)]
+        out, m, l = fd_ops.merge_ranges(
+            torch.stack([x[0] for x in parts]),
+            torch.stack([x[1] for x in parts]),
+            torch.stack([x[2] for x in parts]),
+            lambda t: t.amax(0), lambda t: t.sum(0))
+        out = out.reshape(q.shape)
+        w_out, w_m, w_l = fd_ops.flash_decode(q, k, v, kv_valid_len=valid)
+        d_out = float((out - w_out.float()).abs().max())
+        d_m = float((m - w_m).abs().max())
+        d_l = float(((l - w_l).abs() / w_l.abs()).max())
+        new = fd_ops.merge_new(q, k1, v1, out, m, l).float()
+        w_new = fd_ops.flash_decode_with_new(q, k, v, k1, v1,
+                                             kv_valid_len=valid).float()
+        d_new = float((new - w_new).abs().max())
+        amax = float(w_out.float().abs().max())
+        bound = bf16_ulps(SPLIT_OUT_ULPS, amax)
+        nb = bf16_ulps(SPLIT_OUT_ULPS, float(w_new.abs().max()))
+        print(f"flash_decode over a cut cache (B={B}, S={S}, {H}/{KV} "
+              f"heads, hd={hd}, bf16, {SPLIT_N} ranges of {n_loc}) valid "
+              f"{valid}: max |out| {amax:.4g}, max |diff| out {d_out:.3g} "
+              f"(bound {SPLIT_OUT_ULPS} bf16 ulps: {bound:.3g}), m "
+              f"{d_m:.3g} (bound {SPLIT_M_BOUND}), l relative {d_l:.3g} "
+              f"(bound {SPLIT_L_RTOL}), with the fresh token {d_new:.3g} "
+              f"(bound {nb:.3g})")
+        if not (d_out <= bound and d_m <= SPLIT_M_BOUND
+                and d_l <= SPLIT_L_RTOL and d_new <= nb):
+            raise AssertionError(f"flash_decode over a cut cache at valid "
+                                 f"{valid} is out of its bounds")
+        worst = max(worst, d_out)
+    return worst
+
+
+def lm_mesh_dryrun(tag: str) -> None:
+    """Phase 14 (4): the per-rank dry run of granite-8b ``train_4k`` at
+    its 36 layers on ``LM_DRYRUN_MESHES``: weights and AdamW state one
+    rank holds; (1, 4) within the card's memory."""
+    from repro_torch.common.config import H100_SXM
+    from repro_torch.launch import dryrun
+    for shape in LM_DRYRUN_MESHES:
+        res = dryrun.run_cell("granite-8b", "train_4k", mesh=shape)
+        pr, whole = res["per_rank"], res["published"]
+        print(f"dryrun granite-8b train_4k 36 layers per rank of (data "
+              f"{shape[0]}, model {shape[1]}): weights "
+              f"{pr['weights_bytes'] / 1e9:.2f} GB + AdamW "
+              f"{pr['adamw_bytes'] / 1e9:.2f} GB = "
+              f"{pr['total_bytes'] / 1e9:.2f} GB of "
+              f"{H100_SXM.hbm_bytes / 1e9:.0f} GB (one card: "
+              f"{whole['total_bytes'] / 1e9:.2f} GB)")
+        if shape == (1, 4) and not pr["total_bytes"] < H100_SXM.hbm_bytes:
+            raise AssertionError("granite-8b over (1, 4) does not fit")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3887,7 +4191,8 @@ def main(argv=None) -> int:
     # -- 7. the LM serving tier: small width card vs CPU, then full width
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 7: LM serving")
     lm_card_vs_cpu(torch, dev)
-    lm_launches = lm_full_width(torch, dev, tag, reset_counts, read_counts)
+    lm_launches, lm_mesh_launches = lm_full_width(torch, dev, tag,
+                                                  reset_counts, read_counts)
 
     # -- 8. times --------------------------------------------------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 8: times")
@@ -4024,6 +4329,15 @@ def main(argv=None) -> int:
     mesh_launches = mesh_phase(torch, dev, tag, light_h, server_h, arts,
                                trace11, needs, reset_counts, read_counts)
     print(f"phase 13 (camera mesh): {time.perf_counter() - t_new:.1f} s")
+    # -- 14. the LM mesh: its engine ran in phase 7; the train step, B4
+    # over a cut cache, the per-rank dry run
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 14: LM mesh")
+    t_new = time.perf_counter()
+    lm_mesh_train(torch, dev, tag)
+    split_err = b4_split_cache(torch, dev, tag)
+    lm_mesh_dryrun(tag)
+    print(f"phase 14 (2-4) (LM mesh: train step, B4 over a cut cache, dry "
+          f"run): {time.perf_counter() - t_new:.1f} s")
     for rec in records:
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
@@ -4035,6 +4349,10 @@ def main(argv=None) -> int:
         rec["launches_families"] = (fam_launches
                                     if rec["name"] == "flash_decode" else 0)
         rec["launches_mesh"] = mesh_launches[rec["name"]]
+        rec["launches_lm_mesh"] = (lm_mesh_launches
+                                   if rec["name"] == "flash_decode" else 0)
+        if rec["name"] == "flash_decode":
+            rec["max_abs_err_split_cache"] = split_err
 
     if args.profile:
         from torch.autograd import DeviceType

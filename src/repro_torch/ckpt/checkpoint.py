@@ -36,6 +36,17 @@ Under a camera mesh the caller hands ``save`` the whole fleet's tree and
 calls it on rank 0 only (``serve.stream`` gathers the carry first); every
 rank restores from the same files, at any world size.
 
+Under the LM mesh every rank calls ``save(tree, path, mesh=mesh,
+placements=specs)`` with its pieces and their specs (a tree of
+``sharding.rules`` specs in the tree's structure): leaf by leaf, rank 0
+gathers every rank's piece (``dist.gather``), puts the whole logical
+array together, brings it to the host and writes it, so rank 0 holds one
+whole leaf at a time and the others nothing beyond their pieces; then
+rank 0 commits JAX's format; ``restore(path, target, mesh=mesh,
+placements=specs)`` reads the whole arrays and gives each rank its piece.
+The file holds whole arrays only, so a checkpoint saved on one mesh
+restores onto any other mesh, or onto none (JAX's elastic restore).
+
 ``restore(path)`` without a target reads a flat ``{name: array}``
 checkpoint (the committed detector weights) into numpy.
 
@@ -316,9 +327,86 @@ def _write_checkpoint(host_leaves, treedef_str: str, path: Path, *,
         os.close(dfd)
 
 
+def _spec_leaves(tree, specs) -> List[Any]:
+    """The specs of ``tree``'s leaves, in ``_flatten`` order (``specs``
+    has the tree's structure with a spec tuple at each leaf)."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [specs]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k],
+                                                              specs[k])]
+    if hasattr(tree, "_fields"):
+        return [x for f in tree._fields
+                for x in _spec_leaves(getattr(tree, f), getattr(specs, f))]
+    return [x for t, sp in zip(tree, specs) for x in _spec_leaves(t, sp)]
+
+
+def _whole_leaves(tree, mesh, placements, dtypes):
+    """(key, whole host array) of each leaf of ``tree`` (this rank's
+    pieces, laid out by ``placements``), one leaf at a time, on rank 0;
+    the other ranks send their pieces and get nothing.  Every rank must
+    drain the generator: each leaf is one collective."""
+    import torch.distributed as dist
+    from repro_torch.sharding.rules import axes_size, spec_axes
+    rank0 = dist.get_rank() == 0
+    for (key, x), spec in zip(_flatten(tree), _spec_leaves(tree,
+                                                           placements)):
+        if torch.is_tensor(x):
+            x = x.detach().contiguous()
+            parts = ([torch.empty_like(x) for _ in range(dist.get_world_size())]
+                     if rank0 else None)
+            dist.gather(x, parts, dst=0)
+            if not rank0:
+                continue
+            dims = list(zip(x.shape, tuple(spec) + (None,) * x.dim()))
+            whole = x.new_empty([n * axes_size(mesh, e) for n, e in dims])
+            for r, part in enumerate(parts):
+                # rank r's piece sits at its index along each cut's axes
+                at = [mesh.index(spec_axes(e), r) * n for n, e in dims]
+                whole[tuple(slice(a, a + n) for a, (n, _) in zip(at, dims))] \
+                    = part
+            x = snapshot(whole)
+            del whole, parts
+        elif not rank0:
+            continue
+        else:
+            x = np.array(x)
+        yield key, (x.astype(dtypes[key]) if dtypes and key in dtypes else x)
+
+
+def _piece(arr: np.ndarray, spec, mesh) -> np.ndarray:
+    """This rank's piece of a whole host array laid out by ``spec``."""
+    from repro_torch.sharding.rules import axes_size, spec_axes
+    for dim, e in enumerate(spec):
+        n = axes_size(mesh, e)
+        if n > 1:
+            k = arr.shape[dim] // n
+            i = mesh.index(spec_axes(e))
+            arr = arr[(slice(None),) * dim + (slice(i * k, (i + 1) * k),)]
+    return arr.copy()
+
+
 def save(tree: Any, path, *, step: int = 0, metadata: Optional[Dict] = None,
-         dtypes: Optional[Dict[str, Any]] = None) -> None:
-    """Blocking save of ``tree`` to ``path``."""
+         dtypes: Optional[Dict[str, Any]] = None, mesh=None,
+         placements: Any = None) -> None:
+    """Blocking save of ``tree`` to ``path``.  With ``mesh`` every rank
+    calls it with its pieces (``placements``: their specs); rank 0
+    gathers and writes one whole leaf at a time, the others wait for its
+    commit."""
+    if mesh is not None:
+        import torch.distributed as dist
+        leaves = _whole_leaves(tree, mesh, placements, dtypes)
+        if dist.get_rank() == 0:
+            _write_checkpoint(leaves, repr([k for k, _ in _flatten(tree)]),
+                              Path(path), step=step, metadata=metadata or {})
+        else:
+            for _ in leaves:
+                pass
+        dist.barrier()
+        return
     AsyncSaver().save(tree, path, step=step, metadata=metadata, blocking=True,
                       dtypes=dtypes)
 
@@ -492,16 +580,19 @@ def _leaf_like(arr: np.ndarray, tgt: Any, device) -> Any:
     return arr.astype(want) if arr.dtype != want else arr.copy()
 
 
-def restore(path, target: Any = None, *, device=None) -> Tuple[Any, Dict]:
+def restore(path, target: Any = None, *, device=None, mesh=None,
+            placements: Any = None) -> Tuple[Any, Dict]:
     """Restore ``path`` -> (tree, metadata with ``step``).
 
     With ``target`` (a tree of tensors or numpy arrays of the expected
     shapes), each leaf is read by its key string, checked, cast to the
     target leaf's dtype when it differs, and returned like the target
     leaf: a tensor on ``device`` (default: the target tensor's device), or
-    a numpy array.  Without ``target``: a flat ``{name: array}`` of numpy
-    arrays.  A failed check raises ``CheckpointCorruptError`` naming the
-    leaf and the field."""
+    a numpy array.  With ``mesh`` the target holds this rank's pieces
+    (``placements``: their specs) and each rank gets its piece of the
+    whole array in the file.  Without ``target``: a flat ``{name: array}``
+    of numpy arrays.  A failed check raises ``CheckpointCorruptError``
+    naming the leaf and the field."""
     path = Path(path)
     if not is_committed(path):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -511,11 +602,15 @@ def restore(path, target: Any = None, *, device=None) -> Tuple[Any, Dict]:
     if target is None:
         return _restore_flat(path, manifest, files), meta
     out = []
-    for key, tgt in _flatten(target):
+    specs = (_spec_leaves(target, placements) if mesh is not None
+             else [None] * len(_flatten(target)))
+    for (key, tgt), spec in zip(_flatten(target), specs):
         if key not in manifest["leaves"]:
             raise KeyError(f"leaf {key} missing from checkpoint")
         ent = manifest["leaves"][key]
         arr = _from_raw(_read_leaf_raw(path, files, key, ent), ent)
+        if spec is not None:
+            arr = _piece(arr, spec, mesh)
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs target {tuple(tgt.shape)}")

@@ -22,6 +22,11 @@ fan-in is the product of every axis but the last (for a stacked
 JAX), ``embed`` a normal of std ``0.02 * scale``, ``zeros`` and ``ones``
 constants; each is drawn in float32 and stored in the leaf's dtype.
 
+Each ParamDef carries the JAX declaration's ``logical_axes`` (one name
+per dim: ``"embed"``, ``"mlp"``, ``"heads"``, ``"vocab"``, ``"layers"``,
+...), from which ``sharding.rules.param_pspecs`` derives a layout on a
+mesh; ``map_defs`` and the initialisers carry it through.
+
 ``abstract_params`` is the counterpart of JAX's allocation-free
 ``ShapeDtypeStruct`` tree: the same nest of tensors on
 ``torch.device("meta")``, which hold a shape and a dtype and no memory
@@ -29,7 +34,7 @@ constants; each is drawn in float32 and stored in the leaf's dtype.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,10 @@ class ParamDef(NamedTuple):
     init: str = "normal"      # normal | zeros | ones | embed
     scale: float = 1.0        # multiplier on the default scale
     dtype: torch.dtype = torch.float32   # storage dtype
+    # one logical axis name (or None) per dim, as the JAX ParamDef's;
+    # ``sharding.rules`` maps them to mesh axes.  Empty: no layout
+    # declared (the detector and the utility MLP)
+    logical_axes: Tuple[Optional[str], ...] = ()
 
 
 def _std(d: ParamDef) -> float:
@@ -98,9 +107,13 @@ def param_bytes(defs: Any) -> int:
     return sum(n)
 
 
-def init_params_generator(defs: Any, generator: torch.Generator) -> Any:
+def init_params_generator(defs: Any, generator: torch.Generator,
+                          keep: Optional[Callable] = None) -> Any:
     """Materialise a nested dict of ParamDefs on ``generator.device``,
-    drawing each leaf from ``generator`` in sorted-key order."""
+    drawing each leaf from ``generator`` in sorted-key order.  ``keep(d,
+    t)`` (optional) maps each whole drawn leaf to what is kept of it (a
+    rank's shard under a mesh): every rank draws the same numbers, and
+    only one whole leaf is alive at a time."""
     dev = generator.device
 
     def leaf(d: ParamDef) -> torch.Tensor:
@@ -116,4 +129,6 @@ def init_params_generator(defs: Any, generator: torch.Generator) -> Any:
                                    device=dev, dtype=torch.float32).mul_(std))
         return out
 
-    return map_defs(leaf, defs)
+    if keep is None:
+        return map_defs(leaf, defs)
+    return map_defs(lambda d: keep(d, leaf(d)), defs)

@@ -5,8 +5,11 @@ pretraining data, copied so that ``batch_at(step)`` gives the same tokens
 bit for bit: Markov-ish rows with next-token labels, seeded by (seed,
 step, host).  ``PrefetchLoader`` draws the next batches on a worker
 thread while the current step runs and places each on the device through
-``device.upload`` (pinned memory, an asynchronous copy).  One card has no
-mesh, so the JAX loader's sharding policy has no counterpart.
+``device.upload`` (pinned memory, an asynchronous copy).  On the LM mesh
+(``mesh``, ``policy``) each rank places only its rows of every batch:
+the rows ``sharding.rules.data_spec`` gives it (JAX's ``device_put`` with
+that spec), so a source of the whole batch (``host_count=1``) gives the
+mesh the same global batch as one card.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device, upload
+from repro_torch.sharding import rules
 
 
 @dataclass(frozen=True)
@@ -59,11 +63,14 @@ class SyntheticTokenSource:
 class PrefetchLoader:
     """Background-thread prefetch of ``source.batch_at(0), (1), ...`` (at
     most ``prefetch`` ahead), each batch placed on ``device`` (the card by
-    default) as it is taken."""
+    default) as it is taken: this rank's rows under ``mesh``."""
 
-    def __init__(self, source: SyntheticTokenSource, device=None):
+    def __init__(self, source: SyntheticTokenSource, device=None, mesh=None,
+                 policy: str = "2d"):
         self.source = source
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.policy = policy
         self._q: "queue.Queue" = queue.Queue(maxsize=source.cfg.prefetch)
         self._stop = threading.Event()
         self._step = 0
@@ -71,6 +78,10 @@ class PrefetchLoader:
         self._thread.start()
 
     def _place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            batch = {k: v[slice(*rules.rows_of(self.mesh, v.shape[0],
+                                               self.policy))]
+                     for k, v in batch.items()}
         return {k: upload(v, self.device) for k, v in batch.items()}
 
     def _worker(self) -> None:

@@ -239,6 +239,27 @@ def merge_new(q: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def merge_ranges(out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 rmax, rsum) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The decode over a cache cut along its positions, from each range's
+    ``(out, m, l)``: ``M`` = the max of ``m`` over the ranges (``rmax``),
+    each range weighs ``w = l * exp(m - M)``, and ``(sum (w / sum w) *
+    out, M, sum w)`` (``rsum``) is the whole cache's ``(out, m, l)`` (out
+    in float32, shaped (..., KV, G, hd); one range gives its own ``out``
+    exactly, as ``w / w`` is 1).  ``rmax`` / ``rsum`` reduce
+    over the ranges: over the ranks of "model" on the LM mesh, or over a
+    stacked leading axis in one process.  A range with no valid position
+    (``m = -1e30``, ``l`` its length) weighs ``exp(-1e30 - M) = 0`` unless
+    every range is empty, and then all weigh alike: the mean of V over
+    the whole cache, as one call over it gives."""
+    M = rmax(m)
+    w = l * torch.exp(m - M)
+    lsum = rsum(w)
+    acc = out.reshape(*m.shape[:-1], -1).to(torch.float32) * (w / lsum)
+    return rsum(acc), M, lsum
+
+
 def flash_decode_with_new(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k1: torch.Tensor, v1: torch.Tensor, *,
                           kv_valid_len: int) -> torch.Tensor:

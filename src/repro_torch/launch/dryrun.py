@@ -16,12 +16,20 @@ depth and, with ``layers``, at a cut depth (``num_layers`` replaced, as
 ``chip_smoke.py`` cuts a config).  Activations, gradients and workspace
 are not modelled: a cell that fits here may still not fit on the card.
 
+With ``mesh`` (``--mesh 1x4``: data x model, or pod x data x model) it
+also reports what each rank of that LM mesh holds: every leaf's piece
+under ``sharding.rules.param_pspecs`` (the config's policy), the AdamW
+moments in the same layout and the step, and the cache under
+``launch.specs.cache_specs``; a leaf no axis cuts counts whole on every
+rank.  The mesh is a stand-in of axis names and sizes: nothing is
+started.
+
 JAX's lowering and compiling on 512 fake devices, ``memory_analysis()``,
 ``cost_analysis()`` and the collectives parsed from the HLO have no
-counterpart: the port compiles no XLA program and has no mesh.
+counterpart: the port compiles no XLA program.
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k [--layers 8]
+  python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k [--layers 8] [--mesh 1x4]
   python -m repro_torch.launch.dryrun --list
 """
 from __future__ import annotations
@@ -29,14 +37,17 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from typing import Any, Dict, Optional
+import types
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.common.config import (H100_SXM, SHAPES_BY_NAME, ModelConfig,
                                        OptimizerConfig)
-from repro_torch.common.params import abstract_params
-from repro_torch.launch.specs import arch_run_config, cell_supported
+from repro_torch.common.params import abstract_params, map_defs
+from repro_torch.launch.specs import (arch_run_config, cache_specs,
+                                      cell_supported)
+from repro_torch.sharding import rules as R
 from repro_torch.models.model import LM
 from repro_torch.train.optimizer import abstract_opt_state, tree_leaves
 
@@ -82,9 +93,67 @@ def memory(cfg: ModelConfig, shape: str, moment_dtype: str) -> Dict[str, Any]:
     return out
 
 
-def run_cell(arch: str, shape: str, layers: Optional[int] = None) -> dict:
+def stand_in_mesh(shape: Sequence[int]):
+    """A mesh of axis names and sizes for the layout rules: (data, model)
+    or (pod, data, model)."""
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                        "model")
+    return types.SimpleNamespace(axis_names=names,
+                                 shape=dict(zip(names, map(int, shape))))
+
+
+def _local_bytes(shape, dtype: torch.dtype, spec, mesh) -> int:
+    n = 1
+    for d in R.local_shape(shape, spec, mesh):
+        n *= d
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def memory_per_rank(cfg: ModelConfig, shape: str, moment_dtype: str,
+                    mesh) -> Dict[str, Any]:
+    """Bytes one rank of ``mesh`` holds: its pieces of the weights, of
+    the AdamW moments (and the step) of a train cell, and of the cache of
+    a prefill or decode cell."""
+    cell = SHAPES_BY_NAME[shape]
+    lm = LM(cfg)
+    defs = lm.param_defs()
+    specs = R.param_pspecs(defs, mesh, cfg.fsdp_over_pod, cfg.parallelism)
+    w, m = [], []
+    mdt = getattr(torch, moment_dtype)
+
+    def leaf(d):
+        spec = R.safe_spec(d.shape, R.spec_for(
+            d, mesh, cfg.fsdp_over_pod, cfg.parallelism), mesh)
+        w.append(_local_bytes(d.shape, d.dtype, spec, mesh))
+        m.append(_local_bytes(d.shape, mdt, spec, mesh))
+        return spec
+    assert map_defs(leaf, defs) == specs
+    out = {"mesh": dict(mesh.shape), "policy": cfg.parallelism,
+           "weights_bytes": sum(w), "adamw_bytes": 0, "cache_bytes": 0}
+    if cell.kind == "train":
+        out["adamw_bytes"] = 2 * sum(m) + 4       # m, v and the int32 step
+    else:
+        cache = lm.cache_defs(cell.global_batch, cell.seq_len)
+        cspecs = cache_specs(lm, cell.global_batch, cell.seq_len, mesh)
+
+        def walk(c, sp):
+            if isinstance(c, tuple):
+                return _local_bytes(c[0], c[1], sp, mesh)
+            return sum(walk(c[k], sp[k]) for k in c)
+        out["cache_bytes"] = walk(cache, cspecs)
+    out["total_bytes"] = (out["weights_bytes"] + out["adamw_bytes"]
+                          + out["cache_bytes"])
+    out["hbm_bytes"] = int(H100_SXM.hbm_bytes)
+    out["fits"] = out["total_bytes"] <= H100_SXM.hbm_bytes
+    return out
+
+
+def run_cell(arch: str, shape: str, layers: Optional[int] = None,
+             mesh: Optional[Sequence[int]] = None) -> dict:
     """The dry run of one cell: ``published`` at the config's depth and,
-    when ``layers`` is given, ``cut`` at that depth."""
+    when ``layers`` is given, ``cut`` at that depth; with ``mesh`` (a
+    data x model shape) also ``per_rank`` at the published depth (and
+    ``cut_per_rank``)."""
     ok, why = cell_supported(arch, shape)
     if not ok:
         return {"arch": arch, "shape": shape, "status": "skip",
@@ -99,6 +168,14 @@ def run_cell(arch: str, shape: str, layers: Optional[int] = None) -> dict:
     if layers is not None:
         res["cut"] = memory(run.model.replace(num_layers=layers), shape,
                             run.opt.moment_dtype)
+    if mesh is not None:
+        m = stand_in_mesh(mesh)
+        res["per_rank"] = memory_per_rank(run.model, shape,
+                                          run.opt.moment_dtype, m)
+        if layers is not None:
+            res["cut_per_rank"] = memory_per_rank(
+                run.model.replace(num_layers=layers), shape,
+                run.opt.moment_dtype, m)
     return res
 
 
@@ -108,6 +185,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shape")
     ap.add_argument("--layers", type=int, default=None,
                     help="also report the cell at this depth")
+    ap.add_argument("--mesh", default=None,
+                    help="also report one rank of this LM mesh: DxM "
+                         "(data x model) or PxDxM")
     ap.add_argument("--list", action="store_true")
     args = ap.parse_args(argv)
     from repro_torch.configs import list_archs
@@ -118,7 +198,9 @@ def main(argv=None) -> int:
         return 0
     if not (args.arch and args.shape):
         ap.error("--arch and --shape required (or --list)")
-    print(json.dumps(run_cell(args.arch, args.shape, args.layers)))
+    mesh = (tuple(int(x) for x in args.mesh.lower().split("x"))
+            if args.mesh else None)
+    print(json.dumps(run_cell(args.arch, args.shape, args.layers, mesh)))
     return 0
 
 

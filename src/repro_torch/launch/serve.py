@@ -42,6 +42,15 @@ and writes the checkpoints, which restore at any world size)::
 Under ``torchrun`` the mesh spans every rank, one rank included (a
 one-card mesh exercises the collectives); ``--num-cameras`` sets the
 fleet (5 by default).
+
+The LM engine under ``torchrun`` serves on the LM mesh (a one-rank world
+on ``make_host_mesh()``, a larger one on ``make_production_mesh()``:
+"model" over ``--model`` ranks, default the ranks of one node): every
+rank drives the same requests over its pieces of the weights and cache,
+and rank 0 prints::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch granite-8b --model 4
 """
 from __future__ import annotations
 
@@ -120,12 +129,19 @@ def run_fleet_stream(args) -> None:
 
 def run_lm(args) -> None:
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models.model import LM
     from repro_torch.serve.engine import Request, ServeEngine
 
+    mesh = None
+    if mesh_mod.under_launcher():
+        mesh_mod.init_distributed("cpu" if args.device == "cpu" else "cuda")
+        mesh = (mesh_mod.make_host_mesh()
+                if torch.distributed.get_world_size() == 1
+                else mesh_mod.make_production_mesh(model=args.model))
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    lm = LM(cfg)
+    lm = LM(cfg, mesh)
     params = lm.init(torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
@@ -136,8 +152,11 @@ def run_lm(args) -> None:
     eng = ServeEngine(lm, params, batch_slots=args.slots,
                       max_seq=args.max_seq, device=dev)
     stats = eng.run(reqs)
-    print({k: round(v, 3) if isinstance(v, float) else v
-           for k, v in stats.items()})
+    if mesh is None or mesh.rank == 0:
+        print({k: round(v, 3) if isinstance(v, float) else v
+               for k, v in stats.items()})
+    if mesh is not None:
+        mesh_mod.shutdown()
 
 
 def main(argv=None) -> None:
@@ -152,6 +171,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--model", type=int, default=None,
+                    help="LM engine under torchrun: ranks of the mesh's "
+                         "model axis (default: the ranks of one node)")
     ap.add_argument("--fleet-stream", action="store_true",
                     help="serve the multi-camera fleet stream "
                          "(serve.stream) instead of the LM engine")

@@ -6,9 +6,17 @@ The counterpart of ``repro.launch.specs``: ``FULL_ATTENTION_ARCHS``,
 config module's ``MICROBATCHES`` and ``MOMENT_DTYPE``) and
 ``batch_abstract`` (tensors on ``torch.device("meta")`` in place of
 ``jax.ShapeDtypeStruct``: a shape and a dtype, nothing allocated).
-``batch_shardings``, ``cache_shardings`` and ``build_cell`` place the
-cell on a TPU mesh for the XLA dry run and have no counterpart on one
-card.
+
+On the LM mesh ``batch_specs`` / ``cache_specs`` give JAX's
+PartitionSpecs of a cell's batch and of an LM's cache as spec tuples
+(``sharding.rules``), and ``batch_shardings`` / ``cache_shardings`` the
+same as DTensor placements (``rules.param_placements``; JAX returns
+NamedShardings).  The port's LM lays its KV caches out as these say for
+a cache JAX cuts by batch and by sequence over "model"; JAX's fallback
+of a batch the data axes do not divide (the sequence over "data") is not
+taken: the port then keeps the whole cache on each data rank.
+``build_cell`` lowers a step for XLA's dry run on a TPU mesh and has no
+counterpart: ``launch/dryrun.py`` sums the per-rank bytes instead.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 from repro_torch.common.config import (ModelConfig, OptimizerConfig,
                                        RunConfig, ShapeCell)
 from repro_torch.configs import canonical
+from repro_torch.sharding import rules as R
 
 FULL_ATTENTION_ARCHS = {
     "seamless_m4t_large_v2", "llama3_405b", "qwen1_5_4b", "granite_8b",
@@ -69,3 +78,70 @@ def batch_abstract(cfg: ModelConfig, cell: ShapeCell
         enc_s = int(S * cfg.encdec.enc_seq_factor)
         out["enc_embeds"] = _meta((B, enc_s, cfg.d_model), dt)
     return out
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell, mesh) -> Dict[str, tuple]:
+    """JAX's ``batch_shardings`` as specs: each input's batch dim over the
+    longest DP-axis prefix that divides it."""
+    return {k: R.data_spec(mesh, v.shape[0], *([None] * (v.dim() - 1)),
+                           policy=cfg.parallelism)
+            for k, v in batch_abstract(cfg, cell).items()}
+
+
+def batch_shardings(cfg: ModelConfig, cell: ShapeCell, mesh
+                    ) -> Dict[str, list]:
+    """``batch_specs`` as DTensor placements."""
+    return {k: R.param_placements(sp, mesh)
+            for k, sp in batch_specs(cfg, cell, mesh).items()}
+
+
+def cache_specs(lm, batch: int, max_seq: int, mesh) -> Dict:
+    """JAX's ``cache_shardings`` as specs: the batch dim over DP when it
+    divides, the attention caches' sequence over "model" under "2d" (each
+    rank holds a slice of the positions of every kv head), else the
+    sequence over "data" for an undivided batch, and a cache with no
+    sequence (the recurrent states) cut over "model" on its last trailing
+    dim that divides."""
+    policy = lm.cfg.parallelism
+    ba = R.fit_batch_axes(mesh, batch, policy)
+    nmodel = mesh.shape.get("model", 1) if policy == "2d" else 1
+    batch_part = R.spec_part(ba)
+
+    def one(shape) -> tuple:
+        parts: list = [None] * len(shape)
+        b_idx = seq_idx = None
+        for i, d in enumerate(shape):
+            if b_idx is None and d == batch:
+                b_idx = i
+            elif d == max_seq and i > (b_idx if b_idx is not None else -1):
+                seq_idx = i
+        if b_idx is not None and batch_part is not None:
+            parts[b_idx] = batch_part
+        if seq_idx is not None and nmodel > 1 and max_seq % nmodel == 0:
+            parts[seq_idx] = "model"
+        elif (seq_idx is not None and batch_part is None
+              and max_seq % mesh.shape["data"] == 0):
+            parts[seq_idx] = "data"
+        elif seq_idx is None and nmodel > 1:
+            for i in range(len(shape) - 1,
+                           b_idx if b_idx is not None else -1, -1):
+                if (parts[i] is None and shape[i] % nmodel == 0
+                        and shape[i] >= nmodel):
+                    parts[i] = "model"
+                    break
+        return tuple(parts)
+
+    def walk(defs):
+        if isinstance(defs, tuple):
+            return one(defs[0])
+        return {k: walk(v) for k, v in defs.items()}
+    return walk(lm.cache_defs(batch, max_seq))
+
+
+def cache_shardings(lm, batch: int, max_seq: int, mesh) -> Dict:
+    """``cache_specs`` as DTensor placements."""
+    def walk(specs):
+        if isinstance(specs, tuple):
+            return R.param_placements(specs, mesh)
+        return {k: walk(v) for k, v in specs.items()}
+    return walk(cache_specs(lm, batch, max_seq, mesh))

@@ -16,18 +16,35 @@ that view, through the kernel too.  ``cross_attention`` (the vlm's image
 layers, the audio decoder) is not causal and has no rope; its decode
 (``decode_cross_attention``) attends over a fixed cross cache, every
 position valid.
+
+On the LM mesh the ``*_tp`` functions run a dense block's attention with
+tensor parallelism over "model" (``TP``).  Training and prefill run on
+this rank's heads when the q and kv heads both divide over "model";
+otherwise q, k and v are gathered over "model" (backward: reduce-scatter)
+and every rank attends over all heads, keeping its own columns for the
+row-parallel ``o``, whose product is summed over "model".  The decode
+keeps JAX's cache layout (``launch/specs.py::cache_shardings``): the
+sequence is cut over "model", each rank holds positions [r S/n, (r+1)
+S/n) of every kv head.  q and the fresh k1/v1 are gathered over "model",
+each rank runs flash-decode over its slice with the valid length
+``clamp(pos - r S/n, 0, S/n)``, the ranks' (out, m, l) are merged over
+"model" (``flash_decode.ops.merge_ranges``) and the fresh token is added
+once (``merge_new``); the rank that owns position ``pos`` writes it.
+Prefill writes each rank its slice of the positions.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.models.layers import (apply_rope, dtype_of, linear,
                                        linear_defs)
+from repro_torch.sharding import comm
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -39,10 +56,13 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d, hd, dt, b = cfg.d_model, cfg.resolved_head_dim, dtype_of(cfg), \
         cfg.qkv_bias
     qf, kvf = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    return {"q": linear_defs(d, qf, dt, bias=b),
-            "k": linear_defs(d, kvf, dt, bias=b),
-            "v": linear_defs(d, kvf, dt, bias=b),
-            "o": linear_defs(qf, d, dt)}
+    return {"q": linear_defs(d, qf, dt, bias=b, axes=("embed", "heads"),
+                             bias_axis="heads"),
+            "k": linear_defs(d, kvf, dt, bias=b, axes=("embed", "kv_heads"),
+                             bias_axis="kv_heads"),
+            "v": linear_defs(d, kvf, dt, bias=b, axes=("embed", "kv_heads"),
+                             bias_axis="kv_heads"),
+            "o": linear_defs(qf, d, dt, axes=("heads", "embed"))}
 
 
 # -- chunked attention core ------------------------------------------------------
@@ -276,6 +296,22 @@ def prefill_self_attention(cfg: ModelConfig, params, x: torch.Tensor,
     return out, cache
 
 
+def _cache_kv(cfg: ModelConfig, cache: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's k and v as (B, S, KV, hd) in the model dtype (the int8
+    cache dequantised)."""
+    B, S = cache["k"].shape[:2]
+    hd = cfg.resolved_head_dim
+    if cfg.kv_cache_dtype == "int8":
+        dt = dtype_of(cfg)
+        return (_dequantize_kv(cache["k"], cache["k_scale"],
+                               cfg.num_kv_heads, hd, dt),
+                _dequantize_kv(cache["v"], cache["v_scale"],
+                               cfg.num_kv_heads, hd, dt))
+    return (cache["k"].reshape(B, S, cfg.num_kv_heads, hd),
+            cache["v"].reshape(B, S, cfg.num_kv_heads, hd))
+
+
 def decode_self_attention_read(cfg: ModelConfig, params, x: torch.Tensor,
                                cache: Dict[str, torch.Tensor], pos: int,
                                use_kernel: bool = False
@@ -291,16 +327,7 @@ def decode_self_attention_read(cfg: ModelConfig, params, x: torch.Tensor,
     hd = cfg.resolved_head_dim
     positions = torch.full((B, 1), pos, device=x.device)
     q, k1, v1 = _qkv(cfg, params, x, positions)
-    S = cache["k"].shape[1]
-    if cfg.kv_cache_dtype == "int8":
-        dt = dtype_of(cfg)
-        k = _dequantize_kv(cache["k"], cache["k_scale"], cfg.num_kv_heads,
-                           hd, dt)
-        v = _dequantize_kv(cache["v"], cache["v_scale"], cfg.num_kv_heads,
-                           hd, dt)
-    else:
-        k = cache["k"].reshape(B, S, cfg.num_kv_heads, hd)
-        v = cache["v"].reshape(B, S, cfg.num_kv_heads, hd)
+    k, v = _cache_kv(cfg, cache)
     attend = (fd_ops.flash_decode_with_new if use_kernel
               else decode_attention_with_new)
     out = attend(q, k, v, k1, v1, kv_valid_len=pos)
@@ -319,3 +346,107 @@ def decode_self_attention(cfg: ModelConfig, params, x: torch.Tensor,
     for name, t in new_tok.items():
         cache[name][:, pos] = t[:, 0].to(cache[name].dtype)
     return out, cache
+
+
+# -- tensor parallelism over "model" (the LM mesh) ---------------------------------
+
+class TP(NamedTuple):
+    """One rank's place in a dense block's tensor parallelism."""
+    group: Any            # the "model" process group (None: one rank)
+    n: int                # ranks of "model"
+    r: int                # this rank's index on "model"
+    local_heads: bool     # q and kv heads divide over n
+
+
+def _qkv_tp(cfg: ModelConfig, params, x: torch.Tensor,
+            positions: torch.Tensor, tp: TP):
+    """q, k, v (B, S, heads, hd) with rope: this rank's heads, or every
+    head (gathered over "model") when the heads do not divide."""
+    hd = cfg.resolved_head_dim
+    xf = comm.copy_to_model(x, tp.group)
+    q, k, v = (linear(params[n], xf) for n in ("q", "k", "v"))
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if tp.local_heads:
+        H, KV = H // tp.n, KV // tp.n
+    else:
+        q, k, v = (comm.gather_dim(t, -1, tp.group) for t in (q, k, v))
+    q, k, v = _split_heads(q, H, hd), _split_heads(k, KV, hd), \
+        _split_heads(v, KV, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _o_tp(params, out: torch.Tensor, tp: TP, whole: bool) -> torch.Tensor:
+    """The row-parallel ``o`` over this rank's columns of ``out``
+    (``whole``: out holds every head, keep this rank's share), summed over
+    "model"."""
+    if whole and tp.n > 1:
+        f = out.shape[-1] // tp.n
+        out = out[..., tp.r * f:(tp.r + 1) * f]
+    return comm.reduce_from_model(linear(params["o"], out), tp.group)
+
+
+def self_attention_tp(cfg: ModelConfig, params, x: torch.Tensor, tp: TP, *,
+                      causal: bool = True) -> torch.Tensor:
+    """``self_attention`` with tensor parallelism over "model"."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv_tp(cfg, params, x, positions, tp)
+    out = chunked_attention(q, k, v, causal=causal)
+    return _o_tp(params, out.reshape(B, S, -1), tp, not tp.local_heads)
+
+
+def _all_heads(t: torch.Tensor, tp: TP) -> torch.Tensor:
+    """(B, S, heads, hd) of this rank's heads -> every head."""
+    return comm.all_gather(t, 2, tp.group) if tp.local_heads else t
+
+
+def prefill_self_attention_tp(cfg: ModelConfig, params, x: torch.Tensor,
+                              max_seq: int, tp: TP
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``prefill_self_attention`` with tensor parallelism; the cache
+    entries of every kv head at this rank's positions [r S/n, (r+1)
+    S/n)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv_tp(cfg, params, x, positions, tp)
+    out = chunked_attention(q, k, v, causal=True)
+    out = _o_tp(params, out.reshape(B, S, -1), tp, not tp.local_heads)
+    n_loc = max_seq // tp.n
+    r0 = tp.r * n_loc
+    lo, hi = min(r0, S), min(r0 + n_loc, S)
+    cache = {}
+    for name, t in _cache_entries(cfg, _all_heads(k, tp),
+                                  _all_heads(v, tp)).items():
+        buf = t.new_zeros((B, n_loc) + tuple(t.shape[2:]))
+        if hi > lo:
+            buf[:, lo - r0:hi - r0] = t[:, lo:hi]
+        cache[name] = buf
+    return out, cache
+
+
+def decode_self_attention_read_tp(cfg: ModelConfig, params, x: torch.Tensor,
+                                  cache: Dict[str, torch.Tensor], pos: int,
+                                  tp: TP, use_kernel: bool = False):
+    """``decode_self_attention_read`` over this rank's slice of the
+    cache (positions [r S/n, (r+1) S/n)): flash-decode (the kernel, or its
+    plain version) over the slice's valid positions, the ranges merged
+    over "model", the fresh token merged once.  Returns (attn_out, the fresh cache entries, the
+    local position to write them at: None on a rank that does not own
+    ``pos``)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, device=x.device)
+    q, k1, v1 = (_all_heads(t, tp)
+                 for t in _qkv_tp(cfg, params, x, positions, tp))
+    k, v = _cache_kv(cfg, cache)
+    n_loc = k.shape[1]
+    r0 = tp.r * n_loc
+    stats = fd_ops.flash_decode if use_kernel else fd_ref.flash_decode_ref
+    out, m, l = stats(q, k, v, kv_valid_len=min(max(pos - r0, 0), n_loc))
+    out, m, l = fd_ops.merge_ranges(
+        out, m, l, lambda t: comm.all_max(t, tp.group),
+        lambda t: comm.all_reduce(t, tp.group))
+    out = fd_ops.merge_new(q, k1, v1, out.reshape(q.shape), m, l)
+    out = _o_tp(params, out.reshape(B, 1, -1), tp, True)
+    local = pos - r0 if 0 <= pos - r0 < n_loc else None
+    return out, _cache_entries(cfg, k1, v1), local

@@ -8,16 +8,26 @@ the partition function; ``chunked_cross_entropy`` unembeds a chunk of
 positions at a time and recomputes each chunk's logits in backward
 (``torch.utils.checkpoint``, JAX's ``@jax.checkpoint``), so only one
 (B, chunk, V) block of logits is alive.
+
+On the LM mesh (``models.model.LM(cfg, mesh)``) the ``*_tp`` variants
+run Megatron's tensor parallelism over "model" (``sharding.comm``): the
+SwiGLU on local ``mlp`` columns with its row-parallel ``down`` summed over
+"model"; the embedding as a vocab-parallel lookup (the rank that owns a
+token's row gives it, the others zeros, summed over "model"); the logits
+vocab-parallel; and ``token_ce_vocab_parallel``, the cross-entropy over
+vocab shards: the logsumexp from a max and a sum over "model", the padded
+rows masked, the label logit from the rank that owns the label.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import ParamDef
+from repro_torch.sharding import comm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -29,7 +39,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # -- RMSNorm -----------------------------------------------------------------
 
 def rmsnorm_defs(d: int) -> Dict[str, ParamDef]:
-    return {"scale": ParamDef((d,), "ones")}
+    return {"scale": ParamDef((d,), "ones", logical_axes=("norm",))}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -67,10 +77,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # -- projections and MLP -------------------------------------------------------
 
 def linear_defs(d_in: int, d_out: int, dtype: torch.dtype,
-                bias: bool = False) -> Dict[str, ParamDef]:
-    out = {"w": ParamDef((d_in, d_out), "normal", dtype=dtype)}
+                bias: bool = False,
+                axes: Tuple[Optional[str], Optional[str]] = (None, None),
+                bias_axis: Optional[str] = None) -> Dict[str, ParamDef]:
+    out = {"w": ParamDef((d_in, d_out), "normal", dtype=dtype,
+                         logical_axes=axes)}
     if bias:
-        out["b"] = ParamDef((d_out,), "zeros", dtype=dtype)
+        out["b"] = ParamDef((d_out,), "zeros", dtype=dtype,
+                            logical_axes=(bias_axis,))
     return out
 
 
@@ -85,8 +99,9 @@ def swiglu_defs(cfg: ModelConfig, d_ff: Optional[int] = None
                 ) -> Dict[str, Any]:
     d, dt = cfg.d_model, dtype_of(cfg)
     ff = d_ff if d_ff is not None else cfg.d_ff
-    return {"up": linear_defs(d, ff, dt), "gate": linear_defs(d, ff, dt),
-            "down": linear_defs(ff, d, dt)}
+    return {"up": linear_defs(d, ff, dt, axes=("embed", "mlp")),
+            "gate": linear_defs(d, ff, dt, axes=("embed", "mlp")),
+            "down": linear_defs(ff, d, dt, axes=("mlp", "embed"))}
 
 
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
@@ -100,9 +115,11 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
 def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     dt = dtype_of(cfg)
     v = cfg.padded_vocab
-    out = {"tok": ParamDef((v, cfg.d_model), "embed", dtype=dt)}
+    out = {"tok": ParamDef((v, cfg.d_model), "embed", dtype=dt,
+                           logical_axes=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        out["unembed"] = ParamDef((cfg.d_model, v), "normal", dtype=dt)
+        out["unembed"] = ParamDef((cfg.d_model, v), "normal", dtype=dt,
+                                  logical_axes=("embed", "vocab"))
     return out
 
 
@@ -148,18 +165,83 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_cross_entropy(embed_params, x: torch.Tensor,
                           labels: torch.Tensor, logical_vocab: int,
-                          chunk: int) -> torch.Tensor:
+                          chunk: int, *, token_ce=None,
+                          denom: Optional[float] = None) -> torch.Tensor:
     """Unembed + cross-entropy over sequence chunks of ``chunk``
     positions (the last one may be shorter), each chunk's logits
-    recomputed in backward; the sum over every token / (B * S)."""
+    recomputed in backward; the sum over every token / ``denom`` (B * S
+    by default).  ``token_ce(x_chunk, labels_chunk)`` replaces the
+    unembed and per-token loss (the mesh's vocab-parallel pair)."""
     B, S, _ = x.shape
+    if token_ce is None:
+        def token_ce(xc, lc):
+            return _token_ce(unembed(embed_params, xc), lc, logical_vocab)
 
     def one(xc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
-        return torch.sum(_token_ce(unembed(embed_params, xc), lc,
-                                   logical_vocab))
+        return torch.sum(token_ce(xc, lc))
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     one = recomputed(one)
     for i in range(0, S, chunk):
         total = total + one(x[:, i:i + chunk], labels[:, i:i + chunk])
-    return total / float(B * S)
+    return total / float(B * S if denom is None else denom)
+
+
+# -- tensor parallelism over "model" ---------------------------------------------
+
+def swiglu_tp(params, x: torch.Tensor, group) -> torch.Tensor:
+    """SwiGLU on this rank's ``mlp`` columns (``up`` / ``gate``
+    column-parallel, ``down`` row-parallel, summed over "model")."""
+    xf = comm.copy_to_model(x, group)
+    h = torch.nn.functional.silu(linear(params["gate"], xf)) * linear(
+        params["up"], xf)
+    return comm.reduce_from_model(linear(params["down"], h), group)
+
+
+def embed_tp(params, tokens: torch.Tensor, group, lo: int) -> torch.Tensor:
+    """Vocab-parallel lookup: this rank holds rows [lo, lo + V_loc) of the
+    table; a token's row comes from its owner, zeros elsewhere, summed
+    over "model"."""
+    tok = params["tok"]
+    idx = tokens.long() - lo
+    inside = (idx >= 0) & (idx < tok.shape[0])
+    rows = tok[idx.clamp(0, tok.shape[0] - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return comm.reduce_from_model(rows, group)
+
+
+def unembed_tp(params, x: torch.Tensor, group) -> torch.Tensor:
+    """Vocab-parallel logits: this rank's vocab columns."""
+    return unembed(params, comm.copy_to_model(x, group))
+
+
+def mask_vocab(logits: torch.Tensor, logical_vocab: int, lo: int = 0,
+               fill: float = -1e30) -> torch.Tensor:
+    """Columns whose global index (``lo`` + local) is a padded vocab row
+    set to ``fill``."""
+    col = lo + torch.arange(logits.shape[-1], device=logits.device)
+    if lo + logits.shape[-1] <= logical_vocab:
+        return logits
+    return torch.where(col >= logical_vocab, torch.full_like(logits, fill),
+                       logits)
+
+
+def token_ce_vocab_parallel(logits: torch.Tensor, labels: torch.Tensor,
+                            logical_vocab: int, lo: int, group
+                            ) -> torch.Tensor:
+    """Per-token ``logsumexp - logit[label]`` in float32 over vocab
+    shards: this rank's logits are columns [lo, lo + V_loc).  The max
+    is taken over "model" (no gradient: the logsumexp does not depend on
+    it), the sum of exponentials and the label logit are summed over
+    "model" (Megatron's g)."""
+    logits = mask_vocab(logits.to(torch.float32), logical_vocab, lo)
+    m = comm.all_max(torch.amax(logits.detach(), dim=-1), group)
+    se = comm.reduce_from_model(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1), group)
+    idx = labels.long() - lo
+    inside = (idx >= 0) & (idx < logits.shape[-1])
+    tgt = torch.gather(logits, -1, idx.clamp(0, logits.shape[-1] - 1)
+                       [..., None])[..., 0]
+    tgt = comm.reduce_from_model(
+        torch.where(inside, tgt, torch.zeros_like(tgt)), group)
+    return m + torch.log(se) - tgt

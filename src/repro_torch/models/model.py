@@ -15,8 +15,14 @@ with bfloat16 scales for ``kv_cache_dtype="int8"``), the recurrent
 states of the mLSTM (C, n, m), the sLSTM (c, n, h, m) and Mamba-2
 (state, conv), and fixed cross caches (B, Skv, KV*hd).  JAX's
 ``lax.scan`` over stacked layers is a Python loop over views.
-``_constrain`` and the mesh have no counterpart: the port runs on one
-card, where nothing is sharded.
+
+``LM(cfg, mesh)`` runs on a ``launch.mesh.LMMesh`` (one process per
+card): each rank stores its pieces of the parameters under
+``rules.param_pspecs``, a layer gathers its FSDP cuts before it runs
+(``_g``, planned per stack when the model is made), the dense blocks run
+with tensor parallelism over "model", and the entry points check the
+rows a rank holds at every block boundary (``_constrain``, JAX's
+sharding constraint, given the call's ``Rows``).
 
 Training: ``forward`` (final hidden states and the aux metrics: the MoE
 ``moe_aux_loss`` and ``moe_drop_frac``, means over layers), ``logits``
@@ -37,7 +43,7 @@ for; the JAX ``LM.decode`` returns a new cache with every row written.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
@@ -51,13 +57,22 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.sharding import comm
+from repro_torch.sharding import rules as R
+
+SLICE_14 = ("tensor parallelism inside the {family} family's blocks is not "
+            "ported yet (slice 14: MoE expert parallelism, the Mamba-2, "
+            "xLSTM, cross-attention and encoder-decoder blocks); run it on "
+            "a mesh whose 'model' axis has one rank, or with "
+            "parallelism='fsdp'")
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]     # a cache leaf: shape, dtype
 
 
 def _stack(defs: Any, n: int) -> Any:
     return map_defs(lambda d: ParamDef((n,) + d.shape, d.init, d.scale,
-                                       d.dtype), defs)
+                                       d.dtype,
+                                       ("layers",) + d.logical_axes), defs)
 
 
 def _stack_specs(specs: Any, n: int) -> Any:
@@ -82,6 +97,13 @@ def _layers(tree: Any) -> List[Any]:
 def _first(tree: Any) -> torch.Tensor:
     return tree if isinstance(tree, torch.Tensor) else _first(
         next(iter(tree.values())))
+
+
+def _inner(specs: Any) -> Any:
+    """The specs of one layer of a stack (its leading layer dim dropped)."""
+    if isinstance(specs, tuple):
+        return specs[1:]
+    return {k: _inner(v) for k, v in specs.items()}
 
 
 def _stacked(trees: List[Any]) -> Any:
@@ -129,19 +151,231 @@ def _put_state(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
             cache[name][rows] = t[rows]
 
 
-class LM:
-    def __init__(self, cfg: ModelConfig):
-        self.cfg = cfg
+class Rows(NamedTuple):
+    """An entry call's rows on a mesh: this rank holds rows [lo, lo + b)
+    of a global batch of ``B`` rows, cut over the data-parallel axes
+    ``part`` (a spec entry; ``rules.fit_batch_axes``)."""
+    B: int
+    lo: int
+    part: Any
 
-    # -- construction ----------------------------------------------------------
+
+class LM:
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.specs = None
+        self.tp = None
+        self.n_dp, self.dp_group = 1, None
+        # per parameter stack: (one layer's specs, whether a layer
+        # gathers any cut before it runs)
+        self._plans: Dict[str, Tuple[Any, bool]] = {}
+        if mesh is None:
+            return
+        pol = cfg.parallelism
+        # "2d" keeps the "model" cuts (tensor parallelism); "fsdp" and
+        # "dp" gather every cut
+        self.keep_model = pol == "2d"
+        n = mesh.shape["model"] if self.keep_model else 1
+        if n > 1 and cfg.family != "dense":
+            raise ValueError(SLICE_14.format(family=cfg.family))
+        self.specs = R.param_pspecs(self.param_defs(), mesh,
+                                    cfg.fsdp_over_pod, pol)
+        self.dp_axes = R.batch_axes(mesh, pol)
+        self.dp_group = mesh.group(self.dp_axes)
+        self.n_dp = mesh.size(self.dp_axes)
+        self._plans = self._gather_plans()
+        # tensor parallelism wherever "model" has a group to talk over:
+        # more than one rank, or one rank with ``one_rank_groups``
+        if not (self.keep_model and cfg.family == "dense"
+                and mesh.group("model") is not None):
+            return
+        a, mlp = self.specs["blocks"]["attn"], self.specs["blocks"]["mlp"]
+        cuts = (a["q"]["w"][2], a["k"]["w"][2], a["o"]["w"][1],
+                mlp["up"]["w"][2], mlp["down"]["w"][1])
+        if any(c != "model" for c in cuts):
+            raise ValueError(
+                f"tensor parallelism over {n} 'model' ranks needs "
+                "num_heads * head_dim, num_kv_heads * head_dim and d_ff "
+                f"divisible by {n} ({cfg.arch_id}: cuts {cuts})")
+        self.tp = A.TP(mesh.group("model"), n, mesh.index("model"),
+                       cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0)
+
+    # -- the mesh: layout, rows, collectives -------------------------------------
+
+    @property
+    def _tp_on(self) -> bool:
+        return self.tp is not None
+
+    @property
+    def _vocab_cut(self) -> bool:
+        """Whether the embedding (and the logits) are vocab-parallel."""
+        return self._tp_on and self.specs["embed"]["tok"][0] == "model"
+
+    def _gather_plans(self) -> Dict[str, Tuple[Any, bool]]:
+        """For each parameter stack (a path of keys joined by dots, with
+        its leading stack dims) and each unstacked block: the specs of one
+        layer and whether any of its cuts is gathered."""
+        lay = self._layout()
+        depth = {"embed": 0, "final_norm": 0}
+        if "main" in lay:
+            depth["blocks"] = 1
+        if "super_ssm" in lay:
+            depth.update({"blocks.mlstm": 2, "blocks.slstm": 1})
+        if "super_hybrid" in lay:
+            depth.update({"blocks": 2, "shared_attn": 0})
+            if lay["tail_mamba"]:
+                depth["tail"] = 1
+        if "super_vlm" in lay:
+            depth.update({"blocks.self": 2, "blocks.cross": 1})
+        if "enc" in lay:
+            depth.update({"enc_blocks": 1, "dec_blocks": 1, "enc_norm": 0})
+        plans = {}
+        for path, k in depth.items():
+            spec = self.specs
+            for key in path.split("."):
+                spec = spec[key]
+            for _ in range(k):
+                spec = _inner(spec)
+            plans[path] = (spec, any(
+                self.mesh.group(self.gathered_axes(x)) is not None
+                for x in R.spec_leaves(spec)))
+        return plans
+
+    def _g(self, p: Any, path: str) -> Any:
+        """``p``, one layer of the stack ``path`` (or an unstacked block),
+        with the cuts a layer gathers before it runs all-gathered
+        (backward: reduce-scatter): every cut but "model" under "2d",
+        every cut otherwise.  ``p`` itself unsharded, or when no cut has
+        a group to gather over."""
+        if self.mesh is None:
+            return p
+        spec, gathers = self._plans[path]
+        return self._gather(p, spec) if gathers else p
+
+    def _gather(self, p: Any, spec: Any) -> Any:
+        if not torch.is_tensor(p):
+            return {k: self._gather(v, spec[k]) for k, v in p.items()}
+        for dim, e in enumerate(spec):
+            group = self.mesh.group(self.gathered_axes((e,)))
+            if group is not None:
+                p = comm.gather_dim(p, dim, group)
+        return p
+
+    def _gfn(self, fn, path: str):
+        """``fn(p, *a)`` on ``p`` gathered first: inside a recomputed body
+        the gather is redone in backward, so one layer's whole weights
+        live at a time."""
+        if self.mesh is None:
+            return fn
+        return lambda p, *a: fn(self._g(p, path), *a)
+
+    def gathered_axes(self, spec) -> Tuple[str, ...]:
+        """The mesh axes a leaf with ``spec`` is all-gathered over before
+        its layer runs (and its gradient reduce-scattered over)."""
+        axes = tuple(a for e in spec for a in R.spec_axes(e))
+        if self.keep_model:
+            axes = tuple(a for a in axes if a != "model")
+        return axes
+
+    def _leaf_spec(self, d: ParamDef):
+        return R.safe_spec(d.shape, R.spec_for(
+            d, self.mesh, self.cfg.fsdp_over_pod, self.cfg.parallelism),
+            self.mesh)
+
+    def shard(self, params: Any) -> Any:
+        """Whole parameters (or any tree of their layout: the AdamW
+        moments) -> this rank's pieces (views); themselves unsharded."""
+        if self.mesh is None:
+            return params
+
+        def one(t, spec):
+            if torch.is_tensor(t):
+                return R.local_slice(t, spec, self.mesh)
+            return {k: one(t[k], spec[k]) for k in t}
+        return one(params, self.specs)
+
+    def unshard(self, params: Any) -> Any:
+        """This rank's pieces -> whole parameters on every rank (each cut
+        all-gathered; no gradient)."""
+        if self.mesh is None:
+            return params
+
+        def one(t, spec):
+            if torch.is_tensor(t):
+                return comm.whole(t, spec, self.mesh)
+            return {k: one(t[k], spec[k]) for k in t}
+        return one(params, self.specs)
+
+    def batch_rows(self, global_batch: int) -> Tuple[int, int]:
+        """[lo, hi) of the global batch's rows this rank holds
+        (``rules.data_spec``: the rows over the longest prefix of the
+        data-parallel axes that divides the batch; all rows unsharded)."""
+        if self.mesh is None:
+            return 0, global_batch
+        return R.rows_of(self.mesh, global_batch, self.cfg.parallelism)
+
+    def _enter(self, b_local: int, global_batch: Optional[int]
+               ) -> Optional[Rows]:
+        """The rows of an entry call that holds ``b_local`` rows of a
+        global batch of ``global_batch`` (default: the rows over every
+        data-parallel axis), checked against ``batch_rows``; None
+        unsharded."""
+        if self.mesh is None:
+            return None
+        B = b_local * self.n_dp if global_batch is None else int(global_batch)
+        lo, hi = self.batch_rows(B)
+        if hi - lo != b_local:
+            raise ValueError(f"{b_local} rows on this rank do not match the "
+                             f"global batch {B} ({hi - lo} a rank); pass "
+                             "global_batch")
+        ba = R.fit_batch_axes(self.mesh, B, self.cfg.parallelism)
+        return Rows(B, lo, R.spec_part(ba))
+
+    def _constrain(self, x: torch.Tensor, rows: Optional[Rows]
+                   ) -> torch.Tensor:
+        """JAX's constraint of a block's output, (batch over the DP axes,
+        None, None): this rank's rows, every feature."""
+        if rows is None or x.dim() != 3:
+            return x
+        return R.constrain(x, (rows.part, None, None), self.mesh,
+                           (rows.B, x.shape[1], self.cfg.d_model))
+
+    def next_tokens(self, logits: torch.Tensor) -> torch.Tensor:
+        """argmax over the vocabulary of (b, V) logits, vocab-parallel on
+        a mesh: each rank's max and its global index, gathered over
+        "model", ties to the lowest index (``torch.argmax``'s rule)."""
+        if not self._vocab_cut:
+            return torch.argmax(logits, dim=-1)
+        lo = self.tp.r * logits.shape[-1]
+        val, idx = torch.max(logits, dim=-1)
+        vals = comm.all_gather(val[:, None], 1, self.tp.group)
+        idxs = comm.all_gather(idx[:, None] + lo, 1, self.tp.group)
+        best = torch.amax(vals, dim=-1, keepdim=True)
+        big = torch.full_like(idxs, torch.iinfo(idxs.dtype).max)
+        return torch.amin(torch.where(vals == best, idxs, big), dim=-1)
+
+    def gather_rows(self, x: torch.Tensor, global_batch: int) -> torch.Tensor:
+        """This rank's rows of a (global_batch, ...) tensor -> every row
+        (an all-gather over the data-parallel axes that cut it)."""
+        if self.mesh is None:
+            return x
+        ba = R.fit_batch_axes(self.mesh, global_batch, self.cfg.parallelism)
+        return comm.all_gather(x, 0, self.mesh.group(ba))
+
+    def full_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Vocab-parallel logits -> every vocabulary column (no
+        gradient)."""
+        if not self._vocab_cut:
+            return logits
+        return comm.all_gather(logits, logits.dim() - 1, self.tp.group)
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
         """Mask padded vocab rows so sampling never emits them."""
-        v = self.cfg.vocab_size
-        if logits.shape[-1] > v:
-            pad = torch.arange(logits.shape[-1], device=logits.device) >= v
-            logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
-        return logits
+        lo = self.tp.r * logits.shape[-1] if self._vocab_cut else 0
+        return L.mask_vocab(logits, self.cfg.vocab_size, lo)
+
+    # -- construction ----------------------------------------------------------
 
     def _block_defs(self, kind: str) -> Dict[str, Any]:
         cfg = self.cfg
@@ -161,7 +395,7 @@ class LM:
         if kind == "cross":
             return {"ln1": L.rmsnorm_defs(d), "xattn": A.attn_defs(cfg),
                     "ln2": L.rmsnorm_defs(d), "mlp": L.swiglu_defs(cfg),
-                    "gate": ParamDef((1,), "zeros")}
+                    "gate": ParamDef((1,), "zeros", logical_axes=(None,))}
         if kind == "encdec_dec":
             return {"ln1": L.rmsnorm_defs(d), "attn": A.attn_defs(cfg),
                     "lnx": L.rmsnorm_defs(d), "xattn": A.attn_defs(cfg),
@@ -219,99 +453,157 @@ class LM:
         return out
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
-        """Seeded random weights on ``generator.device``."""
-        return init_params_generator(self.param_defs(), generator)
+        """Seeded random weights on ``generator.device``; on a mesh every
+        rank draws the unsharded model's numbers and keeps its piece."""
+        defs = self.param_defs()
+        if self.mesh is None:
+            return init_params_generator(defs, generator)
+
+        def keep(d: ParamDef, t: torch.Tensor) -> torch.Tensor:
+            piece = R.local_slice(t, self._leaf_spec(d), self.mesh)
+            return piece if piece.shape == t.shape else piece.clone()
+        return init_params_generator(defs, generator, keep)
 
     # -- block applications (full sequence) --------------------------------------
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return L.embed(params["embed"], tokens).to(L.dtype_of(self.cfg))
+    def _emb(self, params) -> Dict[str, torch.Tensor]:
+        return self._g(params["embed"], "embed")
+
+    def _embed(self, params, tokens: torch.Tensor, rows: Optional[Rows]
+               ) -> torch.Tensor:
+        emb = self._emb(params)
+        if self._vocab_cut:
+            x = L.embed_tp(emb, tokens, self.tp.group,
+                           self.tp.r * emb["tok"].shape[0])
+        else:
+            x = L.embed(emb, tokens)
+        return self._constrain(x.to(L.dtype_of(self.cfg)), rows)
+
+    def _unembed(self, emb, x: torch.Tensor) -> torch.Tensor:
+        if self._vocab_cut:
+            return L.unembed_tp(emb, x, self.tp.group)
+        return L.unembed(emb, x)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return self._mask_pad(L.unembed(params["embed"], x))
+        x = self._norm(self._g(params["final_norm"], "final_norm"), x)
+        return self._mask_pad(self._unembed(self._emb(params), x))
 
     def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
         return L.rmsnorm(p, x, self.cfg.norm_eps)
 
-    def _apply_dense(self, p, x: torch.Tensor, causal: bool = True
-                     ) -> torch.Tensor:
+    def _mlp(self, p, x: torch.Tensor) -> torch.Tensor:
+        if self._tp_on:
+            return L.swiglu_tp(p, x, self.tp.group)
+        return L.swiglu(p, x)
+
+    def _moe(self, p, x: torch.Tensor, rows: Optional[Rows]):
+        """The MoE FFN: on a mesh its router statistics and capacity are
+        the global batch's, as JAX's GSPMD computes them."""
+        dp = None if rows is None else MOE.Rows(self.dp_group, rows.lo,
+                                                rows.B)
+        return MOE.apply_moe(self.cfg, p, x, dp)
+
+    def _apply_dense(self, p, x: torch.Tensor, rows: Optional[Rows],
+                     causal: bool = True) -> torch.Tensor:
         cfg = self.cfg
-        h = x + A.self_attention(cfg, p["attn"], self._norm(p["ln1"], x),
-                                 causal=causal)
-        return h + L.swiglu(p["mlp"], self._norm(p["ln2"], h))
+        hn = self._norm(p["ln1"], x)
+        if self._tp_on:
+            a = A.self_attention_tp(cfg, p["attn"], hn, self.tp,
+                                    causal=causal)
+        else:
+            a = A.self_attention(cfg, p["attn"], hn, causal=causal)
+        h = self._constrain(x + a, rows)
+        return self._constrain(h + self._mlp(p["mlp"], self._norm(p["ln2"],
+                                                                   h)), rows)
 
-    def _apply_moe(self, p, x: torch.Tensor):
+    def _apply_moe(self, p, x: torch.Tensor, rows: Optional[Rows]):
         cfg = self.cfg
-        h = x + A.self_attention(cfg, p["attn"], self._norm(p["ln1"], x))
-        y, stats = MOE.apply_moe(cfg, p["moe"], self._norm(p["ln2"], h))
-        return h + y, stats
+        h = self._constrain(x + A.self_attention(
+            cfg, p["attn"], self._norm(p["ln1"], x)), rows)
+        y, stats = self._moe(p["moe"], self._norm(p["ln2"], h), rows)
+        return self._constrain(h + y, rows), stats
 
-    def _apply_mamba(self, p, x: torch.Tensor) -> torch.Tensor:
-        return x + SSM.apply_mamba2(self.cfg, p["mamba"],
-                                    self._norm(p["ln"], x))
-
-    def _apply_cross(self, p, x: torch.Tensor, kv_src: torch.Tensor
+    def _apply_mamba(self, p, x: torch.Tensor, rows: Optional[Rows]
                      ) -> torch.Tensor:
+        return self._constrain(x + SSM.apply_mamba2(
+            self.cfg, p["mamba"], self._norm(p["ln"], x)), rows)
+
+    def _apply_cross(self, p, x: torch.Tensor, kv_src: torch.Tensor,
+                     rows: Optional[Rows]) -> torch.Tensor:
         g = torch.tanh(p["gate"]).to(x.dtype)
         h = x + g * A.cross_attention(self.cfg, p["xattn"],
                                       self._norm(p["ln1"], x), kv_src)
-        return h + L.swiglu(p["mlp"], self._norm(p["ln2"], h))
+        return self._constrain(h + L.swiglu(p["mlp"], self._norm(p["ln2"],
+                                                                  h)), rows)
 
-    def _super_ssm(self, p, h: torch.Tensor) -> torch.Tensor:
+    def _super_ssm(self, p, h: torch.Tensor, rows: Optional[Rows]
+                   ) -> torch.Tensor:
         cfg = self.cfg
         for pm in _layers(p["mlstm"]):
-            h = h + XL.apply_mlstm(cfg, pm["mlstm"], self._norm(pm["ln"], h))
-        ps = p["slstm"]
-        return h + XL.apply_slstm(cfg, ps["slstm"], self._norm(ps["ln"], h))
+            pm = self._g(pm, "blocks.mlstm")
+            h = self._constrain(h + XL.apply_mlstm(
+                cfg, pm["mlstm"], self._norm(pm["ln"], h)), rows)
+        ps = self._g(p["slstm"], "blocks.slstm")
+        return self._constrain(h + XL.apply_slstm(
+            cfg, ps["slstm"], self._norm(ps["ln"], h)), rows)
 
-    def _super_hybrid(self, p, h: torch.Tensor, shared) -> torch.Tensor:
+    def _super_hybrid(self, p, h: torch.Tensor, shared, rows: Optional[Rows]
+                      ) -> torch.Tensor:
         for pm in _layers(p):
-            h = self._apply_mamba(pm, h)
-        return self._apply_dense(shared, h)
+            h = self._apply_mamba(self._g(pm, "blocks"), h, rows)
+        return self._apply_dense(self._g(shared, "shared_attn"), h, rows)
 
-    def _super_vlm(self, p, h: torch.Tensor, kv_src: torch.Tensor
-                   ) -> torch.Tensor:
+    def _super_vlm(self, p, h: torch.Tensor, kv_src: torch.Tensor,
+                   rows: Optional[Rows]) -> torch.Tensor:
         for ps in _layers(p["self"]):
-            h = self._apply_dense(ps, h)
-        return self._apply_cross(p["cross"], h, kv_src)
+            h = self._apply_dense(self._g(ps, "blocks.self"), h, rows)
+        return self._apply_cross(self._g(p["cross"], "blocks.cross"), h,
+                                 kv_src, rows)
 
-    def _dec_block(self, p, h: torch.Tensor, enc: torch.Tensor
-                   ) -> torch.Tensor:
+    def _dec_block(self, p, h: torch.Tensor, enc: torch.Tensor,
+                   rows: Optional[Rows]) -> torch.Tensor:
         cfg = self.cfg
         h = h + A.self_attention(cfg, p["attn"], self._norm(p["ln1"], h))
         h = h + A.cross_attention(cfg, p["xattn"], self._norm(p["lnx"], h),
                                   enc)
-        return h + L.swiglu(p["mlp"], self._norm(p["ln2"], h))
+        return self._constrain(h + L.swiglu(p["mlp"],
+                                            self._norm(p["ln2"], h)), rows)
 
-    def _encode(self, params, enc_embeds: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params, enc_embeds: torch.Tensor, rows: Optional[Rows]
+                ) -> torch.Tensor:
         enc = enc_embeds.to(L.dtype_of(self.cfg))
-        block = _remat(self.cfg, functools.partial(self._apply_dense,
-                                                   causal=False))
+        block = _remat(self.cfg, self._gfn(
+            functools.partial(self._apply_dense, causal=False),
+            "enc_blocks"))
         for p in _layers(params["enc_blocks"]):
-            enc = block(p, enc)
-        return self._norm(params["enc_norm"], enc)
+            enc = block(p, enc, rows)
+        return self._norm(self._g(params["enc_norm"], "enc_norm"), enc)
 
     # -- training: full-sequence forward and loss --------------------------------
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]
+    def forward(self, params, batch: Dict[str, torch.Tensor],
+                global_batch: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Final hidden states (B, S, d) after the final norm, and aux
-        metrics (the MoE's ``moe_aux_loss`` and ``moe_drop_frac``)."""
+        metrics (the MoE's ``moe_aux_loss`` and ``moe_drop_frac``, means
+        over layers, of the global batch).  On a mesh ``batch`` holds this
+        rank's rows of a batch of ``global_batch`` rows (default: the rows
+        cut over every data-parallel axis)."""
         cfg = self.cfg
         lay = self._layout()
         dt = L.dtype_of(cfg)
-        x = self._embed(params, batch["tokens"])
+        rows = self._enter(batch["tokens"].shape[0], global_batch)
+        x = self._embed(params, batch["tokens"], rows)
         aux: Dict[str, torch.Tensor] = {}
         if "main" in lay and lay["main"][0] == "dense":
-            block = _remat(cfg, self._apply_dense)
+            block = _remat(cfg, self._gfn(self._apply_dense, "blocks"))
             for p in _layers(params["blocks"]):
-                x = block(p, x)
+                x = block(p, x, rows)
         elif "main" in lay:
-            block = _remat(cfg, self._apply_moe)
+            block = _remat(cfg, self._gfn(self._apply_moe, "blocks"))
             stats = []
             for p in _layers(params["blocks"]):
-                x, st = block(p, x)
+                x, st = block(p, x, rows)
                 stats.append(st)
             for k in ("aux_loss", "drop_frac"):
                 aux[f"moe_{k}"] = torch.mean(torch.stack([s[k]
@@ -319,42 +611,68 @@ class LM:
         elif "super_ssm" in lay:
             block = _remat(cfg, self._super_ssm)
             for p in _layers(params["blocks"]):
-                x = block(p, x)
+                x = block(p, x, rows)
         elif "super_hybrid" in lay:
             block = _remat(cfg, self._super_hybrid)
             for p in _layers(params["blocks"]):
-                x = block(p, x, params["shared_attn"])
+                x = block(p, x, params["shared_attn"], rows)
             if "tail" in params:
-                block = _remat(cfg, self._apply_mamba)
+                block = _remat(cfg, self._gfn(self._apply_mamba, "tail"))
                 for p in _layers(params["tail"]):
-                    x = block(p, x)
+                    x = block(p, x, rows)
         elif "super_vlm" in lay:
             kv_src = batch["img_embeds"].to(dt)
             block = _remat(cfg, self._super_vlm)
             for p in _layers(params["blocks"]):
-                x = block(p, x, kv_src)
+                x = block(p, x, kv_src, rows)
         else:
-            enc = self._encode(params, batch["enc_embeds"])
-            block = _remat(cfg, self._dec_block)
+            enc = self._encode(params, batch["enc_embeds"], rows)
+            block = _remat(cfg, self._gfn(self._dec_block, "dec_blocks"))
             for p in _layers(params["dec_blocks"]):
-                x = block(p, x, enc)
-        return self._norm(params["final_norm"], x), aux
+                x = block(p, x, enc, rows)
+        return self._norm(self._g(params["final_norm"], "final_norm"),
+                          x), aux
 
-    def logits(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        x, aux = self.forward(params, batch)
-        return self._mask_pad(L.unembed(params["embed"], x)), aux
+    def logits(self, params, batch, global_batch: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+        """(B, S, V) logits; on a mesh this rank's rows and, under "2d"
+        with the vocabulary cut over "model", this rank's vocab columns
+        (``full_logits`` gathers them)."""
+        x, aux = self.forward(params, batch, global_batch)
+        return self._mask_pad(self._unembed(self._emb(params), x)), aux
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+    def _token_ce(self, emb, x: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+        """Per-token cross-entropy of hidden states ``x`` against
+        ``labels`` (vocab-parallel when the vocabulary is cut)."""
+        v = self.cfg.vocab_size
+        if self._vocab_cut:
+            return L.token_ce_vocab_parallel(
+                self._unembed(emb, x), labels, v,
+                self.tp.r * emb["tok"].shape[0], self.tp.group)
+        return L._token_ce(L.unembed(emb, x), labels, v)
+
+    def loss(self, params, batch, global_batch: Optional[int] = None
+             ) -> Tuple[torch.Tensor, Dict]:
         """(mean token cross-entropy, plus 0.01 x the MoE aux loss; aux
-        with ``ce``)."""
+        with ``ce``), through ``chunked_cross_entropy`` when
+        ``cfg.loss_chunk > 0``.  On a mesh both are the global batch's, on
+        every rank; each rank's gradient is its own rows' share (the
+        data-parallel sum is ``train.steps``')."""
         cfg = self.cfg
+        x, aux = self.forward(params, batch, global_batch)
+        emb, labels = self._emb(params), batch["labels"]
+        # this rank's share of the global mean: its rows' sum over the
+        # global token count (rows repeated on data-parallel ranks that
+        # do not cut the batch count once each)
+        denom = float(labels.numel() * self.n_dp)
         if cfg.loss_chunk > 0:
-            x, aux = self.forward(params, batch)
-            ce = L.chunked_cross_entropy(params["embed"], x, batch["labels"],
-                                         cfg.vocab_size, cfg.loss_chunk)
+            ce = L.chunked_cross_entropy(
+                emb, x, labels, cfg.vocab_size, cfg.loss_chunk,
+                token_ce=functools.partial(self._token_ce, emb), denom=denom)
         else:
-            logits, aux = self.logits(params, batch)
-            ce = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+            ce = torch.sum(self._token_ce(emb, x, labels)) / denom
+        ce = comm.reduce_from_model(ce, self.dp_group)
         total = ce
         if "moe_aux_loss" in aux:
             total = total + 0.01 * aux["moe_aux_loss"]
@@ -401,51 +719,81 @@ class LM:
                 {"self": kv, "cross": cross(enc_seq)}, lay["dec"])
         return out
 
+    def _seq_local(self, max_seq: int) -> int:
+        """Positions of a cache this rank holds: under tensor parallelism
+        the sequence is cut over "model" (JAX's ``cache_shardings``)."""
+        if not self._tp_on:
+            return max_seq
+        if max_seq % self.tp.n:
+            raise ValueError(f"max_seq {max_seq} must divide over the "
+                             f"{self.tp.n} 'model' ranks that cut the cache")
+        return max_seq // self.tp.n
+
     def init_cache(self, batch: int, max_seq: int, device) -> Dict[str, Any]:
+        """A zero cache; on a mesh this rank's piece of it, its rows
+        (``batch_rows``) and its positions."""
         def zeros(specs):
             if isinstance(specs, tuple):
                 return torch.zeros(specs[0], dtype=specs[1], device=device)
             return {k: zeros(v) for k, v in specs.items()}
-        return zeros(self.cache_defs(batch, max_seq))
+        lo, hi = self.batch_rows(batch)
+        return zeros(self.cache_defs(hi - lo, self._seq_local(max_seq)))
 
     def _cross_kv(self, p, kv_src: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {"k": L.linear(p["k"], kv_src), "v": L.linear(p["v"], kv_src)}
 
     # -- prefill -----------------------------------------------------------------
 
-    def _prefill_attn(self, p, h: torch.Tensor, max_seq: int):
+    def _prefill_attn(self, p, h: torch.Tensor, max_seq: int,
+                      rows: Optional[Rows]):
         """A dense block over the prompt: (h, its cache entries)."""
-        a, kv = A.prefill_self_attention(self.cfg, p["attn"],
-                                         self._norm(p["ln1"], h), max_seq)
-        h = h + a
-        return h + L.swiglu(p["mlp"], self._norm(p["ln2"], h)), kv
+        hn = self._norm(p["ln1"], h)
+        if self._tp_on:
+            a, kv = A.prefill_self_attention_tp(self.cfg, p["attn"], hn,
+                                                max_seq, self.tp)
+        else:
+            a, kv = A.prefill_self_attention(self.cfg, p["attn"], hn, max_seq)
+        h = self._constrain(h + a, rows)
+        return self._constrain(h + self._mlp(p["mlp"],
+                                             self._norm(p["ln2"], h)),
+                               rows), kv
 
-    def _prefill_mamba(self, pm, h: torch.Tensor):
+    def _prefill_mamba(self, pm, h: torch.Tensor, rows: Optional[Rows]):
         cfg = self.cfg
         hn = self._norm(pm["ln"], h)
         y, s_fin = SSM.apply_mamba2_with_state(cfg, pm["mamba"], hn)
-        return h + y, {"state": s_fin,
-                       "conv": SSM.conv_tail(cfg, pm["mamba"], hn)}
+        return self._constrain(h + y, rows), {
+            "state": s_fin, "conv": SSM.conv_tail(cfg, pm["mamba"], hn)}
 
-    def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int
+    def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int,
+                global_batch: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process the prompt ``batch["tokens"]`` (B, S): last-position
         logits (B, 1, V) and the cache filled up to S (zero beyond), the
-        recurrent states after the prompt and the cross caches."""
+        recurrent states after the prompt and the cross caches (on a mesh,
+        this rank's rows and positions; ``global_batch`` as ``forward``)."""
         cfg = self.cfg
         lay = self._layout()
         dt = L.dtype_of(cfg)
-        x = self._embed(params, batch["tokens"])
-        if "main" in lay:
-            kind = lay["main"][0]
+        rows = self._enter(batch["tokens"].shape[0], global_batch)
+        self._seq_local(max_seq)
+        x = self._embed(params, batch["tokens"], rows)
+        g = self._g
+        if "main" in lay and lay["main"][0] == "dense":
             kvs = []
             for p in _layers(params["blocks"]):
+                x, kv = self._prefill_attn(g(p, "blocks"), x, max_seq, rows)
+                kvs.append(kv)
+            cache = {"blocks": _stacked(kvs)}
+        elif "main" in lay:
+            kvs = []
+            for p in _layers(params["blocks"]):
+                p = g(p, "blocks")
                 a, kv = A.prefill_self_attention(
                     cfg, p["attn"], self._norm(p["ln1"], x), max_seq)
-                x = x + a
-                h2 = self._norm(p["ln2"], x)
-                x = x + (L.swiglu(p["mlp"], h2) if kind == "dense"
-                         else MOE.apply_moe(cfg, p["moe"], h2)[0])
+                x = self._constrain(x + a, rows)
+                x = self._constrain(x + self._moe(
+                    p["moe"], self._norm(p["ln2"], x), rows)[0], rows)
                 kvs.append(kv)
             cache = {"blocks": _stacked(kvs)}
         elif "super_ssm" in lay:
@@ -453,31 +801,32 @@ class LM:
             for p in _layers(params["blocks"]):
                 mc = []
                 for pm in _layers(p["mlstm"]):
+                    pm = g(pm, "blocks.mlstm")
                     y, st = XL.apply_mlstm_with_state(
                         cfg, pm["mlstm"], self._norm(pm["ln"], x))
-                    x = x + y
+                    x = self._constrain(x + y, rows)
                     mc.append(st)
-                ps = p["slstm"]
+                ps = g(p["slstm"], "blocks.slstm")
                 y, sc = XL.apply_slstm_with_state(cfg, ps["slstm"],
                                                   self._norm(ps["ln"], x))
-                x = x + y
+                x = self._constrain(x + y, rows)
                 supers.append({"mlstm": _stacked(mc), "slstm": sc})
             cache = {"blocks": _stacked(supers)}
         elif "super_hybrid" in lay:
-            shared = params["shared_attn"]
+            shared = g(params["shared_attn"], "shared_attn")
             supers = []
             for p in _layers(params["blocks"]):
                 mc = []
                 for pm in _layers(p):
-                    x, st = self._prefill_mamba(pm, x)
+                    x, st = self._prefill_mamba(g(pm, "blocks"), x, rows)
                     mc.append(st)
-                x, kv = self._prefill_attn(shared, x, max_seq)
+                x, kv = self._prefill_attn(shared, x, max_seq, rows)
                 supers.append({"mamba": _stacked(mc), "attn": kv})
             cache = {"blocks": _stacked(supers)}
             if "tail" in params:
                 tc = []
                 for pm in _layers(params["tail"]):
-                    x, st = self._prefill_mamba(pm, x)
+                    x, st = self._prefill_mamba(g(pm, "tail"), x, rows)
                     tc.append(st)
                 cache["tail"] = _stacked(tc)
         elif "super_vlm" in lay:
@@ -486,22 +835,27 @@ class LM:
             for p in _layers(params["blocks"]):
                 kvs = []
                 for ps in _layers(p["self"]):
-                    x, kv = self._prefill_attn(ps, x, max_seq)
+                    x, kv = self._prefill_attn(g(ps, "blocks.self"), x,
+                                               max_seq, rows)
                     kvs.append(kv)
-                x = self._apply_cross(p["cross"], x, kv_src)
+                pc = g(p["cross"], "blocks.cross")
+                x = self._apply_cross(pc, x, kv_src, rows)
                 supers.append({"self": _stacked(kvs), "cross": self._cross_kv(
-                    p["cross"]["xattn"], kv_src)})
+                    pc["xattn"], kv_src)})
             cache = {"blocks": _stacked(supers)}
         else:
-            enc = self._encode(params, batch["enc_embeds"])
+            enc = self._encode(params, batch["enc_embeds"], rows)
             decs = []
             for p in _layers(params["dec_blocks"]):
+                p = g(p, "dec_blocks")
                 a, kv = A.prefill_self_attention(
                     cfg, p["attn"], self._norm(p["ln1"], x), max_seq)
                 x = x + a
                 x = x + A.cross_attention(cfg, p["xattn"],
                                           self._norm(p["lnx"], x), enc)
-                x = x + L.swiglu(p["mlp"], self._norm(p["ln2"], x))
+                x = self._constrain(x + L.swiglu(p["mlp"],
+                                                 self._norm(p["ln2"], x)),
+                                    rows)
                 decs.append({"self": kv,
                              "cross": self._cross_kv(p["xattn"], enc)})
             cache = {"dec_blocks": _stacked(decs)}
@@ -511,7 +865,7 @@ class LM:
 
     def decode(self, params, tokens: torch.Tensor, cache: Dict[str, Any],
                pos: int, *, rows: Optional[Iterable[int]] = None,
-               use_kernel: bool = True
+               use_kernel: bool = True, global_batch: Optional[int] = None
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One decode step: tokens (B, 1) at position ``pos`` (an int, the
         same for every row).  Each attention layer attends over its cache
@@ -519,25 +873,37 @@ class LM:
         state; then the fresh entries (at ``pos``) and the new states are
         written in place for ``rows`` (every row when None, none when
         empty): the other rows' cache is left as it was, every leaf.
-        Returns (logits (B, 1, V), cache)."""
+        Returns (logits (B, 1, V), cache).  On a mesh ``tokens``,
+        ``cache`` and ``rows`` are this rank's (local row indices), the
+        attention layers decode over this rank's positions of the cache,
+        and every rank calls each decode, with or without rows of its
+        own."""
         cfg = self.cfg
         pos = int(pos)   # audit: allow(host-sync) the caller's host position
-        x = self._embed(params, tokens)
+        held = self._enter(tokens.shape[0], global_batch)
+        x = self._embed(params, tokens, held)
         if rows is not None:
             rows = torch.as_tensor(list(rows), dtype=torch.long,
                                    device=x.device)
-        norm = self._norm
+        norm, g = self._norm, self._g
 
         def attn(p, c, h):
+            hn = norm(p["ln1"], h)
+            if self._tp_on:
+                a, ntok, at = A.decode_self_attention_read_tp(
+                    cfg, p["attn"], hn, c, pos, self.tp,
+                    use_kernel=use_kernel)
+                if at is not None:
+                    _put_token(c, ntok, at, rows)
+                return h + a
             a, ntok = A.decode_self_attention_read(
-                cfg, p["attn"], norm(p["ln1"], h), c, pos,
-                use_kernel=use_kernel)
+                cfg, p["attn"], hn, c, pos, use_kernel=use_kernel)
             _put_token(c, ntok, pos, rows)
             return h + a
 
         def dense(p, c, h):
             h = attn(p, c, h)
-            return h + L.swiglu(p["mlp"], norm(p["ln2"], h))
+            return h + self._mlp(p["mlp"], norm(p["ln2"], h))
 
         def mamba(pm, c, h):
             y, st = SSM.decode_mamba2(cfg, pm["mamba"], norm(pm["ln"], h), c)
@@ -548,50 +914,53 @@ class LM:
         if "main" in lay:
             for p, c in zip(_layers(params["blocks"]),
                             _layers(cache["blocks"])):
+                p = g(p, "blocks")
                 if lay["main"][0] == "dense":
                     x = dense(p, c, x)
                 else:
                     x = attn(p, c, x)
-                    x = x + MOE.apply_moe(cfg, p["moe"],
-                                          norm(p["ln2"], x))[0]
+                    x = x + self._moe(p["moe"], norm(p["ln2"], x),
+                                      held)[0]
         elif "super_ssm" in lay:
             for p, c in zip(_layers(params["blocks"]),
                             _layers(cache["blocks"])):
                 for pm, cm in zip(_layers(p["mlstm"]), _layers(c["mlstm"])):
+                    pm = g(pm, "blocks.mlstm")
                     y, st = XL.decode_mlstm(cfg, pm["mlstm"],
                                             norm(pm["ln"], x), cm)
                     _put_state(cm, st, rows)
                     x = x + y
-                ps = p["slstm"]
+                ps = g(p["slstm"], "blocks.slstm")
                 y, st = XL.decode_slstm(cfg, ps["slstm"], norm(ps["ln"], x),
                                         c["slstm"])
                 _put_state(c["slstm"], st, rows)
                 x = x + y
         elif "super_hybrid" in lay:
-            shared = params["shared_attn"]
+            shared = g(params["shared_attn"], "shared_attn")
             for p, c in zip(_layers(params["blocks"]),
                             _layers(cache["blocks"])):
                 for pm, cm in zip(_layers(p), _layers(c["mamba"])):
-                    x = mamba(pm, cm, x)
+                    x = mamba(g(pm, "blocks"), cm, x)
                 x = dense(shared, c["attn"], x)
             if "tail" in params:
                 for pm, cm in zip(_layers(params["tail"]),
                                   _layers(cache["tail"])):
-                    x = mamba(pm, cm, x)
+                    x = mamba(g(pm, "tail"), cm, x)
         elif "super_vlm" in lay:
             for p, c in zip(_layers(params["blocks"]),
                             _layers(cache["blocks"])):
-                for ps, cs in zip(_layers(p["self"]), _layers(c["self"])):
-                    x = dense(ps, cs, x)
-                pc = p["cross"]
-                g = torch.tanh(pc["gate"]).to(x.dtype)
-                x = x + g * A.decode_cross_attention(
+                for ps, cc in zip(_layers(p["self"]), _layers(c["self"])):
+                    x = dense(g(ps, "blocks.self"), cc, x)
+                pc = g(p["cross"], "blocks.cross")
+                gate = torch.tanh(pc["gate"]).to(x.dtype)
+                x = x + gate * A.decode_cross_attention(
                     cfg, pc["xattn"], norm(pc["ln1"], x), c["cross"],
                     use_kernel)
                 x = x + L.swiglu(pc["mlp"], norm(pc["ln2"], x))
         else:
             for p, c in zip(_layers(params["dec_blocks"]),
                             _layers(cache["dec_blocks"])):
+                p = g(p, "dec_blocks")
                 x = attn(p, c["self"], x)
                 x = x + A.decode_cross_attention(
                     cfg, p["xattn"], norm(p["lnx"], x), c["cross"],

@@ -9,16 +9,23 @@ SwiGLU and scatter-added back with their gate weights.  JAX's
 matrix product per non-empty expert group, which needs the group sizes
 on the host: one host read per layer call.
 
-Only the single-device branch of ``apply_moe`` is ported.  Its
-``ep_psum`` branch (experts sharded over a mesh's "model" axis through
-``shard_map``, FSDP all-gathers and a ``psum``) has no counterpart on one
-card, as ``_constrain`` has none in ``models/model.py``.  On one card
-the capacity is at least n * top_k whenever ``capacity_factor >= 1``,
-so nothing is dropped; the rule stays and ``drop_frac`` reports it.
+Only the branch of ``apply_moe`` that keeps every expert on each device
+is ported.  JAX runs it on one device and, through GSPMD, on a mesh whose
+"model" axis has one rank; there the router's statistics and the capacity
+are the whole batch's.  The port's ``apply_moe(..., rows=Rows(...))`` does
+the same on a data-parallel mesh (``models.model.LM(cfg, mesh)``): the
+per-expert sums of the router's probabilities and assignments and the
+drop count are summed over the data-parallel group, and the capacity is
+taken of the global token count, each rank keeping the pairs of its
+tokens that fall under it in the global pair order.  The ``ep_psum``
+branch (experts sharded over "model" through ``shard_map``) is not
+ported yet.  The capacity is at least n * top_k whenever
+``capacity_factor >= 1``, so nothing is dropped; the rule stays and
+``drop_frac`` reports it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +34,19 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import ParamDef
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 F32 = torch.float32
+
+
+class Rows(NamedTuple):
+    """Where this rank's tokens sit in the global batch of a data-parallel
+    mesh: its (B, S) rows are rows [lo, lo + B) of ``global_rows``, and
+    the batch's rows are spread over ``group`` (ranks that hold the same
+    rows count them once each; None: one rank)."""
+    group: Any
+    lo: int
+    global_rows: int
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -36,10 +54,14 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d, dt = cfg.d_model, L.dtype_of(cfg)
     E, ff = m.num_experts, m.expert_d_ff
     out: Dict[str, Any] = {
-        "router": ParamDef((d, E), "normal", dtype=F32),
-        "w_gate": ParamDef((E, d, ff), "normal", dtype=dt),
-        "w_up": ParamDef((E, d, ff), "normal", dtype=dt),
-        "w_down": ParamDef((E, ff, d), "normal", dtype=dt),
+        "router": ParamDef((d, E), "normal", dtype=F32,
+                           logical_axes=("embed", None)),
+        "w_gate": ParamDef((E, d, ff), "normal", dtype=dt,
+                           logical_axes=("experts", "embed", None)),
+        "w_up": ParamDef((E, d, ff), "normal", dtype=dt,
+                         logical_axes=("experts", "embed", None)),
+        "w_down": ParamDef((E, ff, d), "normal", dtype=dt,
+                           logical_axes=("experts", None, "embed")),
     }
     if m.num_shared_experts > 0:
         out["shared"] = L.swiglu_defs(
@@ -54,16 +76,21 @@ def _capacity(n_tokens: int, top_k: int, num_shards: int, cf: float) -> int:
 
 def _grouped(x: torch.Tensor, w: torch.Tensor, sizes) -> torch.Tensor:
     """``ragged_dot``: rows of x (sorted by group) times their group's
-    matrix w[g]; ``sizes`` the rows per group (host ints)."""
-    return torch.cat([xg @ w[g] for g, xg in enumerate(torch.split(x, sizes))
-                      if xg.shape[0]])
+    matrix w[g]; ``sizes`` the rows per group (host ints).  With no row
+    at all the empty product still reads ``w``, so its gradient (zero)
+    reaches w's FSDP gather on every rank alike."""
+    parts = [xg @ w[g] for g, xg in enumerate(torch.split(x, sizes))
+             if xg.shape[0]]
+    return torch.cat(parts) if parts else x[:0] @ w[0]
 
 
 def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
-               num_experts: int, capacity: int
+               num_experts: int, keep: int, group=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Route and run every expert on one device.  x (n, d) -> (out (n, d)
-    float32, aux_loss, drops)."""
+    """Route and run every expert on one device, keeping the first
+    ``keep`` (token, expert) pairs.  x (n, d) -> (out (n, d) float32,
+    aux_loss, drops); with ``group`` the aux loss and the drops are the
+    group's (the per-expert sums and the drop count summed over it)."""
     n, d = x.shape
     logits = x.to(F32) @ p["router"]                               # (n, E)
     probs = torch.softmax(logits, dim=-1)
@@ -71,19 +98,29 @@ def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e / k
-    me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(gate_i, num_experts).to(F32).sum(1), dim=0)
+    hits = F.one_hot(gate_i, num_experts).to(F32).sum(1)           # (n, E)
+    if group is None:
+        me = torch.mean(probs, dim=0)
+        ce = torch.mean(hits, dim=0)
+    else:
+        # the means over the group's tokens; the probabilities' sum is
+        # Megatron's g (each rank's backward: its own tokens' share)
+        count = n * comm.group_size(group)
+        me = comm.reduce_from_model(torch.sum(probs, dim=0), group) / count
+        ce = comm.all_reduce(torch.sum(hits, dim=0), group) / count
     aux = num_experts * torch.sum(me * ce) / top_k
 
     flat_i = gate_i.reshape(-1)                                    # (n*k,)
     flat_w = gate_w.reshape(-1)
     tok_of = torch.arange(n * top_k, device=x.device) // top_k
     # every expert is local: the stable partition keeps pair order, and
-    # the first ``capacity`` pairs are taken
-    sel = torch.arange(min(capacity, n * top_k), device=x.device)
+    # the first ``keep`` pairs are taken
+    sel = torch.arange(keep, device=x.device)
     # audit: allow(host-sync) static counts (rows, top_k, capacity)
-    drops = torch.full((), float(n * top_k - sel.shape[0]), dtype=F32,
+    drops = torch.full((), float(n * top_k - keep), dtype=F32,
                        device=x.device)
+    if group is not None:
+        drops = comm.all_reduce(drops, group)
 
     e_loc = flat_i[sel]
     tok = tok_of[sel]
@@ -110,16 +147,25 @@ def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
     return out, aux, drops
 
 
-def apply_moe(cfg: ModelConfig, params, x: torch.Tensor
+def apply_moe(cfg: ModelConfig, params, x: torch.Tensor,
+              rows: Optional[Rows] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, S, d) -> (B, S, d), stats {aux_loss, drop_frac}."""
+    """x (B, S, d) -> (B, S, d), stats {aux_loss, drop_frac}: of x's
+    tokens, or with ``rows`` of the global batch they belong to."""
     m = cfg.moe
     B, S, d = x.shape
     n = B * S
-    cap = _capacity(n, m.top_k, 1, m.capacity_factor)
+    if rows is None:
+        rows = Rows(None, 0, B)
+    # the capacity of the global batch, in its pair order: this rank's
+    # pairs start at pair lo * S * top_k
+    cap = _capacity(rows.global_rows * S, m.top_k, 1, m.capacity_factor)
+    keep = min(max(cap - rows.lo * S * m.top_k, 0), n * m.top_k)
     out, aux, drops = _local_moe(x.reshape(n, d), params, top_k=m.top_k,
-                                 num_experts=m.num_experts, capacity=cap)
+                                 num_experts=m.num_experts, keep=keep,
+                                 group=rows.group)
     y = out.reshape(B, S, d).to(x.dtype)
     if m.num_shared_experts > 0:
         y = y + L.swiglu(params["shared"], x)
-    return y, {"aux_loss": aux, "drop_frac": drops / (n * m.top_k)}
+    pairs = n * m.top_k * comm.group_size(rows.group)
+    return y, {"aux_loss": aux, "drop_frac": drops / pairs}

@@ -36,12 +36,16 @@ def mamba2_defs(cfg: ModelConfig) -> Dict[str, Any]:
     # in_proj emits [z (d_in), x (d_in), B (N), C (N), dt (H)]
     d_proj = 2 * d_in + 2 * N + H
     return {
-        "in_proj": ParamDef((d, d_proj), "normal", dtype=dt),
-        "conv_w": ParamDef((s.conv_width, d_in + 2 * N), "normal", 0.5, dt),
-        "A_log": ParamDef((H,), "zeros", dtype=F32),
-        "D": ParamDef((H,), "ones", dtype=F32),
-        "dt_bias": ParamDef((H,), "zeros", dtype=F32),
-        "out_proj": ParamDef((d_in, d), "normal", dtype=dt),
+        "in_proj": ParamDef((d, d_proj), "normal", dtype=dt,
+                            logical_axes=("embed", "mlp")),
+        "conv_w": ParamDef((s.conv_width, d_in + 2 * N), "normal", 0.5, dt,
+                           ("conv", None)),
+        "A_log": ParamDef((H,), "zeros", dtype=F32, logical_axes=("state",)),
+        "D": ParamDef((H,), "ones", dtype=F32, logical_axes=("state",)),
+        "dt_bias": ParamDef((H,), "zeros", dtype=F32,
+                            logical_axes=("state",)),
+        "out_proj": ParamDef((d_in, d), "normal", dtype=dt,
+                             logical_axes=("mlp", "embed")),
     }
 
 

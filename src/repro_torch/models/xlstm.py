@@ -40,13 +40,19 @@ def mlstm_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d, dt = cfg.d_model, L.dtype_of(cfg)
     d_in, H, hd = _mdims(cfg)
     return {
-        "up": ParamDef((d, 2 * d_in), "normal", dtype=dt),
-        "q": ParamDef((d_in, d_in), "normal", dtype=dt),
-        "k": ParamDef((d_in, d_in), "normal", dtype=dt),
-        "v": ParamDef((d_in, d_in), "normal", dtype=dt),
-        "gates": ParamDef((d_in, 2 * H), "normal", 0.1, F32),
-        "gate_bias": ParamDef((2 * H,), "zeros", dtype=F32),
-        "down": ParamDef((d_in, d), "normal", dtype=dt),
+        "up": ParamDef((d, 2 * d_in), "normal", dtype=dt,
+                       logical_axes=("embed", "mlp")),
+        "q": ParamDef((d_in, d_in), "normal", dtype=dt,
+                      logical_axes=(None, "heads")),
+        "k": ParamDef((d_in, d_in), "normal", dtype=dt,
+                      logical_axes=(None, "heads")),
+        "v": ParamDef((d_in, d_in), "normal", dtype=dt,
+                      logical_axes=(None, "heads")),
+        "gates": ParamDef((d_in, 2 * H), "normal", 0.1, F32, (None, None)),
+        "gate_bias": ParamDef((2 * H,), "zeros", dtype=F32,
+                              logical_axes=(None,)),
+        "down": ParamDef((d_in, d), "normal", dtype=dt,
+                         logical_axes=("mlp", "embed")),
     }
 
 
@@ -203,10 +209,13 @@ def slstm_defs(cfg: ModelConfig) -> Dict[str, Any]:
     H = cfg.num_heads
     hd = d // H
     return {
-        "w": ParamDef((d, 4 * d), "normal", dtype=dt),
-        "r": ParamDef((H, hd, 4 * hd), "normal", 0.5, F32),
-        "bias": ParamDef((4 * d,), "zeros", dtype=F32),
-        "out": ParamDef((d, d), "normal", dtype=dt),
+        "w": ParamDef((d, 4 * d), "normal", dtype=dt,
+                      logical_axes=("embed", "mlp")),
+        "r": ParamDef((H, hd, 4 * hd), "normal", 0.5, F32,
+                      (None, None, None)),
+        "bias": ParamDef((4 * d,), "zeros", dtype=F32, logical_axes=(None,)),
+        "out": ParamDef((d, d), "normal", dtype=dt,
+                        logical_axes=("mlp", "embed")),
     }
 
 

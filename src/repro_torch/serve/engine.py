@@ -19,6 +19,18 @@ refused: JAX's engine sizes its cross cache at ``max_seq *
 enc_seq_factor`` positions while a prefill fills it at the prompt's
 length, and its splice fails with a broadcast error; padding the cross
 cache would change what decode attends to.
+
+On the LM mesh (``LM(cfg, mesh)``: one engine per rank, every rank
+driving the same requests) the cache is this rank's piece: its slots'
+rows (``LM.batch_rows``, the batch over the data-parallel axes) and,
+under tensor parallelism, its positions (the sequence over "model", as
+JAX's ``cache_shardings``).  Admission, slots and positions stay host
+decisions, and every rank takes the same ones: a request is prefilled on
+every rank (a batch of one is not cut), the rank that holds its slot
+splices it in, every rank runs every grouped decode (with or without rows
+of its own in the group), and the next tokens are a vocab-parallel argmax
+(``LM.next_tokens``) gathered over the data-parallel ranks, so every rank
+reads all slots' tokens.
 """
 from __future__ import annotations
 
@@ -75,6 +87,9 @@ class ServeEngine:
         if lm.cfg.family == "audio":
             raise ValueError(AUDIO_CAVEAT)
         self.device = resolve_device(device)
+        self.mesh = getattr(lm, "mesh", None)
+        self.rows = (lm.batch_rows(batch_slots) if self.mesh is not None
+                     else (0, batch_slots))
         self.cache = lm.init_cache(batch_slots, max_seq, self.device)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, np.int32)
@@ -99,12 +114,32 @@ class ServeEngine:
             batch["img_embeds"] = torch.zeros(
                 (1, cfg.vlm.num_image_tokens, cfg.d_model),
                 dtype=L.dtype_of(cfg), device=self.device)
-        logits, cache1 = self.lm.prefill(self.params, batch, self.max_seq)
-        _splice(self.cache, cache1, slot)
+        logits, cache1 = self.lm.prefill(self.params, batch, self.max_seq,
+                                         **self._batch_kw(1))
+        lo, hi = self.rows
+        if lo <= slot < hi:
+            _splice(self.cache, cache1, slot - lo)
         self.slot_req[slot] = req
         self.slot_pos[slot] = S
-        req.out_tokens.append(int(torch.argmax(logits[0, -1])))
+        req.out_tokens.append(int(self._argmax(logits[:, -1])[0]))
         return True
+
+    def _batch_kw(self, global_batch: int) -> Dict[str, int]:
+        return {} if self.mesh is None else {"global_batch": global_batch}
+
+    def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return torch.argmax(logits, dim=-1)
+        return self.lm.next_tokens(logits)
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """Every slot's next token (host), from this rank's rows of the
+        logits."""
+        nxt = self._argmax(logits[:, 0])
+        if self.mesh is not None:
+            nxt = self.lm.gather_rows(nxt, self.slots)
+        # audit: allow(host-sync) the sampled tokens: the call's one fetch
+        return nxt.cpu().numpy()
 
     def step(self) -> List[Request]:
         """One decode step for all live slots; returns finished requests."""
@@ -114,7 +149,8 @@ class ServeEngine:
         tokens = np.zeros((self.slots, 1), np.int64)
         for i in live:
             tokens[i, 0] = self.slot_req[i].out_tokens[-1]
-        tokens = torch.as_tensor(tokens, device=self.device)
+        lo, hi = self.rows
+        tokens = torch.as_tensor(tokens[lo:hi], device=self.device)
         # each slot decodes at ITS OWN position: group live slots by
         # position; one group decodes the full batch and writes every row
         groups: Dict[int, List[int]] = {}
@@ -124,17 +160,17 @@ class ServeEngine:
         if len(groups) == 1:
             pos = next(iter(groups))
             logits, self.cache = self.lm.decode(self.params, tokens,
-                                                self.cache, pos)
-            # audit: allow(host-sync) the sampled tokens: the call's one fetch
-            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+                                                self.cache, pos,
+                                                **self._batch_kw(self.slots))
+            nxt = self._sample(logits)
         else:
             nxt = np.zeros(self.slots, np.int64)
             for pos, idxs in sorted(groups.items()):
+                mine = [i - lo for i in idxs if lo <= i < hi]
                 logits, self.cache = self.lm.decode(
-                    self.params, tokens, self.cache, pos, rows=idxs)
-                # audit: allow(host-sync) the sampled tokens of a group
-                sub = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
-                nxt[idxs] = sub[idxs]
+                    self.params, tokens, self.cache, pos, rows=mine,
+                    **self._batch_kw(self.slots))
+                nxt[idxs] = self._sample(logits)[idxs]
         finished = []
         for i in live:
             r = self.slot_req[i]

@@ -1,5 +1,7 @@
-"""The fleet's camera mesh: layout and collectives (the camera half of
-``repro.sharding.rules``).
+"""Layout rules and collectives of the port's meshes: the fleet's camera
+mesh and the LM's (data, model) mesh (``repro.sharding.rules``).
+
+**The camera half.**
 
 The JAX package shard_maps the fleet over a ("camera",) mesh of the
 devices one process sees.  The port runs one process per card under
@@ -19,12 +21,28 @@ NCCL inside the episode's CUDA graphs; it reads nothing on the host.
 
 ``shard_map_compat``, ``sharded_jit`` and ``cached_sharded_jit`` have no
 counterpart: a process runs its own rows, and a graph key holds
-``mesh_cache_key`` (world size, rank).  The LM half (``rules``,
-``spec_for``, ``param_pspecs``, ...) waits for the LM's slice.
+``mesh_cache_key`` (world size, rank).
+
+**The LM half** (logical axis -> mesh axis, MaxText style): ``rules``,
+``spec_for``, ``safe_spec``, ``param_pspecs``, ``batch_axes``,
+``fit_batch_axes``, ``data_spec``, ``cache_spec`` and ``constrain`` are
+plain functions of a mesh's ``axis_names`` and ``shape`` (a dict of axis
+sizes), so they take the port's ``launch.mesh.LMMesh`` and any stand-in
+alike.  A spec is a tuple with one entry per tensor dim: None
+(replicated), a mesh axis name, or a tuple of axis names that shard one
+dim together (``("pod", "data")``), as JAX's ``PartitionSpec``.  The
+weights follow JAX's rules exactly: Megatron TP over "model" for the
+``mlp``, ``heads``, ``kv_heads``, ``vocab`` and ``experts`` axes, FSDP over
+"data" (``("pod", "data")`` with ``fsdp_over_pod``) for ``embed``, and
+the ``"fsdp"`` and ``"dp"`` policies.  ``param_placements`` turns a spec
+into DTensor placements (``Shard(dim)`` / ``Replicate()`` per mesh dim),
+and ``local_slice`` into this rank's piece of a whole tensor.
+``param_shardings`` (a NamedSharding per leaf) has no counterpart: a
+rank holds its slice, and the placements say where the rest is.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -163,3 +181,203 @@ def is_writer(mesh) -> bool:
     """Whether this rank writes the fleet's files and prints its reports
     (rank 0 of the mesh; always when unsharded)."""
     return mesh_rank(mesh) == 0
+
+
+# -- the LM half: logical axis -> mesh axis ------------------------------------
+
+Spec = Tuple[Any, ...]        # per dim: None, an axis name, or a tuple of them
+_NON_WEIGHT = ("layers", "norm", "state", "conv", "act_seq", "act_embed",
+               "cache_seq")
+
+
+def _names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.axis_names)
+
+
+def axes_size(mesh, axes) -> int:
+    """Ranks along ``axes`` (None, one name, or a tuple of names)."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= int(mesh.shape[a])
+    return n
+
+
+def rules(mesh, fsdp_over_pod: bool = False, policy: str = "2d"
+          ) -> Dict[str, Tuple[str, ...]]:
+    """Logical axis name -> tuple of mesh axes (JAX's table)."""
+    axes = _names(mesh)
+    has_pod = "pod" in axes
+    all_axes = tuple(a for a in ("pod", "data", "model") if a in axes)
+    if policy == "dp":
+        # small models: every weight replicated, DP over every axis
+        return {k: () for k in ("embed", "mlp", "heads", "kv_heads", "vocab",
+                                "experts") + _NON_WEIGHT} | {
+            "batch": all_axes, "cache_batch": all_axes}
+    if policy == "fsdp":
+        # ZeRO style: matrices sharded on "embed" over the data axes, no TP
+        # on the body; the embedding stays vocab-parallel over "model"
+        fsdp_t = ("pod", "data") if has_pod else ("data",)
+        return {k: () for k in ("mlp", "heads", "kv_heads", "experts")
+                + _NON_WEIGHT} | {
+            "embed": fsdp_t, "vocab": ("model",),
+            "batch": all_axes, "cache_batch": all_axes}
+    fsdp: Tuple[str, ...] = ("data",)
+    if fsdp_over_pod and has_pod:
+        fsdp = ("pod", "data")
+    batch: Tuple[str, ...] = ("pod", "data") if has_pod else ("data",)
+    return {"embed": fsdp, "mlp": ("model",), "heads": ("model",),
+            "kv_heads": ("model",), "vocab": ("model",),
+            "experts": ("model",), "layers": (), "norm": (), "state": (),
+            "conv": (), "batch": batch, "act_seq": (), "act_embed": (),
+            "cache_batch": batch, "cache_seq": ()}
+
+
+def spec_for(d, mesh, fsdp_over_pod: bool = False, policy: str = "2d"
+             ) -> Spec:
+    """The spec of one ParamDef from its ``logical_axes``."""
+    r = rules(mesh, fsdp_over_pod, policy)
+    parts = []
+    for ax in d.logical_axes:
+        mapped = r.get(ax, ()) if ax is not None else ()
+        if not mapped:
+            parts.append(None)
+        elif len(mapped) == 1:
+            parts.append(mapped[0])
+        else:
+            parts.append(tuple(mapped))
+    return tuple(parts)
+
+
+def safe_spec(shape: Sequence[int], spec: Spec, mesh) -> Spec:
+    """Drop the mesh axes that do not divide their dim (replicate it)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(ax if int(dim) % axes_size(mesh, ax) == 0 else None
+                 for dim, ax in zip(shape, spec))
+
+
+def param_pspecs(defs: Any, mesh, fsdp_over_pod: bool = False,
+                 policy: str = "2d") -> Any:
+    """The tree of (divisibility-safe) specs of a ParamDef tree."""
+    from repro_torch.common.params import map_defs
+    return map_defs(lambda d: safe_spec(
+        d.shape, spec_for(d, mesh, fsdp_over_pod, policy), mesh), defs)
+
+
+def batch_axes(mesh, policy: str = "2d") -> Tuple[str, ...]:
+    """The data-parallel axes of a policy."""
+    names = _names(mesh)
+    if policy in ("dp", "fsdp") or policy is True:
+        return tuple(a for a in ("pod", "data", "model") if a in names)
+    return ("pod", "data") if "pod" in names else ("data",)
+
+
+def fit_batch_axes(mesh, batch: int, policy: str = "2d"
+                   ) -> Tuple[str, ...]:
+    """Longest prefix of the DP axes whose product divides ``batch``."""
+    ba = batch_axes(mesh, policy)
+    while ba:
+        if batch % axes_size(mesh, ba) == 0:
+            return ba
+        ba = ba[:-1]
+    return ()
+
+
+def rows_of(mesh, batch: int, policy: str = "2d") -> Tuple[int, int]:
+    """[lo, hi) of a (batch, ...) input's rows this rank holds under
+    ``data_spec`` (every row when the batch is not cut)."""
+    ba = fit_batch_axes(mesh, batch, policy)
+    k = batch // axes_size(mesh, ba)
+    i = mesh.index(ba) if ba else 0
+    return i * k, (i + 1) * k
+
+
+def spec_part(axes: Tuple[str, ...]):
+    """A tuple of mesh axes as one spec entry (None, a name, or the
+    tuple)."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def data_spec(mesh, batch: int, *trailing: Optional[str],
+              policy: str = "2d") -> Spec:
+    """Spec of a (batch, ...) input: batch over the largest feasible
+    DP-axis prefix, else replicated."""
+    return (spec_part(fit_batch_axes(mesh, batch, policy)),) + tuple(trailing)
+
+
+def cache_spec(mesh, batch: int, seq: int) -> Tuple[Any, Any]:
+    """(batch_part, seq_part) of a KV cache: batch over the DP axes if
+    they divide it, else the sequence over "data" (long context, batch
+    1), else replicated."""
+    ba = batch_axes(mesh)
+    if batch % axes_size(mesh, ba) == 0:
+        return spec_part(ba), None
+    if seq % int(mesh.shape["data"]) == 0:
+        return None, "data"
+    return None, None
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_leaves(specs: Any) -> list:
+    """The leaves (spec tuples) of a dict tree of specs, in sorted-key
+    order (``optimizer.tree_leaves``' order of the parameters)."""
+    if isinstance(specs, tuple):
+        return [specs]
+    return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's piece of a tensor of ``shape``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(int(n) // axes_size(mesh, e) for n, e in zip(shape, spec))
+
+
+def local_slice(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's piece of a whole tensor (a view; ``x`` itself when no
+    dim is cut)."""
+    for dim, e in enumerate(spec):
+        n = axes_size(mesh, e)
+        if n > 1:
+            k = x.shape[dim] // n
+            x = x.narrow(dim, mesh.index(spec_axes(e)) * k, k)
+    return x
+
+
+def param_placements(spec: Spec, mesh) -> list:
+    """DTensor placements of a tensor with ``spec``: per mesh dim,
+    ``Shard(d)`` for the tensor dim ``d`` it cuts, else ``Replicate()``
+    (a tuple entry cuts one dim over several mesh dims, outer first, as
+    DTensor reads a dim sharded twice)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for a in _names(mesh):
+        dims = [d for d, e in enumerate(spec) if a in spec_axes(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def constrain(x: torch.Tensor, spec: Spec, mesh,
+              global_shape: Sequence[int]) -> torch.Tensor:
+    """``x`` itself, checked to be this rank's piece of a tensor of
+    ``global_shape`` laid out by ``spec`` (JAX's
+    ``with_sharding_constraint``: the port cannot move data by
+    annotation, so a layout that disagrees is an error).  Unsharded: the
+    whole shape."""
+    want = (tuple(global_shape) if mesh is None
+            else local_shape(global_shape, spec, mesh))
+    if tuple(x.shape) != want:
+        raise ValueError(f"expected this rank's piece {want} of "
+                         f"{tuple(global_shape)} under {spec}, got "
+                         f"{tuple(x.shape)}")
+    return x

@@ -30,6 +30,10 @@ of the whole leaf.  ``inplace=True`` writes the new parameters and
 moments into the tensors passed in (the JAX launcher's
 ``donate_argnums``), so a step holds one copy of the training state.
 
+On the LM mesh every rank runs AdamW on its own pieces of the leaves
+(the moments share the parameters' layout); ``global_norm`` with the
+mesh and the parameters' specs gives the whole model's norm and clip.
+
 ``abstract_opt_state`` is the state of ``init_opt_state`` on the meta
 device (shapes and dtypes, nothing allocated), for the one-card dry run
 (``launch/dryrun.py``), as JAX's builds ``ShapeDtypeStruct`` stand-ins.
@@ -37,7 +41,7 @@ device (shapes and dtypes, nothing allocated), for the one-card dry run
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -105,10 +109,28 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
                        (cos + 1.0) * _f32(0.5 * cfg.lr))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of the per-leaf sums of squares (leaf order)."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree_leaves(tree)]
+def global_norm(tree: Tree, specs: Any = None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of the per-leaf sums of squares (leaf order).  On
+    a mesh each rank holds a piece of each leaf (``specs``): a leaf's sum
+    is summed over the axes that cut it, one all-reduce per set of axes,
+    so a leaf every rank holds whole (a norm scale, a replicated matrix)
+    counts once."""
+    leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves]
+    if mesh is not None:
+        from repro_torch.sharding import comm
+        from repro_torch.sharding.rules import spec_axes, spec_leaves
+        by_axes: Dict[tuple, List[int]] = {}
+        for i, spec in enumerate(spec_leaves(specs)):
+            axes = tuple(a for a in mesh.axis_names
+                         if any(a in spec_axes(e) for e in spec))
+            by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            if mesh.size(axes) > 1:
+                got = comm.all_reduce(torch.stack([sums[i] for i in idx]),
+                                      mesh.group(axes))
+                for j, i in enumerate(idx):
+                    sums[i] = got[j]
     return prng.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -127,14 +149,17 @@ def _slabs(t: torch.Tensor) -> list:
 
 
 def adamw_update(cfg: OptimizerConfig, params: Tree, grads: Tree,
-                 state: OptState, *, inplace: bool = False
+                 state: OptState, *, inplace: bool = False,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  All math in float32; moments stored in
     ``cfg.moment_dtype``; parameters updated in their storage dtype.
     ``inplace`` writes the new parameters and moments into ``params`` and
-    ``state`` and returns those same trees.
+    ``state`` and returns those same trees.  ``grad_norm`` (the mesh's
+    global norm) replaces ``global_norm(grads)``: on a mesh each rank
+    updates its pieces with the whole model's clip factor.
     Returns (params, state, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0)
     step = state.step + 1

@@ -1,0 +1,280 @@
+"""The rank bodies of ``tests/test_torch_lm_sharded.py``.
+
+Each spawned process joins a gloo group through a file under the test's
+``tmp_path``, builds the LM mesh of its world, runs that world's cases on
+the CPU with one intra-op thread and pickles what it saw as whole arrays
+(rows and vocab columns gathered, parameters unsharded), so every rank's
+results must equal rank 0's bit for bit.  The inputs (JAX's parameters as
+numpy, batches, prompts) come from a pickle the test writes.  The module
+imports no JAX: the children load only the port.
+"""
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+B, S = 4, 16                   # training rows and tokens (tests/test_torch_train.py)
+B_FSDP = 8                     # (4, 1): 2 rows a rank, 1 a microbatch
+SLOTS, MAX_SEQ = 4, 32         # serving (tests/test_torch_serve.py)
+LENS = (8, 8, 12, 12, 5, 8)    # two position groups: grouped decodes run
+NEW = 6
+DECODE_AT = (0, 8, 16)         # positions 0 and the slice boundaries of
+                               # 4 and 2 model ranks (8 and 16 of 32)
+OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy().copy()
+
+
+def _tree_np(tree):
+    if torch.is_tensor(tree):
+        return _np(tree)
+    if isinstance(tree, tuple):
+        return tuple(_tree_np(x) for x in tree)
+    return {k: _tree_np(v) for k, v in tree.items()}
+
+
+def model(inputs: dict, name: str, mesh):
+    """(the port's LM of config ``name`` on ``mesh``, this rank's pieces of
+    JAX's parameters)."""
+    from repro_torch.common.convert import params_from_numpy
+    from repro_torch.models.model import LM
+    cfg, jp = inputs["models"][name]
+    lm = LM(cfg, mesh)
+    return lm, lm.shard(params_from_numpy(jp, "lm", device="cpu"))
+
+
+def logits_and_loss(lm, p, batch: dict) -> dict:
+    lo, hi = lm.batch_rows(batch["tokens"].shape[0])
+    local = {k: torch.from_numpy(v[lo:hi]) for k, v in batch.items()}
+    lg, _ = lm.logits(p, local)
+    lg = lm.gather_rows(lm.full_logits(lg), batch["tokens"].shape[0])
+    loss, aux = lm.loss(p, local)
+    return {"logits": _np(lg), "loss": float(loss), "ce": float(aux["ce"]),
+            "moe": {k: float(v) for k, v in aux.items()
+                    if k.startswith("moe_")}}
+
+
+def train_step(lm, p, batch: dict, microbatches: int = 2) -> dict:
+    """One step from zero moments: metrics, and the whole updated
+    parameters and first moments."""
+    from repro_torch.common.config import OptimizerConfig, RunConfig
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps
+    run = RunConfig(model=lm.cfg, opt=OptimizerConfig(**OPT),
+                    microbatches=microbatches)
+    lo, hi = lm.batch_rows(batch["tokens"].shape[0])
+    local = {k: torch.from_numpy(v[lo:hi]) for k, v in batch.items()}
+    step = steps.make_train_step(lm, run)
+    p2, o2, m = step(p, O.init_opt_state(run.opt, p), local)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": _tree_np(lm.unshard(p2)),
+            "m": _tree_np(lm.unshard(o2.m))}
+
+
+def serve(lm, p, inputs: dict) -> dict:
+    """The engine's tokens for the prompts; decode logits (whole) at
+    ``DECODE_AT`` and the next position, after a prefill of the tokens
+    before."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    reqs = [Request(rid=i, prompt=np.asarray(pr, np.int32),
+                    max_new_tokens=NEW)
+            for i, pr in enumerate(inputs["prompts"])]
+    stats = ServeEngine(lm, p, SLOTS, MAX_SEQ, device="cpu").run(reqs)
+    tok = torch.from_numpy(inputs["decode_tokens"])
+    lo, hi = lm.batch_rows(SLOTS)
+    dec = {}
+    for t0 in DECODE_AT:
+        if t0 == 0:
+            cache = lm.init_cache(SLOTS, MAX_SEQ, "cpu")
+        else:
+            _, cache = lm.prefill(p, {"tokens": tok[lo:hi, :t0]}, MAX_SEQ)
+        for i in range(t0, t0 + 2):
+            lg, cache = lm.decode(p, tok[lo:hi, i:i + 1], cache, i)
+            dec[i] = _np(lm.gather_rows(lm.full_logits(lg), SLOTS))
+    return {"tokens": [r.out_tokens for r in reqs], "steps": stats["steps"],
+            "decode": dec}
+
+
+def loader_rows(lm, policy: str) -> list:
+    """This rank's rows of two batches of ``PrefetchLoader``, gathered."""
+    from repro_torch.data.pipeline import (DataConfig, PrefetchLoader,
+                                           SyntheticTokenSource)
+    src = SyntheticTokenSource(DataConfig(B_FSDP, 9, 100, seed=2))
+    loader = PrefetchLoader(src, "cpu", lm.mesh, policy)
+    it = iter(loader)
+    out = [{k: lm.gather_rows(v, B_FSDP).numpy() for k, v in next(it).items()}
+           for _ in range(2)]
+    loader.close()
+    return out
+
+
+def ckpt_state(lm):
+    """granite-8b's smoke model in bfloat16 from a seed, after one train
+    step: (params, opt_state) pieces and their placements."""
+    from repro_torch.common.config import OptimizerConfig, RunConfig
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps
+    run = RunConfig(model=lm.cfg, opt=OptimizerConfig(**OPT))
+    p = lm.init(torch.Generator().manual_seed(3))
+    o = O.init_opt_state(run.opt, p)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, 257, (B, S)))
+             for k in ("tokens", "labels")}
+    lo, hi = lm.batch_rows(B)
+    p, o, _ = steps.make_train_step(lm, run)(
+        p, o, {k: v[lo:hi] for k, v in batch.items()})
+    return (p, o), (lm.specs, O.OptState((), lm.specs, lm.specs))
+
+
+def restored(lm, path: Path) -> tuple:
+    """A checkpoint restored onto this mesh (into a zero target of this
+    rank's pieces), unsharded."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.common.config import OptimizerConfig
+    from repro_torch.common.params import map_defs
+    from repro_torch.train import optimizer as O
+    p = lm.shard(map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype),
+                          lm.param_defs()))
+    target = (p, O.init_opt_state(OptimizerConfig(**OPT), p))
+    places = (lm.specs, O.OptState((), lm.specs, lm.specs))
+    (p2, o2), meta = ckpt.restore(path, target, mesh=lm.mesh,
+                                  placements=places)
+    return (_tree_np(lm.unshard(p2)), int(o2.step), _tree_np(
+        lm.unshard(o2.m)), _tree_np(lm.unshard(o2.v))), int(meta["step"])
+
+
+# -- the worlds ------------------------------------------------------------------
+
+def world22(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.mesh import lm_device_mesh
+    from repro_torch.models.model import LM
+    mesh = lm_device_mesh(2, 2)
+    lm, p = model(inputs, "granite", mesh)
+    out = {"layout": (lm.tp.n, lm.tp.local_heads, lm._vocab_cut),
+           "fwd": logits_and_loss(lm, p, inputs["batch"]),
+           "step": train_step(lm, p, inputs["batch"]),
+           "serve": serve(lm, p, inputs)}
+    lq, pq = model(inputs, "qwen", mesh)
+    out["serve qwen"] = serve(lq, pq, inputs)
+    lf, pf = model(inputs, "granite fsdp", mesh)
+    out["fsdp layout"] = (lf.tp, lf.dp_axes)
+    out["fsdp fwd"] = logits_and_loss(lf, pf, inputs["batch8"])
+    out["fsdp step"] = train_step(lf, pf, inputs["batch8"])
+    lb = LM(inputs["ckpt_cfg"], mesh)
+    state, places = ckpt_state(lb)
+    ckpt.save(state, tmp / "ckpt22", step=1, mesh=mesh, placements=places)
+    out["ckpt"] = (_tree_np(lb.unshard(state[0])), int(state[1].step),
+                   _tree_np(lb.unshard(state[1].m)),
+                   _tree_np(lb.unshard(state[1].v)))
+    return out
+
+
+def world14(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    from repro_torch.models.model import LM
+    mesh = lm_device_mesh(1, 4)
+    lm, p = model(inputs, "granite", mesh)
+    out = {"layout": (lm.tp.n, lm.tp.local_heads, lm._vocab_cut),
+           "fwd": logits_and_loss(lm, p, inputs["batch"]),
+           "step": train_step(lm, p, inputs["batch"]),
+           "serve": serve(lm, p, inputs)}
+    lq, pq = model(inputs, "qwen", mesh)
+    out["serve qwen"] = serve(lq, pq, inputs)
+    lb = LM(inputs["ckpt_cfg"], mesh)
+    out["restored"] = restored(lb, tmp / "ckpt22")
+    out["restored jax"] = restored(lb, tmp / "ckpt_jax")
+    return out
+
+
+def world41(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    from repro_torch.models.model import LM
+    mesh = lm_device_mesh(4, 1)
+    lm, p = model(inputs, "granite", mesh)
+    out = {"layout": (lm.tp,),
+           "fwd": logits_and_loss(lm, p, inputs["batch8"]),
+           "step": train_step(lm, p, inputs["batch8"])}
+    lz, pz = model(inputs, "zamba2", mesh)
+    out["zamba2 fwd"] = logits_and_loss(lz, pz, inputs["batch8"])
+    out["zamba2 step"] = train_step(lz, pz, inputs["batch8"])
+    lo, po = model(inputs, "olmoe", mesh)
+    out["olmoe fwd"] = logits_and_loss(lo, po, inputs["batch8"])
+    out["olmoe step"] = train_step(lo, po, inputs["batch8"])
+    out["loader"] = loader_rows(lm, "2d")
+    out["restored"] = restored(LM(inputs["ckpt_cfg"], mesh), tmp / "ckpt22")
+    return out
+
+
+def world12(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    mesh = lm_device_mesh(1, 2)
+    lx, px = model(inputs, "xlstm", mesh)
+    return {"layout": (lx.dp_axes,),
+            "fwd": logits_and_loss(lx, px, inputs["batch"]),
+            "step": train_step(lx, px, inputs["batch"]),
+            "loader": loader_rows(lx, "dp")}
+
+
+def _same(a, b, what: str) -> None:
+    """Every rank's results equal rank 0's, bit for bit."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            _same(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}/{i}")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        assert a == b, what
+
+
+def entry(rank: int, world: int, name: str, tmp: str) -> None:
+    """One rank of world ``name``."""
+    torch.set_num_threads(1)
+    from repro_torch.launch import mesh as mesh_mod
+    tmp = Path(tmp)
+    inputs = pickle.loads((tmp / "inputs.pkl").read_bytes())
+    mesh_mod.init_distributed("cpu", rank=rank, world_size=world,
+                              init_method=f"file://{tmp / (name + '.pg')}")
+    try:
+        out = globals()[name](tmp, inputs)
+        (tmp / f"{name}.{rank}.pkl").write_bytes(pickle.dumps(out))
+    finally:
+        mesh_mod.shutdown()
+
+
+def results(tmp: Path, name: str, world: int) -> dict:
+    """Rank 0's results, after checking every rank's against them."""
+    got = [pickle.loads((tmp / f"{name}.{r}.pkl").read_bytes())
+           for r in range(world)]
+    for r in range(1, world):
+        _same(got[0], got[r], f"{name}: rank {r} vs rank 0")
+    return got[0]
+
+
+def spawn(tmp: Path, name: str, world: int):
+    """Start world ``name`` of ``world`` ranks without waiting for it."""
+    import torch.multiprocessing as mp
+    return mp.spawn(entry, args=(world, name, str(tmp)), nprocs=world,
+                    join=False)
+
+
+def wait(ctx, seconds: float = 600.0) -> None:
+    """Join a spawned world (a rank's exception is raised here); a world
+    still running after ``seconds`` is killed and fails."""
+    import time
+    deadline = time.monotonic() + seconds
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"a spawned world ran past {seconds} s")

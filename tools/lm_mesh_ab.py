@@ -1,0 +1,286 @@
+#!/usr/bin/env python3
+"""The LM on a (data, model) mesh of several cards against one card.
+
+Run from the repository root on a machine with N cards:
+
+    python3 tools/lm_mesh_ab.py --ranks 4 [--layers 36]
+
+The script builds the kernels and starts ``python -m
+torch.distributed.run --standalone --nproc-per-node N`` on itself; every
+rank joins an NCCL group and:
+
+  * **trains** granite-8b at its published width (bf16 weights, float32
+    AdamW moments, remat minimal) at ``--layers`` of its 36 layers, one
+    step of 4 rows of 4096 tokens in 2 microbatches, on each mesh of
+    ``meshes(N)`` ((1, 4) and (2, 2) for 4 ranks): the weights are the
+    unsharded model's seeded numbers (``LM.init`` keeps each rank's
+    piece), a warm-up step, then ``TIMED`` steps timed with CUDA events
+    (the ranks start together).  Printed per mesh: the loss of the first
+    step, ms/step (median), MFU per card (6 N_matmul + 12 L H hd S FLOPs
+    a token, as ``chip_smoke.py`` counts them, over the card's dense bf16
+    peak, divided by N) and the peak memory of the fullest card;
+  * **serves** phase 7's requests (6 prompts of 512/512/384/384/512/256
+    tokens, 16 new each, 4 slots, max_seq 2048) at ``--layers`` layers,
+    first on rank 0's card alone (unsharded), then on the (1, N) mesh
+    (tensor parallelism over N, the cache's sequence cut over "model",
+    flash-decode on each rank's slice): the tokens must be equal, and the
+    ms per decode call (median over the engine's decode calls) of each
+    side is printed.
+
+``--smoke --device cpu`` runs the same on the CPU over gloo at granite's
+smoke width (a rehearsal, no timing worth reading).  It fails if the
+tokens differ or a loss is not finite.  The card's name and power limit
+come first.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMED = 3
+ROWS, SEQ, MICROBATCHES = 4, 4096, 2          # chip_smoke.py phase 10
+PROMPTS = (512, 512, 384, 384, 512, 256)      # chip_smoke.py phase 7
+NEW, SLOTS, MAX_SEQ = 16, 4, 2048
+SMOKE = dict(rows=4, seq=32, prompts=(8, 8, 12, 12, 5, 8), new=6,
+             max_seq=32)
+
+
+def meshes(n: int):
+    """(data, model) shapes timed for n ranks."""
+    return [(1, n)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
+
+
+class Timed:
+    """``lm`` with each decode call timed (synchronised on the card)."""
+
+    def __init__(self, lm, sync):
+        self.lm, self.sync, self.ms = lm, sync, []
+
+    def __getattr__(self, name):
+        return getattr(self.lm, name)
+
+    def decode(self, *a, **kw):
+        self.sync()
+        t0 = time.perf_counter()
+        out = self.lm.decode(*a, **kw)
+        self.sync()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def _config(args):
+    from repro_torch.configs import get_config, smoke_config
+    if args.smoke:
+        return smoke_config("granite-8b")
+    return get_config("granite-8b").replace(num_layers=args.layers)
+
+
+def _flops_per_token(cfg, lm, seq: int) -> float:
+    """6 N_matmul + 12 L H hd S (chip_smoke.py's MFU count)."""
+    import numpy as np
+    from repro_torch.common.params import map_defs
+    n = []
+    map_defs(lambda d: n.append(int(np.prod(d.shape))
+                                if len(d.shape) >= 2 else 0),
+             lm.param_defs())
+    n_mm = sum(n) - cfg.padded_vocab * cfg.d_model   # the input gather
+    return (6 * n_mm + 12 * cfg.num_layers * cfg.num_heads
+            * cfg.resolved_head_dim * seq)
+
+
+def train(args, shape, dev, sync) -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import (H100_SXM, OptimizerConfig,
+                                           RunConfig)
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenSource
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    rows, seq = ((SMOKE["rows"], SMOKE["seq"]) if args.smoke
+                 else (ROWS, SEQ))
+    cfg = _config(args)
+    mesh = mesh_mod.lm_device_mesh(*shape)
+    lm = LM(cfg, mesh)
+    run = RunConfig(model=cfg, opt=OptimizerConfig(lr=1e-4, warmup_steps=1,
+                                                   total_steps=10),
+                    microbatches=MICROBATCHES)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    opt = init_opt_state(run.opt, params)
+    step = make_train_step(lm, run, donate=True)
+    src = SyntheticTokenSource(DataConfig(rows, seq, cfg.vocab_size))
+    lo, hi = lm.batch_rows(rows)
+    ms, losses = [], []
+    for i in range(TIMED + 1):
+        batch = {k: torch.as_tensor(v[lo:hi], device=dev).long()
+                 for k, v in src.batch_at(i).items()}
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        sync()
+        if i > 0:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    peak = torch.tensor(float(torch.cuda.max_memory_allocated())
+                        if dev.type == "cuda" else 0.0, device=dev)
+    dist.all_reduce(peak, dist.ReduceOp.MAX)
+    med = statistics.median(ms)
+    flops = _flops_per_token(cfg, LM(cfg), seq) * rows * seq
+    mfu = flops / (med / 1e3) / H100_SXM.peak_flops / mesh.size()
+    del params, opt
+    return {"mesh": shape, "layers": cfg.num_layers, "loss": losses[0],
+            "losses": losses, "ms_per_step": med, "ms": ms, "mfu": mfu,
+            "peak_bytes": int(peak), "finite": bool(np.isfinite(losses).all())}
+
+
+def serve(args, dev, sync) -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    prompts, new, max_seq = ((SMOKE["prompts"], SMOKE["new"],
+                              SMOKE["max_seq"]) if args.smoke
+                             else (PROMPTS, NEW, MAX_SEQ))
+    cfg = _config(args)
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=new)
+                for i, n in enumerate(prompts)]
+
+    out = {}
+    if dist.get_rank() == 0:             # one card, unsharded
+        lm = Timed(LM(cfg), sync)
+        params = lm.init(torch.Generator(device=dev).manual_seed(0))
+        reqs = requests()
+        ServeEngine(lm, params, SLOTS, max_seq, device=dev).run(reqs)
+        out["one"] = ([r.out_tokens for r in reqs], lm.ms)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = mesh_mod.lm_device_mesh(1, dist.get_world_size())
+    lm = Timed(LM(cfg, mesh), sync)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    reqs = requests()
+    ServeEngine(lm, params, SLOTS, max_seq, device=dev).run(reqs)
+    out["mesh"] = ([r.out_tokens for r in reqs], lm.ms)
+    return out
+
+
+def worker(args) -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    mesh_mod.init_distributed(args.device)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if args.device == "cuda" else torch.device("cpu"))
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {"train": [train(args, s, dev, sync)
+                         for s in meshes(dist.get_world_size())],
+               "serve": serve(args, dev, sync)}
+        if dist.get_rank() == 0:
+            Path(args.out).write_text(json.dumps(res))
+    finally:
+        mesh_mod.shutdown()
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=36,
+                    help="granite-8b layers (36 = published; one card "
+                         "holds the weights and AdamW state of 8)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="granite-8b's smoke config (a CPU rehearsal)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=str(ROOT / "build" / "lm_mesh_ab.json"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        return worker(args)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    tag = "[cpu]"
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("lm_mesh_ab: no CUDA device", file=sys.stderr)
+            return 2
+        if torch.cuda.device_count() < args.ranks:
+            print(f"lm_mesh_ab: {args.ranks} ranks need as many cards, this "
+                  f"machine has {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            return 2
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+        print(" | ".join(smi.splitlines()))
+        tag = f"[{smi.splitlines()[0]}]"
+        from repro_torch.kernels import build
+        build.build()
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(args.ranks), str(Path(__file__).resolve()),
+           "--worker", "--layers", str(args.layers), "--device", args.device,
+           "--out", args.out] + (["--smoke"] if args.smoke else [])
+    p = subprocess.run(cmd, env=env, cwd=ROOT, timeout=3000)
+    if p.returncode != 0:
+        print(f"lm_mesh_ab: the {args.ranks}-rank run failed",
+              file=sys.stderr)
+        return 1
+    res = json.loads(Path(args.out).read_text())
+    ok = True
+    for t in res["train"]:
+        d, m = t["mesh"]
+        print(f"lm mesh train granite-8b ({t['layers']} layers) on "
+              f"(data {d}, model {m}): loss {t['loss']:.6f} (steps "
+              f"{[round(x, 4) for x in t['losses']]}), ms/step median "
+              f"{t['ms_per_step']:.1f} ({TIMED} steps "
+              f"{[round(x, 1) for x in t['ms']]}), MFU per card "
+              f"{100 * t['mfu']:.2f}%, peak memory of the fullest card "
+              f"{t['peak_bytes'] / 2**30:.2f} GiB {tag}")
+        ok &= t["finite"]
+    (one, one_ms), (mesh, mesh_ms) = res["serve"]["one"], res["serve"]["mesh"]
+    same = one == mesh
+    print(f"lm mesh serve granite-8b: tokens of (1, {args.ranks}) "
+          f"{'equal' if same else 'DIFFER from'} one card's; ms per decode "
+          f"call median one card {statistics.median(one_ms):.3f} "
+          f"({len(one_ms)} calls), mesh {statistics.median(mesh_ms):.3f} "
+          f"({len(mesh_ms)} calls) {tag}")
+    if not (ok and same):
+        print("lm_mesh_ab: a loss is not finite or the tokens differ",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
