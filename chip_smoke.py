@@ -206,7 +206,20 @@ JAX.  In order it prints:
      (out within 4 bf16 ulps of max |out|);
      the per-rank dry run of granite-8b ``train_4k`` at 36 layers on
      (1, 4), (2, 2) and (4, 1);
- 15. the wall time, one JSON line of kernel records, then the device line
+ 15. expert and tensor parallelism inside the other families, on one-rank
+     NCCL groups (``make_host_mesh(one_rank_groups=True)``: the MoE's
+     expert-parallel branch and every family's tensor-parallel blocks at
+     n = 1, every collective issued, each a copy): olmoe-1b-7b at its
+     published width and depth through ``ServeEngine(LM(cfg, mesh))``
+     right after phase 11's olmoe engine, on its weights and requests
+     (tokens = phase 11's, every prefill's and decode's logits bitwise,
+     flash_decode 16 a decode call on rank 0's heads, ms per decode call
+     against the unsharded LM in turns); zamba2-7b, llama-3.2-vision-90b
+     and xlstm-125m (``parallelism="2d"``) at 2 superblocks and
+     seamless-m4t-large-v2 at 2 + 2 layers, each a forward, a prefill and
+     4 decodes on the mesh = the unsharded LM's bitwise; and
+     ``compressed_psum`` on a one-rank NCCL group = its CPU result;
+ 16. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Phase 8's kernel times come first, and the script enforces it: a
@@ -221,7 +234,8 @@ and read just after; each kernel record carries its launches on the main
 path (``run()``), in the replayed episodes, in the profile, in one
 window of the stream per method, in the trainers (0), in the episode
 with the card-trained server detector, in the families phase, on the
-camera mesh and in the LM mesh's tensor-parallel engine run.  Any
+camera mesh, in the LM mesh's tensor-parallel engine run and in phase
+15's expert- and tensor-parallel runs.  Any
 mismatch ends the run with a non-zero exit code; no phase's failure is
 caught.  Without a CUDA device it exits non-zero before printing a
 result.
@@ -1806,6 +1820,14 @@ def serve_family(torch, dev, tag: str, arch: str, layers, reset_counts,
     if cut:
         print(f"families reduced: serve {arch} at {cfg.num_layers} of "
               f"{full_layers} layers: {cut}")
+    if cfg.family == "moe" and arch == EP_ARCH:
+        # phase 15 (1) runs here, on these weights and requests
+        t0 = time.perf_counter()
+        LM_EP["launches"] = lm_ep_serving(torch, dev, tag, lm, params, run,
+                                          reset_counts, read_counts)
+        LM_EP["s"] = time.perf_counter() - t0
+        print(f"phase 15 (1), olmoe-1b-7b's expert-parallel engine on phase "
+              f"11's weights: {LM_EP['s']:.1f} s")
     if cfg.family == "vlm":
         toks = torch.as_tensor(np.stack([r.prompt[:FAM_PROMPTS[-1]]
                                          for r in run["requests"]]
@@ -3743,6 +3765,243 @@ def lm_mesh_dryrun(tag: str) -> None:
             raise AssertionError("granite-8b over (1, 4) does not fit")
 
 
+# -- 15. expert and tensor parallelism inside the other families (slice 14)
+
+EP_ARCH = "olmoe-1b-7b"  # phase 15 (1): served in phase 11, then on the mesh
+LM_EP = {}               # phase 15 (1)'s flash_decode launches and seconds
+# phase 15 (2): (arch, overrides of the published config, why it is cut)
+TP_FAMILIES = (
+    ("zamba2-7b", {"num_layers": 12}, "2 of 13 superblocks (5 Mamba-2 "
+     "layers and the shared attention block each), no tail: every block "
+     "shape kept"),
+    ("llama-3.2-vision-90b", {"num_layers": 10}, "2 of 20 superblocks of 4 "
+     "self + 1 cross layer (phase 11's cut)"),
+    ("xlstm-125m", {"num_layers": 8, "parallelism": "2d"}, "2 of 3 "
+     "superblocks of 3 mLSTM + 1 sLSTM, under parallelism='2d' (its "
+     "config's is 'dp', which cuts nothing over 'model')"),
+    ("seamless-m4t-large-v2", {"encdec": (2, 2)}, "2 of 24 encoder and 2 of "
+     "24 decoder layers, at the LM level (the engine refuses the family)"))
+TP_ROWS, TP_PROMPT, TP_NEW, TP_SEQ = 4, 64, 4, 256
+
+
+def lm_ep_serving(torch, dev, tag: str, lm, params, run, reset_counts,
+                  read_counts) -> int:
+    """Phase 15 (1): phase 11's olmoe-1b-7b requests on its weights through
+    ``ServeEngine(LM(cfg, mesh))`` on ``make_host_mesh(one_rank_groups=
+    True)``: the MoE's expert-parallel branch (``MOE.EP`` at n = 1: the
+    stable partition of this rank's pairs, its capacity, the output
+    summed, the aux loss averaged and the drops summed over "model",
+    the first data block's value) and the tensor-parallel attention (B4
+    on rank 0's cache slice, the ranges merged over "model"), every
+    collective issued on NCCL, each a copy.  Every launch counter is set
+    to 0 just before the run and read just after (flash_decode 16 a
+    decode call, nothing else); the tokens and every prefill's and
+    decode's logits equal phase 11's engine's bit for bit; then ms per
+    decode call of the unsharded LM and the mesh in turns.  Returns the
+    flash_decode launches of the mesh's run."""
+    import numpy as np
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = lm.cfg
+    mesh_mod.init_distributed(dev.type, rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh(one_rank_groups=True)
+        lm_m = LM(cfg, mesh)
+        if lm_m.ep is None or lm_m.ep.n != 1 or lm_m.tp is None:
+            raise AssertionError(f"{cfg.arch_id} on {mesh}: expert "
+                                 f"parallelism {lm_m.ep}, tp {lm_m.tp}")
+        p = lm_m.shard(params)
+        if not all(a is b for a, b in zip(tree_leaves(p),
+                                          tree_leaves(params))):
+            raise AssertionError("the one-rank mesh's pieces are not phase "
+                                 "11's tensors")
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=FAM_NEW)
+                for i, n in enumerate(FAM_PROMPTS)]
+        rec = TimedLM(torch, lm_m)
+        eng = ServeEngine(rec, p, batch_slots=FAM_SLOTS, max_seq=FAM_SEQ,
+                          device=dev)
+        reset_counts()
+        stats = eng.run(reqs)
+        counts = read_counts()
+        n_fd = counts.pop("flash_decode")
+        dec = [c for c in rec.calls if c[0] == "decode"]
+        pre = [c for c in rec.calls if c[0] == "prefill"]
+        if (n_fd != b4_per_decode(cfg) * len(dec) or not dec
+                or any(counts.values())):
+            raise AssertionError(f"{cfg.arch_id} mesh: flash_decode "
+                                 f"launched {n_fd} times for {len(dec)} "
+                                 f"decode calls; others {counts}")
+        if [r.out_tokens for r in reqs] != [r.out_tokens
+                                            for r in run["requests"]]:
+            raise AssertionError(f"{cfg.arch_id} mesh: the engine's tokens "
+                                 "differ from phase 11's")
+        ref_calls = run["pre"] + run["dec"]
+        same = [torch.equal(a[4], b[4]) and a[2:4] == b[2:4]
+                for a, b in zip(ref_calls, pre + dec)]
+        if len(ref_calls) != len(pre + dec) or not all(same):
+            worst = max(float((a[4] - b[4]).abs().max())
+                        for a, b in zip(ref_calls, pre + dec))
+            raise AssertionError(f"{cfg.arch_id} mesh: {same.count(False)} "
+                                 f"of {len(same)} calls' logits differ from "
+                                 f"phase 11's (max |diff| {worst:.4g})")
+        print(f"lm ep serve {cfg.arch_id} ({cfg.num_layers} layers, "
+              f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}) on a "
+              f"one-rank {torch.distributed.get_backend()} mesh {mesh} with "
+              f"one-rank groups (the expert-parallel branch at n = 1, "
+              f"tensor-parallel attention, B4 on rank 0's heads and cache "
+              f"slice): {stats['requests']} requests, {stats['tokens']} "
+              f"tokens, {len(dec)} decode calls, flash_decode launches "
+              f"{n_fd} (= {b4_per_decode(cfg)} x {len(dec)}); tokens = phase "
+              f"11's, the logits of {len(pre)} prefills and {len(dec)} "
+              "decodes bitwise")
+        sides = {"unsharded": (lm, params, run["engine"].cache),
+                 "mesh ep": (lm_m, p, eng.cache)}
+        tokens = torch.zeros((FAM_SLOTS, 1), dtype=torch.long, device=dev)
+        pos = max(FAM_PROMPTS) + FAM_NEW
+        ms = {k: [] for k in sides}
+        order = list(sides)
+        for rnd in range(LM_MESH_TIMED + 1):
+            for k in (order if rnd % 2 == 0 else order[::-1]):
+                lm_k, p_k, cache_k = sides[k]
+                t = event_ms(torch, lambda: lm_k.decode(
+                    p_k, tokens, cache_k, pos, rows=[0, 1],
+                    global_batch=FAM_SLOTS))
+                if rnd > 0:
+                    ms[k].append(t)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"lm ep decode ms per call {cfg.arch_id} (4 slots, 2 rows "
+              f"written, position {pos}, in turns, median of "
+              f"{LM_MESH_TIMED}): " + ", ".join(
+                  f"{k} {med[k]:.3f} (min {min(ms[k]):.3f})" for k in order)
+              + f"; mesh ep / unsharded {med['mesh ep'] / med['unsharded']:.3f}"
+              f" {tag}")
+        del sides, rec, eng
+    finally:
+        mesh_mod.shutdown()
+    return n_fd
+
+
+def tp_config(arch: str, over: dict):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    over = dict(over)
+    if "encdec" in over:
+        enc, dec = over.pop("encdec")
+        over["encdec"] = dataclasses.replace(cfg.encdec, enc_layers=enc,
+                                             dec_layers=dec)
+    return cfg.replace(**over)
+
+
+def lm_tp_families(torch, dev, tag: str, reset_counts, read_counts) -> int:
+    """Phase 15 (2): each of TP_FAMILIES at its published width, seeded
+    bf16 weights on the card, run by the unsharded LM and by ``LM(cfg,
+    mesh)`` on ``make_host_mesh(one_rank_groups=True)`` (its
+    tensor-parallel blocks at n = 1: Mamba-2's gathered ``in_proj`` cut
+    and row-parallel ``out_proj``, the mLSTM's and sLSTM's, the gated
+    cross-attention, the encoder-decoder's, the recurrent states and
+    cross caches in JAX's layout): a forward of TP_ROWS rows of TP_PROMPT
+    tokens (seeded image or encoder embeddings), a prefill and TP_NEW
+    decodes through the kernel route, every logits bitwise; the mesh's
+    flash_decode launches counted (its decode calls times
+    ``b4_per_decode``, nothing else).  Then ``compressed_psum`` of seeded
+    gradients on the one-rank NCCL "data" group = the CPU's with no group.
+    Returns the flash_decode launches of the mesh runs."""
+    import numpy as np
+    from repro_torch.common.params import param_count
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+    from repro_torch.train import compression as C
+    total = 0
+    mesh_mod.init_distributed(dev.type, rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh(one_rank_groups=True)
+        for arch, over, why in TP_FAMILIES:
+            t0 = time.perf_counter()
+            cfg = tp_config(arch, over)
+            lm = LM(cfg)
+            params = lm.init(torch.Generator(device=dev).manual_seed(0))
+            rng = np.random.default_rng(3)
+            toks = torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (TP_ROWS, TP_PROMPT + TP_NEW)),
+                device=dev)
+            batch = family_batch(torch, dev, cfg, toks[:, :TP_PROMPT],
+                                 seed=1)
+
+            def drive(model, p):
+                fwd = dict(batch, labels=toks[:, 1:TP_PROMPT + 1])
+                out = [model.logits(p, fwd)[0]]
+                lg, cache = model.prefill(p, batch, TP_SEQ)
+                out.append(lg)
+                for i in range(TP_NEW):
+                    at = TP_PROMPT + i
+                    lg, cache = model.decode(p, toks[:, at:at + 1], cache, at)
+                    out.append(lg)
+                torch.cuda.synchronize()
+                return [o.float().cpu() for o in out]
+
+            with torch.no_grad():
+                want = drive(lm, params)
+                lm_m = LM(cfg, mesh)
+                if lm_m.tp is None or lm_m.tp.n != 1:
+                    raise AssertionError(f"{arch}: tp {lm_m.tp}")
+                reset_counts()
+                got = drive(lm_m, lm_m.shard(params))
+                counts = read_counts()
+            n_fd = counts.pop("flash_decode")
+            if n_fd != b4_per_decode(cfg) * TP_NEW or any(counts.values()):
+                raise AssertionError(f"{arch} mesh: flash_decode launched "
+                                     f"{n_fd} times for {TP_NEW} decode "
+                                     f"calls; others {counts}")
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            if not all(same):
+                worst = max(float((a - b).abs().max())
+                            for a, b in zip(got, want))
+                raise AssertionError(f"{arch} mesh: {same.count(False)} of "
+                                     f"{len(same)} calls' logits differ from "
+                                     f"the unsharded LM's (max |diff| "
+                                     f"{worst:.4g})")
+            total += n_fd
+            print(f"lm tp {arch} ({cfg.family}, d_model {cfg.d_model}, "
+                  f"{param_count(lm.param_defs()):,} parameters, bf16) on a "
+                  f"one-rank {torch.distributed.get_backend()} mesh with "
+                  f"one-rank groups: forward, prefill ({TP_ROWS} x "
+                  f"{TP_PROMPT}) and {TP_NEW} decodes bitwise to the "
+                  f"unsharded LM; flash_decode {n_fd} (= "
+                  f"{b4_per_decode(cfg)} x {TP_NEW}); "
+                  f"{time.perf_counter() - t0:.1f} s {tag}")
+            print(f"lm tp reduced: {arch}: {why}")
+            del params, lm, lm_m
+            torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(4)
+        grads = {"w": torch.randn((4096, 1024), generator=g, device=dev),
+                 "b": torch.randn((1024,), generator=g, device=dev) * 3}
+        res = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-2
+               for k, v in grads.items()}
+        mean, new = C.compressed_psum(grads, res, mesh.group("data"))
+        cm, cn = C.compressed_psum({k: v.cpu() for k, v in grads.items()},
+                                   {k: v.cpu() for k, v in res.items()},
+                                   None)
+        diff = max(max(float((mean[k].cpu() - cm[k]).abs().max()),
+                       float((new[k].cpu() - cn[k]).abs().max()))
+                   for k in grads)
+        if diff != 0.0:
+            raise AssertionError(f"compressed_psum on the card differs from "
+                                 f"the CPU's by {diff}")
+        raw, comp = C.wire_bytes(grads)
+        print(f"compressed_psum on a one-rank {torch.distributed.get_backend()}"
+              f" group ({sum(v.numel() for v in grads.values()):,} values, an "
+              f"int32 sum and a MAX of the scales) = the CPU's bitwise (mean "
+              f"and residuals); wire bytes {raw:,} -> {comp:,}")
+    finally:
+        mesh_mod.shutdown()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4338,7 +4597,18 @@ def main(argv=None) -> int:
     lm_mesh_dryrun(tag)
     print(f"phase 14 (2-4) (LM mesh: train step, B4 over a cut cache, dry "
           f"run): {time.perf_counter() - t_new:.1f} s")
+    # -- 15. expert and tensor parallelism inside the other families: the
+    # olmoe engine ran in phase 11; the other families, compression
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 15: expert and "
+          "tensor parallelism")
+    t_new = time.perf_counter()
+    tp_launches = lm_tp_families(torch, dev, tag, reset_counts, read_counts)
+    print(f"phase 15 (2-3) (the families' tensor parallelism, compression): "
+          f"{time.perf_counter() - t_new:.1f} s; phase 15 in all "
+          f"{time.perf_counter() - t_new + LM_EP['s']:.1f} s {tag}")
     for rec in records:
+        rec["launches_lm_ep"] = (LM_EP["launches"] + tp_launches
+                                 if rec["name"] == "flash_decode" else 0)
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
         rec["launches_profile"] = prof_launches[rec["name"]]

@@ -11,10 +11,15 @@ On the LM mesh ``batch_specs`` / ``cache_specs`` give JAX's
 PartitionSpecs of a cell's batch and of an LM's cache as spec tuples
 (``sharding.rules``), and ``batch_shardings`` / ``cache_shardings`` the
 same as DTensor placements (``rules.param_placements``; JAX returns
-NamedShardings).  The port's LM lays its KV caches out as these say for
-a cache JAX cuts by batch and by sequence over "model"; JAX's fallback
-of a batch the data axes do not divide (the sequence over "data") is not
-taken: the port then keeps the whole cache on each data rank.
+NamedShardings).  The port's LM lays its caches out as these say
+(``LM.init_cache``): the batch over the data-parallel axes, the
+attention caches' sequence over "model" under tensor parallelism or over
+"data" when the batch is not divided (the long-context layout), a
+recurrent state or a cross cache cut over "model" on the dim this rule
+picks.  Two differences, both where a dim's length happens to equal
+another's: the port takes the batch dim and an attention cache's
+sequence dim by position, not by length, and under the long-context
+layout it keeps the audio family's cross cache whole.
 ``build_cell`` lowers a step for XLA's dry run on a TPU mesh and has no
 counterpart: ``launch/dryrun.py`` sums the per-rank bytes instead.
 """

@@ -31,6 +31,20 @@ each rank runs flash-decode over its slice with the valid length
 "model" (``flash_decode.ops.merge_ranges``) and the fresh token is added
 once (``merge_new``); the rank that owns position ``pos`` writes it.
 Prefill writes each rank its slice of the positions.
+
+Cross-attention under tensor parallelism (``cross_attention_tp``: the
+vlm's image layers, the audio decoder) takes this rank's q heads from x
+and its kv heads from ``kv_src`` (gathered when the heads do not divide),
+with ``o`` row-parallel.  Its fixed cross cache keeps JAX's layout, which
+``cache_shardings`` picks by shape: the kv features cut over "model"
+when the cache's length is not the call's ``max_seq`` (each rank decodes
+over its kv heads with flash-decode, ``decode_cross_attention_tp``), its
+positions cut when it is (flash-decode over each rank's range, merged),
+whole otherwise.  ``take`` reads the columns (or rows) a rank needs of a
+weight that is cut over "model" or held whole: its own piece as held, or
+the weight gathered (backward: reduce-scatter) or read through
+Megatron's f, so that the gradient of every column is summed over the
+ranks that used it.
 """
 from __future__ import annotations
 
@@ -358,6 +372,68 @@ class TP(NamedTuple):
     local_heads: bool     # q and kv heads divide over n
 
 
+def _merged(ranges) -> list:
+    out: list = []
+    for lo, hi in ranges:
+        if hi <= lo:
+            continue
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def cols(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
+    """The elements of ``ranges`` ([lo, hi) pairs, in order) along
+    ``dim``: a view when they are one range, ``t`` itself when that range
+    is all of it."""
+    ranges = _merged(ranges)
+    if ranges == [(0, t.shape[dim])]:
+        return t
+    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def take(w: torch.Tensor, dim: int, ranges, full: int, tp: TP
+         ) -> torch.Tensor:
+    """``cols`` of a weight whose ``dim`` (``full`` wide) is cut over
+    "model" when this rank holds less of it: the rank's own piece as
+    held when the ranges are just that, else the weight gathered over
+    "model" (backward: reduce-scatter) or, held whole, read through f
+    (backward: the sum over "model")."""
+    ranges = _merged(ranges)
+    if w.shape[dim] != full:
+        k = w.shape[dim]
+        if ranges == [(tp.r * k, (tp.r + 1) * k)]:
+            return w
+        w = comm.gather_dim(w, dim, tp.group)
+    else:
+        w = comm.copy_to_model(w, tp.group)
+    return cols(w, dim, ranges)
+
+
+def heads_of(H: int, tp: TP) -> Tuple[int, int]:
+    """This rank's heads [h0, h1) of ``H``: its ``H / n`` when they divide
+    over "model", else every head (each rank computes all of them)."""
+    if H % tp.n:
+        return 0, H
+    k = H // tp.n
+    return tp.r * k, (tp.r + 1) * k
+
+
+def share_of(F: int, tp: TP) -> Tuple[int, int]:
+    """This rank's features [lo, hi) of ``F`` for a row-parallel product
+    (``F / n`` each when they divide)."""
+    return F * tp.r // tp.n, F * (tp.r + 1) // tp.n
+
+
+def whole_heads(t: torch.Tensor, dim: int, H: int, tp: TP) -> torch.Tensor:
+    """A tensor of this rank's heads along ``dim`` (``heads_of(H)``) ->
+    every head (an all-gather over "model" when the heads are cut)."""
+    return t if H % tp.n else comm.all_gather(t, dim, tp.group)
+
+
 def _qkv_tp(cfg: ModelConfig, params, x: torch.Tensor,
             positions: torch.Tensor, tp: TP):
     """q, k, v (B, S, heads, hd) with rope: this rank's heads, or every
@@ -401,23 +477,45 @@ def _all_heads(t: torch.Tensor, tp: TP) -> torch.Tensor:
     return comm.all_gather(t, 2, tp.group) if tp.local_heads else t
 
 
-def prefill_self_attention_tp(cfg: ModelConfig, params, x: torch.Tensor,
-                              max_seq: int, tp: TP
-                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``prefill_self_attention`` with tensor parallelism; the cache
-    entries of every kv head at this rank's positions [r S/n, (r+1)
-    S/n)."""
+class Split(NamedTuple):
+    """A cache's positions cut over one mesh axis: this rank holds
+    positions [r S/n, (r+1) S/n) of every kv head.  The axis is "model"
+    under tensor parallelism, and "data" when the data-parallel axes do
+    not divide the cache's batch (JAX's long-context layout)."""
+    group: Any
+    n: int
+    r: int
+
+
+def split_of(tp: TP) -> Split:
+    """The positions cut over "model" of tensor parallelism ``tp``."""
+    return Split(tp.group, tp.n, tp.r)
+
+
+def prefill_self_attention_split(cfg: ModelConfig, params, x: torch.Tensor,
+                                 max_seq: int, split: Split,
+                                 tp: Optional[TP] = None
+                                 ) -> Tuple[torch.Tensor,
+                                            Dict[str, torch.Tensor]]:
+    """``prefill_self_attention`` (with tensor parallelism over "model"
+    when ``tp``); the cache entries of every kv head at this rank's
+    positions of ``split``."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _qkv_tp(cfg, params, x, positions, tp)
-    out = chunked_attention(q, k, v, causal=True)
-    out = _o_tp(params, out.reshape(B, S, -1), tp, not tp.local_heads)
-    n_loc = max_seq // tp.n
-    r0 = tp.r * n_loc
+    if tp is None:
+        q, k, v = _qkv(cfg, params, x, positions)
+        out = chunked_attention(q, k, v, causal=True)
+        out = linear(params["o"], out.reshape(B, S, -1))
+    else:
+        q, k, v = _qkv_tp(cfg, params, x, positions, tp)
+        out = chunked_attention(q, k, v, causal=True)
+        out = _o_tp(params, out.reshape(B, S, -1), tp, not tp.local_heads)
+        k, v = _all_heads(k, tp), _all_heads(v, tp)
+    n_loc = max_seq // split.n
+    r0 = split.r * n_loc
     lo, hi = min(r0, S), min(r0 + n_loc, S)
     cache = {}
-    for name, t in _cache_entries(cfg, _all_heads(k, tp),
-                                  _all_heads(v, tp)).items():
+    for name, t in _cache_entries(cfg, k, v).items():
         buf = t.new_zeros((B, n_loc) + tuple(t.shape[2:]))
         if hi > lo:
             buf[:, lo - r0:hi - r0] = t[:, lo:hi]
@@ -425,28 +523,139 @@ def prefill_self_attention_tp(cfg: ModelConfig, params, x: torch.Tensor,
     return out, cache
 
 
-def decode_self_attention_read_tp(cfg: ModelConfig, params, x: torch.Tensor,
-                                  cache: Dict[str, torch.Tensor], pos: int,
-                                  tp: TP, use_kernel: bool = False):
-    """``decode_self_attention_read`` over this rank's slice of the
-    cache (positions [r S/n, (r+1) S/n)): flash-decode (the kernel, or its
-    plain version) over the slice's valid positions, the ranges merged
-    over "model", the fresh token merged once.  Returns (attn_out, the fresh cache entries, the
-    local position to write them at: None on a rank that does not own
-    ``pos``)."""
+def decode_self_attention_read_split(cfg: ModelConfig, params,
+                                     x: torch.Tensor,
+                                     cache: Dict[str, torch.Tensor],
+                                     pos: int, split: Split,
+                                     tp: Optional[TP] = None,
+                                     use_kernel: bool = False):
+    """``decode_self_attention_read`` over this rank's positions of the
+    cache (``split``; every head, gathered over "model" under tensor
+    parallelism ``tp``): flash-decode (the kernel, or its plain version)
+    over the slice's valid positions, the ranges merged over the split's
+    axis, the fresh token merged once.  Returns (attn_out, the fresh
+    cache entries, the local position to write them at: None on a rank
+    that does not own ``pos``)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
-    q, k1, v1 = (_all_heads(t, tp)
-                 for t in _qkv_tp(cfg, params, x, positions, tp))
+    if tp is None:
+        q, k1, v1 = _qkv(cfg, params, x, positions)
+    else:
+        q, k1, v1 = (_all_heads(t, tp)
+                     for t in _qkv_tp(cfg, params, x, positions, tp))
     k, v = _cache_kv(cfg, cache)
     n_loc = k.shape[1]
-    r0 = tp.r * n_loc
+    r0 = split.r * n_loc
     stats = fd_ops.flash_decode if use_kernel else fd_ref.flash_decode_ref
     out, m, l = stats(q, k, v, kv_valid_len=min(max(pos - r0, 0), n_loc))
     out, m, l = fd_ops.merge_ranges(
-        out, m, l, lambda t: comm.all_max(t, tp.group),
-        lambda t: comm.all_reduce(t, tp.group))
+        out, m, l, lambda t: comm.all_max(t, split.group),
+        lambda t: comm.all_reduce(t, split.group))
     out = fd_ops.merge_new(q, k1, v1, out.reshape(q.shape), m, l)
-    out = _o_tp(params, out.reshape(B, 1, -1), tp, True)
+    out = out.reshape(B, 1, -1)
+    out = (linear(params["o"], out) if tp is None
+           else _o_tp(params, out, tp, True))
     local = pos - r0 if 0 <= pos - r0 < n_loc else None
     return out, _cache_entries(cfg, k1, v1), local
+
+
+def cross_attention_tp(cfg: ModelConfig, params, x: torch.Tensor,
+                       kv_src: torch.Tensor, tp: TP) -> torch.Tensor:
+    """``cross_attention`` with tensor parallelism over "model": this
+    rank's q heads of x and kv heads of ``kv_src`` (every head, gathered,
+    when they do not divide), ``o`` row-parallel."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    xf = comm.copy_to_model(x, tp.group)
+    kf = comm.copy_to_model(kv_src, tp.group)
+    q = linear(params["q"], xf)
+    k, v = linear(params["k"], kf), linear(params["v"], kf)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if tp.local_heads:
+        H, KV = H // tp.n, KV // tp.n
+    else:
+        q, k, v = (comm.gather_dim(t, -1, tp.group) for t in (q, k, v))
+    out = chunked_attention(_split_heads(q, H, hd), _split_heads(k, KV, hd),
+                            _split_heads(v, KV, hd), causal=False)
+    return _o_tp(params, out.reshape(B, S, -1), tp, not tp.local_heads)
+
+
+def cross_cut(shape, max_seq: int, tp: TP) -> Optional[int]:
+    """The dim of a per-layer cache leaf (batch first) that JAX's
+    ``cache_shardings`` cuts over "model": the last dim of length
+    ``max_seq`` when there is one (cut when ``max_seq`` divides), else the
+    last one that "model" divides; None when none is cut."""
+    seq = next((i for i in range(len(shape) - 1, 0, -1)
+                if shape[i] == max_seq), None)
+    if seq is not None:
+        return seq if max_seq % tp.n == 0 else None
+    return next((i for i in range(len(shape) - 1, 0, -1)
+                 if shape[i] % tp.n == 0 and shape[i] >= tp.n), None)
+
+
+def cross_kv_tp(cfg: ModelConfig, params, kv_src: torch.Tensor,
+                max_seq: int, tp: TP) -> Dict[str, torch.Tensor]:
+    """This rank's piece of the fixed cross cache of ``kv_src`` (B, Skv,
+    d): k and v (B, Skv, KV*hd) laid out as ``cross_cut`` says (the
+    features cut: this rank's columns of k and v, as computed)."""
+    kvf = cfg.num_kv_heads * cfg.resolved_head_dim
+    B, Skv = kv_src.shape[:2]
+    cut = cross_cut((B, Skv, kvf), max_seq, tp)
+    out = {}
+    for name in ("k", "v"):
+        t = linear(params[name], kv_src)
+        if cut != 2:
+            t = comm.all_gather(t, 2, tp.group)
+            if cut is not None:
+                k = t.shape[cut] // tp.n
+                t = t.narrow(cut, tp.r * k, k)
+        out[name] = t
+    return out
+
+
+def decode_cross_attention_tp(cfg: ModelConfig, params, x: torch.Tensor,
+                              cache: Dict[str, torch.Tensor], max_seq: int,
+                              tp: TP, use_kernel: bool = False
+                              ) -> torch.Tensor:
+    """``decode_cross_attention`` over this rank's piece of a cross cache
+    laid out for ``max_seq`` (``cross_kv_tp``): over its kv heads with its
+    q heads (flash-decode on the local heads), over its range of
+    positions (the ranges merged over "model"), or over the whole cache
+    gathered; ``o`` row-parallel.  The piece says the layout: its kv
+    features are cut, or else (under tensor parallelism "model" divides
+    both the features and ``max_seq``) its positions are."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    kvf = cfg.num_kv_heads * hd
+    xf = comm.copy_to_model(x, tp.group)
+    q = linear(params["q"], xf)
+    H = cfg.num_heads
+    if tp.local_heads:
+        H //= tp.n
+    else:
+        q = comm.gather_dim(q, -1, tp.group)
+    q = _split_heads(q, H, hd)
+    k, v = cache["k"], cache["v"]
+    cut = (2 if k.shape[-1] != kvf
+           else cross_cut((B, k.shape[1] * tp.n, kvf), max_seq, tp))
+    local = cut == 2 and tp.local_heads     # its kv heads, its q heads'
+    if not local:
+        q = _all_heads(q, tp)
+        if cut == 1:
+            k, v = (t.reshape(B, -1, cfg.num_kv_heads, hd) for t in (k, v))
+            stats = (fd_ops.flash_decode if use_kernel
+                     else fd_ref.flash_decode_ref)
+            out, m, l = stats(q, k, v, kv_valid_len=k.shape[1])
+            out, m, l = fd_ops.merge_ranges(
+                out, m, l, lambda t: comm.all_max(t, tp.group),
+                lambda t: comm.all_reduce(t, tp.group))
+            out = out.reshape(q.shape).to(q.dtype)
+            return _o_tp(params, out.reshape(B, 1, -1), tp, True)
+        if cut is not None:
+            k, v = (comm.all_gather(t, cut, tp.group) for t in (k, v))
+    k, v = (t.reshape(B, -1, t.shape[-1] // hd, hd) for t in (k, v))
+    if use_kernel:
+        out = fd_ops.flash_decode(q, k, v, kv_valid_len=k.shape[1])[0]
+    else:
+        out = decode_attention(q, k, v, kv_valid_len=k.shape[1])
+    return _o_tp(params, out.reshape(B, 1, -1), tp, not local)

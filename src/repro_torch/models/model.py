@@ -19,10 +19,20 @@ states of the mLSTM (C, n, m), the sLSTM (c, n, h, m) and Mamba-2
 ``LM(cfg, mesh)`` runs on a ``launch.mesh.LMMesh`` (one process per
 card): each rank stores its pieces of the parameters under
 ``rules.param_pspecs``, a layer gathers its FSDP cuts before it runs
-(``_g``, planned per stack when the model is made), the dense blocks run
-with tensor parallelism over "model", and the entry points check the
-rows a rank holds at every block boundary (``_constrain``, JAX's
-sharding constraint, given the call's ``Rows``).
+(``_g``, planned per stack when the model is made), every family's
+blocks run with tensor parallelism over "model" under ``"2d"`` (the
+attention, MLP, cross-attention, Mamba-2 and xLSTM blocks: ``A.TP``),
+the MoE takes JAX's expert-parallel branch whenever "model" has a group
+(``MOE.EP``, under any policy), and the entry points check the rows a
+rank holds at every block boundary (``_constrain``, JAX's sharding
+constraint, given the call's ``Rows``).  The cache keeps JAX's layout
+(``launch.specs.cache_specs``): the attention caches' positions cut over
+"model" under tensor parallelism, or over "data" when the data-parallel
+axes do not divide the cache's rows (the long-context layout,
+``_split``), B4 running on each rank's positions with the ranges merged;
+a recurrent state or a cross cache cut on the dim JAX's rule picks
+(``A.cross_cut``); a decode gathers a state's cut, steps its heads and
+keeps its piece of the new state.
 
 Training: ``forward`` (final hidden states and the aux metrics: the MoE
 ``moe_aux_loss`` and ``moe_drop_frac``, means over layers), ``logits``
@@ -59,12 +69,6 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.sharding import comm
 from repro_torch.sharding import rules as R
-
-SLICE_14 = ("tensor parallelism inside the {family} family's blocks is not "
-            "ported yet (slice 14: MoE expert parallelism, the Mamba-2, "
-            "xLSTM, cross-attention and encoder-decoder blocks); run it on "
-            "a mesh whose 'model' axis has one rank, or with "
-            "parallelism='fsdp'")
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]     # a cache leaf: shape, dtype
 
@@ -166,40 +170,76 @@ class LM:
         self.mesh = mesh
         self.specs = None
         self.tp = None
+        self.ep = None
         self.n_dp, self.dp_group = 1, None
         # per parameter stack: (one layer's specs, whether a layer
         # gathers any cut before it runs)
         self._plans: Dict[str, Tuple[Any, bool]] = {}
+        self._max_seq: Optional[int] = None
         if mesh is None:
             return
         pol = cfg.parallelism
         # "2d" keeps the "model" cuts (tensor parallelism); "fsdp" and
         # "dp" gather every cut
         self.keep_model = pol == "2d"
-        n = mesh.shape["model"] if self.keep_model else 1
-        if n > 1 and cfg.family != "dense":
-            raise ValueError(SLICE_14.format(family=cfg.family))
         self.specs = R.param_pspecs(self.param_defs(), mesh,
                                     cfg.fsdp_over_pod, pol)
         self.dp_axes = R.batch_axes(mesh, pol)
         self.dp_group = mesh.group(self.dp_axes)
         self.n_dp = mesh.size(self.dp_axes)
         self._plans = self._gather_plans()
-        # tensor parallelism wherever "model" has a group to talk over:
-        # more than one rank, or one rank with ``one_rank_groups``
-        if not (self.keep_model and cfg.family == "dense"
-                and mesh.group("model") is not None):
+        # tensor and expert parallelism wherever "model" has a group to
+        # talk over: more than one rank, or one rank with
+        # ``one_rank_groups``
+        group = mesh.group("model")
+        if group is None:
             return
-        a, mlp = self.specs["blocks"]["attn"], self.specs["blocks"]["mlp"]
-        cuts = (a["q"]["w"][2], a["k"]["w"][2], a["o"]["w"][1],
-                mlp["up"]["w"][2], mlp["down"]["w"][1])
-        if any(c != "model" for c in cuts):
+        n, r = mesh.shape["model"], mesh.index("model")
+        if cfg.family == "moe":
+            blocks = tuple(a for a in mesh.axis_names if a != "model")
+            self.ep = MOE.EP(group, n, r, mesh.group(blocks), mesh.size(),
+                             self.keep_model)
+        if not self.keep_model:
+            return
+        cuts = []
+        for path, keys in self._tp_leaves().items():
+            spec = self._plans[path][0]
+            for key, dim in keys:
+                leaf = spec
+                for k in key.split("."):
+                    leaf = leaf[k]
+                cuts.append((f"{path}.{key}", leaf[dim]))
+        bad = [name for name, c in cuts if c != "model"]
+        if bad:
             raise ValueError(
                 f"tensor parallelism over {n} 'model' ranks needs "
                 "num_heads * head_dim, num_kv_heads * head_dim and d_ff "
-                f"divisible by {n} ({cfg.arch_id}: cuts {cuts})")
-        self.tp = A.TP(mesh.group("model"), n, mesh.index("model"),
+                f"divisible by {n} ({cfg.arch_id}: not cut: {bad})")
+        self.tp = A.TP(group, n, r,
                        cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0)
+
+    def _tp_leaves(self) -> Dict[str, List[Tuple[str, int]]]:
+        """The leaves (key, dim) whose "model" cut the tensor-parallel
+        attention and MLP blocks read as their own heads or features, per
+        parameter stack."""
+        attn = [("attn.q.w", 1), ("attn.k.w", 1), ("attn.o.w", 0)]
+        mlp = [("mlp.up.w", 1), ("mlp.down.w", 0)]
+        f = self.cfg.family
+        if f == "dense":
+            return {"blocks": attn + mlp}
+        if f == "moe":
+            shared = ([("moe.shared.up.w", 1), ("moe.shared.down.w", 0)]
+                      if self.cfg.moe.num_shared_experts else [])
+            return {"blocks": attn + shared}
+        if f == "hybrid":
+            return {"shared_attn": attn + mlp}
+        if f == "vlm":
+            return {"blocks.self": attn + mlp, "blocks.cross": [
+                ("xattn.q.w", 1), ("xattn.k.w", 1), ("xattn.o.w", 0)] + mlp}
+        if f == "audio":
+            return {"enc_blocks": attn + mlp, "dec_blocks": attn + mlp + [
+                ("xattn.q.w", 1), ("xattn.k.w", 1), ("xattn.o.w", 0)]}
+        return {}
 
     # -- the mesh: layout, rows, collectives -------------------------------------
 
@@ -496,56 +536,100 @@ class LM:
             return L.swiglu_tp(p, x, self.tp.group)
         return L.swiglu(p, x)
 
+    def _attn(self, p, hn: torch.Tensor, causal: bool = True
+              ) -> torch.Tensor:
+        if self._tp_on:
+            return A.self_attention_tp(self.cfg, p, hn, self.tp,
+                                       causal=causal)
+        return A.self_attention(self.cfg, p, hn, causal=causal)
+
+    def _xattn(self, p, hn: torch.Tensor, kv_src: torch.Tensor
+               ) -> torch.Tensor:
+        if self._tp_on:
+            return A.cross_attention_tp(self.cfg, p, hn, kv_src, self.tp)
+        return A.cross_attention(self.cfg, p, hn, kv_src)
+
     def _moe(self, p, x: torch.Tensor, rows: Optional[Rows]):
-        """The MoE FFN: on a mesh its router statistics and capacity are
+        """The MoE FFN: JAX's expert-parallel branch when "model" has a
+        group; else, on a mesh, its router statistics and capacity are
         the global batch's, as JAX's GSPMD computes them."""
+        if self.ep is not None:
+            return MOE.apply_moe_ep(self.cfg, p, x, self.ep,
+                                    self._ep_block(rows), shared=self._mlp)
         dp = None if rows is None else MOE.Rows(self.dp_group, rows.lo,
                                                 rows.B)
         return MOE.apply_moe(self.cfg, p, x, dp)
 
+    def _ep_block(self, rows: Rows) -> MOE.Block:
+        """How this call's rows reach JAX's ``shard_map`` block: the rows
+        over the non-model axes when they divide the batch, else every
+        row; this rank's rows gathered over the axes that cut them and
+        the block does not."""
+        mesh = self.mesh
+        blocks = tuple(a for a in mesh.axis_names if a != "model")
+        dp = mesh.size(blocks)
+        whole = rows.B % dp != 0
+        gathered = tuple(a for a in R.spec_axes(rows.part)
+                         if whole or a not in blocks)
+        over_model = "model" in gathered
+        if over_model and gathered != ("model",):
+            raise ValueError(f"rows cut over {gathered} do not gather into "
+                             "an expert-parallel block")
+        return MOE.Block(rows.B if whole else rows.B // dp, rows.B,
+                         None if over_model or not gathered
+                         else mesh.group(gathered), over_model,
+                         mesh.index(gathered) if gathered else 0)
+
     def _apply_dense(self, p, x: torch.Tensor, rows: Optional[Rows],
                      causal: bool = True) -> torch.Tensor:
-        cfg = self.cfg
-        hn = self._norm(p["ln1"], x)
-        if self._tp_on:
-            a = A.self_attention_tp(cfg, p["attn"], hn, self.tp,
-                                    causal=causal)
-        else:
-            a = A.self_attention(cfg, p["attn"], hn, causal=causal)
-        h = self._constrain(x + a, rows)
+        h = self._constrain(x + self._attn(p["attn"], self._norm(p["ln1"], x),
+                                           causal), rows)
         return self._constrain(h + self._mlp(p["mlp"], self._norm(p["ln2"],
                                                                    h)), rows)
 
     def _apply_moe(self, p, x: torch.Tensor, rows: Optional[Rows]):
-        cfg = self.cfg
-        h = self._constrain(x + A.self_attention(
-            cfg, p["attn"], self._norm(p["ln1"], x)), rows)
+        h = self._constrain(x + self._attn(p["attn"],
+                                           self._norm(p["ln1"], x)), rows)
         y, stats = self._moe(p["moe"], self._norm(p["ln2"], h), rows)
         return self._constrain(h + y, rows), stats
 
     def _apply_mamba(self, p, x: torch.Tensor, rows: Optional[Rows]
                      ) -> torch.Tensor:
-        return self._constrain(x + SSM.apply_mamba2(
-            self.cfg, p["mamba"], self._norm(p["ln"], x)), rows)
+        hn = self._norm(p["ln"], x)
+        y = (SSM.apply_mamba2_tp(self.cfg, p["mamba"], hn, self.tp)
+             if self._tp_on else SSM.apply_mamba2(self.cfg, p["mamba"], hn))
+        return self._constrain(x + y, rows)
 
     def _apply_cross(self, p, x: torch.Tensor, kv_src: torch.Tensor,
                      rows: Optional[Rows]) -> torch.Tensor:
         g = torch.tanh(p["gate"]).to(x.dtype)
-        h = x + g * A.cross_attention(self.cfg, p["xattn"],
-                                      self._norm(p["ln1"], x), kv_src)
-        return self._constrain(h + L.swiglu(p["mlp"], self._norm(p["ln2"],
-                                                                  h)), rows)
+        h = x + g * self._xattn(p["xattn"], self._norm(p["ln1"], x), kv_src)
+        return self._constrain(h + self._mlp(p["mlp"], self._norm(p["ln2"],
+                                                                   h)), rows)
+
+    def _mlstm(self, p, hn: torch.Tensor, with_state: bool = False):
+        if self._tp_on:
+            return XL.apply_mlstm_tp(self.cfg, p, hn, self.tp, with_state)
+        if with_state:
+            return XL.apply_mlstm_with_state(self.cfg, p, hn)
+        return XL.apply_mlstm(self.cfg, p, hn)
+
+    def _slstm(self, p, hn: torch.Tensor, with_state: bool = False):
+        if self._tp_on:
+            return XL.apply_slstm_tp(self.cfg, p, hn, self.tp, with_state)
+        if with_state:
+            return XL.apply_slstm_with_state(self.cfg, p, hn)
+        return XL.apply_slstm(self.cfg, p, hn)
 
     def _super_ssm(self, p, h: torch.Tensor, rows: Optional[Rows]
                    ) -> torch.Tensor:
-        cfg = self.cfg
         for pm in _layers(p["mlstm"]):
             pm = self._g(pm, "blocks.mlstm")
-            h = self._constrain(h + XL.apply_mlstm(
-                cfg, pm["mlstm"], self._norm(pm["ln"], h)), rows)
+            h = self._constrain(h + self._mlstm(
+                pm["mlstm"], self._norm(pm["ln"], h)), rows)
         ps = self._g(p["slstm"], "blocks.slstm")
-        return self._constrain(h + XL.apply_slstm(
-            cfg, ps["slstm"], self._norm(ps["ln"], h)), rows)
+        return self._constrain(h + self._slstm(
+            ps["slstm"], self._norm(ps["ln"], h)), rows)
 
     def _super_hybrid(self, p, h: torch.Tensor, shared, rows: Optional[Rows]
                       ) -> torch.Tensor:
@@ -562,12 +646,10 @@ class LM:
 
     def _dec_block(self, p, h: torch.Tensor, enc: torch.Tensor,
                    rows: Optional[Rows]) -> torch.Tensor:
-        cfg = self.cfg
-        h = h + A.self_attention(cfg, p["attn"], self._norm(p["ln1"], h))
-        h = h + A.cross_attention(cfg, p["xattn"], self._norm(p["lnx"], h),
-                                  enc)
-        return self._constrain(h + L.swiglu(p["mlp"],
-                                            self._norm(p["ln2"], h)), rows)
+        h = h + self._attn(p["attn"], self._norm(p["ln1"], h))
+        h = h + self._xattn(p["xattn"], self._norm(p["lnx"], h), enc)
+        return self._constrain(h + self._mlp(p["mlp"],
+                                             self._norm(p["ln2"], h)), rows)
 
     def _encode(self, params, enc_embeds: torch.Tensor, rows: Optional[Rows]
                 ) -> torch.Tensor:
@@ -719,79 +801,183 @@ class LM:
                 {"self": kv, "cross": cross(enc_seq)}, lay["dec"])
         return out
 
-    def _seq_local(self, max_seq: int) -> int:
-        """Positions of a cache this rank holds: under tensor parallelism
-        the sequence is cut over "model" (JAX's ``cache_shardings``)."""
-        if not self._tp_on:
-            return max_seq
-        if max_seq % self.tp.n:
-            raise ValueError(f"max_seq {max_seq} must divide over the "
-                             f"{self.tp.n} 'model' ranks that cut the cache")
-        return max_seq // self.tp.n
+    def _split(self, cache_batch: int, max_seq: Optional[int] = None
+               ) -> Optional[A.Split]:
+        """How this rank's attention caches cut their positions (JAX's
+        ``cache_shardings``): over "model" under tensor parallelism, else
+        over "data" when the data-parallel axes do not divide the cache's
+        ``cache_batch`` rows and "data" divides ``max_seq`` (JAX's
+        long-context layout; the rows are then whole on every rank);
+        None when the positions are whole."""
+        if self.mesh is None:
+            return None
+        if self._tp_on:
+            if max_seq is not None and max_seq % self.tp.n:
+                raise ValueError(f"max_seq {max_seq} must divide over the "
+                                 f"{self.tp.n} 'model' ranks that cut the "
+                                 "cache")
+            return A.split_of(self.tp)
+        if R.fit_batch_axes(self.mesh, cache_batch, self.cfg.parallelism):
+            return None
+        max_seq = self._decode_seq() if max_seq is None else max_seq
+        group, n = self.mesh.group("data"), self.mesh.shape["data"]
+        if group is None or max_seq % n:
+            return None
+        return A.Split(group, n, self.mesh.index("data"))
+
+    def _cache_stacks(self) -> Dict[str, Tuple[int, bool]]:
+        """Per cache stack (a path of keys): its stack depth and whether
+        it holds attention caches (their positions cut by ``_split``)."""
+        lay = self._layout()
+        if "main" in lay:
+            return {"blocks": (1, True)}
+        if "super_ssm" in lay:
+            return {"blocks.mlstm": (2, False), "blocks.slstm": (1, False)}
+        if "super_hybrid" in lay:
+            return {"blocks.mamba": (2, False), "blocks.attn": (1, True),
+                    "tail": (1, False)}
+        if "super_vlm" in lay:
+            return {"blocks.self": (2, True), "blocks.cross": (1, False)}
+        return {"dec_blocks.self": (1, True), "dec_blocks.cross": (1, False)}
 
     def init_cache(self, batch: int, max_seq: int, device) -> Dict[str, Any]:
-        """A zero cache; on a mesh this rank's piece of it, its rows
-        (``batch_rows``) and its positions."""
+        """A zero cache; on a mesh this rank's piece of it: its rows
+        (``batch_rows``), the attention caches' positions as ``_split``
+        cuts them and, under tensor parallelism, the dim of every other
+        leaf that JAX's ``cache_shardings`` cuts over "model"
+        (``A.cross_cut``)."""
+        lo, hi = self.batch_rows(batch)
+        split = self._split(batch, max_seq)
+        self._max_seq = max_seq
+        defs = self.cache_defs(hi - lo, max_seq)
+        if split is not None:
+            for path, (depth, attn) in self._cache_stacks().items():
+                node = defs
+                *up, last = path.split(".")
+                for k in up:
+                    node = node[k]
+                if last not in node or not (attn or self._tp_on):
+                    continue
+                for name, (shape, dt) in node[last].items():
+                    per = list(shape[depth:])
+                    c = 1 if attn else A.cross_cut(per, max_seq, self.tp)
+                    if c is not None:
+                        per[c] //= split.n
+                    node[last][name] = (tuple(shape[:depth]) + tuple(per), dt)
+
         def zeros(specs):
             if isinstance(specs, tuple):
                 return torch.zeros(specs[0], dtype=specs[1], device=device)
             return {k: zeros(v) for k, v in specs.items()}
-        lo, hi = self.batch_rows(batch)
-        return zeros(self.cache_defs(hi - lo, self._seq_local(max_seq)))
+        return zeros(defs)
 
-    def _cross_kv(self, p, kv_src: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _piece(self, tree: Dict[str, torch.Tensor], max_seq: int
+               ) -> Dict[str, torch.Tensor]:
+        """Whole per-layer cache leaves (batch first) -> this rank's
+        pieces under JAX's layout (``A.cross_cut``); themselves without
+        tensor parallelism."""
+        if not self._tp_on:
+            return tree
+        out = {}
+        for name, t in tree.items():
+            c = A.cross_cut(t.shape, max_seq, self.tp)
+            if c is not None:
+                k = t.shape[c] // self.tp.n
+                t = t.narrow(c, self.tp.r * k, k)
+            out[name] = t
+        return out
+
+    def _whole(self, tree: Dict[str, torch.Tensor], defs: Dict[str, Spec]
+               ) -> Dict[str, torch.Tensor]:
+        """This rank's pieces of per-layer cache leaves whose whole
+        shapes are ``defs`` -> the whole leaves (gathered over
+        "model")."""
+        out = {}
+        for name, t in tree.items():
+            c = A.cross_cut(defs[name][0], self._decode_seq(), self.tp)
+            out[name] = (t if c is None
+                         else comm.all_gather(t, c, self.tp.group))
+        return out
+
+    def _decode_seq(self) -> int:
+        if self._max_seq is None:
+            raise ValueError("the cache's layout is JAX's for the max_seq it "
+                             "was made with: init_cache or prefill first")
+        return self._max_seq
+
+    def _cross_kv(self, p, kv_src: torch.Tensor, max_seq: int
+                  ) -> Dict[str, torch.Tensor]:
+        if self._tp_on:
+            return A.cross_kv_tp(self.cfg, p, kv_src, max_seq, self.tp)
         return {"k": L.linear(p["k"], kv_src), "v": L.linear(p["v"], kv_src)}
 
     # -- prefill -----------------------------------------------------------------
 
-    def _prefill_attn(self, p, h: torch.Tensor, max_seq: int,
-                      rows: Optional[Rows]):
-        """A dense block over the prompt: (h, its cache entries)."""
+    def _prefill_self(self, p, h: torch.Tensor, max_seq: int,
+                      rows: Optional[Rows], split: Optional[A.Split]):
+        """A block's self-attention over the prompt: (h plus it, its
+        cache entries, this rank's positions of ``split``)."""
         hn = self._norm(p["ln1"], h)
-        if self._tp_on:
-            a, kv = A.prefill_self_attention_tp(self.cfg, p["attn"], hn,
-                                                max_seq, self.tp)
+        if split is not None:
+            a, kv = A.prefill_self_attention_split(self.cfg, p["attn"], hn,
+                                                   max_seq, split, self.tp)
         else:
             a, kv = A.prefill_self_attention(self.cfg, p["attn"], hn, max_seq)
-        h = self._constrain(h + a, rows)
+        return self._constrain(h + a, rows), kv
+
+    def _prefill_attn(self, p, h: torch.Tensor, max_seq: int,
+                      rows: Optional[Rows], split: Optional[A.Split]):
+        """A dense block over the prompt: (h, its cache entries)."""
+        h, kv = self._prefill_self(p, h, max_seq, rows, split)
         return self._constrain(h + self._mlp(p["mlp"],
                                              self._norm(p["ln2"], h)),
                                rows), kv
 
-    def _prefill_mamba(self, pm, h: torch.Tensor, rows: Optional[Rows]):
+    def _prefill_mamba(self, pm, h: torch.Tensor, max_seq: int,
+                       rows: Optional[Rows]):
         cfg = self.cfg
         hn = self._norm(pm["ln"], h)
-        y, s_fin = SSM.apply_mamba2_with_state(cfg, pm["mamba"], hn)
-        return self._constrain(h + y, rows), {
-            "state": s_fin, "conv": SSM.conv_tail(cfg, pm["mamba"], hn)}
+        if self._tp_on:
+            y, s_fin, tail = SSM.apply_mamba2_tp(cfg, pm["mamba"], hn, self.tp,
+                                                 with_state=True)
+        else:
+            y, s_fin = SSM.apply_mamba2_with_state(cfg, pm["mamba"], hn)
+            tail = SSM.conv_tail(cfg, pm["mamba"], hn)
+        return self._constrain(h + y, rows), self._piece(
+            {"state": s_fin, "conv": tail}, max_seq)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int,
-                global_batch: Optional[int] = None
+                global_batch: Optional[int] = None,
+                cache_batch: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process the prompt ``batch["tokens"]`` (B, S): last-position
         logits (B, 1, V) and the cache filled up to S (zero beyond), the
         recurrent states after the prompt and the cross caches (on a mesh,
-        this rank's rows and positions; ``global_batch`` as ``forward``)."""
+        this rank's piece in ``init_cache``'s layout of a cache of
+        ``cache_batch`` rows, default the call's global batch: the engine
+        prefills one request into its cache of every slot;
+        ``global_batch`` as ``forward``)."""
         cfg = self.cfg
         lay = self._layout()
         dt = L.dtype_of(cfg)
         rows = self._enter(batch["tokens"].shape[0], global_batch)
-        self._seq_local(max_seq)
+        split = (None if rows is None else self._split(
+            rows.B if cache_batch is None else cache_batch, max_seq))
+        self._max_seq = max_seq
         x = self._embed(params, batch["tokens"], rows)
         g = self._g
         if "main" in lay and lay["main"][0] == "dense":
             kvs = []
             for p in _layers(params["blocks"]):
-                x, kv = self._prefill_attn(g(p, "blocks"), x, max_seq, rows)
+                x, kv = self._prefill_attn(g(p, "blocks"), x, max_seq, rows,
+                                           split)
                 kvs.append(kv)
             cache = {"blocks": _stacked(kvs)}
         elif "main" in lay:
             kvs = []
             for p in _layers(params["blocks"]):
                 p = g(p, "blocks")
-                a, kv = A.prefill_self_attention(
-                    cfg, p["attn"], self._norm(p["ln1"], x), max_seq)
-                x = self._constrain(x + a, rows)
+                x, kv = self._prefill_self(p, x, max_seq, rows, split)
                 x = self._constrain(x + self._moe(
                     p["moe"], self._norm(p["ln2"], x), rows)[0], rows)
                 kvs.append(kv)
@@ -802,15 +988,16 @@ class LM:
                 mc = []
                 for pm in _layers(p["mlstm"]):
                     pm = g(pm, "blocks.mlstm")
-                    y, st = XL.apply_mlstm_with_state(
-                        cfg, pm["mlstm"], self._norm(pm["ln"], x))
+                    y, st = self._mlstm(pm["mlstm"], self._norm(pm["ln"], x),
+                                        with_state=True)
                     x = self._constrain(x + y, rows)
-                    mc.append(st)
+                    mc.append(self._piece(st, max_seq))
                 ps = g(p["slstm"], "blocks.slstm")
-                y, sc = XL.apply_slstm_with_state(cfg, ps["slstm"],
-                                                  self._norm(ps["ln"], x))
+                y, sc = self._slstm(ps["slstm"], self._norm(ps["ln"], x),
+                                    with_state=True)
                 x = self._constrain(x + y, rows)
-                supers.append({"mlstm": _stacked(mc), "slstm": sc})
+                supers.append({"mlstm": _stacked(mc),
+                               "slstm": self._piece(sc, max_seq)})
             cache = {"blocks": _stacked(supers)}
         elif "super_hybrid" in lay:
             shared = g(params["shared_attn"], "shared_attn")
@@ -818,15 +1005,17 @@ class LM:
             for p in _layers(params["blocks"]):
                 mc = []
                 for pm in _layers(p):
-                    x, st = self._prefill_mamba(g(pm, "blocks"), x, rows)
+                    x, st = self._prefill_mamba(g(pm, "blocks"), x, max_seq,
+                                                rows)
                     mc.append(st)
-                x, kv = self._prefill_attn(shared, x, max_seq, rows)
+                x, kv = self._prefill_attn(shared, x, max_seq, rows, split)
                 supers.append({"mamba": _stacked(mc), "attn": kv})
             cache = {"blocks": _stacked(supers)}
             if "tail" in params:
                 tc = []
                 for pm in _layers(params["tail"]):
-                    x, st = self._prefill_mamba(g(pm, "tail"), x, rows)
+                    x, st = self._prefill_mamba(g(pm, "tail"), x, max_seq,
+                                                rows)
                     tc.append(st)
                 cache["tail"] = _stacked(tc)
         elif "super_vlm" in lay:
@@ -836,28 +1025,26 @@ class LM:
                 kvs = []
                 for ps in _layers(p["self"]):
                     x, kv = self._prefill_attn(g(ps, "blocks.self"), x,
-                                               max_seq, rows)
+                                               max_seq, rows, split)
                     kvs.append(kv)
                 pc = g(p["cross"], "blocks.cross")
                 x = self._apply_cross(pc, x, kv_src, rows)
                 supers.append({"self": _stacked(kvs), "cross": self._cross_kv(
-                    pc["xattn"], kv_src)})
+                    pc["xattn"], kv_src, max_seq)})
             cache = {"blocks": _stacked(supers)}
         else:
             enc = self._encode(params, batch["enc_embeds"], rows)
             decs = []
             for p in _layers(params["dec_blocks"]):
                 p = g(p, "dec_blocks")
-                a, kv = A.prefill_self_attention(
-                    cfg, p["attn"], self._norm(p["ln1"], x), max_seq)
-                x = x + a
-                x = x + A.cross_attention(cfg, p["xattn"],
-                                          self._norm(p["lnx"], x), enc)
-                x = self._constrain(x + L.swiglu(p["mlp"],
-                                                 self._norm(p["ln2"], x)),
+                x, kv = self._prefill_self(p, x, max_seq, None, split)
+                x = x + self._xattn(p["xattn"], self._norm(p["lnx"], x), enc)
+                x = self._constrain(x + self._mlp(p["mlp"],
+                                                  self._norm(p["ln2"], x)),
                                     rows)
                 decs.append({"self": kv,
-                             "cross": self._cross_kv(p["xattn"], enc)})
+                             "cross": self._cross_kv(p["xattn"], enc,
+                                                     max_seq)})
             cache = {"dec_blocks": _stacked(decs)}
         return self._logits(params, x[:, -1:]), cache
 
@@ -876,8 +1063,8 @@ class LM:
         Returns (logits (B, 1, V), cache).  On a mesh ``tokens``,
         ``cache`` and ``rows`` are this rank's (local row indices), the
         attention layers decode over this rank's positions of the cache,
-        and every rank calls each decode, with or without rows of its
-        own."""
+        a recurrent layer over its heads of the gathered state, and every
+        rank calls each decode, with or without rows of its own."""
         cfg = self.cfg
         pos = int(pos)   # audit: allow(host-sync) the caller's host position
         held = self._enter(tokens.shape[0], global_batch)
@@ -885,13 +1072,15 @@ class LM:
         if rows is not None:
             rows = torch.as_tensor(list(rows), dtype=torch.long,
                                    device=x.device)
-        norm, g = self._norm, self._g
+        norm, g, tp = self._norm, self._g, self.tp
+        b = x.shape[0]
+        split = None if held is None else self._split(held.B)
 
         def attn(p, c, h):
             hn = norm(p["ln1"], h)
-            if self._tp_on:
-                a, ntok, at = A.decode_self_attention_read_tp(
-                    cfg, p["attn"], hn, c, pos, self.tp,
+            if split is not None:
+                a, ntok, at = A.decode_self_attention_read_split(
+                    cfg, p["attn"], hn, c, pos, split, tp,
                     use_kernel=use_kernel)
                 if at is not None:
                     _put_token(c, ntok, at, rows)
@@ -905,10 +1094,28 @@ class LM:
             h = attn(p, c, h)
             return h + self._mlp(p["mlp"], norm(p["ln2"], h))
 
-        def mamba(pm, c, h):
-            y, st = SSM.decode_mamba2(cfg, pm["mamba"], norm(pm["ln"], h), c)
+        def step(c, fn, p, hn, defs):
+            """A recurrent layer's step: on this rank's heads of the
+            gathered state under tensor parallelism, its piece of the new
+            state written back."""
+            if not self._tp_on:
+                y, st = fn(cfg, p, hn, c)
+            else:
+                y, st = fn(cfg, p, hn, self._whole(c, defs), tp)
+                st = self._piece(st, self._decode_seq())
             _put_state(c, st, rows)
-            return h + y
+            return y
+
+        def mamba(pm, c, h):
+            fn = SSM.decode_mamba2_tp if self._tp_on else SSM.decode_mamba2
+            return h + step(c, fn, pm["mamba"], norm(pm["ln"], h),
+                            SSM.mamba2_cache_defs(cfg, b))
+
+        def cross(p, c, hn):
+            if self._tp_on:
+                return A.decode_cross_attention_tp(
+                    cfg, p, hn, c, self._decode_seq(), tp, use_kernel)
+            return A.decode_cross_attention(cfg, p, hn, c, use_kernel)
 
         lay = self._layout()
         if "main" in lay:
@@ -922,19 +1129,17 @@ class LM:
                     x = x + self._moe(p["moe"], norm(p["ln2"], x),
                                       held)[0]
         elif "super_ssm" in lay:
+            mfn = XL.decode_mlstm_tp if self._tp_on else XL.decode_mlstm
+            sfn = XL.decode_slstm_tp if self._tp_on else XL.decode_slstm
             for p, c in zip(_layers(params["blocks"]),
                             _layers(cache["blocks"])):
                 for pm, cm in zip(_layers(p["mlstm"]), _layers(c["mlstm"])):
                     pm = g(pm, "blocks.mlstm")
-                    y, st = XL.decode_mlstm(cfg, pm["mlstm"],
-                                            norm(pm["ln"], x), cm)
-                    _put_state(cm, st, rows)
-                    x = x + y
+                    x = x + step(cm, mfn, pm["mlstm"], norm(pm["ln"], x),
+                                 XL.mlstm_state_defs(cfg, b))
                 ps = g(p["slstm"], "blocks.slstm")
-                y, st = XL.decode_slstm(cfg, ps["slstm"], norm(ps["ln"], x),
-                                        c["slstm"])
-                _put_state(c["slstm"], st, rows)
-                x = x + y
+                x = x + step(c["slstm"], sfn, ps["slstm"], norm(ps["ln"], x),
+                             XL.slstm_state_defs(cfg, b))
         elif "super_hybrid" in lay:
             shared = g(params["shared_attn"], "shared_attn")
             for p, c in zip(_layers(params["blocks"]),
@@ -953,17 +1158,14 @@ class LM:
                     x = dense(g(ps, "blocks.self"), cc, x)
                 pc = g(p["cross"], "blocks.cross")
                 gate = torch.tanh(pc["gate"]).to(x.dtype)
-                x = x + gate * A.decode_cross_attention(
-                    cfg, pc["xattn"], norm(pc["ln1"], x), c["cross"],
-                    use_kernel)
-                x = x + L.swiglu(pc["mlp"], norm(pc["ln2"], x))
+                x = x + gate * cross(pc["xattn"], c["cross"],
+                                     norm(pc["ln1"], x))
+                x = x + self._mlp(pc["mlp"], norm(pc["ln2"], x))
         else:
             for p, c in zip(_layers(params["dec_blocks"]),
                             _layers(cache["dec_blocks"])):
                 p = g(p, "dec_blocks")
                 x = attn(p, c["self"], x)
-                x = x + A.decode_cross_attention(
-                    cfg, p["xattn"], norm(p["lnx"], x), c["cross"],
-                    use_kernel)
-                x = x + L.swiglu(p["mlp"], norm(p["ln2"], x))
+                x = x + cross(p["xattn"], c["cross"], norm(p["lnx"], x))
+                x = x + self._mlp(p["mlp"], norm(p["ln2"], x))
         return self._logits(params, x), cache

@@ -9,19 +9,41 @@ SwiGLU and scatter-added back with their gate weights.  JAX's
 matrix product per non-empty expert group, which needs the group sizes
 on the host: one host read per layer call.
 
-Only the branch of ``apply_moe`` that keeps every expert on each device
-is ported.  JAX runs it on one device and, through GSPMD, on a mesh whose
-"model" axis has one rank; there the router's statistics and the capacity
-are the whole batch's.  The port's ``apply_moe(..., rows=Rows(...))`` does
-the same on a data-parallel mesh (``models.model.LM(cfg, mesh)``): the
-per-expert sums of the router's probabilities and assignments and the
-drop count are summed over the data-parallel group, and the capacity is
-taken of the global token count, each rank keeping the pairs of its
-tokens that fall under it in the global pair order.  The ``ep_psum``
-branch (experts sharded over "model" through ``shard_map``) is not
-ported yet.  The capacity is at least n * top_k whenever
-``capacity_factor >= 1``, so nothing is dropped; the rule stays and
-``drop_frac`` reports it.
+Both branches of JAX's ``apply_moe`` are ported.  JAX picks by the mesh
+alone: its ``ep_psum`` branch whenever the mesh's "model" axis has more
+than one rank, whatever the parallelism policy, else the branch that
+keeps every expert on each device.
+
+**The local branch** (no mesh, or "model" of one rank): JAX runs it on
+one device and, through GSPMD, on a data-parallel mesh, where the
+router's statistics and the capacity are the whole batch's.  The port's
+``apply_moe(..., rows=Rows(...))`` does the same: the per-expert sums of
+the router's probabilities and assignments and the drop count are summed
+over the data-parallel group, and the capacity is taken of the global
+token count, each rank keeping the pairs of its tokens that fall under
+it in the global pair order.
+
+**The expert-parallel branch** (``apply_moe_ep``, JAX's ``shard_map``
+body, run per rank): the experts are cut over "model", rank r owning
+``[r E/n, (r+1) E/n)``; each rank routes its block of tokens (JAX's
+``in_specs``: the rows over the non-model axes when they divide the
+batch, else every row), keeps the pairs routed to its experts in a
+stable partition up to a capacity taken per rank and per block
+(``_capacity(n_loc, top_k, n, cf)``), runs them and the outputs are
+summed over "model" (Megatron's g).  The aux loss is averaged over
+"model" and the drops summed over it; both differ over the data blocks,
+and JAX's ``out_specs`` ``P()`` returns the first device's: the first
+data block's aux loss and its drops over the whole batch's pairs
+(``comm.first_rank``; kept for parity with JAX, a caveat of it).  The
+gradients follow ``shard_map``'s transpose: the replicated router's is
+the sum over the mesh of each rank's, the aux loss's seen by each rank
+divided by the mesh's size.  ``EP`` says how a call's rows reach the
+block: gathered over the axes that cut them and JAX's block does not
+(over "model" under ``parallelism="fsdp"``, whose output is then
+reduce-scattered back), or read as they are.
+
+The capacity is at least n * top_k whenever ``capacity_factor >= 1``,
+so nothing is dropped; the rule stays and ``drop_frac`` reports it.
 """
 from __future__ import annotations
 
@@ -47,6 +69,30 @@ class Rows(NamedTuple):
     group: Any
     lo: int
     global_rows: int
+
+
+class EP(NamedTuple):
+    """One rank's place in the expert parallelism over "model", and how a
+    call's rows reach JAX's ``shard_map`` block."""
+    group: Any            # the "model" group
+    n: int                # ranks of "model"
+    r: int                # this rank's index on "model"
+    dp_group: Any         # the non-model axes (the data blocks), or None
+    size: int             # ranks of the whole mesh
+    model_grads: bool     # "model" is no data-parallel axis ("2d"): a
+                          # replicated input's gradient sums over it here
+
+
+class Block(NamedTuple):
+    """A call's rows against JAX's block: ``rows`` tokens-rows per block,
+    ``global_rows`` in the batch, this rank's rows all-gathered over
+    ``gather`` (None: its rows are the block), ``over_model`` when that
+    gather is over "model"."""
+    rows: int
+    global_rows: int
+    gather: Any
+    over_model: bool
+    index: int            # this rank's position in ``gather``
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -84,15 +130,31 @@ def _grouped(x: torch.Tensor, w: torch.Tensor, sizes) -> torch.Tensor:
     return torch.cat(parts) if parts else x[:0] @ w[0]
 
 
-def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
-               num_experts: int, keep: int, group=None
+def _combine(y: torch.Tensor, sel: torch.Tensor, n: int, top_k: int
+             ) -> torch.Tensor:
+    """JAX's scatter-add of the pairs' outputs y (C, d) onto their tokens,
+    ``sel`` the pairs' indices (token * top_k + k, distinct): each pair
+    written to its own slot, then each token's ``top_k`` slots summed in
+    k order.  No atomic adds, so the card's sum does not depend on the
+    order its threads run in (``index_add_`` on a CUDA tensor does)."""
+    buf = y.new_zeros((n * top_k, y.shape[1]))
+    buf[sel] = y
+    return buf.view(n, top_k, -1).sum(1)
+
+
+def _local_moe(x: torch.Tensor, p: Dict[str, Any], router: torch.Tensor,
+               *, top_k: int, num_experts: int, e_start: int, e_local: int,
+               capacity: int, group=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Route and run every expert on one device, keeping the first
-    ``keep`` (token, expert) pairs.  x (n, d) -> (out (n, d) float32,
-    aux_loss, drops); with ``group`` the aux loss and the drops are the
-    group's (the per-expert sums and the drop count summed over it)."""
+    """JAX's ``_local_moe``: route x (n, d) and run the experts in
+    ``[e_start, e_start + e_local)`` on the first ``capacity`` of this
+    rank's pairs in pair order (a stable partition; the unused slots go
+    to the last local group with zero input) -> (out (n, d) float32,
+    aux_loss, drops).  With ``group`` (the local branch on a
+    data-parallel mesh) the aux loss and the drops are the group's: the
+    per-expert sums and the drop count summed over it."""
     n, d = x.shape
-    logits = x.to(F32) @ p["router"]                               # (n, E)
+    logits = x.to(F32) @ router                                    # (n, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = torch.topk(probs, top_k, dim=-1)              # (n, k)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
@@ -113,38 +175,89 @@ def _local_moe(x: torch.Tensor, p: Dict[str, Any], *, top_k: int,
     flat_i = gate_i.reshape(-1)                                    # (n*k,)
     flat_w = gate_w.reshape(-1)
     tok_of = torch.arange(n * top_k, device=x.device) // top_k
-    # every expert is local: the stable partition keeps pair order, and
-    # the first ``keep`` pairs are taken
-    sel = torch.arange(keep, device=x.device)
-    # audit: allow(host-sync) static counts (rows, top_k, capacity)
-    drops = torch.full((), float(n * top_k - keep), dtype=F32,
-                       device=x.device)
+    mine = (flat_i >= e_start) & (flat_i < e_start + e_local)
+    # stable partition: my pairs first, the first ``capacity`` taken
+    order = torch.argsort((~mine).to(torch.uint8), stable=True)
+    sel = order[:capacity]
+    valid = mine[sel]
+    drops = torch.clamp(mine.sum() - valid.sum(), min=0).to(F32)
     if group is not None:
         drops = comm.all_reduce(drops, group)
-
-    e_loc = flat_i[sel]
+    e_loc = torch.where(valid, flat_i[sel] - e_start,
+                        torch.full_like(flat_i[sel], e_local - 1))
     tok = tok_of[sel]
-    xs = x[tok]                                                    # (C, d)
+    xs = torch.where(valid[:, None], x[tok], torch.zeros_like(x[tok]))
 
-    # group by expert id
+    # group by local expert id
     g_order = torch.argsort(e_loc, stable=True)
     xs_g = xs[g_order]
     # (bincount would read the largest id on the host as well)
     # audit: allow(host-sync) the group sizes: one designed read a layer
-    sizes = torch.zeros(num_experts, dtype=torch.long, device=x.device
+    sizes = torch.zeros(e_local, dtype=torch.long, device=x.device
                         ).index_add_(0, e_loc, torch.ones_like(e_loc)
                                      ).tolist()                    # host
-
     gate = _grouped(xs_g, p["w_gate"], sizes)
     up = _grouped(xs_g, p["w_up"], sizes)
     h = (F.silu(gate.to(F32)) * up.to(F32)).to(x.dtype)
     y_g = _grouped(h, p["w_down"], sizes)                          # (C, d)
 
     inv = torch.argsort(g_order, stable=True)
-    y = y_g[inv].to(F32) * flat_w[sel][:, None]
-    out = torch.zeros((n, d), dtype=F32, device=x.device).index_add_(
-        0, tok, y)
-    return out, aux, drops
+    y = y_g[inv].to(F32) * (flat_w[sel] * valid)[:, None]
+    return _combine(y, sel, n, top_k), aux, drops
+
+
+def _experts(w: torch.Tensor, ep: EP, e_local: int) -> torch.Tensor:
+    """This rank's experts of an expert leaf: the leaf as held when it is
+    cut over "model", else its slice."""
+    if w.shape[0] == e_local:
+        return w
+    return w.narrow(0, ep.r * e_local, e_local)
+
+
+def apply_moe_ep(cfg: ModelConfig, params, x: torch.Tensor, ep: EP,
+                 block: Block, shared=None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """JAX's ``ep_psum`` branch on this rank: x (b, S, d), this rank's
+    rows -> (its rows of the output, {aux_loss, drop_frac}); ``shared``
+    applies the shared experts' SwiGLU (default ``layers.swiglu``)."""
+    m = cfg.moe
+    b, S, d = x.shape
+    E = m.num_experts
+    if E % ep.n:
+        raise ValueError(f"{E} experts do not divide over {ep.n} 'model' "
+                         "ranks")
+    e_local = E // ep.n
+    router = params["router"]
+    if block.over_model:
+        xb = comm.gather_dim(x, 0, ep.group)
+    else:
+        xb = comm.gather_dim(x, 0, block.gather)
+        xb = (comm.copy_to_model(xb, ep.group) if ep.model_grads
+              else comm.grad_mean(xb, ep.group))
+    if ep.model_grads:
+        router = comm.copy_to_model(router, ep.group)
+    w = {k: _experts(params[k], ep, e_local)
+         for k in ("w_gate", "w_up", "w_down")}
+    cap = _capacity(block.rows * S, m.top_k, ep.n, m.capacity_factor)
+    out, aux, drops = _local_moe(
+        xb.reshape(-1, d), w, router, top_k=m.top_k, num_experts=E,
+        e_start=ep.r * e_local, e_local=e_local, capacity=cap)
+    aux = comm.first_rank(comm.pmean(aux, ep.group), ep.dp_group, ep.size)
+    drops = comm.first_rank(comm.count_sum(drops, ep.group), ep.dp_group,
+                            ep.size)
+    out = out.reshape(xb.shape)
+    if block.over_model:
+        out = comm.scatter_sum(out, 0, ep.group)
+    else:
+        out = (comm.reduce_from_model(out, ep.group) if ep.model_grads
+               else comm.psum(out, ep.group))
+        if block.gather is not None:
+            out = out.narrow(0, block.index * b, b)
+    y = out.to(x.dtype)
+    if m.num_shared_experts > 0:
+        y = y + (shared or L.swiglu)(params["shared"], x)
+    pairs = block.global_rows * S * m.top_k
+    return y, {"aux_loss": aux, "drop_frac": drops / pairs}
 
 
 def apply_moe(cfg: ModelConfig, params, x: torch.Tensor,
@@ -161,9 +274,10 @@ def apply_moe(cfg: ModelConfig, params, x: torch.Tensor,
     # pairs start at pair lo * S * top_k
     cap = _capacity(rows.global_rows * S, m.top_k, 1, m.capacity_factor)
     keep = min(max(cap - rows.lo * S * m.top_k, 0), n * m.top_k)
-    out, aux, drops = _local_moe(x.reshape(n, d), params, top_k=m.top_k,
-                                 num_experts=m.num_experts, keep=keep,
-                                 group=rows.group)
+    out, aux, drops = _local_moe(
+        x.reshape(n, d), params, params["router"], top_k=m.top_k,
+        num_experts=m.num_experts, e_start=0, e_local=m.num_experts,
+        capacity=keep, group=rows.group)
     y = out.reshape(B, S, d).to(x.dtype)
     if m.num_shared_experts > 0:
         y = y + L.swiglu(params["shared"], x)

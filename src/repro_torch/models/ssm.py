@@ -8,6 +8,17 @@ The chunked form keeps the quadratic term at O(chunk^2) and carries an
 Python loop.  Two roundings are JAX's and kept: the full-sequence conv
 (``_causal_conv``) sums its taps in float32 and rounds to the model dtype
 before the SiLU; the decode's conv (``decode_mamba2``) does not round.
+
+Under tensor parallelism over "model" (``*_tp``) the weights stay in
+JAX's layout: ``in_proj``'s output features ``[z | x | B | C | dt]`` cut
+over "model" (a cut that crosses the segments), ``out_proj``'s rows cut
+at head boundaries.  Each rank gathers ``in_proj``'s cut (backward:
+reduce-scatter), computes B and C and its own heads' z, x and dt, runs
+the conv and ``ssd_chunked`` on its heads only, and ``out_proj`` is
+row-parallel, one all-reduce a layer.  When the heads do not divide over
+"model" every rank computes every head and keeps its share of the
+features for the row-parallel product.  The recurrent states (full
+sequence or decode) come back whole: the heads' pieces all-gathered.
 """
 from __future__ import annotations
 
@@ -18,7 +29,9 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import ParamDef
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 F32 = torch.float32
 
@@ -69,8 +82,8 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, torch.full_like(diff, -float("inf")))
 
 
-def _proj_split(cfg: ModelConfig, params, x: torch.Tensor):
-    d_in, H, Pd, N = _dims(cfg)
+def _proj_split(params, x: torch.Tensor, dims):
+    d_in, H, Pd, N = dims
     zxbcdt = x @ params["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
     xbc = F.silu(_causal_conv(xbc, params["conv_w"]).to(F32))
@@ -122,11 +135,14 @@ def ssd_chunked(xs, Bm, Cm, dt, A, *, chunk: int,
 
 
 def _gated_out(params, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
-               dt: torch.dtype) -> torch.Tensor:
-    """y + D x, gated by silu(z), through out_proj."""
+               dt: torch.dtype, share=None) -> torch.Tensor:
+    """y + D x, gated by silu(z), through out_proj (the features
+    [lo, hi) of ``share`` only)."""
     B, S = y.shape[:2]
     y = y + params["D"][None, None, :, None] * xs.to(F32)
     y = y.reshape(B, S, -1) * F.silu(z.to(F32))
+    if share is not None:
+        y = y[..., share[0]:share[1]]
     return y.to(dt) @ params["out_proj"]
 
 
@@ -135,7 +151,7 @@ def apply_mamba2_with_state(cfg: ModelConfig, params, x: torch.Tensor
     """Full-sequence pass x (B,S,d) -> (out, final SSD state)."""
     d_in, H, Pd, N = _dims(cfg)
     B, S, _ = x.shape
-    z, xs, Bm, Cm, dt, A = _proj_split(cfg, params, x)
+    z, xs, Bm, Cm, dt, A = _proj_split(params, x, _dims(cfg))
     xs = xs.reshape(B, S, H, Pd)
     y, s_fin = ssd_chunked(xs, Bm, Cm, dt, A, chunk=cfg.ssm.chunk_size)
     return _gated_out(params, y, xs, z, x.dtype), s_fin
@@ -149,7 +165,11 @@ def apply_mamba2(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 def conv_tail(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """The conv input of the last K-1 positions of x (B,S,d) for a decode
     that continues it, zero-padded in front when S < K-1."""
-    d_in, H, Pd, N = _dims(cfg)
+    return _tail(cfg, params, x, _dims(cfg))
+
+
+def _tail(cfg: ModelConfig, params, x: torch.Tensor, dims) -> torch.Tensor:
+    d_in, H, Pd, N = dims
     K = cfg.ssm.conv_width
     xbc = (x @ params["in_proj"])[..., d_in:2 * d_in + 2 * N]
     S = x.shape[1]
@@ -172,7 +192,11 @@ def decode_mamba2(cfg: ModelConfig, params, x: torch.Tensor, cache
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step.  x: (B,1,d) -> (out, the new state and conv
     window); the cache is only read."""
-    d_in, H, Pd, N = _dims(cfg)
+    return _decode_step(params, x, cache, _dims(cfg))
+
+
+def _decode_step(params, x: torch.Tensor, cache, dims, share=None):
+    d_in, H, Pd, N = dims
     B = x.shape[0]
     zxbcdt = x @ params["in_proj"]                               # (B,1,Dp)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
@@ -191,5 +215,77 @@ def decode_mamba2(cfg: ModelConfig, params, x: torch.Tensor, cache
     y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], state)
     y = y + params["D"][None, :, None] * xs
     y = y.reshape(B, 1, d_in) * F.silu(z.to(F32))
+    if share is not None:
+        y = y[..., share[0]:share[1]]
     out = y.to(x.dtype) @ params["out_proj"]
     return out, {"state": state, "conv": win[:, 1:]}
+
+
+# -- tensor parallelism over "model" -----------------------------------------------
+
+def _tp_params(cfg: ModelConfig, params, tp: A.TP):
+    """(this rank's parameters of a layer: its heads' columns of
+    ``in_proj``, ``conv_w`` and the per-head vectors, its rows of
+    ``out_proj``; their dims; its share of the features when every rank
+    computes every head, else None)."""
+    d_in, H, Pd, N = _dims(cfg)
+    h0, h1 = A.heads_of(H, tp)
+    xc = (h0 * Pd, h1 * Pd)
+    e = 2 * d_in + 2 * N
+    p = {"in_proj": A.take(params["in_proj"], 1, [
+            xc, (d_in + xc[0], d_in + xc[1]), (2 * d_in, e),
+            (e + h0, e + h1)], e + H, tp),
+         "conv_w": A.take(params["conv_w"], 1, [xc, (d_in, d_in + 2 * N)],
+                          d_in + 2 * N, tp)}
+    for k in ("A_log", "D", "dt_bias"):
+        p[k] = A.take(params[k], 0, [(h0, h1)], H, tp)
+    share = None if H % tp.n == 0 else A.share_of(d_in, tp)
+    p["out_proj"] = A.take(params["out_proj"], 0, [share or xc], d_in, tp)
+    return p, ((h1 - h0) * Pd, h1 - h0, Pd, N), share
+
+
+def _whole_conv(cfg: ModelConfig, win: torch.Tensor, d_loc: int,
+                tp: A.TP) -> torch.Tensor:
+    """A conv window of this rank's x channels then B and C -> every
+    channel (x gathered over "model")."""
+    H = _dims(cfg)[1]
+    return torch.cat([A.whole_heads(win[..., :d_loc], 2, H, tp),
+                      win[..., d_loc:]], dim=-1)
+
+
+def apply_mamba2_tp(cfg: ModelConfig, params, x: torch.Tensor, tp: A.TP,
+                    with_state: bool = False):
+    """``apply_mamba2`` with tensor parallelism over "model"; with
+    ``with_state`` also the whole final state and conv tail (prefill)."""
+    p, dims, share = _tp_params(cfg, params, tp)
+    d_loc, H, Pd, N = dims
+    B, S, _ = x.shape
+    xf = comm.copy_to_model(x, tp.group)
+    z, xs, Bm, Cm, dt, A_ = _proj_split(p, xf, dims)
+    xs = xs.reshape(B, S, H, Pd)
+    y, s_fin = ssd_chunked(xs, Bm, Cm, dt, A_, chunk=cfg.ssm.chunk_size)
+    out = comm.reduce_from_model(_gated_out(p, y, xs, z, x.dtype, share),
+                                 tp.group)
+    if not with_state:
+        return out
+    H_all = _dims(cfg)[1]
+    return out, A.whole_heads(s_fin, 1, H_all, tp), _whole_conv(
+        cfg, _tail(cfg, p, xf, dims), d_loc, tp)
+
+
+def decode_mamba2_tp(cfg: ModelConfig, params, x: torch.Tensor, cache,
+                     tp: A.TP):
+    """``decode_mamba2`` on this rank's heads of the whole state and conv
+    window in ``cache``; the new state and window come back whole."""
+    d_in, H_all, Pd, N = _dims(cfg)
+    p, dims, share = _tp_params(cfg, params, tp)
+    d_loc = dims[0]
+    h0, h1 = A.heads_of(H_all, tp)
+    loc = {"state": A.cols(cache["state"], 1, [(h0, h1)]),
+           "conv": A.cols(cache["conv"], 2, [(h0 * Pd, h1 * Pd),
+                                             (d_in, d_in + 2 * N)])}
+    out, st = _decode_step(p, comm.copy_to_model(x, tp.group), loc, dims,
+                           share)
+    return comm.reduce_from_model(out, tp.group), {
+        "state": A.whole_heads(st["state"], 1, H_all, tp),
+        "conv": _whole_conv(cfg, st["conv"], d_loc, tp)}

@@ -12,6 +12,19 @@ in float32 (a numpy scalar promotes bfloat16 to float32) and q is scaled
 again in the scan; with bfloat16 inputs the chunkwise form rounds q, k,
 v and the weighted scores to bfloat16 before its products (float32
 sums); padded steps of the last chunk get ``i = -1e30``, ``f = 30``.
+
+Under tensor parallelism over "model" (``parallelism="2d"``, ``*_tp``)
+the weights stay in JAX's layout.  The mLSTM's ``up`` (``[x | z]`` cut
+over "model" on its output features) is gathered and each rank takes the
+whole x branch (every head's q, k and v read all of it) and its own
+heads' z; ``q``, ``k`` and ``v`` are column cuts that are head-local when
+the heads divide, the gates' columns are read for its heads, and
+``down`` is row-parallel.  The sLSTM's recurrence reads its (B, H, 4hd)
+product as four d-wide gates, so a feature's update needs other heads'
+states: every rank runs the whole recurrence on the gathered ``w`` and
+``out`` is row-parallel over its share of the features.  When the
+mLSTM's heads do not divide every rank computes all of them and keeps its
+share.  The states come back whole.
 """
 from __future__ import annotations
 
@@ -23,7 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import ParamDef
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 F32 = torch.float32
 
@@ -147,8 +162,10 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, state, *, chunk: int):
 
 def _mlstm_qkvg(cfg: ModelConfig, params, x: torch.Tensor):
     d_in, H, hd = _mdims(cfg)
+    H = params["q"].shape[1] // hd            # this rank's heads under TP
     B, S, _ = x.shape
-    xm, z = torch.chunk(x @ params["up"], 2, dim=-1)
+    xm, z = torch.split(x @ params["up"], [d_in, params["up"].shape[1] - d_in],
+                        dim=-1)
     q = (xm @ params["q"]).reshape(B, S, H, hd)
     k = (xm @ params["k"]).reshape(B, S, H, hd).to(F32) / float(
         np.float32(np.sqrt(hd)))
@@ -171,10 +188,12 @@ def _zeros_state(cfg: ModelConfig, batch: int, device):
                  for k in ("C", "n", "m"))
 
 
-def _mlstm_out(params, h: torch.Tensor, z: torch.Tensor, dt: torch.dtype
-               ) -> torch.Tensor:
+def _mlstm_out(params, h: torch.Tensor, z: torch.Tensor, dt: torch.dtype,
+               share=None) -> torch.Tensor:
     B, S = h.shape[:2]
     y = h.reshape(B, S, -1).to(F32) * F.silu(z.to(F32))
+    if share is not None:
+        y = y[..., share[0]:share[1]]
     return y.to(dt) @ params["down"]
 
 
@@ -268,3 +287,102 @@ def decode_slstm(cfg: ModelConfig, params, x: torch.Tensor, cache
     state = (cache["c"], cache["n"], cache["h"], cache["m"])
     hs, (c, n, h, m) = _slstm_scan(cfg, params, x @ params["w"], state)
     return hs.to(x.dtype) @ params["out"], {"c": c, "n": n, "h": h, "m": m}
+
+
+# -- tensor parallelism over "model" -----------------------------------------------
+
+def _mlstm_tp_params(cfg: ModelConfig, params, tp: A.TP):
+    """(this rank's mLSTM parameters: the whole x branch and its heads' z
+    of ``up``, its heads' q/k/v columns and gates, its rows of ``down``;
+    its share of the features when every rank computes every head)."""
+    d_in, H, hd = _mdims(cfg)
+    h0, h1 = A.heads_of(H, tp)
+    hc = (h0 * hd, h1 * hd)
+    p = {"up": A.take(params["up"], 1, [(0, d_in), (d_in + hc[0],
+                                                     d_in + hc[1])],
+                      2 * d_in, tp)}
+    for k in ("q", "k", "v"):
+        p[k] = A.take(params[k], 1, [hc], d_in, tp)
+    gi = [(h0, h1), (H + h0, H + h1)]
+    p["gates"] = A.take(params["gates"], 1, gi, 2 * H, tp)
+    p["gate_bias"] = A.take(params["gate_bias"], 0, gi, 2 * H, tp)
+    share = None if H % tp.n == 0 else A.share_of(d_in, tp)
+    p["down"] = A.take(params["down"], 0, [share or hc], d_in, tp)
+    return p, share
+
+
+def _whole_mlstm(cfg: ModelConfig, st: Dict[str, torch.Tensor], tp: A.TP
+                 ) -> Dict[str, torch.Tensor]:
+    H = _mdims(cfg)[1]
+    return {k: A.whole_heads(v, 1, H, tp) for k, v in st.items()}
+
+
+def apply_mlstm_tp(cfg: ModelConfig, params, x: torch.Tensor, tp: A.TP,
+                   with_state: bool = False):
+    """``apply_mlstm`` with tensor parallelism over "model"; with
+    ``with_state`` also the whole final {C, n, m}."""
+    p, share = _mlstm_tp_params(cfg, params, tp)
+    xf = comm.copy_to_model(x, tp.group)
+    q, k, v, i_raw, f_raw, z = _mlstm_qkvg(cfg, p, xf)
+    h, (C, n, m) = _mlstm_chunkwise(
+        q, k, v, i_raw, f_raw, tuple(t.narrow(1, 0, q.shape[2]) for t in
+                                     _zeros_state(cfg, x.shape[0],
+                                                  x.device)),
+        chunk=cfg.xlstm.chunk_size)
+    out = comm.reduce_from_model(_mlstm_out(p, h, z, x.dtype, share),
+                                 tp.group)
+    if not with_state:
+        return out
+    return out, _whole_mlstm(cfg, {"C": C, "n": n, "m": m}, tp)
+
+
+def decode_mlstm_tp(cfg: ModelConfig, params, x: torch.Tensor, cache,
+                    tp: A.TP):
+    """``decode_mlstm`` on this rank's heads of the whole state in
+    ``cache``; the new state comes back whole."""
+    p, share = _mlstm_tp_params(cfg, params, tp)
+    h0, h1 = A.heads_of(_mdims(cfg)[1], tp)
+    q, k, v, i_raw, f_raw, z = _mlstm_qkvg(
+        cfg, p, comm.copy_to_model(x, tp.group))
+    h, (C, n, m) = _mlstm_scan(q, k, v, i_raw, f_raw, tuple(
+        A.cols(cache[name], 1, [(h0, h1)]) for name in ("C", "n", "m")))
+    out = comm.reduce_from_model(_mlstm_out(p, h, z, x.dtype, share),
+                                 tp.group)
+    return out, _whole_mlstm(cfg, {"C": C, "n": n, "m": m}, tp)
+
+
+def _slstm_tp_params(cfg: ModelConfig, params, tp: A.TP):
+    d = cfg.d_model
+    share = A.share_of(d, tp)
+    p = {"w": A.take(params["w"], 1, [(0, 4 * d)], 4 * d, tp),
+         "out": A.take(params["out"], 0, [share], d, tp)}
+    for k in ("r", "bias"):
+        p[k] = A.take(params[k], 0, [(0, params[k].shape[0])],
+                      params[k].shape[0], tp)
+    return p, share
+
+
+def _slstm_tp(cfg: ModelConfig, params, x: torch.Tensor, state, tp: A.TP):
+    p, (lo, hi) = _slstm_tp_params(cfg, params, tp)
+    xf = comm.copy_to_model(x, tp.group)
+    hs, (c, n, h, m) = _slstm_scan(cfg, p, xf @ p["w"], state)
+    out = comm.reduce_from_model(hs[..., lo:hi].to(x.dtype) @ p["out"],
+                                 tp.group)
+    return out, {"c": c, "n": n, "h": h, "m": m}
+
+
+def apply_slstm_tp(cfg: ModelConfig, params, x: torch.Tensor, tp: A.TP,
+                   with_state: bool = False):
+    """``apply_slstm`` with tensor parallelism over "model" (the
+    recurrence whole on every rank, ``out`` row-parallel)."""
+    B, S, d = x.shape
+    zero = tuple(torch.zeros((B, d), dtype=F32, device=x.device)
+                 for _ in range(4))
+    out, st = _slstm_tp(cfg, params, x, zero, tp)
+    return (out, st) if with_state else out
+
+
+def decode_slstm_tp(cfg: ModelConfig, params, x: torch.Tensor, cache,
+                    tp: A.TP):
+    return _slstm_tp(cfg, params, x, tuple(cache[k] for k in
+                                           ("c", "n", "h", "m")), tp)

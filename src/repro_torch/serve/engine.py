@@ -21,10 +21,13 @@ length, and its splice fails with a broadcast error; padding the cross
 cache would change what decode attends to.
 
 On the LM mesh (``LM(cfg, mesh)``: one engine per rank, every rank
-driving the same requests) the cache is this rank's piece: its slots'
-rows (``LM.batch_rows``, the batch over the data-parallel axes) and,
-under tensor parallelism, its positions (the sequence over "model", as
-JAX's ``cache_shardings``).  Admission, slots and positions stay host
+driving the same requests) the cache is this rank's piece, as JAX's
+``cache_shardings`` lays it out: its slots' rows (``LM.batch_rows``, the
+batch over the data-parallel axes) and, under tensor parallelism, its
+positions (the sequence over "model") and its piece of each recurrent
+state; when the data-parallel axes do not divide the slots, every slot
+and the positions cut over "data" (JAX's long-context layout).  A
+request's prefill writes its cache in that layout (``cache_batch``).  Admission, slots and positions stay host
 decisions, and every rank takes the same ones: a request is prefilled on
 every rank (a batch of one is not cut), the rank that holds its slot
 splices it in, every rank runs every grouped decode (with or without rows
@@ -114,8 +117,11 @@ class ServeEngine:
             batch["img_embeds"] = torch.zeros(
                 (1, cfg.vlm.num_image_tokens, cfg.d_model),
                 dtype=L.dtype_of(cfg), device=self.device)
+        kw = self._batch_kw(1)
+        if self.mesh is not None:
+            kw["cache_batch"] = self.slots
         logits, cache1 = self.lm.prefill(self.params, batch, self.max_seq,
-                                         **self._batch_kw(1))
+                                         **kw)
         lo, hi = self.rows
         if lo <= slot < hi:
             _splice(self.cache, cache1, slot - lo)

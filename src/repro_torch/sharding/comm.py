@@ -13,7 +13,15 @@ port issues them itself, one process per card:
     (after a row-parallel product, or a vocab-parallel lookup or
     reduction) and passes the gradient through backward;
   * ``all_gather`` / ``all_reduce`` / ``all_max``: the same collectives
-    without autograd (decode, metrics, the optimizer's norm).
+    without autograd (decode, metrics, the optimizer's norm);
+  * the collectives of JAX's ``shard_map`` bodies (the MoE's expert
+    parallelism), with the transposes ``shard_map`` gives them:
+    ``psum`` (a sum both ways), ``pmean`` (a mean both ways),
+    ``grad_mean`` (the identity, the gradient's mean), ``scatter_sum``
+    (a reduce-scatter; backward all-gathers), ``count_sum`` (a sum of a
+    count, no gradient) and ``first_rank`` (an ``out_specs`` ``P()``
+    output that differs over ranks: the value JAX reads back, the first
+    rank's, and the gradient over the ranks the spec leaves out).
 
 No group (None: ``LMMesh.group`` along an axis of one rank) issues
 nothing and returns the input, so the one-rank mesh runs the unsharded
@@ -105,6 +113,109 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Pmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group) / group_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group) / group_size(ctx.group), None
+
+
+class _GradMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group) / group_size(ctx.group), None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _FirstRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.n = n
+        return all_gather(x.reshape(1, *x.shape), 0, group)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``psum`` inside ``shard_map``: the sum over the group, whose
+    transpose is the sum of the gradient over it too."""
+    if group is None:
+        return x
+    return _Psum.apply(x, group)
+
+
+def pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``pmean``: the mean over the group both ways."""
+    if group is None:
+        return x
+    return _Pmean.apply(x, group)
+
+
+def grad_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity; backward the mean of the gradient over the group
+    (an input every rank of the group holds, whose gradient each rank
+    holds a share of)."""
+    if group is None:
+        return x
+    return _GradMean.apply(x, group)
+
+
+def scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group cut along ``dim``, this rank's piece;
+    backward all-gathers the gradient."""
+    if group is None:
+        return x
+    return _ScatterSum.apply(x, dim, group)
+
+
+def count_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of a count over the group (no gradient)."""
+    return all_reduce(x.detach(), group)
+
+
+def first_rank(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """A ``shard_map`` output of ``out_specs`` ``P()`` whose value differs
+    over ``group``: forward the value of the group's first rank (the
+    device JAX reads a replicated array from), backward the gradient over
+    ``n``, the ranks of the mesh the spec leaves out (``shard_map``'s
+    transpose divides by them)."""
+    if group is None and n == 1:
+        return x
+    return _FirstRank.apply(x, group, n)
 
 
 def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -221,6 +221,166 @@ def world12(tmp: Path, inputs: dict) -> dict:
             "loader": loader_rows(lx, "dp")}
 
 
+# -- expert parallelism and the other families under tensor parallelism -----------
+
+def extras(batch: dict, lo: int, hi: int) -> dict:
+    """This rank's rows of a batch's non-token inputs (image or encoder
+    embeddings), as tensors."""
+    return {k: torch.from_numpy(v[lo:hi]) for k, v in batch.items()
+            if k not in ("tokens", "labels")}
+
+
+def decodes(lm, p, inputs: dict, batch: dict, slots: int = SLOTS) -> dict:
+    """Decode logits (whole) of ``slots`` rows after a prefill of 8
+    tokens and from a zero cache, 3 positions each; the rows' image or
+    encoder embeddings from ``batch``'s first rows."""
+    tok = torch.from_numpy(inputs["decode_tokens"])[:slots]
+    lo, hi = lm.batch_rows(slots)
+    more = extras({k: v[:slots] for k, v in batch.items()}, lo, hi)
+    out = {}
+    for t0 in (0, 8):
+        if t0 == 0:
+            cache = lm.init_cache(slots, MAX_SEQ, "cpu")
+        else:
+            _, cache = lm.prefill(p, {"tokens": tok[lo:hi, :t0], **more},
+                                  MAX_SEQ)
+        for i in range(t0, t0 + 3):
+            lg, cache = lm.decode(p, tok[lo:hi, i:i + 1], cache, i)
+            out[i] = _np(lm.gather_rows(lm.full_logits(lg), slots))
+    return out
+
+
+def engine_tokens(lm, p, inputs: dict, slots: int = SLOTS) -> list:
+    from repro_torch.serve.engine import Request, ServeEngine
+    reqs = [Request(rid=i, prompt=np.asarray(pr, np.int32),
+                    max_new_tokens=NEW)
+            for i, pr in enumerate(inputs["prompts"])]
+    ServeEngine(lm, p, slots, MAX_SEQ, device="cpu").run(reqs)
+    return [r.out_tokens for r in reqs]
+
+
+def cache_layout(lm, batch: int, max_seq: int) -> list:
+    """The leaves of ``init_cache`` that are no attention cache (recurrent
+    states, cross caches) whose piece is not ``local_shape`` of JAX's
+    ``cache_specs`` along "model": [] when every one is."""
+    from repro_torch.launch.specs import cache_specs
+    from repro_torch.sharding import rules
+    got = lm.init_cache(batch, max_seq, "cpu")
+    whole = lm.cache_defs(batch, max_seq)
+    specs = cache_specs(lm, batch, max_seq, lm.mesh)
+    bad = []
+
+    def walk(g, w, sp, path):
+        if torch.is_tensor(g):
+            if any(k in path for k in ("mamba", "mlstm", "slstm", "cross",
+                                       "tail")):
+                model_only = tuple(e if e == "model" else None for e in sp)
+                want = rules.local_shape(w[0], model_only, lm.mesh)
+                have = tuple(g.shape)
+                if tuple(a for i, a in enumerate(have)
+                         if model_only[i]) != tuple(
+                             a for i, a in enumerate(want) if model_only[i]):
+                    bad.append((path, have, want))
+            return
+        for k in g:
+            walk(g[k], w[k], sp[k], path + (k,))
+    walk(got, whole, specs, ())
+    return bad
+
+
+def family_world(inputs: dict, mesh, names) -> dict:
+    out = {}
+    for name in names:
+        lm, p = model(inputs, name, mesh)
+        batch = inputs["batches"][name]
+        out[name] = {"fwd": logits_and_loss(lm, p, batch),
+                     "step": train_step(lm, p, batch),
+                     "decode": decodes(lm, p, inputs, batch),
+                     "layout": cache_layout(lm, SLOTS, MAX_SEQ),
+                     "tp": None if lm.tp is None else (lm.tp.n,
+                                                       lm.tp.local_heads)}
+        if lm.cfg.family != "audio":
+            out[name]["engine"] = engine_tokens(lm, p, inputs)
+    return out
+
+
+def tp12(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    return family_world(inputs, lm_device_mesh(1, 2), inputs["tp names"])
+
+
+def tp14(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    return family_world(inputs, lm_device_mesh(1, 4), inputs["tp names"])
+
+
+def tp22(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    return family_world(inputs, lm_device_mesh(2, 2), inputs["tp names"])
+
+
+def ep_world(inputs: dict, mesh, names) -> dict:
+    out = {}
+    for name in names:
+        lm, p = model(inputs, name, mesh)
+        batch = inputs["batch"]
+        out[name] = {"fwd": logits_and_loss(lm, p, batch),
+                     "step": train_step(lm, p, batch),
+                     "engine": engine_tokens(lm, p, inputs),
+                     "ep": (lm.ep.n, lm.tp is not None)}
+    return out
+
+
+def ep14(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    return ep_world(inputs, lm_device_mesh(1, 4), ["olmoe"])
+
+
+def ep22(tmp: Path, inputs: dict) -> dict:
+    from repro_torch.launch.mesh import lm_device_mesh
+    return ep_world(inputs, lm_device_mesh(2, 2), ["olmoe", "olmoe fsdp"])
+
+
+def seq41(tmp: Path, inputs: dict) -> dict:
+    """JAX's long-context cache layout on (4, 1): 1 and 2 rows, which the
+    4 "data" ranks do not divide, every rank holding every row and a
+    quarter of the positions; the engine on 2 slots."""
+    from repro_torch.launch.mesh import lm_device_mesh
+    mesh = lm_device_mesh(4, 1)
+    out = {}
+    for name in inputs["seq names"]:
+        lm, p = model(inputs, name, mesh)
+        batch = inputs["batches"][name]
+        pieces = {}
+        for b in (1, 2, 4):
+            node = lm.init_cache(b, MAX_SEQ, "cpu")
+            for k in inputs["kv path"][name]:
+                node = node[k]
+            pieces[b] = tuple(node["k"].shape)
+        out[name] = {
+            "pieces": pieces,
+            "decode": {b: decodes(lm, p, inputs, batch, b) for b in (1, 2)},
+            "engine": engine_tokens(lm, p, inputs, 2)}
+    return out
+
+
+def compress4(tmp: Path, inputs: dict) -> dict:
+    """``compressed_psum`` over the world's group, rank r's gradients and
+    residuals row r of the inputs': the mean, every rank's new residuals
+    (gathered) and ``wire_bytes``."""
+    import torch.distributed as dist
+    from repro_torch.sharding import comm
+    from repro_torch.train import compression as C
+    r = dist.get_rank()
+    g = {k: torch.from_numpy(v[r]) for k, v in inputs["grads"].items()}
+    res = {k: torch.from_numpy(v[r]) for k, v in inputs["residuals"].items()}
+    mean, new = C.compressed_psum(g, res, dist.group.WORLD)
+    return {"mean": _tree_np(mean),
+            "res": {k: _np(comm.all_gather(v[None], 0, dist.group.WORLD))
+                    for k, v in new.items()},
+            "wire": C.wire_bytes(g)}
+
+
 def _same(a, b, what: str) -> None:
     """Every rank's results equal rank 0's, bit for bit."""
     if isinstance(a, dict):

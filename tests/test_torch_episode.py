@@ -119,7 +119,7 @@ def test_no_jax_or_repro_imports_in_source():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     examples = list((ROOT / "examples").glob("*_torch.py"))
-    assert len(examples) == 3, examples
+    assert len(examples) == 4, examples
     files += examples
     assert len(files) > 10
     for f in files:

@@ -59,3 +59,31 @@ def test_train_backbone_on_the_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "resumed from" in out.stdout and "at step 2" in out.stdout
     assert (tmp_path / "step_00000004").exists()
+
+
+def test_multi_pod_roofline_on_stand_in_meshes(capsys):
+    """yi-34b at decode_32k on the (16, 16) and (2, 16, 16) stand-ins:
+    one rank's dry run (the multi-pod mesh halves each rank's rows of
+    the cache and keeps its weight piece) and the H100 roofline terms,
+    all closed-form on the CPU."""
+    from repro_torch.common.config import H100_SXM, SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analytic import MeshDims, analytic_terms
+    mod = example("multi_pod_roofline_torch")
+    out = mod.main([])
+    assert "bottleneck=memory" in capsys.readouterr().out
+    single, multi = out["single"], out["multi"]
+    assert single["per_rank"]["mesh"] == {"data": 16, "model": 16}
+    assert multi["per_rank"]["mesh"] == {"pod": 2, "data": 16, "model": 16}
+    assert multi["per_rank"]["weights_bytes"] == \
+        single["per_rank"]["weights_bytes"]
+    assert multi["per_rank"]["cache_bytes"] * 2 == \
+        single["per_rank"]["cache_bytes"]
+    assert single["per_rank"] == dryrun.memory_per_rank(
+        mod.arch_run_config("yi-34b", "decode_32k").model, "decode_32k",
+        single["moment_dtype"], dryrun.stand_in_mesh((16, 16)))
+    cfg = mod.arch_run_config("yi-34b", "decode_32k", "multi").model
+    assert multi["roofline"] == analytic_terms(
+        cfg, SHAPES_BY_NAME["decode_32k"], 1, MeshDims(512, 16, 32),
+        H100_SXM)
+    assert multi["roofline"]["a_step_s"] < single["roofline"]["a_step_s"]

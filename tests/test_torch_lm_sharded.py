@@ -6,9 +6,10 @@ leaf by leaf for every config; ``param_pspecs``, ``data_spec`` and
 ``cache_spec`` equal JAX's on stand-in (16, 16) and (2, 16, 16) meshes
 for the ``2d`` / ``fsdp`` / ``dp`` policies with and without
 ``fsdp_over_pod``; the placements of ``batch_shardings`` and
-``cache_shardings`` equal JAX's specs; a non-dense family under "2d" on a
-"model" axis of 2 raises; the per-rank dry run adds up to the whole
-model; flash-decode over a cache cut into 4 position ranges, merged
+``cache_shardings`` equal JAX's specs; every non-dense family builds on
+a "model" axis of 2 with its blocks' leaves cut as JAX's rules say; the
+per-rank dry run adds up to the whole model (olmoe's experts cut over
+"model" on (1, 4)); flash-decode over a cache cut into 4 position ranges, merged
 (``merge_ranges``), equals one call over the whole cache (the plain
 version: the kernel's own check is ``chip_smoke.py`` phase 14); the
 one-rank mesh runs the unsharded ops bit for bit.
@@ -189,7 +190,8 @@ def test_batch_rules_and_cache_spec_match_jax(shape):
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "qwen1.5-4b", "xlstm-125m",
-                                  "zamba2-7b", "llama-3.2-vision-90b"])
+                                  "zamba2-7b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2", "olmoe-1b-7b"])
 @pytest.mark.parametrize("shape", [(16, 16), (2, 16, 16), (2, 2), (4, 1)])
 def test_batch_and_cache_shardings_match_jax(arch, shape, monkeypatch):
     """The placements of ``batch_shardings`` / ``cache_shardings`` are
@@ -248,20 +250,55 @@ def test_placements_and_pieces():
     assert torch.equal(piece, x[12:14, 0:3])
 
 
+# one leaf per family whose "model" cut its blocks read under "2d"
+# (a path of keys, and the cut's entry in its spec)
+NON_DENSE_CUTS = {
+    "olmoe-1b-7b": (("blocks", "moe", "w_gate"), ("model", "data", None)),
+    "kimi-k2-1t-a32b": (("blocks", "moe", "shared", "up", "w"),
+                        ("data", "model")),
+    "zamba2-7b": (("blocks", "mamba", "in_proj"), ("data", "model")),
+    "xlstm-125m": (("blocks", "mlstm", "mlstm", "up"), ("data", "model")),
+    "llama-3.2-vision-90b": (("blocks", "cross", "xattn", "k", "w"),
+                             ("data", "model")),
+    "seamless-m4t-large-v2": (("dec_blocks", "xattn", "o", "w"),
+                              ("model", "data")),
+}
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("olmoe-1b-7b", {}), ("kimi-k2-1t-a32b", {}), ("zamba2-7b", {}),
     ("xlstm-125m", {"parallelism": "2d"}), ("llama-3.2-vision-90b", {}),
     ("seamless-m4t-large-v2", {})])
 def test_non_dense_family_on_a_model_axis_raises(arch, kw):
-    """Tensor parallelism inside the non-dense blocks is slice 14: a
-    "model" axis of 2 under "2d" raises, naming it; "fsdp" does not."""
+    """Every family builds on a "model" axis of 2 under "2d" (the refusal
+    of slice 13 is gone): tensor parallelism with local heads, the MoE's
+    expert parallelism, and the family's blocks' leaves cut over "model"
+    as JAX's rules say; under "fsdp" the MoE keeps its expert
+    parallelism (JAX picks it by the mesh) and nothing else is
+    tensor-parallel."""
     cfg = smoke_config(arch).replace(**kw)
-    with pytest.raises(ValueError, match="slice 14"):
-        LM(cfg, stand_in((1, 2)))
     mesh = stand_in((1, 2))
-    mesh.group = lambda axes: None
-    mesh.size = lambda axes=None: rules.axes_size(mesh, axes)
-    LM(cfg.replace(parallelism="fsdp"), mesh)
+    mesh.group = lambda axes: (axes if rules.axes_size(mesh, axes) > 1
+                               else None)
+    mesh.size = lambda axes=None: rules.axes_size(
+        mesh, mesh.axis_names if axes is None else axes)
+    mesh.index = lambda axes: 0
+    lm = LM(cfg, mesh)
+    assert (lm.tp.n, lm.tp.r, lm.tp.local_heads) == (2, 0, True)
+    moe = cfg.family == "moe"
+    assert (lm.ep is not None) == moe
+    if moe:
+        assert (lm.ep.n, lm.ep.size, lm.ep.model_grads) == (2, 2, True)
+    path, want = NON_DENSE_CUTS[arch]
+    spec = lm.specs
+    for k in path:
+        spec = spec[k]
+    depth = len(spec) - len(want)
+    assert spec[depth:] == want, spec
+    lf = LM(cfg.replace(parallelism="fsdp"), mesh)
+    assert lf.tp is None and (lf.ep is not None) == moe
+    if moe:
+        assert lf.ep.model_grads is False
 
 
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2), (4, 1), (2, 2, 2)])
@@ -289,6 +326,14 @@ def test_dryrun_per_rank_adds_up_to_the_whole(arch, shape):
             rep += 0 if cuts > 1 else local * nbytes
         assert total == whole["weights_bytes"]
         assert per["weights_bytes"] >= rep
+        if arch == "olmoe-1b-7b" and shape == (1, 4):
+            # expert parallelism: the experts cut over "model", a quarter
+            # of them on each rank
+            moe = specs["blocks"]["moe"]
+            for k in ("w_gate", "w_up", "w_down"):
+                assert moe[k][1] == "model", k
+            assert rules.local_shape(defs["blocks"]["moe"]["w_up"].shape,
+                                     moe["w_up"], mesh)[1] == 16
         if shape_name == "train_4k":
             assert per["adamw_bytes"] > 0
         else:

@@ -4,6 +4,7 @@
 Run from the repository root on a machine with N cards:
 
     python3 tools/lm_mesh_ab.py --ranks 4 [--layers 36]
+    python3 tools/lm_mesh_ab.py --ranks 4 --arch olmoe-1b-7b [--layers 16]
 
 The script builds the kernels and starts ``python -m
 torch.distributed.run --standalone --nproc-per-node N`` on itself; every
@@ -27,10 +28,20 @@ rank joins an NCCL group and:
     ms per decode call (median over the engine's decode calls) of each
     side is printed.
 
-``--smoke --device cpu`` runs the same on the CPU over gloo at granite's
-smoke width (a rehearsal, no timing worth reading).  It fails if the
-tokens differ or a loss is not finite.  The card's name and power limit
-come first.
+``--arch olmoe-1b-7b`` runs the MoE the same way with expert
+parallelism over "model": one mesh, (1, N), so the 64 experts are cut
+N ways; at its published 16 layers the weights and AdamW state are
+69.20 GB, about 17.3 GB a card on 4 (the train step's MFU counts the
+active parameters: each token's top-8 of 64 experts); then the engine
+on one card against the (1, N) mesh.  Its capacity is JAX's per rank
+(``_capacity(n_loc, top_k, N, cf)``), so an unbalanced router can drop
+pairs on the mesh that one card keeps: the tokens are compared and
+reported, and only the granite run fails on a difference.
+
+``--smoke --device cpu`` runs the same on the CPU over gloo at the
+arch's smoke width (a rehearsal, no timing worth reading).  It fails if
+granite's tokens differ or a loss is not finite.  The card's name and
+power limit come first.
 """
 from __future__ import annotations
 
@@ -52,19 +63,30 @@ SMOKE = dict(rows=4, seq=32, prompts=(8, 8, 12, 12, 5, 8), new=6,
              max_seq=32)
 
 
-def meshes(n: int):
+ARCHS = {"granite-8b": 36, "olmoe-1b-7b": 16}     # published layers
+
+
+def meshes(n: int, arch: str = "granite-8b"):
     """(data, model) shapes timed for n ranks."""
+    if arch != "granite-8b":
+        return [(1, n)]
     return [(1, n)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
 
 
 class Timed:
-    """``lm`` with each decode call timed (synchronised on the card)."""
+    """``lm`` with each decode call timed (synchronised on the card), and
+    the whole logits of every prefill and decode kept (on the host)."""
 
     def __init__(self, lm, sync):
-        self.lm, self.sync, self.ms = lm, sync, []
+        self.lm, self.sync, self.ms, self.logits = lm, sync, [], []
 
     def __getattr__(self, name):
         return getattr(self.lm, name)
+
+    def prefill(self, *a, **kw):
+        out = self.lm.prefill(*a, **kw)
+        self.logits.append(self.lm.full_logits(out[0])[:, -1].float().cpu())
+        return out
 
     def decode(self, *a, **kw):
         self.sync()
@@ -72,24 +94,49 @@ class Timed:
         out = self.lm.decode(*a, **kw)
         self.sync()
         self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.logits.append(self.lm.full_logits(out[0])[:, 0].float().cpu())
         return out
+
+
+def divergence(one: list, mesh: list, vocab: int) -> dict:
+    """Of the engine calls both sides made alike (in order), the largest
+    |logit difference| over max |logit|; at the first call whose argmax
+    differs in some row, that row's difference and the one card's margin
+    between its two largest logits (a difference above the margin flips
+    the token)."""
+    worst, first = 0.0, None
+    for i, (a, b) in enumerate(zip(one, mesh)):
+        a, b = a[..., :vocab], b[..., :vocab]
+        worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+        flip = (a.argmax(-1) != b.argmax(-1)).nonzero()
+        if len(flip):
+            r = int(flip[0][0])
+            top = a[r].topk(2).values
+            first = {"call": i, "row": r,
+                     "diff": float((a[r] - b[r]).abs().max()),
+                     "margin": float(top[0] - top[1])}
+            break
+    return {"max_rel_diff": worst, "first_flip": first}
 
 
 def _config(args):
     from repro_torch.configs import get_config, smoke_config
     if args.smoke:
-        return smoke_config("granite-8b")
-    return get_config("granite-8b").replace(num_layers=args.layers)
+        return smoke_config(args.arch)
+    return get_config(args.arch).replace(num_layers=args.layers)
 
 
 def _flops_per_token(cfg, lm, seq: int) -> float:
-    """6 N_matmul + 12 L H hd S (chip_smoke.py's MFU count)."""
+    """6 N_matmul + 12 L H hd S (chip_smoke.py's MFU count), an expert
+    matrix counted top_k / E times (the experts a token runs)."""
     import numpy as np
     from repro_torch.common.params import map_defs
     n = []
-    map_defs(lambda d: n.append(int(np.prod(d.shape))
-                                if len(d.shape) >= 2 else 0),
-             lm.param_defs())
+    act = (cfg.moe.top_k / cfg.moe.num_experts if cfg.family == "moe"
+           else 1.0)
+    map_defs(lambda d: n.append(
+        int(np.prod(d.shape)) * (act if "experts" in d.logical_axes else 1)
+        if len(d.shape) >= 2 else 0), lm.param_defs())
     n_mm = sum(n) - cfg.padded_vocab * cfg.d_model   # the input gather
     return (6 * n_mm + 12 * cfg.num_layers * cfg.num_heads
             * cfg.resolved_head_dim * seq)
@@ -174,6 +221,7 @@ def serve(args, dev, sync) -> dict:
         reqs = requests()
         ServeEngine(lm, params, SLOTS, max_seq, device=dev).run(reqs)
         out["one"] = ([r.out_tokens for r in reqs], lm.ms)
+        one_logits = lm.logits
         del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -184,6 +232,8 @@ def serve(args, dev, sync) -> dict:
     reqs = requests()
     ServeEngine(lm, params, SLOTS, max_seq, device=dev).run(reqs)
     out["mesh"] = ([r.out_tokens for r in reqs], lm.ms)
+    if dist.get_rank() == 0:
+        out["divergence"] = divergence(one_logits, lm.logits, cfg.vocab_size)
     return out
 
 
@@ -201,7 +251,7 @@ def worker(args) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     try:
         res = {"train": [train(args, s, dev, sync)
-                         for s in meshes(dist.get_world_size())],
+                         for s in meshes(dist.get_world_size(), args.arch)],
                "serve": serve(args, dev, sync)}
         if dist.get_rank() == 0:
             Path(args.out).write_text(json.dumps(res))
@@ -213,16 +263,20 @@ def worker(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=4)
-    ap.add_argument("--layers", type=int, default=36,
-                    help="granite-8b layers (36 = published; one card "
-                         "holds the weights and AdamW state of 8)")
+    ap.add_argument("--arch", default="granite-8b", choices=tuple(ARCHS))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers (default: the published depth, granite-8b "
+                         "36 and olmoe-1b-7b 16; one card holds granite's "
+                         "weights and AdamW state of 8)")
     ap.add_argument("--smoke", action="store_true",
-                    help="granite-8b's smoke config (a CPU rehearsal)")
+                    help="the arch's smoke config (a CPU rehearsal)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=str(ROOT / "build" / "lm_mesh_ab.json"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.layers is None:
+        args.layers = ARCHS[args.arch]
     if args.worker:
         return worker(args)
     sys.path.insert(0, str(ROOT / "src"))
@@ -249,7 +303,8 @@ def main(argv=None) -> int:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(args.ranks), str(Path(__file__).resolve()),
-           "--worker", "--layers", str(args.layers), "--device", args.device,
+           "--worker", "--arch", args.arch, "--layers", str(args.layers),
+           "--device", args.device,
            "--out", args.out] + (["--smoke"] if args.smoke else [])
     p = subprocess.run(cmd, env=env, cwd=ROOT, timeout=3000)
     if p.returncode != 0:
@@ -260,7 +315,7 @@ def main(argv=None) -> int:
     ok = True
     for t in res["train"]:
         d, m = t["mesh"]
-        print(f"lm mesh train granite-8b ({t['layers']} layers) on "
+        print(f"lm mesh train {args.arch} ({t['layers']} layers) on "
               f"(data {d}, model {m}): loss {t['loss']:.6f} (steps "
               f"{[round(x, 4) for x in t['losses']]}), ms/step median "
               f"{t['ms_per_step']:.1f} ({TIMED} steps "
@@ -270,11 +325,24 @@ def main(argv=None) -> int:
         ok &= t["finite"]
     (one, one_ms), (mesh, mesh_ms) = res["serve"]["one"], res["serve"]["mesh"]
     same = one == mesh
-    print(f"lm mesh serve granite-8b: tokens of (1, {args.ranks}) "
-          f"{'equal' if same else 'DIFFER from'} one card's; ms per decode "
-          f"call median one card {statistics.median(one_ms):.3f} "
+    differ = ("" if same else " (first at request, token " + str(next(
+        (i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+        for i, (x, y) in enumerate(zip(one, mesh)) if x != y)) + ")")
+    print(f"lm mesh serve {args.arch}: tokens of (1, {args.ranks}) "
+          f"{'equal' if same else 'DIFFER from'} one card's{differ}; ms per "
+          f"decode call median one card {statistics.median(one_ms):.3f} "
           f"({len(one_ms)} calls), mesh {statistics.median(mesh_ms):.3f} "
           f"({len(mesh_ms)} calls) {tag}")
+    div = res["serve"]["divergence"]
+    flip = div["first_flip"]
+    print(f"lm mesh serve {args.arch}: max |logit diff| / max |logit| over "
+          f"the calls made alike {div['max_rel_diff']:.4g}" + (
+              "" if flip is None else
+              f"; first flipped token at call {flip['call']} row "
+              f"{flip['row']}: |diff| {flip['diff']:.4g} against the one "
+              f"card's top-2 margin {flip['margin']:.4g}") + f" {tag}")
+    if args.arch != "granite-8b":
+        same = True
     if not (ok and same):
         print("lm_mesh_ab: a loss is not finite or the tokens differ",
               file=sys.stderr)
