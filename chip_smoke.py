@@ -219,7 +219,20 @@ JAX.  In order it prints:
      seamless-m4t-large-v2 at 2 + 2 layers, each a forward, a prefill and
      4 decodes on the mesh = the unsharded LM's bitwise; and
      ``compressed_psum`` on a one-rank NCCL group = its CPU result;
- 16. the wall time, one JSON line of kernel records, then the device line
+ 16. the dry-run sweep and its report (meta-device work, no card
+     memory): ``repro_torch.launch.sweep`` over the ``single`` (16, 16),
+     ``multi`` (2, 16, 16) and ``1x4`` meshes into a temporary directory
+     (no cell ``error``; the skipped cells are the eight full-attention
+     archs at ``long_500k``), with the cells phases 10-12 allocated at
+     their cut depths: the sweep's one-card figures of those cells equal
+     the bytes the phases allocated, to the byte; B4 over seamless's
+     cross-cache shape (batch 1, 32768 positions, 16 kv heads of 64,
+     bf16, every position valid) cut into 4 ranges and merged against
+     one call over the whole cache (phase 14's bound), with its
+     launches; then the report's tables (``repro_torch.roofline.report``:
+     the dry-run table, what fits where, the roofline on one card and on
+     (16, 16), analytic from the H100_SXM constants);
+ 17. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Phase 8's kernel times come first, and the script enforces it: a
@@ -234,8 +247,9 @@ and read just after; each kernel record carries its launches on the main
 path (``run()``), in the replayed episodes, in the profile, in one
 window of the stream per method, in the trainers (0), in the episode
 with the card-trained server detector, in the families phase, on the
-camera mesh, in the LM mesh's tensor-parallel engine run and in phase
-15's expert- and tensor-parallel runs.  Any
+camera mesh, in the LM mesh's tensor-parallel engine run, in phase
+15's expert- and tensor-parallel runs and in phase 16's cut cross cache
+(flash_decode).  Any
 mismatch ends the run with a non-zero exit code; no phase's failure is
 caught.  Without a CUDA device it exits non-zero before printing a
 result.
@@ -3691,6 +3705,24 @@ def lm_mesh_train(torch, dev, tag: str) -> None:
     torch.cuda.empty_cache()
 
 
+def b4_ranges_merged(torch, fd_ops, q, k, v, valid: int):
+    """B4 over the cache ``k``/``v`` cut into ``SPLIT_N`` position ranges,
+    each its clamped share of ``valid``, the ranges' (out, m, l) merged
+    in this process by ``flash_decode.ops.merge_ranges`` (the sharded
+    decode's merge, with stacking for the collective); out shaped as
+    q."""
+    n_loc = k.shape[1] // SPLIT_N
+    parts = [fd_ops.flash_decode(
+        q, k[:, i * n_loc:(i + 1) * n_loc].contiguous(),
+        v[:, i * n_loc:(i + 1) * n_loc].contiguous(),
+        kv_valid_len=min(max(valid - i * n_loc, 0), n_loc))
+        for i in range(SPLIT_N)]
+    out, m, l = fd_ops.merge_ranges(
+        *(torch.stack([x[j] for x in parts]) for j in range(3)),
+        lambda t: t.amax(0), lambda t: t.sum(0))
+    return out.reshape(q.shape), m, l
+
+
 def b4_split_cache(torch, dev, tag: str) -> float:
     """Phase 14 (3): B4 at granite's decode shape (bf16) over the cache cut
     into ``SPLIT_N`` position ranges, each range its clamped valid length,
@@ -3705,20 +3737,9 @@ def b4_split_cache(torch, dev, tag: str) -> float:
     q, k, v, k1, v1 = fd_inputs(torch, dev, torch.bfloat16, B, S, H, KV,
                                 hd, seed=5)
     n_loc = S // SPLIT_N
-    ks = [k[:, i * n_loc:(i + 1) * n_loc].contiguous()
-          for i in range(SPLIT_N)]
-    vs = [v[:, i * n_loc:(i + 1) * n_loc].contiguous()
-          for i in range(SPLIT_N)]
     worst = 0.0
     for valid in SPLIT_VALID:
-        parts = [fd_ops.flash_decode(q, ks[i], vs[i], kv_valid_len=min(
-            max(valid - i * n_loc, 0), n_loc)) for i in range(SPLIT_N)]
-        out, m, l = fd_ops.merge_ranges(
-            torch.stack([x[0] for x in parts]),
-            torch.stack([x[1] for x in parts]),
-            torch.stack([x[2] for x in parts]),
-            lambda t: t.amax(0), lambda t: t.sum(0))
-        out = out.reshape(q.shape)
+        out, m, l = b4_ranges_merged(torch, fd_ops, q, k, v, valid)
         w_out, w_m, w_l = fd_ops.flash_decode(q, k, v, kv_valid_len=valid)
         d_out = float((out - w_out.float()).abs().max())
         d_m = float((m - w_m).abs().max())
@@ -3763,6 +3784,106 @@ def lm_mesh_dryrun(tag: str) -> None:
               f"{whole['total_bytes'] / 1e9:.2f} GB)")
         if shape == (1, 4) and not pr["total_bytes"] < H100_SXM.hbm_bytes:
             raise AssertionError("granite-8b over (1, 4) does not fit")
+
+
+# -- 16. the dry-run sweep and its report ------------------------------------
+
+SWEEP_MESHES = ("single", "multi", "1x4")
+# B4 over seamless's cross cache cut over "data" (the long-context layout):
+# batch 1, the positions of decode_32k, its 16 kv heads (G = 1) of 64
+CROSS_SHAPE = (1, 32768, 16, 16, 64)       # B, S, H, KV, hd
+
+
+def sweep_phase(torch, dev, tag: str, reset_counts, read_counts) -> tuple:
+    """Phase 16: the dry-run sweep over ``SWEEP_MESHES`` into a temporary
+    directory, the cells phases 10-12 allocated also at their cut
+    depths; no cell ``error``, the skips JAX's refusals, and the sweep's
+    one-card figures of those cells equal the bytes the phases
+    allocated; B4 over ``CROSS_SHAPE`` cut into ``SPLIT_N`` ranges and
+    merged against one call; the report's tables.  Returns
+    (flash_decode launches over the cut cross cache, the largest |out|
+    difference)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.launch import sweep
+    from repro_torch.roofline import report
+
+    t0 = time.perf_counter()
+    cuts = {arch: layers for arch, _, _, layers, _ in DRYRUN_CUTS
+            if layers is not None}
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    keep = sweep.ARTIFACT_DIR
+    sweep.ARTIFACT_DIR = tmp
+    try:
+        res = {m: sweep.sweep([m], layers=cuts) for m in SWEEP_MESHES}
+        bad = [r for rs in res.values() for r in rs
+               if r["status"] not in ("ok", "skip")]
+        if bad:
+            raise AssertionError(f"the sweep has failed cells: {bad}")
+        skips = {(r["arch"], r["shape"]) for rs in res.values() for r in rs
+                 if r["status"] == "skip"}
+        if {s for _, s in skips} != {"long_500k"} or len(skips) != 8:
+            raise AssertionError(f"the sweep skipped {sorted(skips)}")
+        for arch, shape, kind, layers, _ in DRYRUN_CUTS:
+            if layers is None:
+                continue
+            got = RECORDED["allocated"][(arch, kind, layers)]
+            for m in SWEEP_MESHES:
+                cell = json.loads(sweep.artifact(arch, shape, m).read_text())
+                for k, v in got.items():
+                    if cell["cut"][k] != v:
+                        raise AssertionError(
+                            f"sweep {m} {arch} {shape} at {layers} layers: "
+                            f"{k} {cell['cut'][k]} vs {v} allocated")
+            print(f"sweep {arch} {shape} at {layers} layers, one card "
+                  f"(every mesh's artifact) = the phase's allocation on the "
+                  f"card: " + ", ".join(f"{k} {v}" for k, v in got.items()))
+        sweep_s = time.perf_counter() - t0
+        print(report.dryrun_table(SWEEP_MESHES))
+        print(report.fit_table(("1x4", "single", "multi")))
+        print(f"roofline one card (analytic, H100_SXM constants: "
+              f"{report.hw_label(report.H100_SXM)}; not measured)")
+        print(report.roofline_table(report.H100_SXM, report.ONE_CARD))
+        print("roofline (16, 16) (analytic, H100_SXM constants)")
+        print(report.roofline_table(report.H100_SXM, sweep.mesh_dims(
+            sweep.MESHES["single"])))
+    finally:
+        sweep.ARTIFACT_DIR = keep
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sweep (python -m repro_torch.launch.sweep --mesh "
+          f"{'|'.join(SWEEP_MESHES)}): {sum(len(r) for r in res.values())} "
+          f"cells, {len(skips)} skipped, 0 errors, {sweep_s:.1f} s {tag}")
+
+    B, S, H, KV, hd = CROSS_SHAPE
+    q, k, v, _, _ = fd_inputs(torch, dev, torch.bfloat16, B, S, H, KV, hd,
+                              seed=7)
+    n_loc = S // SPLIT_N
+    reset_counts()
+    out, m, l = b4_ranges_merged(torch, fd_ops, q, k, v, S)
+    torch.cuda.synchronize()
+    launches = read_counts()["flash_decode"]
+    w_out, w_m, w_l = fd_ops.flash_decode(q, k, v, kv_valid_len=S)
+    d_out = float((out - w_out.float()).abs().max())
+    d_m = float((m - w_m).abs().max())
+    d_l = float(((l - w_l).abs() / w_l.abs()).max())
+    amax = float(w_out.float().abs().max())
+    bound = bf16_ulps(SPLIT_OUT_ULPS, amax)
+    print(f"flash_decode over a cut cross cache (seamless, B={B}, S={S}, "
+          f"{H}/{KV} heads, hd={hd}, bf16, every position valid, "
+          f"{SPLIT_N} ranges of {n_loc} merged): {launches} launches; max "
+          f"|out| {amax:.4g}, max |diff| out {d_out:.3g} (bound "
+          f"{SPLIT_OUT_ULPS} bf16 ulps: {bound:.3g}), m {d_m:.3g} (bound "
+          f"{SPLIT_M_BOUND}), l relative {d_l:.3g} (bound {SPLIT_L_RTOL}) "
+          f"{tag}")
+    if launches != SPLIT_N:
+        raise AssertionError(f"{launches} flash_decode launches over the "
+                             f"cut cross cache, expected {SPLIT_N}")
+    if not (d_out <= bound and d_m <= SPLIT_M_BOUND
+            and d_l <= SPLIT_L_RTOL):
+        raise AssertionError("flash_decode over the cut cross cache is out "
+                             "of its bounds")
+    return launches, d_out
 
 
 # -- 15. expert and tensor parallelism inside the other families (slice 14)
@@ -4606,9 +4727,19 @@ def main(argv=None) -> int:
     print(f"phase 15 (2-3) (the families' tensor parallelism, compression): "
           f"{time.perf_counter() - t_new:.1f} s; phase 15 in all "
           f"{time.perf_counter() - t_new + LM_EP['s']:.1f} s {tag}")
+    # -- 16. the dry-run sweep and its report; B4 over a cut cross cache
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 16: dry-run sweep")
+    t_new = time.perf_counter()
+    cross_launches, cross_err = sweep_phase(torch, dev, tag, reset_counts,
+                                            read_counts)
+    print(f"phase 16 (dry-run sweep, report, B4 over a cut cross cache): "
+          f"{time.perf_counter() - t_new:.1f} s {tag}")
     for rec in records:
         rec["launches_lm_ep"] = (LM_EP["launches"] + tp_launches
                                  if rec["name"] == "flash_decode" else 0)
+        rec["launches_cross_split"] = (cross_launches
+                                       if rec["name"] == "flash_decode"
+                                       else 0)
         if "launches_episode" in rec:
             rec["launches_episode"] = launches_episode[rec["name"]]
         rec["launches_profile"] = prof_launches[rec["name"]]
@@ -4623,6 +4754,7 @@ def main(argv=None) -> int:
                                    if rec["name"] == "flash_decode" else 0)
         if rec["name"] == "flash_decode":
             rec["max_abs_err_split_cache"] = split_err
+            rec["max_abs_err_split_cross"] = cross_err
 
     if args.profile:
         from torch.autograd import DeviceType

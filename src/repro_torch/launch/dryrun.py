@@ -38,7 +38,7 @@ import argparse
 import json
 import sys
 import types
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -109,6 +109,35 @@ def _local_bytes(shape, dtype: torch.dtype, spec, mesh) -> int:
     return n * torch.empty((), dtype=dtype).element_size()
 
 
+def cache_pieces(lm: LM, batch: int, max_seq: int, mesh
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """One rank's piece of every leaf of ``lm``'s cache of ``batch`` rows
+    for ``max_seq`` under ``launch.specs.cache_specs`` (JAX's rule), by
+    dotted leaf path: (local shape, dtype)."""
+    out = {}
+
+    def walk(c, sp, path):
+        if isinstance(c, tuple):
+            out[path] = (R.local_shape(c[0], sp, mesh), c[1])
+            return
+        for k in c:
+            walk(c[k], sp[k], f"{path}.{k}" if path else k)
+    walk(lm.cache_defs(batch, max_seq),
+         cache_specs(lm, batch, max_seq, mesh), "")
+    return out
+
+
+def cache_bytes_per_rank(lm: LM, batch: int, max_seq: int, mesh) -> int:
+    """Bytes of one rank's pieces of ``lm``'s cache (``cache_pieces``)."""
+    n = 0
+    for shape, dt in cache_pieces(lm, batch, max_seq, mesh).values():
+        k = torch.empty((), dtype=dt).element_size()
+        for d in shape:
+            k *= d
+        n += k
+    return n
+
+
 def memory_per_rank(cfg: ModelConfig, shape: str, moment_dtype: str,
                     mesh) -> Dict[str, Any]:
     """Bytes one rank of ``mesh`` holds: its pieces of the weights, of
@@ -133,14 +162,8 @@ def memory_per_rank(cfg: ModelConfig, shape: str, moment_dtype: str,
     if cell.kind == "train":
         out["adamw_bytes"] = 2 * sum(m) + 4       # m, v and the int32 step
     else:
-        cache = lm.cache_defs(cell.global_batch, cell.seq_len)
-        cspecs = cache_specs(lm, cell.global_batch, cell.seq_len, mesh)
-
-        def walk(c, sp):
-            if isinstance(c, tuple):
-                return _local_bytes(c[0], c[1], sp, mesh)
-            return sum(walk(c[k], sp[k]) for k in c)
-        out["cache_bytes"] = walk(cache, cspecs)
+        out["cache_bytes"] = cache_bytes_per_rank(
+            lm, cell.global_batch, cell.seq_len, mesh)
     out["total_bytes"] = (out["weights_bytes"] + out["adamw_bytes"]
                           + out["cache_bytes"])
     out["hbm_bytes"] = int(H100_SXM.hbm_bytes)

@@ -11,15 +11,11 @@ On the LM mesh ``batch_specs`` / ``cache_specs`` give JAX's
 PartitionSpecs of a cell's batch and of an LM's cache as spec tuples
 (``sharding.rules``), and ``batch_shardings`` / ``cache_shardings`` the
 same as DTensor placements (``rules.param_placements``; JAX returns
-NamedShardings).  The port's LM lays its caches out as these say
-(``LM.init_cache``): the batch over the data-parallel axes, the
-attention caches' sequence over "model" under tensor parallelism or over
-"data" when the batch is not divided (the long-context layout), a
-recurrent state or a cross cache cut over "model" on the dim this rule
-picks.  Two differences, both where a dim's length happens to equal
-another's: the port takes the batch dim and an attention cache's
-sequence dim by position, not by length, and under the long-context
-layout it keeps the audio family's cross cache whole.
+NamedShardings).  The port's LM holds its caches as these say
+(``LM.init_cache``), leaf by leaf, the dims found by length as in JAX;
+where that is not the layout its decode computes in (a dim whose length
+happens to equal the batch's or ``max_seq``), the decode re-cuts the
+leaf around the call.
 ``build_cell`` lowers a step for XLA's dry run on a TPU mesh and has no
 counterpart: ``launch/dryrun.py`` sums the per-rank bytes instead.
 """
@@ -101,44 +97,18 @@ def batch_shardings(cfg: ModelConfig, cell: ShapeCell, mesh
 
 
 def cache_specs(lm, batch: int, max_seq: int, mesh) -> Dict:
-    """JAX's ``cache_shardings`` as specs: the batch dim over DP when it
-    divides, the attention caches' sequence over "model" under "2d" (each
-    rank holds a slice of the positions of every kv head), else the
-    sequence over "data" for an undivided batch, and a cache with no
-    sequence (the recurrent states) cut over "model" on its last trailing
-    dim that divides."""
+    """JAX's ``cache_shardings`` as specs, leaf by leaf
+    (``rules.cache_leaf_spec``): the batch dim over DP when it divides,
+    the attention caches' sequence over "model" under "2d" (each rank
+    holds a slice of the positions of every kv head), else the sequence
+    over "data" for an undivided batch, and a cache with no sequence (the
+    recurrent states) cut over "model" on its last trailing dim that
+    divides.  The dims are found by their lengths, as JAX finds them."""
     policy = lm.cfg.parallelism
-    ba = R.fit_batch_axes(mesh, batch, policy)
-    nmodel = mesh.shape.get("model", 1) if policy == "2d" else 1
-    batch_part = R.spec_part(ba)
-
-    def one(shape) -> tuple:
-        parts: list = [None] * len(shape)
-        b_idx = seq_idx = None
-        for i, d in enumerate(shape):
-            if b_idx is None and d == batch:
-                b_idx = i
-            elif d == max_seq and i > (b_idx if b_idx is not None else -1):
-                seq_idx = i
-        if b_idx is not None and batch_part is not None:
-            parts[b_idx] = batch_part
-        if seq_idx is not None and nmodel > 1 and max_seq % nmodel == 0:
-            parts[seq_idx] = "model"
-        elif (seq_idx is not None and batch_part is None
-              and max_seq % mesh.shape["data"] == 0):
-            parts[seq_idx] = "data"
-        elif seq_idx is None and nmodel > 1:
-            for i in range(len(shape) - 1,
-                           b_idx if b_idx is not None else -1, -1):
-                if (parts[i] is None and shape[i] % nmodel == 0
-                        and shape[i] >= nmodel):
-                    parts[i] = "model"
-                    break
-        return tuple(parts)
 
     def walk(defs):
         if isinstance(defs, tuple):
-            return one(defs[0])
+            return R.cache_leaf_spec(defs[0], batch, max_seq, mesh, policy)
         return {k: walk(v) for k, v in defs.items()}
     return walk(lm.cache_defs(batch, max_seq))
 

@@ -15,7 +15,9 @@ decode dequantises the whole cache in the model dtype and attends over
 that view, through the kernel too.  ``cross_attention`` (the vlm's image
 layers, the audio decoder) is not causal and has no rope; its decode
 (``decode_cross_attention``) attends over a fixed cross cache, every
-position valid.
+position valid; ``decode_cross_attention_split`` does so over a rank's
+range of the positions (JAX's long-context layout cuts them over
+"data"), the ranges merged.
 
 On the LM mesh the ``*_tp`` functions run a dense block's attention with
 tensor parallelism over "model" (``TP``).  Training and prefill run on
@@ -246,6 +248,28 @@ def decode_cross_attention(cfg: ModelConfig, params, x: torch.Tensor,
         out = fd_ops.flash_decode(q, k, v, kv_valid_len=k.shape[1])[0]
     else:
         out = decode_attention(q, k, v, kv_valid_len=k.shape[1])
+    return linear(params["o"], out.reshape(B, 1, -1))
+
+
+def decode_cross_attention_split(cfg: ModelConfig, params, x: torch.Tensor,
+                                 cache: Dict[str, torch.Tensor], split,
+                                 use_kernel: bool = False) -> torch.Tensor:
+    """``decode_cross_attention`` over this rank's range of a cross cache
+    whose positions are cut over ``split``'s axis (JAX's long-context
+    layout cuts them over "data"), every position valid: flash-decode
+    (the kernel, or its plain version) over the range, the ranges merged
+    over the axis (``fd_ops.merge_ranges``)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = _split_heads(linear(params["q"], x), cfg.num_heads, hd)
+    k = cache["k"].reshape(B, -1, cfg.num_kv_heads, hd)
+    v = cache["v"].reshape(B, -1, cfg.num_kv_heads, hd)
+    stats = fd_ops.flash_decode if use_kernel else fd_ref.flash_decode_ref
+    out, m, l = stats(q, k, v, kv_valid_len=k.shape[1])
+    out, m, l = fd_ops.merge_ranges(
+        out, m, l, lambda t: comm.all_max(t, split.group),
+        lambda t: comm.all_reduce(t, split.group))
+    out = out.reshape(q.shape).to(q.dtype)
     return linear(params["o"], out.reshape(B, 1, -1))
 
 

@@ -25,14 +25,23 @@ attention, MLP, cross-attention, Mamba-2 and xLSTM blocks: ``A.TP``),
 the MoE takes JAX's expert-parallel branch whenever "model" has a group
 (``MOE.EP``, under any policy), and the entry points check the rows a
 rank holds at every block boundary (``_constrain``, JAX's sharding
-constraint, given the call's ``Rows``).  The cache keeps JAX's layout
-(``launch.specs.cache_specs``): the attention caches' positions cut over
-"model" under tensor parallelism, or over "data" when the data-parallel
-axes do not divide the cache's rows (the long-context layout,
-``_split``), B4 running on each rank's positions with the ranges merged;
-a recurrent state or a cross cache cut on the dim JAX's rule picks
+constraint, given the call's ``Rows``).  Every cache leaf a rank holds
+is its piece under JAX's ``cache_shardings`` (``rules.cache_leaf_spec``,
+which finds the batch and sequence dims by length): the rows over the
+data-parallel axes, the attention caches' positions cut over "model"
+under tensor parallelism, or over "data" when the data-parallel axes do
+not divide the cache's rows (the long-context layout, ``_split``), B4
+running on each rank's positions with the ranges merged; the audio
+family's cross cache cut over "data" too when it spans ``max_seq``
+positions (B4 on each rank's range, merged); a recurrent state or a
+cross cache under tensor parallelism cut on the dim JAX's rule picks
 (``A.cross_cut``); a decode gathers a state's cut, steps its heads and
-keeps its piece of the new state.
+keeps its piece of the new state.  Where a dim's length happens to equal
+the batch's or ``max_seq`` (a smoke config's 2 layers at batch 2, its 32
+kv features at ``max_seq`` 32), JAX's rule cuts another dim than the one
+the decode computes over; ``_layouts`` finds such leaves and the decode,
+a prefill and ``splice`` re-cut them (gathered whole, cut again) around
+the call.
 
 Training: ``forward`` (final hidden states and the aux metrics: the MoE
 ``moe_aux_loss`` and ``moe_drop_frac``, means over layers), ``logits``
@@ -155,6 +164,19 @@ def _put_state(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
             cache[name][rows] = t[rows]
 
 
+def splice_rows(big: Any, small: Any, slot: int) -> None:
+    """Copy ``small`` (one row) into row ``slot`` of ``big`` along each
+    leaf's batch axis (the axis on which the two shapes differ; with one
+    row they are the same shape and the row is the leaf), in place."""
+    if isinstance(big, torch.Tensor):
+        axis = next((i for i, (a, b) in enumerate(zip(big.shape, small.shape))
+                     if a != b), None)
+        (big if axis is None else big.narrow(axis, slot, 1)).copy_(small)
+        return
+    for k in big:
+        splice_rows(big[k], small[k], slot)
+
+
 class Rows(NamedTuple):
     """An entry call's rows on a mesh: this rank holds rows [lo, lo + b)
     of a global batch of ``B`` rows, cut over the data-parallel axes
@@ -176,6 +198,8 @@ class LM:
         # gathers any cut before it runs)
         self._plans: Dict[str, Tuple[Any, bool]] = {}
         self._max_seq: Optional[int] = None
+        self._enc_seq: Optional[int] = None
+        self._layout_memo: Dict[Tuple, Tuple[Any, Any, bool]] = {}
         if mesh is None:
             return
         pol = cfg.parallelism
@@ -763,8 +787,11 @@ class LM:
 
     # -- serving: cache protocol -------------------------------------------------
 
-    def cache_defs(self, batch: int, max_seq: int) -> Dict[str, Any]:
-        """The cache's nested dict of (shape, dtype) leaves."""
+    def cache_defs(self, batch: int, max_seq: int,
+                   enc_seq: Optional[int] = None) -> Dict[str, Any]:
+        """The cache's nested dict of (shape, dtype) leaves (the audio
+        family's cross cache ``enc_seq`` positions long, by default
+        ``max_seq * enc_seq_factor``)."""
         cfg = self.cfg
         lay = self._layout()
         kv = A.kv_cache_defs(cfg, batch, max_seq)
@@ -796,7 +823,8 @@ class LM:
                 {"self": _stack_specs(kv, n_s),
                  "cross": cross(cfg.vlm.num_image_tokens)}, n_super)
         if "enc" in lay:
-            enc_seq = int(max_seq * cfg.encdec.enc_seq_factor)
+            if enc_seq is None:
+                enc_seq = int(max_seq * cfg.encdec.enc_seq_factor)
             out["dec_blocks"] = _stack_specs(
                 {"self": kv, "cross": cross(enc_seq)}, lay["dec"])
         return out
@@ -825,51 +853,155 @@ class LM:
             return None
         return A.Split(group, n, self.mesh.index("data"))
 
-    def _cache_stacks(self) -> Dict[str, Tuple[int, bool]]:
-        """Per cache stack (a path of keys): its stack depth and whether
-        it holds attention caches (their positions cut by ``_split``)."""
+    def _cache_stacks(self) -> Dict[str, Tuple[int, str]]:
+        """Per cache stack (a path of keys): its stack depth and its kind,
+        "attn" (attention caches, their positions cut by ``_split``),
+        "state" (recurrent states) or "cross" (fixed cross caches)."""
         lay = self._layout()
         if "main" in lay:
-            return {"blocks": (1, True)}
+            return {"blocks": (1, "attn")}
         if "super_ssm" in lay:
-            return {"blocks.mlstm": (2, False), "blocks.slstm": (1, False)}
+            return {"blocks.mlstm": (2, "state"), "blocks.slstm": (1, "state")}
         if "super_hybrid" in lay:
-            return {"blocks.mamba": (2, False), "blocks.attn": (1, True),
-                    "tail": (1, False)}
+            return {"blocks.mamba": (2, "state"), "blocks.attn": (1, "attn"),
+                    "tail": (1, "state")}
         if "super_vlm" in lay:
-            return {"blocks.self": (2, True), "blocks.cross": (1, False)}
-        return {"dec_blocks.self": (1, True), "dec_blocks.cross": (1, False)}
+            return {"blocks.self": (2, "attn"), "blocks.cross": (1, "cross")}
+        return {"dec_blocks.self": (1, "attn"),
+                "dec_blocks.cross": (1, "cross")}
+
+    def _cross_len(self, max_seq: int) -> int:
+        """Positions of the cross cache this model's decode reads: the
+        vlm's image tokens, the audio family's encoder positions (the
+        last prefill's, else ``max_seq * enc_seq_factor``)."""
+        if self.cfg.family == "vlm":
+            return self.cfg.vlm.num_image_tokens
+        if self._enc_seq is not None:
+            return self._enc_seq
+        return int(max_seq * self.cfg.encdec.enc_seq_factor)
+
+    def _layouts(self, batch: int, max_seq: int
+                 ) -> Tuple[Dict[str, Any], Dict[str, Any], bool]:
+        """(the cache's layout as JAX's rule gives it, ``rules.
+        cache_leaf_spec``; the layout the decode computes in; whether they
+        differ) as spec trees of a cache of ``batch`` rows for
+        ``max_seq``.  The compute layout holds this rank's rows
+        (``batch_rows``), an attention cache's positions as ``_split``
+        cuts them, a cross cache's positions over "data" under the
+        long-context layout when they number ``max_seq``, and under tensor
+        parallelism the dim ``A.cross_cut`` picks of a state or a cross
+        cache over "model": JAX's rule on the dims' roles.  The two differ
+        only where a dim's length happens to equal the batch's or
+        ``max_seq`` (JAX finds the dims by length)."""
+        enc = (self._cross_len(max_seq) if self.cfg.family == "audio"
+               else None)
+        key = (batch, max_seq, enc)
+        if key in self._layout_memo:
+            return self._layout_memo[key]
+        defs = self.cache_defs(batch, max_seq, enc)
+        policy, mesh = self.cfg.parallelism, self.mesh
+        rows = R.spec_part(R.fit_batch_axes(mesh, batch, policy))
+        split = self._split(batch, max_seq)
+        axis = None if split is None else ("model" if self._tp_on else "data")
+
+        def mine(shape, depth: int, kind: str) -> tuple:
+            parts: list = [None] * len(shape)
+            parts[depth] = rows
+            per = shape[depth:]
+            if kind == "attn":
+                parts[depth + 1] = axis
+            elif self._tp_on:
+                c = A.cross_cut(per, max_seq, self.tp)
+                if c is not None:
+                    parts[depth + c] = "model"
+            elif kind == "cross" and axis == "data" and per[1] == max_seq:
+                parts[depth + 1] = "data"
+            return tuple(parts)
+
+        def walk(d, fn):
+            if isinstance(d, tuple):
+                return fn(d[0])
+            return {k: walk(v, fn) for k, v in d.items()}
+        jax_specs = walk(defs, lambda shape: R.cache_leaf_spec(
+            shape, batch, max_seq, mesh, policy))
+        compute = walk(defs, lambda shape: None)
+        for path, (depth, kind) in self._cache_stacks().items():
+            *up, last = path.split(".")
+            node, out = defs, compute
+            for k in up:
+                node, out = node[k], out[k]
+            if last in node:
+                out[last] = {name: mine(shape, depth, kind)
+                             for name, (shape, _) in node[last].items()}
+        differ = any(R.effective(a, mesh) != R.effective(b, mesh)
+                     for a, b in zip(R.spec_leaves(jax_specs),
+                                     R.spec_leaves(compute)))
+        self._layout_memo[key] = jax_specs, compute, differ
+        return self._layout_memo[key]
+
+    def _relayout(self, cache: Dict[str, Any], src: Dict[str, Any],
+                  dst: Dict[str, Any], into: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, Any]:
+        """A cache whose leaves are laid out by the specs ``src`` -> laid
+        out by ``dst``: a leaf whose specs differ is gathered whole and
+        re-cut (every rank calls this, for the gathers), the others are
+        themselves; with ``into``, each re-cut leaf is copied into its
+        tensor there, in place."""
+        mesh = self.mesh
+
+        def walk(t, s, d, o):
+            if not torch.is_tensor(t):
+                return {k: walk(t[k], s[k], d[k], None if o is None else o[k])
+                        for k in t}
+            if R.effective(s, mesh) == R.effective(d, mesh):
+                return t
+            piece = R.local_slice(comm.whole(t, s, mesh), d, mesh)
+            if o is None:
+                return piece.contiguous()
+            return o.copy_(piece)
+        return walk(cache, src, dst, into)
 
     def init_cache(self, batch: int, max_seq: int, device) -> Dict[str, Any]:
-        """A zero cache; on a mesh this rank's piece of it: its rows
-        (``batch_rows``), the attention caches' positions as ``_split``
-        cuts them and, under tensor parallelism, the dim of every other
-        leaf that JAX's ``cache_shardings`` cuts over "model"
-        (``A.cross_cut``)."""
-        lo, hi = self.batch_rows(batch)
-        split = self._split(batch, max_seq)
-        self._max_seq = max_seq
-        defs = self.cache_defs(hi - lo, max_seq)
-        if split is not None:
-            for path, (depth, attn) in self._cache_stacks().items():
-                node = defs
-                *up, last = path.split(".")
-                for k in up:
-                    node = node[k]
-                if last not in node or not (attn or self._tp_on):
-                    continue
-                for name, (shape, dt) in node[last].items():
-                    per = list(shape[depth:])
-                    c = 1 if attn else A.cross_cut(per, max_seq, self.tp)
-                    if c is not None:
-                        per[c] //= split.n
-                    node[last][name] = (tuple(shape[:depth]) + tuple(per), dt)
+        """A zero cache; on a mesh this rank's piece of it, every leaf
+        laid out by JAX's ``cache_shardings`` (``launch.specs.
+        cache_specs``): its shape is ``rules.local_shape`` of the leaf's
+        under that spec."""
+        self._max_seq, self._enc_seq = max_seq, None
+        defs = self.cache_defs(batch, max_seq)
+        if self.mesh is not None:
+            specs = self._layouts(batch, max_seq)[0]
+
+            def local(d, sp):
+                if isinstance(d, tuple):
+                    return R.local_shape(d[0], sp, self.mesh), d[1]
+                return {k: local(d[k], sp[k]) for k in d}
+            defs = local(defs, specs)
 
         def zeros(specs):
             if isinstance(specs, tuple):
                 return torch.zeros(specs[0], dtype=specs[1], device=device)
             return {k: zeros(v) for k, v in specs.items()}
         return zeros(defs)
+
+    def splice(self, cache: Dict[str, Any], part: Dict[str, Any], slot: int,
+               batch: int) -> None:
+        """Copy a request's prefilled cache ``part`` (one row, from
+        ``prefill(..., cache_batch=batch)``) into row ``slot`` of
+        ``cache`` (``init_cache(batch, ...)``), in place, along each
+        leaf's batch axis.  On a mesh every rank calls it: the rank that
+        holds the slot's row writes it, and a leaf whose JAX layout is not
+        the compute layout is re-cut around the write."""
+        if self.mesh is None:
+            splice_rows(cache, part, slot)
+            return
+        jax_specs, compute, differ = self._layouts(batch, self._decode_seq())
+        mine = (self._relayout(cache, jax_specs, compute) if differ
+                else cache)
+        lo, hi = self.batch_rows(batch)
+        if lo <= slot < hi:
+            splice_rows(mine, part, slot - lo)
+        if differ:
+            self._relayout(mine, compute, jax_specs, into=cache)
 
     def _piece(self, tree: Dict[str, torch.Tensor], max_seq: int
                ) -> Dict[str, torch.Tensor]:
@@ -905,10 +1037,17 @@ class LM:
                              "was made with: init_cache or prefill first")
         return self._max_seq
 
-    def _cross_kv(self, p, kv_src: torch.Tensor, max_seq: int
-                  ) -> Dict[str, torch.Tensor]:
+    def _cross_kv(self, p, kv_src: torch.Tensor, max_seq: int,
+                  split: Optional[A.Split] = None) -> Dict[str, torch.Tensor]:
+        """This rank's piece of a fixed cross cache of ``kv_src``: as
+        ``A.cross_kv_tp`` lays it out under tensor parallelism, else its
+        range of the positions when ``split`` cuts them over "data" and
+        they number ``max_seq`` (the long-context layout), else whole."""
         if self._tp_on:
             return A.cross_kv_tp(self.cfg, p, kv_src, max_seq, self.tp)
+        if split is not None and kv_src.shape[1] == max_seq:
+            n_loc = max_seq // split.n
+            kv_src = kv_src.narrow(1, split.r * n_loc, n_loc)
         return {"k": L.linear(p["k"], kv_src), "v": L.linear(p["v"], kv_src)}
 
     # -- prefill -----------------------------------------------------------------
@@ -961,9 +1100,12 @@ class LM:
         lay = self._layout()
         dt = L.dtype_of(cfg)
         rows = self._enter(batch["tokens"].shape[0], global_batch)
-        split = (None if rows is None else self._split(
-            rows.B if cache_batch is None else cache_batch, max_seq))
+        cache_rows = (None if rows is None else
+                      rows.B if cache_batch is None else cache_batch)
+        split = None if rows is None else self._split(cache_rows, max_seq)
         self._max_seq = max_seq
+        self._enc_seq = (batch["enc_embeds"].shape[1] if "enc" in lay
+                         else None)
         x = self._embed(params, batch["tokens"], rows)
         g = self._g
         if "main" in lay and lay["main"][0] == "dense":
@@ -1030,7 +1172,7 @@ class LM:
                 pc = g(p["cross"], "blocks.cross")
                 x = self._apply_cross(pc, x, kv_src, rows)
                 supers.append({"self": _stacked(kvs), "cross": self._cross_kv(
-                    pc["xattn"], kv_src, max_seq)})
+                    pc["xattn"], kv_src, max_seq, split)})
             cache = {"blocks": _stacked(supers)}
         else:
             enc = self._encode(params, batch["enc_embeds"], rows)
@@ -1044,8 +1186,12 @@ class LM:
                                     rows)
                 decs.append({"self": kv,
                              "cross": self._cross_kv(p["xattn"], enc,
-                                                     max_seq)})
+                                                     max_seq, split)})
             cache = {"dec_blocks": _stacked(decs)}
+        if rows is not None and cache_rows == rows.B:
+            jax_specs, compute, differ = self._layouts(cache_rows, max_seq)
+            if differ:
+                cache = self._relayout(cache, compute, jax_specs)
         return self._logits(params, x[:, -1:]), cache
 
     # -- decode ------------------------------------------------------------------
@@ -1075,6 +1221,11 @@ class LM:
         norm, g, tp = self._norm, self._g, self.tp
         b = x.shape[0]
         split = None if held is None else self._split(held.B)
+        ours = cache
+        layouts = (None if held is None
+                   else self._layouts(held.B, self._decode_seq()))
+        if layouts is not None and layouts[2]:
+            cache = self._relayout(cache, layouts[0], layouts[1])
 
         def attn(p, c, h):
             hn = norm(p["ln1"], h)
@@ -1115,6 +1266,11 @@ class LM:
             if self._tp_on:
                 return A.decode_cross_attention_tp(
                     cfg, p, hn, c, self._decode_seq(), tp, use_kernel)
+            if (split is not None
+                    and self._cross_len(self._decode_seq())
+                    == self._decode_seq()):
+                return A.decode_cross_attention_split(cfg, p, hn, c, split,
+                                                      use_kernel)
             return A.decode_cross_attention(cfg, p, hn, c, use_kernel)
 
         lay = self._layout()
@@ -1168,4 +1324,6 @@ class LM:
                 x = attn(p, c["self"], x)
                 x = x + cross(p["xattn"], c["cross"], norm(p["lnx"], x))
                 x = x + self._mlp(p["mlp"], norm(p["ln2"], x))
-        return self._logits(params, x), cache
+        if layouts is not None and layouts[2]:
+            self._relayout(cache, layouts[1], layouts[0], into=ours)
+        return self._logits(params, x), ours

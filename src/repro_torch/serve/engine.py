@@ -11,9 +11,10 @@ cache and then restores the rows of slots outside the group from the old
 one.  Here the cache is written in place, and a grouped decode writes only
 its group's rows, of every leaf (recurrent states too): the same cache,
 with no copy of it.  ``admit`` splices a request's prefilled cache (one
-row) into its slot along each leaf's own batch axis, the axis on which
-the two leaves' shapes differ (JAX diffs against a batch-1 cache too);
-with one slot they are the same shape and the row is the leaf.  A vlm request
+row) into its slot along each leaf's own batch axis (``model.
+splice_rows``, on a mesh ``LM.splice``: the axis on which the two
+leaves' shapes differ; JAX diffs against a batch-1 cache too); with one
+slot they are the same shape and the row is the leaf.  A vlm request
 is prefilled with zero image embeddings, as in JAX.  The audio family is
 refused: JAX's engine sizes its cross cache at ``max_seq *
 enc_seq_factor`` positions while a prefill fills it at the prompt's
@@ -29,8 +30,8 @@ state; when the data-parallel axes do not divide the slots, every slot
 and the positions cut over "data" (JAX's long-context layout).  A
 request's prefill writes its cache in that layout (``cache_batch``).  Admission, slots and positions stay host
 decisions, and every rank takes the same ones: a request is prefilled on
-every rank (a batch of one is not cut), the rank that holds its slot
-splices it in, every rank runs every grouped decode (with or without rows
+every rank (a batch of one is not cut), every rank calls the splice and
+the rank that holds its slot writes it, every rank runs every grouped decode (with or without rows
 of its own in the group), and the next tokens are a vocab-parallel argmax
 (``LM.next_tokens``) gathered over the data-parallel ranks, so every rank
 reads all slots' tokens.
@@ -46,7 +47,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, splice_rows
 
 AUDIO_CAVEAT = (
     "the serving engine does not serve the audio (encoder-decoder) family: "
@@ -54,18 +55,6 @@ AUDIO_CAVEAT = (
     "prefill fills it at the prompt's length, and padding it would change "
     "what decode attends to (the JAX engine fails the same way, at admit); "
     "drive LM.prefill / LM.decode directly")
-
-
-def _splice(big: Any, small: Any, slot: int) -> None:
-    """Copy ``small`` (one row) into row ``slot`` of ``big`` along each
-    leaf's batch axis, in place."""
-    if isinstance(big, torch.Tensor):
-        axis = next((i for i, (a, b) in enumerate(zip(big.shape, small.shape))
-                     if a != b), None)
-        (big if axis is None else big.narrow(axis, slot, 1)).copy_(small)
-        return
-    for k in big:
-        _splice(big[k], small[k], slot)
 
 
 @dataclass
@@ -122,9 +111,10 @@ class ServeEngine:
             kw["cache_batch"] = self.slots
         logits, cache1 = self.lm.prefill(self.params, batch, self.max_seq,
                                          **kw)
-        lo, hi = self.rows
-        if lo <= slot < hi:
-            _splice(self.cache, cache1, slot - lo)
+        if self.mesh is None:
+            splice_rows(self.cache, cache1, slot)
+        else:
+            self.lm.splice(self.cache, cache1, slot, self.slots)
         self.slot_req[slot] = req
         self.slot_pos[slot] = S
         req.out_tokens.append(int(self._argmax(logits[:, -1])[0]))

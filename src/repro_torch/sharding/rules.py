@@ -322,6 +322,49 @@ def cache_spec(mesh, batch: int, seq: int) -> Tuple[Any, Any]:
     return None, None
 
 
+def cache_leaf_spec(shape: Sequence[int], batch: int, max_seq: int, mesh,
+                    policy: str = "2d") -> Spec:
+    """JAX's ``cache_shardings`` of one cache leaf (stack dims included),
+    which finds its dims by length: the batch dim is the first of length
+    ``batch`` (over the DP axes that divide it), the sequence dim the last
+    later one of length ``max_seq``: over "model" under "2d" when "model"
+    divides it, else over "data" when the batch is not cut and "data"
+    divides it (the long-context layout); a leaf with no sequence dim (a
+    recurrent state) is cut over "model" on its last trailing dim that
+    "model" divides."""
+    ba = fit_batch_axes(mesh, batch, policy)
+    nmodel = int(mesh.shape.get("model", 1)) if policy == "2d" else 1
+    batch_part = spec_part(ba)
+    parts: list = [None] * len(shape)
+    b_idx = seq_idx = None
+    for i, d in enumerate(shape):
+        if b_idx is None and d == batch:
+            b_idx = i
+        elif d == max_seq and i > (b_idx if b_idx is not None else -1):
+            seq_idx = i
+    if b_idx is not None and batch_part is not None:
+        parts[b_idx] = batch_part
+    if seq_idx is not None and nmodel > 1 and max_seq % nmodel == 0:
+        parts[seq_idx] = "model"
+    elif (seq_idx is not None and batch_part is None
+          and max_seq % int(mesh.shape["data"]) == 0):
+        parts[seq_idx] = "data"
+    elif seq_idx is None and nmodel > 1:
+        for i in range(len(shape) - 1, b_idx if b_idx is not None else -1,
+                       -1):
+            if (parts[i] is None and shape[i] % nmodel == 0
+                    and shape[i] >= nmodel):
+                parts[i] = "model"
+                break
+    return tuple(parts)
+
+
+def effective(spec: Spec, mesh) -> Spec:
+    """``spec`` with the entries whose axes have one rank dropped (two
+    specs with equal effective forms give every rank the same piece)."""
+    return tuple(e if axes_size(mesh, e) > 1 else None for e in spec)
+
+
 def spec_axes(entry) -> Tuple[str, ...]:
     """The mesh axes of one spec entry."""
     if entry is None:

@@ -24,6 +24,12 @@ NEW = 6
 DECODE_AT = (0, 8, 16)         # positions 0 and the slice boundaries of
                                # 4 and 2 model ranks (8 and 16 of 32)
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+LONG_SEQ = 64                  # the audio family's long-context case: its
+                               # cross cache of 64 positions (not 32, the
+                               # smoke kv features' width) cut over "data"
+LAYOUT_BATCHES = (1, 2, 3, 4)  # divided by the data ranks or not; 2 is
+                               # also the smoke configs' layer count
+LAYOUT_SEQS = (32, 64)         # 32 = the smoke kv features, 64 = zamba2's
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -189,6 +195,9 @@ def world14(tmp: Path, inputs: dict) -> dict:
     lb = LM(inputs["ckpt_cfg"], mesh)
     out["restored"] = restored(lb, tmp / "ckpt22")
     out["restored jax"] = restored(lb, tmp / "ckpt_jax")
+    lh, ph = model(inputs, "granite bf16", mesh)
+    out["bf16"] = {"decode": decodes(lh, ph, inputs, {}, prefill=True),
+                   "engine": engine_tokens(lh, ph, inputs)}
     return out
 
 
@@ -230,23 +239,54 @@ def extras(batch: dict, lo: int, hi: int) -> dict:
             if k not in ("tokens", "labels")}
 
 
-def decodes(lm, p, inputs: dict, batch: dict, slots: int = SLOTS) -> dict:
+def decodes(lm, p, inputs: dict, batch: dict, slots: int = SLOTS,
+            max_seq: int = MAX_SEQ, prefill: bool = False) -> dict:
     """Decode logits (whole) of ``slots`` rows after a prefill of 8
     tokens and from a zero cache, 3 positions each; the rows' image or
-    encoder embeddings from ``batch``'s first rows."""
+    encoder embeddings from ``batch``'s first rows (with ``prefill``, the
+    prefill's logits too, under "prefill")."""
     tok = torch.from_numpy(inputs["decode_tokens"])[:slots]
     lo, hi = lm.batch_rows(slots)
     more = extras({k: v[:slots] for k, v in batch.items()}, lo, hi)
     out = {}
     for t0 in (0, 8):
         if t0 == 0:
-            cache = lm.init_cache(slots, MAX_SEQ, "cpu")
+            cache = lm.init_cache(slots, max_seq, "cpu")
         else:
-            _, cache = lm.prefill(p, {"tokens": tok[lo:hi, :t0], **more},
-                                  MAX_SEQ)
+            lg, cache = lm.prefill(p, {"tokens": tok[lo:hi, :t0], **more},
+                                   max_seq, global_batch=slots)
+            if prefill:
+                out["prefill"] = _np(lm.gather_rows(lm.full_logits(lg),
+                                                    slots))
         for i in range(t0, t0 + 3):
-            lg, cache = lm.decode(p, tok[lo:hi, i:i + 1], cache, i)
+            lg, cache = lm.decode(p, tok[lo:hi, i:i + 1], cache, i,
+                                  global_batch=slots)
             out[i] = _np(lm.gather_rows(lm.full_logits(lg), slots))
+    return out
+
+
+def shapes(tree, path: str = "") -> dict:
+    """Leaf path -> shape of a nested dict of tensors."""
+    if torch.is_tensor(tree):
+        return {path: tuple(tree.shape)}
+    out = {}
+    for k, v in tree.items():
+        out.update(shapes(v, f"{path}.{k}" if path else k))
+    return out
+
+
+def layouts(mesh) -> dict:
+    """Every arch's smoke config on ``mesh``: this rank's ``init_cache``
+    leaf shapes, by (arch, batch, max_seq) over ``LAYOUT_BATCHES`` x
+    ``LAYOUT_SEQS``."""
+    from repro_torch.configs import list_archs, smoke_config
+    from repro_torch.models.model import LM
+    out = {}
+    for arch in list_archs():
+        lm = LM(smoke_config(arch), mesh)
+        for b in LAYOUT_BATCHES:
+            for ms in LAYOUT_SEQS:
+                out[(arch, b, ms)] = shapes(lm.init_cache(b, ms, "meta"))
     return out
 
 
@@ -288,6 +328,29 @@ def cache_layout(lm, batch: int, max_seq: int) -> list:
     return bad
 
 
+def layout_mismatches(got: dict, mesh_shape) -> list:
+    """The (arch, batch, max_seq, leaf, shape, dry run's piece) of a
+    world's ``layouts`` that are not the dry run's per-rank pieces
+    (``launch.dryrun.cache_pieces`` on a stand-in mesh of the world's
+    shape)."""
+    from repro_torch.configs import list_archs, smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import LM
+    mesh = dryrun.stand_in_mesh(mesh_shape)
+    bad = []
+    for arch in list_archs():
+        lm = LM(smoke_config(arch))
+        for b in LAYOUT_BATCHES:
+            for ms in LAYOUT_SEQS:
+                want = {k: v[0] for k, v in dryrun.cache_pieces(
+                    lm, b, ms, mesh).items()}
+                have = got[(arch, b, ms)]
+                assert set(have) == set(want), (arch, b, ms)
+                bad += [(arch, b, ms, k, have[k], want[k]) for k in want
+                        if have[k] != want[k]]
+    return bad
+
+
 def family_world(inputs: dict, mesh, names) -> dict:
     out = {}
     for name in names:
@@ -311,12 +374,18 @@ def tp12(tmp: Path, inputs: dict) -> dict:
 
 def tp14(tmp: Path, inputs: dict) -> dict:
     from repro_torch.launch.mesh import lm_device_mesh
-    return family_world(inputs, lm_device_mesh(1, 4), inputs["tp names"])
+    mesh = lm_device_mesh(1, 4)
+    out = family_world(inputs, mesh, inputs["tp names"])
+    out["layouts"] = layouts(mesh)
+    return out
 
 
 def tp22(tmp: Path, inputs: dict) -> dict:
     from repro_torch.launch.mesh import lm_device_mesh
-    return family_world(inputs, lm_device_mesh(2, 2), inputs["tp names"])
+    mesh = lm_device_mesh(2, 2)
+    out = family_world(inputs, mesh, inputs["tp names"])
+    out["layouts"] = layouts(mesh)
+    return out
 
 
 def ep_world(inputs: dict, mesh, names) -> dict:
@@ -361,6 +430,21 @@ def seq41(tmp: Path, inputs: dict) -> dict:
             "pieces": pieces,
             "decode": {b: decodes(lm, p, inputs, batch, b) for b in (1, 2)},
             "engine": engine_tokens(lm, p, inputs, 2)}
+    for name in inputs.get("long names", ()):
+        # the audio family at batch 1: its cross cache's positions cut
+        # over "data" as its self cache's are
+        lm, p = model(inputs, name, mesh)
+        long = inputs["long"][name]
+        cross = {"init": shapes(lm.init_cache(1, LONG_SEQ, "meta")),
+                 "prefill": shapes(lm.prefill(
+                     p, {"tokens": torch.zeros((1, 8), dtype=torch.long),
+                         **extras(long, 0, 1)}, LONG_SEQ,
+                     global_batch=1)[1])}
+        out[name] = {"cross": cross,
+                     "decode": decodes(lm, p, inputs, long, 1, LONG_SEQ),
+                     "decode 32": decodes(lm, p, inputs,
+                                          inputs["batches"][name], 1)}
+    out["layouts"] = layouts(mesh)
     return out
 
 
@@ -438,3 +522,105 @@ def wait(ctx, seconds: float = 600.0) -> None:
             for p in ctx.processes:
                 p.kill()
             raise TimeoutError(f"a spawned world ran past {seconds} s")
+
+
+# -- JAX's own mesh on 4 host devices ---------------------------------------------
+
+JAX_SERVE_SCRIPT = r"""
+import contextlib, pickle, sys
+import numpy as np, jax, jax.numpy as jnp
+sys.path.insert(0, @SRC@)
+from repro.configs import smoke_config
+from repro.launch.mesh import mesh_with_auto_axes
+from repro.launch.specs import cache_shardings
+from repro.models.model import LM
+from repro.serve.engine import Request, ServeEngine
+from repro.sharding import rules as R
+
+assert jax.device_count() == 4, jax.device_count()
+inp = pickle.loads(open(sys.argv[1], "rb").read())
+out = {}
+for case in inp["cases"]:
+    name, rows, ms = case["name"], case["rows"], case["max_seq"]
+    cfg = smoke_config(case["arch"]).replace(**case["kw"])
+    if case["mesh"] is None:        # one device, no mesh
+        mesh, lm = contextlib.nullcontext(), LM(cfg)
+        jp = jax.tree.map(jnp.asarray, case["params"])
+        cs = None
+    else:
+        mesh = mesh_with_auto_axes(
+            np.asarray(jax.devices()).reshape(case["mesh"]), ("data", "model"))
+        lm = LM(cfg, mesh)
+        shard = R.param_shardings(lm.param_defs(), mesh, cfg.fsdp_over_pod,
+                                  cfg.parallelism)
+        jp = jax.tree.map(lambda a, s: jax.device_put(jnp.asarray(a), s),
+                          case["params"], shard)
+        cs = cache_shardings(lm, rows, ms, mesh)
+    tok = jnp.asarray(inp["decode_tokens"][:rows], jnp.int32)
+    more = {k: jnp.asarray(v[:rows]) for k, v in case["extras"].items()}
+    with mesh:
+        prefill = jax.jit(lm.prefill, static_argnums=(2,))
+        decode = jax.jit(lm.decode)
+        for t0 in (0, 8):
+            if t0 == 0:
+                cache = lm.init_cache(rows, ms)
+            else:
+                lg, cache = prefill(jp, {"tokens": tok[:, :t0], **more}, ms)
+                out[name + "/prefill"] = np.asarray(lg, np.float32)
+            for i in range(t0, t0 + 3):
+                if cs is not None:
+                    cache = jax.device_put(cache, cs)
+                lg, cache = decode(jp, tok[:, i:i + 1], cache, jnp.int32(i))
+                out[f"{name}/decode/{i}"] = np.asarray(lg, np.float32)
+        if case["engine"]:
+            reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                            max_new_tokens=inp["new"])
+                    for i, p in enumerate(inp["prompts"])]
+            ServeEngine(lm, jp, inp["slots"], ms).run(reqs)
+            out[name + "/tokens"] = np.asarray([r.out_tokens for r in reqs])
+np.savez(sys.argv[2], **out)
+print("SERVE-REFERENCE-DONE")
+"""
+
+
+def jax_serve(tmp: Path, cases: list, inputs: dict):
+    """Start JAX's prefill, decodes (as ``decodes``) and engine of each
+    case on its own (data, model) mesh of 4 host devices, the parameters
+    placed by JAX's ``param_shardings`` and the cache by its
+    ``cache_shardings`` (a case whose mesh is None: on one device), in
+    one subprocess; ``jax_serve_results`` reads them."""
+    import os
+    import subprocess
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    (tmp / "serve_in.pkl").write_bytes(pickle.dumps(
+        {"cases": cases, "decode_tokens": inputs["decode_tokens"],
+         "prompts": inputs["prompts"], "new": NEW, "slots": SLOTS}))
+    env = dict(os.environ)
+    env.pop("REPRO_FAKE_DEVICES", None)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    script = JAX_SERVE_SCRIPT.replace("@SRC@", repr(str(root / "src")))
+    return subprocess.Popen(
+        [sys.executable, "-c", script, str(tmp / "serve_in.pkl"),
+         str(tmp / "serve_ref.npz")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=str(root))
+
+
+def jax_serve_results(tmp: Path, proc) -> dict:
+    """Wait for ``jax_serve``'s subprocess: {case: {"prefill", decode
+    positions, "tokens"}}."""
+    try:
+        log, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0 and "SERVE-REFERENCE-DONE" in log, log
+    out: dict = {}
+    with np.load(tmp / "serve_ref.npz") as z:
+        for k in z.files:
+            case, *what = k.split("/")
+            key = (int(what[1]) if what[0] == "decode" else what[0])
+            out.setdefault(case, {})[key] = (z[k].tolist() if key == "tokens"
+                                             else z[k])
+    return out

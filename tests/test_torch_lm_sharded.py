@@ -37,6 +37,12 @@ positions 0 and on a slice boundary (the int8 cache: 1e-3 of max
 bfloat16 parameters and AdamW state restores onto (1, 4), (4, 1) and no
 mesh bit for bit; JAX reads it and writes it back, and (1, 4) reads
 JAX's file bit for bit too.
+
+granite-8b's smoke config in bfloat16 on (1, 4) is held against JAX's
+own (1, 4) mesh on 4 host devices (one subprocess,
+``_torch_lm_sharded_worker.jax_serve``): prefill and decode logits within
+``BF16_TP_SPACINGS`` bf16 spacings at the largest |logit|, and the
+engine's tokens equal.
 """
 import collections
 import dataclasses
@@ -90,6 +96,9 @@ from repro_torch.train import steps as t_steps  # noqa: E402
 
 F32_TOL = 1e-5          # tests/test_torch_train.py: logits, loss
 LOGIT_TOL = 1e-5        # sharded vs unsharded logits (train and decode)
+BF16_KW = dict(pad_vocab_to_multiple=4)
+BF16_TP_SPACINGS = 4    # bf16 (1, 4) vs JAX's (1, 4): bf16 spacings at the
+                        # largest |logit| (measured 3.0)
 STEP_TOL = 1e-5         # loss, grad_norm (relative), first moments
 PARAM_TOL = 2e-5        # updated parameters (test_torch_train.py) ...
 GRAD_FLOOR = 1e-5       # ... where |m| > this x its max (test_torch_families.py)
@@ -612,7 +621,17 @@ def worlds(tmp_path_factory):
     inputs["models"]["granite fsdp"] = (
         inputs["models"]["granite"][0].replace(parallelism="fsdp"),
         inputs["models"]["granite"][1])
+    bf16 = dict(BF16_KW, dtype="bfloat16")
+    jp16 = jax.tree.map(np.asarray, JLM(j_smoke("granite-8b").replace(
+        **bf16)).init(jax.random.PRNGKey(0)))
+    inputs["models"]["granite bf16"] = (
+        smoke_config("granite-8b").replace(**bf16), jp16)
     (tmp / "inputs.pkl").write_bytes(pickle.dumps(inputs))
+    proc = W.jax_serve(tmp, [
+        {"name": name, "arch": "granite-8b", "kw": bf16, "params": jp16,
+         "mesh": shape, "rows": W.SLOTS, "max_seq": W.MAX_SEQ, "extras": {},
+         "engine": True} for name, shape in (("tp14", (1, 4)),
+                                             ("one", None))], inputs)
     ctx22 = W.spawn(tmp, "world22", 4)
     ctx12 = W.spawn(tmp, "world12", 2)
     ref = {}
@@ -649,11 +668,50 @@ def worlds(tmp_path_factory):
     got["world14"] = W.results(tmp, "world14", 4)
     W.wait(ctx41)
     got["world41"] = W.results(tmp, "world41", 4)
+    tcfg, npp = inputs["models"]["granite bf16"]
+    t16 = LM(tcfg), params_from_numpy(npp, "lm", device="cpu")
+    ref["bf16"] = {"port": W.decodes(*t16, inputs, {}, prefill=True),
+                   "port tokens": W.engine_tokens(*t16, inputs),
+                   **W.jax_serve_results(tmp, proc)}
     yield types.SimpleNamespace(
         ref=ref, got=got, inputs=inputs, jax_ckpt=jtree,
         no_mesh=((W._tree_np(p0), int(o0.step), W._tree_np(o0.m),
                   W._tree_np(o0.v)), int(meta0["step"])))
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _bf16_gap(a, b):
+    """max |a - b| over the vocabulary's 257 columns (the padded ones are
+    masked), in bf16 spacings at the largest |b| (2^-6 between 2 and
+    4)."""
+    a, b = a[..., :257], b[..., :257]
+    spacing = 2.0 ** (np.floor(np.log2(np.abs(b).max())) - 7)
+    return float(np.abs(a - b).max() / spacing)
+
+
+@pytest.mark.parametrize("what", ["prefill", 0, 1, 2, 8, 9, 10])
+def test_dense_tp_bf16_matches_jax_tp(worlds, what):
+    """granite-8b's smoke config in bfloat16 on (1, 4) (bf16 partial sums
+    of the row-parallel products, all-reduced) against JAX's own (1, 4)
+    mesh, its weights placed by ``param_shardings`` so that GSPMD cuts
+    the products over "model": the prefill's and each decode's logits
+    within ``BF16_TP_SPACINGS`` bf16 spacings at the largest |logit|.
+    Measured: at most 3.0 (0.047 at logits up to 3.5); JAX's own (1, 4)
+    against its one device 2.0, the unsharded port against unsharded JAX
+    2.4: the port's reduction is as far from JAX's as JAX's two runs are
+    from each other."""
+    got = worlds.got["world14"]["bf16"]["decode"][what]
+    assert _bf16_gap(got, worlds.ref["bf16"]["tp14"][what]) <= \
+        BF16_TP_SPACINGS
+
+
+def test_dense_tp_bf16_engine_tokens_equal_jax_tp(worlds):
+    """Six requests on 4 slots: the (1, 4) engine's tokens in bfloat16
+    equal JAX's engine's on its (1, 4) mesh and on one device."""
+    ref = worlds.ref["bf16"]
+    assert worlds.got["world14"]["bf16"]["engine"] == ref["tp14"]["tokens"]
+    assert ref["tp14"]["tokens"] == ref["one"]["tokens"]
+    assert ref["port tokens"] == ref["one"]["tokens"]
 
 
 def test_layouts(worlds):

@@ -226,6 +226,16 @@ def test_layout(fams, world, name):
     assert got["layout"] == []
 
 
+@pytest.mark.parametrize("world,shape", [("tp22", (2, 2)),
+                                         ("tp14", (1, 4))])
+def test_init_cache_is_the_dry_runs_piece(fams, world, shape):
+    """Every arch's smoke config at 1 to 4 rows and ``max_seq`` 32 and 64:
+    each ``init_cache`` leaf is the dry run's per-rank piece (JAX's rule,
+    the dims found by length: on (2, 2) at 2 rows the 2 layers take the
+    batch's cut, at 32 positions the 32 kv features the sequence's)."""
+    assert W.layout_mismatches(fams.got[world]["layouts"], shape) == []
+
+
 @pytest.mark.parametrize("world,name", CASES)
 def test_forward_matches_unsharded_and_jax(fams, world, name):
     got = fams.got[world][name]["fwd"]

@@ -38,6 +38,19 @@ on one card against the (1, N) mesh.  Its capacity is JAX's per rank
 pairs on the mesh that one card keeps: the tokens are compared and
 reported, and only the granite run fails on a difference.
 
+Then the **long-context** case, for granite-8b (2 of its 36 layers) and
+seamless-m4t-large-v2 (2 encoder and 2 decoder layers, at the LM level):
+one request of ``LONG_PROMPT`` tokens (seamless: with seeded encoder
+states over all ``LONG_SEQ`` positions) at batch 1, prefilled and
+decoded ``LONG_NEW`` times on rank 0's card alone, then on the (N, 1)
+mesh, where the 4 "data" ranks do not divide the batch: every rank
+holds the row and a quarter of the positions of the self caches (and
+of seamless's cross cache), B4 runs on each rank's range and the
+ranges are merged over "data".  Each rank's allocated cache bytes must
+equal the dry run's per-rank figure (``dryrun.cache_bytes_per_rank``,
+JAX's ``cache_shardings``), and the logits are compared with one card's
+(max |diff| over max |logit|, and the argmax of every call).
+
 ``--smoke --device cpu`` runs the same on the CPU over gloo at the
 arch's smoke width (a rehearsal, no timing worth reading).  It fails if
 granite's tokens differ or a loss is not finite.  The card's name and
@@ -64,6 +77,11 @@ SMOKE = dict(rows=4, seq=32, prompts=(8, 8, 12, 12, 5, 8), new=6,
 
 
 ARCHS = {"granite-8b": 36, "olmoe-1b-7b": 16}     # published layers
+# the long-context case: batch 1 on (N, 1), positions cut over "data"
+LONG = (("granite-8b", {"num_layers": 2}),
+        ("seamless-m4t-large-v2", {"encdec": (2, 2)}))
+LONG_SEQ, LONG_PROMPT, LONG_NEW = 8192, 512, 8
+SMOKE_LONG = dict(max_seq=64, prompt=8, new=4)
 
 
 def meshes(n: int, arch: str = "granite-8b"):
@@ -237,6 +255,95 @@ def serve(args, dev, sync) -> dict:
     return out
 
 
+def _long_config(args, arch: str, over: dict):
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    if args.smoke:
+        return smoke_config(arch)
+    cfg = get_config(arch)
+    if "encdec" in over:
+        enc, dec = over["encdec"]
+        return cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, enc_layers=enc, dec_layers=dec))
+    return cfg.replace(**over)
+
+
+def long_context(args, dev, sync) -> dict:
+    """Batch 1 on (N, 1): prefill and decodes on rank 0's card alone and
+    on the mesh; each rank's cache bytes against the dry run's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import LM
+
+    max_seq, prompt, new = ((SMOKE_LONG["max_seq"], SMOKE_LONG["prompt"],
+                             SMOKE_LONG["new"]) if args.smoke
+                            else (LONG_SEQ, LONG_PROMPT, LONG_NEW))
+    n = dist.get_world_size()
+    out = {}
+    for arch, over in LONG:
+        cfg = _long_config(args, arch, over)
+        g = torch.Generator().manual_seed(1)
+        tok = torch.randint(0, cfg.vocab_size, (1, prompt + new),
+                            generator=g).to(dev)
+        more = {}
+        if cfg.family == "audio":
+            more["enc_embeds"] = torch.randn(
+                1, max_seq, cfg.d_model, generator=g).to(
+                    dev, getattr(torch, cfg.dtype))
+
+        def drive(lm, params, **kw):
+            logits = []
+            lg, cache = lm.prefill(params, {"tokens": tok[:, :prompt],
+                                            **more}, max_seq, **kw)
+            logits.append(lm.full_logits(lg)[:, -1].float().cpu())
+            nbytes = dryrun.tree_bytes(cache)
+            fd_ops.LAUNCHES = 0
+            for i in range(prompt, prompt + new):
+                lg, cache = lm.decode(params, tok[:, i:i + 1], cache, i,
+                                      **kw)
+                logits.append(lm.full_logits(lg)[:, 0].float().cpu())
+            sync()
+            return logits, nbytes, fd_ops.LAUNCHES
+
+        res = {}
+        if dist.get_rank() == 0:
+            lm = LM(cfg)
+            params = lm.init(torch.Generator(device=dev).manual_seed(0))
+            res["one"], _, _ = drive(lm, params)
+            del params
+        dist.barrier()
+        mesh = mesh_mod.lm_device_mesh(n, 1)
+        lm = LM(cfg, mesh)
+        params = lm.init(torch.Generator(device=dev).manual_seed(0))
+        logits, nbytes, launches = drive(lm, params, global_batch=1)
+        want = dryrun.cache_bytes_per_rank(
+            LM(cfg), 1, max_seq, dryrun.stand_in_mesh((n, 1)))
+        bad = torch.tensor([float(nbytes != want)], device=dev)
+        dist.all_reduce(bad, dist.ReduceOp.MAX)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if dist.get_rank() == 0:
+            one = res["one"]
+            rel = max(float((a - b).abs().max() / a.abs().max())
+                      for a, b in zip(one, logits))
+            same = all(bool((a[..., :cfg.vocab_size].argmax(-1)
+                             == b[..., :cfg.vocab_size].argmax(-1)).all())
+                       for a, b in zip(one, logits))
+            layers = (f"{cfg.encdec.enc_layers} + {cfg.encdec.dec_layers}"
+                      if cfg.family == "audio" else cfg.num_layers)
+            out[arch] = {"layers": layers, "max_seq": max_seq,
+                         "prompt": prompt, "new": new,
+                         "cache_bytes": nbytes, "dryrun_bytes": want,
+                         "bytes_equal_on_every_rank": not bool(bad.item()),
+                         "max_rel_diff": rel, "argmax_equal": same,
+                         "b4_launches": launches}
+    return out
+
+
 def worker(args) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -253,6 +360,8 @@ def worker(args) -> int:
         res = {"train": [train(args, s, dev, sync)
                          for s in meshes(dist.get_world_size(), args.arch)],
                "serve": serve(args, dev, sync)}
+        if args.arch == "granite-8b":
+            res["long"] = long_context(args, dev, sync)
         if dist.get_rank() == 0:
             Path(args.out).write_text(json.dumps(res))
     finally:
@@ -341,10 +450,25 @@ def main(argv=None) -> int:
               f"; first flipped token at call {flip['call']} row "
               f"{flip['row']}: |diff| {flip['diff']:.4g} against the one "
               f"card's top-2 margin {flip['margin']:.4g}") + f" {tag}")
+    for arch, lc in res.get("long", {}).items():
+        print(f"lm mesh long context {arch} ({lc['layers']} layers, batch "
+              f"1, {lc['prompt']} prompt tokens + {lc['new']} decodes, "
+              f"max_seq {lc['max_seq']}) on (data {args.ranks}, model 1): "
+              f"cache {lc['cache_bytes']} bytes a rank, the dry run's "
+              f"{lc['dryrun_bytes']} "
+              f"({'equal on every rank' if lc['bytes_equal_on_every_rank'] else 'DIFFERENT'}); "
+              f"max |logit diff| / max |logit| vs one card "
+              f"{lc['max_rel_diff']:.4g}, argmax "
+              f"{'equal' if lc['argmax_equal'] else 'DIFFERS'} in every "
+              f"call; flash_decode launches in the mesh's decodes "
+              f"{lc['b4_launches']} {tag}")
+        ok &= lc["bytes_equal_on_every_rank"]
+        ok &= args.device != "cuda" or lc["b4_launches"] > 0
     if args.arch != "granite-8b":
         same = True
     if not (ok and same):
-        print("lm_mesh_ab: a loss is not finite or the tokens differ",
+        print("lm_mesh_ab: a loss is not finite, the tokens differ or a "
+              "rank's cache is not the dry run's",
               file=sys.stderr)
         return 1
     return 0
