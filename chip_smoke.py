@@ -232,7 +232,17 @@ JAX.  In order it prints:
      launches; then the report's tables (``repro_torch.roofline.report``:
      the dry-run table, what fits where, the roofline on one card and on
      (16, 16), analytic from the H100_SXM constants);
- 17. the wall time, one JSON line of kernel records, then the device line
+ 17. the traced dry run (``launch.dryrun.trace_cell``: one rank of a
+     one-rank fake world of the card's device type, on fake tensors):
+     phase 10's granite-8b step, phase 11's olmoe-1b-7b step and one
+     granite-8b decode call at phase 7's slots and length, each traced
+     peak beside the card's ``max_memory_allocated()`` around that call
+     in its phase (less the bytes resident at entry that are not the
+     call's arguments; within ``TRACE_PEAK_RTOL``), the traced argument
+     bytes equal to the phase's allocations to the byte, the decode's
+     traced B4 launches = ``b4_per_decode``, and the step's traced FLOPs
+     beside the MFU line's count;
+ 18. the wall time, one JSON line of kernel records, then the device line
      (last).
 
 Phase 8's kernel times come first, and the script enforces it: a
@@ -280,7 +290,25 @@ DP_COSTS = (1, 2, 4, 8, 16, 20)   # the default codec's grid (d = 50 Kbps)
 # what a phase measured or allocated that phase 12 reads: the bytes of the
 # weights and AdamW state of each cut model ("allocated", by (arch, kind,
 # layers)) and granite-8b's train step and decode ms ("measured")
-RECORDED = {"allocated": {}, "measured": {}}
+RECORDED = {"allocated": {}, "measured": {}, "peak": {}}
+
+
+def measured_peak(torch, name: str, fn, args: tuple, **record):
+    """``fn(*args)`` once, with the card's peak allocation around it:
+    ``max_memory_allocated()`` after ``reset_peak_memory_stats()`` less
+    the bytes resident at entry that are not ``args`` (what phase 17
+    holds the call's traced peak to), kept in ``RECORDED["peak"][name]``
+    with ``record`` (the call's arch, run and shape cell)."""
+    from repro_torch.launch.dryrun import tree_bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entry = torch.cuda.memory_allocated()
+    arg_bytes = tree_bytes(args)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - (entry - arg_bytes)
+    RECORDED["peak"][name] = dict(record, measured=peak, args=arg_bytes)
+    return out
 
 
 def cuda_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
@@ -1444,6 +1472,7 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
     from repro_torch.common.params import param_count
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
+    from repro_torch.launch.dryrun import tree_bytes
     cfg = get_config("granite-8b")
     lm = LM(cfg)
     torch.cuda.synchronize()
@@ -1523,6 +1552,17 @@ def lm_full_width(torch, dev, tag: str, reset_counts, read_counts) -> int:
                                               rows=[0, 1]))
     print(f"granite-8b host syncs in one decode call: "
           f"{sum(sites.values())} {sites}")
+    # phase 17's decode: every row at the last position, int32 tokens (the
+    # dry run's decode cell); the run is over, so the write is not read
+    from repro_torch.common.config import ShapeCell
+    RECORDED["allocated"][("granite-8b", "decode", cfg.num_layers)] = {
+        "weights_bytes": tree_bytes(params),
+        "cache_bytes": tree_bytes(eng.cache)}
+    measured_peak(torch, "granite-8b decode",
+                  lambda p, t, c: lm.decode(p, t, c, FULL_SEQ - 1),
+                  (params, tokens.to(torch.int32), eng.cache),
+                  arch="granite-8b", run=None, layers=None,
+                  cell=ShapeCell("phase 7", FULL_SEQ, FULL_SLOTS, "decode"))
     # phase 14 (1) runs here, on these weights
     t0 = time.perf_counter()
     mesh_launches = lm_mesh_serving(torch, dev, tag, lm, params, run,
@@ -1984,8 +2024,14 @@ def train_family(torch, dev, tag: str, arch: str, layers, rows: int,
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
-    loader.close()
     peak = torch.cuda.max_memory_allocated()
+    if arch == "olmoe-1b-7b":
+        from repro_torch.common.config import ShapeCell
+        params, opt, m = measured_peak(
+            torch, f"{arch} train", step, (params, opt, next(it)), arch=arch,
+            run=run, layers=layers,
+            cell=ShapeCell("phase 11", seq, rows, "train"))
+    loader.close()
     med = statistics.median(ms)
     tokens = rows * seq
     n_mm = matmul_params(lm)
@@ -3014,6 +3060,11 @@ def train_phase(torch, dev, tag: str, reset_counts, read_counts,
         end.synchronize()
         ms.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
+    from repro_torch.common.config import ShapeCell
+    params, opt, m = measured_peak(
+        torch, "granite-8b train", step, (params, opt, next(it)),
+        arch="granite-8b", run=run, layers=cfg.num_layers,
+        cell=ShapeCell("phase 10", LM_TRAIN_SEQ, LM_TRAIN_ROWS, "train"))
     from torch.autograd import DeviceType
     batch = next(it)
     torch.cuda.synchronize()
@@ -3886,6 +3937,86 @@ def sweep_phase(torch, dev, tag: str, reset_counts, read_counts) -> tuple:
     return launches, d_out
 
 
+# -- 17. the traced dry run against the card's allocator ---------------------
+
+TRACE_PEAK_RTOL = 0.05   # traced peak vs the card's max_memory_allocated()
+
+
+def trace_phase(torch, dev, tag: str) -> None:
+    """Phase 17: the three calls ``measured_peak`` recorded in phases 7,
+    10 and 11, each traced on one rank of a one-rank fake world of the
+    card's device type (``launch.dryrun.trace_cell`` at the phase's
+    depth, run and shape cell): the traced peak within
+    ``TRACE_PEAK_RTOL`` of the card's, the traced argument bytes equal to
+    the phase's allocations (and its batch or tokens) to the byte, the
+    decode's traced B4 launches ``b4_per_decode``, the train step's
+    traced FLOPs beside the MFU line's count."""
+    from repro_torch.common.params import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.model import LM
+    t0 = time.perf_counter()
+    for name, kind, alloc_layers in (("granite-8b train", "train", 8),
+                                     ("olmoe-1b-7b train", "train", 4),
+                                     ("granite-8b decode", "decode", 36)):
+        rec = RECORDED["peak"][name]
+        arch, run, cell = rec["arch"], rec["run"], rec["cell"]
+        t1 = time.perf_counter()
+        res = trace_cell(arch, cell.name, (1, 1), device=dev.type, run=run,
+                         cell=cell)
+        secs = time.perf_counter() - t1
+        mem, cost = res["memory"], res["cost"]
+        traced, meas = mem["peak_estimate_bytes"], rec["measured"]
+        rel = traced / meas - 1
+        alloc = RECORDED["allocated"][(arch, kind, alloc_layers)]
+        extra = rec["args"] - sum(alloc.values())   # the batch or tokens
+        print(f"trace {name} ({cell.global_batch} x {cell.seq_len}, "
+              f"{res['ops']} ops traced in {secs:.1f} s): traced peak "
+              f"{traced} bytes ({traced / 2**30:.3f} GiB) vs the card's "
+              f"{meas} ({meas / 2**30:.3f} GiB; max_memory_allocated() "
+              f"less what was resident at entry but the arguments): "
+              f"{100 * rel:+.2f}% (limit {100 * TRACE_PEAK_RTOL:.0f}%); "
+              f"argument bytes {mem['argument_bytes']} vs the phase's "
+              f"allocations {' + '.join(str(v) for v in alloc.values())} "
+              f"+ {extra} (batch); temp {mem['temp_bytes']}, output "
+              f"{mem['output_bytes']}, alias {mem['alias_bytes']}; flops "
+              f"{cost['flops']:.6g}, bytes accessed "
+              f"{cost['bytes accessed']:.6g}, transcendentals "
+              f"{cost['transcendentals']:.6g}; launches {res['launches']} "
+              f"{tag}")
+        if abs(rel) > TRACE_PEAK_RTOL:
+            raise AssertionError(f"trace {name}: peak {traced} vs the "
+                                 f"card's {meas}")
+        if mem["argument_bytes"] != rec["args"] or extra < 0:
+            raise AssertionError(f"trace {name}: argument bytes "
+                                 f"{mem['argument_bytes']} vs {rec['args']} "
+                                 f"allocated")
+        cfg = (run.model if run is not None else get_config(arch))
+        if kind == "decode":
+            want = b4_per_decode(cfg)
+            if res["launches"].get("flash_decode") != want:
+                raise AssertionError(f"trace {name}: B4 launches "
+                                     f"{res['launches']}, want {want}")
+            print(f"trace {name}: flash_decode launches "
+                  f"{res['launches']['flash_decode']} = b4_per_decode "
+                  f"{want}")
+        elif arch == "granite-8b":
+            n_mm = param_count(LM(cfg).param_defs()) - (cfg.padded_vocab
+                                                        * cfg.d_model)
+            rows, seq = cell.global_batch, cell.seq_len
+            flops = rows * seq * (6 * n_mm + 12 * cfg.num_layers
+                                  * cfg.num_heads * cfg.resolved_head_dim
+                                  * seq)
+            print(f"trace {name}: traced product FLOPs "
+                  f"{cost['flops']:.6g} vs the MFU line's 6 N_matmul + 12 L "
+                  f"H hd S {flops:.6g}: ratio "
+                  f"{cost['flops'] / flops:.4f} (the per-layer recompute "
+                  f"and the chunks above the causal diagonal count in the "
+                  f"trace)")
+    print(f"phase 17 (traced dry run): {time.perf_counter() - t0:.1f} s "
+          f"{tag}")
+
+
 # -- 15. expert and tensor parallelism inside the other families (slice 14)
 
 EP_ARCH = "olmoe-1b-7b"  # phase 15 (1): served in phase 11, then on the mesh
@@ -4734,6 +4865,9 @@ def main(argv=None) -> int:
                                             read_counts)
     print(f"phase 16 (dry-run sweep, report, B4 over a cut cross cache): "
           f"{time.perf_counter() - t_new:.1f} s {tag}")
+    # -- 17. the traced dry run against the card's allocator
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 17: traced dry run")
+    trace_phase(torch, dev, tag)
     for rec in records:
         rec["launches_lm_ep"] = (LM_EP["launches"] + tp_launches
                                  if rec["name"] == "flash_decode" else 0)

@@ -33,13 +33,16 @@ Three passes
     Over the registry of ``programs`` (every ``episode/<method>/b<bucket>``
     graph set, the slot step, the control programs): matrix-count,
     two-harvest, fleet-size-independent keys (a ``TorchDispatchMode`` op
-    multiset at C = 5 and 9), and no host read in any program
-    (``NoHostReads``, a ``TorchFunctionMode``).
+    multiset at C = 5 and 9), no host read in any program
+    (``NoHostReads``, a ``TorchFunctionMode``), and JAX's donation check
+    (no program writes its inputs; the LM's train step and decode write
+    exactly the leaves JAX donates).
 
 ``repro_torch.analysis.manifest`` (CLI: ``python -m repro_torch.analysis.manifest``)
     Each program's name, graphs and input shapes and dtypes by name; the
     tests compare it live with JAX's registry, with every difference named
-    in ``manifest.EXCEPTIONS``.
+    in ``manifest.EXCEPTIONS``; traced (the CLI's default), JAX's
+    signature, donated inputs, cost and memory fields.
 
 Pragma grammar
 --------------
@@ -56,18 +59,20 @@ in the code; the pragmas mark designed fetches (the fit's final loss, the
 host allocator's table, the MoE group sizes, the engine's sampled tokens)
 and host values (static ints, host numpy arrays) inside a scope.
 
-What has no counterpart on one card
------------------------------------
-The JAX package's mesh and TPU tooling is not ported: ``sharding/rules.py``;
-``launch/mesh.py``, the lowering and compiling half of
-``launch/dryrun.py`` (512 fake devices, ``memory_analysis()``,
-``cost_analysis()``) and ``launch/sweep.py``; the HLO parsing of
-``roofline/analysis.py`` (``parse_collectives``, ``roofline_terms``) and
-``roofline/report.py``; ``train/compression.py`` (``compressed_psum``
-needs a data-parallel axis); ``examples/multi_pod_roofline.py``; the
-Pallas ``INTERPRET`` switches.  Of JAX's audit, the donation check and the
-manifest's signature, cost and memory fields (XLA's lowering) have none
-either.  The one-card dry run (``launch/dryrun.py``: bytes of the weights,
-the AdamW state and the cache from meta tensors) and the analytic roofline
-(``roofline/analytic.py``) are ported.
+The traced dry run
+------------------
+``repro_torch.analysis.trace_cost`` is the counterpart of JAX's lowering
+and compiling of a program for its ``memory_analysis()``,
+``cost_analysis()`` and collectives: a program runs once on fake tensors
+(on a fake process group for one rank of a mesh of any size) under a
+dispatch mode that counts its live storages, products, bytes,
+transcendentals, collectives and the kernels' stand-ins' launches.  The
+manifest's traced fields, the audit's donation check and the dry run's
+``--trace`` (``launch/dryrun.py``, ``launch/sweep.py``,
+``roofline/report.py``) read it.
+
+What has no counterpart
+-----------------------
+The Pallas ``INTERPRET`` switches: the port's kernels are CUDA C++ built
+for the card, with plain PyTorch versions on the CPU.
 """

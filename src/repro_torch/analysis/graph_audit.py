@@ -18,9 +18,15 @@ Checks (see the package docstring for the catalog):
   which raises on any call that reads a device tensor on the host or
   uploads host data (what would make the card wait, or break a capture).
 
-JAX's donation check has no counterpart: the graphs read and write static
-buffers, and no argument is donated.  Neither do ``cost_analysis()`` and
-``memory_analysis()``: the port compiles no XLA program.
+* donation (JAX's ``donated_indices`` check): each program's eager body
+  run once on fake copies of its inputs (``manifest.trace_program``)
+  writes none of them in place, as JAX donates none of an episode's, a
+  control program's or (of the inputs the port's slot step has) the slot
+  step's; and the LM's train step (``make_train_step(..., donate=True)``)
+  and decode, built by ``launch.specs.build_cell`` at granite-8b's smoke
+  config on a one-rank fake world, write in place exactly the leaves JAX
+  donates: the parameters and the AdamW state (JAX's
+  ``donate_argnums=(0, 1)``), the cache (``(2,)``).
 
 CLI::
 
@@ -186,6 +192,62 @@ def stacked_outputs(out, T: int) -> List[Tuple[int, ...]]:
             if x.dim() >= 1 and x.shape[0] == T]
 
 
+# JAX's donate_argnums of the LM's steps (repro.launch.dryrun.run_cell)
+LM_DONATE = {"train": (0, 1), "decode": (2,)}
+
+
+def donated_leaves(args: tuple, argnums: Sequence[int]) -> List[int]:
+    """The flattened leaf indices of the positional ``args`` at
+    ``argnums`` (JAX's ``_donated_leaf_indices``)."""
+    from repro_torch.analysis.trace_cost import _tensors
+    out, base = [], 0
+    for i, a in enumerate(args):
+        n = len(_tensors(a))
+        if i in argnums:
+            out.extend(range(base, base + n))
+        base += n
+    return out
+
+
+def check_donation(programs: Sequence[Program], device=None) -> List[str]:
+    """JAX's donation check (see the module docstring): failures, empty
+    when it holds."""
+    from repro_torch.analysis import trace_cost
+    from repro_torch.analysis.manifest import trace_program
+    from repro_torch.common.config import (OptimizerConfig, RunConfig,
+                                           ShapeCell)
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import fake_world, shutdown
+    from repro_torch.launch.specs import build_cell
+    bad = []
+    for prog in programs:
+        try:
+            got = trace_program(prog)["donated"]
+        except Exception as e:      # a host read the trace cannot follow
+            bad.append(f"donation[{prog.name}]: not traced: "
+                       f"{type(e).__name__}: {e}")
+            continue
+        if got:
+            bad.append(f"donation[{prog.name}]: writes its inputs {got} in "
+                       "place; JAX donates none")
+    run = RunConfig(model=smoke_config("granite-8b"), opt=OptimizerConfig(),
+                    microbatches=2)
+    for kind, argnums in LM_DONATE.items():
+        cell = ShapeCell(f"donation {kind}", 16, 4, kind)
+        mesh = fake_world((1, 1))
+        try:
+            fn, args, _ = build_cell("granite-8b", cell.name, mesh,
+                                     device=device, run=run, cell=cell)
+            got = trace_cost.trace(fn, *args)["donated"]
+        finally:
+            shutdown()
+        want = donated_leaves(args, argnums)
+        if got != want:
+            bad.append(f"donation[lm/{kind}]: writes leaves {got} in place; "
+                       f"JAX donates {want}")
+    return bad
+
+
 def audit(programs: Optional[Sequence[Program]] = None,
           verbose: bool = False, T: int = HARVEST_T,
           device=None) -> List[str]:
@@ -235,6 +297,12 @@ def audit(programs: Optional[Sequence[Program]] = None,
                 f"({T}, 2, {C}) and ({T}, 4)")
         else:
             ok(f"two-harvest[{prog.name}] {stacked}")
+
+    bad = check_donation(programs, device)
+    failures.extend(bad)
+    if not bad:
+        ok(f"donation: no program writes its inputs; the LM's train step "
+           f"and decode write exactly JAX's donated leaves {LM_DONATE}")
 
     base = key_op_multiset(5, device)
     bad = check_key_ops(base, key_op_multiset(9, device), "C=5 vs C=9")

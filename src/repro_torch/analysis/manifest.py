@@ -4,20 +4,29 @@ captures and its inputs' shapes and dtypes by name.
 The counterpart of ``repro.analysis.manifest``, with no golden file: the
 port's tests compare the manifest live with JAX's ``get_programs()``,
 name by name and input by input (``diff_against``), and every difference
-must be one that ``EXCEPTIONS`` names with its reason.  JAX's
-``signature`` hash, ``donated`` leaves, ``cost`` and ``memory`` fields
-come from XLA's lowering and compiled executable and have no counterpart.
+must be one that ``EXCEPTIONS`` names with its reason.  With ``trace``
+(as the CLI builds it) each entry also carries JAX's fields from one run of
+the program's eager body on fake copies of its inputs
+(``analysis.trace_cost``; an episode for ``programs.CALL_SLOTS``
+slots): ``outs`` (the outputs' shapes and dtypes), ``donated`` (the
+inputs it writes in place, by name), ``signature`` (a sha256 over the
+name, the inputs, the outputs and the donated inputs), ``cost`` (flops,
+bytes accessed, transcendentals) and ``memory`` (argument, output, temp
+and alias bytes and the peak), what XLA's lowering and compiled
+executable give JAX.
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.analysis.manifest [--device cpu]
 
 prints the manifest as JSON (the canonical deployment, built on the card
-unless ``--device cpu`` is given; nothing runs but building the inputs).
+unless ``--device cpu`` is given; nothing runs on real tensors but
+building the inputs).
 """
 from __future__ import annotations
 
 import fnmatch
+import hashlib
 import json
 import sys
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
@@ -83,19 +92,46 @@ def _dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
 
-def entry(prog: Program) -> Dict[str, Any]:
-    return {"kind": prog.kind, "graphs": list(prog.graphs),
-            "inputs": [[n, list(t.shape), _dtype_name(t.dtype)]
-                       for n, t in prog.inputs.items()]}
+def trace_program(prog: Program) -> Dict[str, Any]:
+    """``trace_cost.trace_real`` of the program's eager body
+    (``Program.call``), with ``donated`` as input names."""
+    from repro_torch.analysis import trace_cost
+    from repro_torch.analysis.programs import _named_args
+    fn, args, prefixes = prog.call
+    res = trace_cost.trace_real(fn, *args)
+    names = [n for n, _ in _named_args(prefixes, args)]
+    res["donated"] = [names[i] for i in res["donated"]]
+    return res
+
+
+def entry(prog: Program, trace: bool = False) -> Dict[str, Any]:
+    from repro_torch.analysis.trace_cost import _tensors
+    out = {"kind": prog.kind, "graphs": list(prog.graphs),
+           "inputs": [[n, list(t.shape), _dtype_name(t.dtype)]
+                      for n, t in prog.inputs.items()]}
+    if not trace:
+        return out
+    res = trace_program(prog)
+    outs = [[list(t.shape), _dtype_name(t.dtype)]
+            for t in _tensors(res["out"])]
+    sig = hashlib.sha256(json.dumps(
+        [prog.name, out["inputs"], outs, res["donated"]]).encode())
+    out.update(signature=sig.hexdigest()[:16], outs=outs,
+               donated=res["donated"],
+               cost={k: res["cost"][k] for k in
+                     ("flops", "bytes accessed", "transcendentals")},
+               memory=res["memory"], launches=res["launches"])
+    return out
 
 
 def build_manifest(programs: Optional[Sequence[Program]] = None,
-                   device=None) -> Dict[str, Any]:
+                   device=None, trace: bool = False) -> Dict[str, Any]:
     """The manifest of ``programs``, by default the registry built on
-    ``device`` (``None``: the card)."""
+    ``device`` (``None``: the card); with ``trace``, each entry's traced
+    fields."""
     programs = (get_programs(canon=Canonical(device=device))
                 if programs is None else tuple(programs))
-    return {"programs": {p.name: entry(p) for p in programs}}
+    return {"programs": {p.name: entry(p, trace) for p in programs}}
 
 
 def _exception(kind: str, name: str, what: str) -> Optional[int]:
@@ -164,7 +200,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "the card; 'cpu' to run without one)")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
-    print(json.dumps(build_manifest(device=args.device), indent=1))
+    print(json.dumps(build_manifest(device=args.device, trace=True),
+                     indent=1))
     return 0
 
 

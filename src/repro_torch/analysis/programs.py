@@ -55,17 +55,26 @@ CTRL_SCAN_T = 8          # trace length for the scanned control program
 WEIGHTS_SEED = 0
 
 
+# slots of an episode's eager body that ``Program.call`` runs (graph_audit's
+# harvest run and the manifest's trace)
+CALL_SLOTS = 2
+
+
 @dataclasses.dataclass(frozen=True)
 class Program:
     """One audited program: its inputs by name (meta tensors), the CUDA
-    graphs an episode captures, the statics of its graph key, and ``run``,
-    one eager run on the concrete inputs."""
+    graphs an episode captures, the statics of its graph key, ``run``,
+    one eager run on the concrete inputs, and ``call``: (its eager body,
+    the concrete inputs as positional arguments, their names' prefixes)
+    for ``analysis.trace_cost`` to run on fake copies (an episode for
+    ``CALL_SLOTS`` slots)."""
     name: str
     kind: str                      # "episode" | "slot_step" | "ctrl" | "ctrl_scan"
     inputs: Dict[str, torch.Tensor]
     run: Callable[..., Any]
     graphs: Tuple[str, ...] = ()
     statics: Any = None
+    call: Optional[Tuple[Callable, Tuple[Any, ...], Tuple[str, ...]]] = None
 
 
 def named_leaves(prefix: str, x) -> List[Tuple[str, torch.Tensor]]:
@@ -206,16 +215,16 @@ def _episode_program(canon: Canonical, method: str, bucket: int) -> Program:
     from repro_torch.core import fleet
     inp = canon.episode(method, bucket)
 
-    def run(T: int = 2):
-        return fleet._episode_eager(inp.statics, inp.ctx, inp.xs, inp.carry,
-                                    T)
+    def body(ctx, xs, carry, T: int = CALL_SLOTS):
+        return fleet._episode_eager(inp.statics, ctx, xs, carry, T)
     return Program(
         name=f"episode/{method}/b{bucket}", kind="episode",
         inputs=meta_inputs(named_leaves("ctx", inp.ctx)
                            + named_leaves("xs", inp.xs)
                            + named_leaves("carry", inp.carry)),
-        run=run, graphs=graph_names(inp.statics.pipelined),
-        statics=inp.statics)
+        run=lambda T=CALL_SLOTS: body(inp.ctx, inp.xs, inp.carry, T),
+        graphs=graph_names(inp.statics.pipelined), statics=inp.statics,
+        call=(body, (inp.ctx, inp.xs, inp.carry), ("ctx", "xs", "carry")))
 
 
 def _slot_step_program(canon: Canonical) -> Program:
@@ -224,13 +233,15 @@ def _slot_step_program(canon: Canonical) -> Program:
     s, ctx, xs, carry = inp.statics, inp.ctx, inp.xs, inp.carry
     slot = (xs.t_idx[0], xs.trace[0], xs.live[0])
 
-    def run():
+    def body(ctx, carry, *slot):
         _, st, cpack, inv = fleet.slot_front(s, ctx, carry, *slot)
         return fleet._finish(s, ctx, st, inv), cpack
-    named = (named_leaves("ctx", ctx) + named_leaves("carry", carry)
-             + _named_args(("t", "W_t", "live_t"), slot))
+    names = ("ctx", "carry", "t", "W_t", "live_t")
+    named = _named_args(names, (ctx, carry) + slot)
     return Program(name="slot_step/unified", kind="slot_step",
-                   inputs=meta_inputs(named), run=run, statics=s)
+                   inputs=meta_inputs(named),
+                   run=lambda: body(ctx, carry, *slot), statics=s,
+                   call=(body, (ctx, carry) + slot, names))
 
 
 def _control_program(canon: Canonical, method: str, scan: bool) -> Program:
@@ -241,9 +252,14 @@ def _control_program(canon: Canonical, method: str, scan: bool) -> Program:
     kind = "ctrl_scan" if scan else "ctrl"
     named = (_named_args(names, args)
              + named_leaves("tables", statics["tables"]))
+
+    def body(*a):
+        return fn(*a[:-1], **dict(statics, tables=a[-1]))
     return Program(name=f"{kind}/{method}", kind=kind,
                    inputs=meta_inputs(named),
-                   run=lambda: fn(*args, **statics), statics=statics)
+                   run=lambda: fn(*args, **statics), statics=statics,
+                   call=(body, args + (statics["tables"],),
+                         names + ("tables",)))
 
 
 def get_programs(kinds: Optional[Sequence[str]] = None,

@@ -5,10 +5,30 @@ Under a camera mesh each process owns one card: ``launch.mesh`` calls
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _SMS = {}
+
+# set by ``analysis.trace_cost`` while it traces: called with (kernel
+# name, FLOPs, bytes) for each launch a kernel's stand-in stands for
+KERNEL_RECORDER: Optional[Callable[[str, float, float], None]] = None
+
+
+def is_fake(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``FakeTensor`` (a traced call: a
+    kernel's dispatcher then takes its stand-in)."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def record_kernel(name: str, flops: float, nbytes: float) -> None:
+    """One launch of the hand-written kernel ``name`` that does ``flops``
+    and moves ``nbytes``, in the running trace (none: nothing)."""
+    if KERNEL_RECORDER is not None:
+        KERNEL_RECORDER(name, flops, nbytes)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,12 +1,14 @@
 """Connected-component labeling dispatch: the plain version for CPU
-tensors, the CUDA kernel (``csrc/cc_label.cu``) for CUDA tensors, nothing
-else."""
+tensors, the CUDA kernel (``csrc/cc_label.cu``) for CUDA tensors, a
+stand-in for fake tensors (``analysis.trace_cost``: the labels' shape
+and one launch), nothing else."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
+from repro_torch.common.device import is_fake, record_kernel
 from repro_torch.kernels import build
 from repro_torch.kernels.cc_label import ref
 
@@ -65,10 +67,21 @@ def cc_label_cuda(mask: torch.Tensor) -> torch.Tensor:
     return labels
 
 
+def cc_label_stand_in(mask: torch.Tensor) -> torch.Tensor:
+    """The kernel on fake tensors (``analysis.trace_cost``): the labels
+    at their shape and one launch with the bound's bytes and one pass's
+    operations (the passes depend on the mask's values)."""
+    C, M, N = mask.shape
+    record_kernel("cc_label", 5 * C * M * N, 5 * C * M * N)
+    return torch.empty((C, M, N), dtype=torch.int32, device=mask.device)
+
+
 def cc_label(mask: torch.Tensor) -> torch.Tensor:
     """mask (C, M, N) bool -> labels (C, M, N) int32 (each component's
     least row-major cell index, 2^30 on the background): plain version on
-    the CPU, kernel on CUDA."""
+    the CPU, kernel on CUDA, stand-in on fake tensors."""
+    if is_fake(mask):
+        return cc_label_stand_in(mask)
     if mask.device.type == "cpu":
         return ref.cc_label_ref(mask)
     return cc_label_cuda(mask.contiguous())

@@ -1,6 +1,8 @@
 """Edge-motion dispatch: the plain version for CPU tensors, the CUDA
-kernel (``csrc/edge_motion.cu``) for CUDA tensors, nothing else; plus the
-kernel's launch plan (column segments and chunks of frame pairs)."""
+kernel (``csrc/edge_motion.cu``) for CUDA tensors, a stand-in for fake
+tensors (``analysis.trace_cost``: the scores' shape and one launch),
+nothing else; plus the kernel's launch plan (column segments and chunks
+of frame pairs)."""
 from __future__ import annotations
 
 import ctypes
@@ -8,7 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.common.device import sm_count
+from repro_torch.common.device import is_fake, record_kernel, sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.edge_motion import ref
 
@@ -127,10 +129,27 @@ def _launch(frames: torch.Tensor, block_size: int, edge_thresh: float,
     return out
 
 
+def edge_motion_stand_in(frames: torch.Tensor, block_size: int
+                         ) -> torch.Tensor:
+    """The kernel on fake tensors (``analysis.trace_cost``): its scores
+    at their shape and one launch with the bound's operations and
+    bytes."""
+    C, M, H, W = frames.shape
+    bs = int(block_size)
+    px = C * M * H * W
+    record_kernel(
+        "edge_motion", px * 15 + C * (M - 1) * H * W * 2,
+        4 * (px + C * (M - 1) * (H // bs) * (W // bs)))
+    return torch.empty((C, M - 1, H // bs, W // bs), dtype=torch.float32,
+                       device=frames.device)
+
+
 def segment_motion_fleet(frames: torch.Tensor, *, block_size: int,
                          edge_thresh: float) -> torch.Tensor:
     """frames (C, M, H, W) -> (C, M-1, H/bs, W/bs) block motion scores of
-    every consecutive frame pair."""
+    every consecutive frame pair (a stand-in on fake tensors)."""
+    if is_fake(frames):
+        return edge_motion_stand_in(frames, block_size)
     if frames.device.type == "cpu":
         return ref.segment_motion_ref(frames, block_size=block_size,
                                       edge_thresh=edge_thresh)

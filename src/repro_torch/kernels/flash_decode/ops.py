@@ -1,6 +1,8 @@
 """Flash-decode dispatch: the plain version for CPU tensors, the CUDA kernel
-(``csrc/flash_decode.cu``) for CUDA tensors, nothing else; plus the merge
-of one fresh (k1, v1) token outside the kernel.
+(``csrc/flash_decode.cu``) for CUDA tensors, a stand-in for fake tensors
+(``analysis.trace_cost``: the outputs, the workspace and one launch),
+nothing else; plus the merge of one fresh (k1, v1) token outside the
+kernel.
 
 The JAX dispatcher's shape rule ``_kernel_ok`` (G >= 4 and S a multiple of
 the block) chose between the TPU's matrix unit and its vector unit; it
@@ -18,7 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.device import sm_count
+from repro_torch.common.device import is_fake, record_kernel, sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import ref
 
@@ -35,6 +37,7 @@ PARTIAL_SHARE = 0.1   # float32 partials at most this share of K/V bytes
 MAX_SMEM_BYTES = 232448     # shared memory one block may use (227 KB)
 SM_SMEM_BYTES = 233472      # shared memory of one SM (228 KB)
 MAP_CACHE_SIZE = 4096       # tensor maps kept (128 bytes each)
+H100_SMS = 132              # the SM count a traced call is planned for
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAPS: "OrderedDict[tuple, ctypes.Array]" = OrderedDict()
@@ -207,11 +210,41 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, m, l
 
 
+def flash_decode_stand_in(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, kv_valid_len: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The kernel on fake tensors (``analysis.trace_cost``): its outputs
+    at their shapes and dtypes, the workspace ``split_plan`` gives for an
+    H100's 132 SMs, and one launch with the bound's FLOPs and bytes."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    n = int(kv_valid_len)
+    n_pos = min(n, S) if n > 0 else S
+    _, nsplit, _ = split_plan(n_pos, B * KV, H100_SMS, G, hd,
+                              q.element_size())
+    out = torch.empty_like(q)
+    m = torch.empty((B, KV, G, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    n_part = B * KV * nsplit * G * hd if nsplit > 1 else 0
+    torch.empty(max(n_part + 2 * n_part // hd, 1), dtype=torch.float32,
+                device=q.device)
+    torch.empty(max(B * KV, 1), dtype=torch.int32, device=q.device)
+    e = q.element_size()
+    record_kernel(
+        "flash_decode", 4 * B * H * n_pos * hd,
+        2 * B * n_pos * KV * hd * e + 2 * B * H * hd * e + 2 * B * H * 4)
+    return out, m, l
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  kv_valid_len: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode attention over the valid prefix: plain version on the CPU,
-    kernel on CUDA -> (out, m, l)."""
+    kernel on CUDA, stand-in on fake tensors -> (out, m, l)."""
+    if is_fake(q, k, v):
+        return flash_decode_stand_in(q, k, v, kv_valid_len)
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, kv_valid_len=int(kv_valid_len))
     return flash_decode_cuda(q, k, v, int(kv_valid_len))

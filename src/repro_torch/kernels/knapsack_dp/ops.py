@@ -1,5 +1,6 @@
 """Knapsack DP dispatch: the plain versions for CPU tensors, the CUDA
-kernels (``csrc/knapsack_dp.cu``) for CUDA tensors, nothing else; plus the
+kernels (``csrc/knapsack_dp.cu``) for CUDA tensors, stand-ins for fake
+tensors (``analysis.trace_cost``), nothing else; plus the
 static capacity bucket, the device solve (sweep + bounded backtrack: one
 launch on the card) and the host solve (the same launch, then a fetch of
 the picks and the total; on the CPU the plain sweep and a numpy
@@ -12,7 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import is_fake, record_kernel, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.knapsack_dp import ref
 
@@ -147,10 +148,41 @@ def knapsack_dp_solve_cuda(util: torch.Tensor, costs: torch.Tensor,
     return picks, total
 
 
+def sweep_stand_in(util: torch.Tensor, W: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sweep on fake tensors (``analysis.trace_cost``): values and
+    choices at their shapes and one launch with the bound's operations
+    and bytes."""
+    I, J = util.shape
+    wp1 = int(W) + 1
+    record_kernel("knapsack_dp", I * J * wp1 * 3,
+                  4 * (I * J + J + wp1 + I * wp1))
+    return (torch.empty((wp1,), dtype=torch.float32, device=util.device),
+            torch.empty((I, wp1), dtype=torch.int32, device=util.device))
+
+
+def solve_stand_in(util: torch.Tensor, w_cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused sweep and backtrack on fake tensors: picks and total at
+    their shapes, the scratch table when the choices do not fit in shared
+    memory, and one launch with the bound's operations and bytes."""
+    I, J = util.shape
+    wp1 = int(w_cap) + 1
+    if not table_in_smem(I, J, wp1):
+        torch.empty((I, wp1), dtype=torch.int32, device=util.device)
+    record_kernel("knapsack_dp", I * J * wp1 * 3 + 2 * wp1,
+                  4 * (I * J + J + 1) + 8 * I + 4)
+    return (torch.empty((I,), dtype=torch.int64, device=util.device),
+            torch.empty((), dtype=torch.float32, device=util.device))
+
+
 def solve_values(util: torch.Tensor, costs: torch.Tensor, W: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The DP sweep at capacity W: plain version on the CPU, kernel on
-    CUDA -> (values (W+1,), choices (I, W+1) int32)."""
+    CUDA, stand-in on fake tensors -> (values (W+1,), choices (I, W+1)
+    int32)."""
+    if is_fake(util, costs):
+        return sweep_stand_in(util, W)
     if util.device.type == "cpu":
         return ref.knapsack_dp_ref(util, costs, int(W))
     return knapsack_dp_cuda(util.to(torch.float32).contiguous(),
@@ -162,7 +194,10 @@ def solve_device(util: torch.Tensor, costs: torch.Tensor, Wg: torch.Tensor,
     """DP sweep at the static capacity ``w_cap`` and a backtrack bounded by
     the 0-d capacity ``Wg`` (<= w_cap), all on the tensors' device: the
     plain sweep and ``ref.backtrack_device`` on the CPU, one kernel on
-    CUDA.  Returns (picks (I,) int64, total)."""
+    CUDA, a stand-in on fake tensors.  Returns (picks (I,) int64,
+    total)."""
+    if is_fake(util, costs, Wg):
+        return solve_stand_in(util, w_cap)
     if util.device.type == "cpu":
         vals, choices = ref.knapsack_dp_ref(util, costs, int(w_cap))
         return ref.backtrack_device(choices, costs, vals, Wg)

@@ -1,7 +1,7 @@
 """Fleet encode, bitrate and CRF modes: per-camera scalar rate terms and
 the noise draw here, the per-pixel transform in the tx_codec kernel
-(``csrc/tx_codec.cu``) for CUDA tensors or its plain version for CPU
-tensors.
+(``csrc/tx_codec.cu``) for CUDA tensors, its plain version for CPU
+tensors or a stand-in for fake tensors (``analysis.trace_cost``).
 
 The scalar terms (effective pixels, bits, bpp, levels, sigma, nearest
 resolution, sizes) are (C,) float32 vectors in the order of
@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.common.device import is_fake, record_kernel
 from repro_torch.common import prng
 from repro_torch.core import codec
 from repro_torch.kernels import build
@@ -75,8 +76,21 @@ def tx_codec_cuda(frames: torch.Tensor, noise: torch.Tensor,
     return out
 
 
+def tx_codec_stand_in(frames: torch.Tensor) -> torch.Tensor:
+    """The kernel on fake tensors (``analysis.trace_cost``): the decoded
+    frames at their shape and one launch with the bound's operations and
+    bytes."""
+    px = frames.numel()
+    record_kernel("tx_codec", 8 * px, 12 * px)
+    return torch.empty(frames.shape, dtype=torch.float32,
+                       device=frames.device)
+
+
 def tx_codec(frames, noise, levels, sigma, kcam) -> torch.Tensor:
-    """The per-pixel transform: plain version on the CPU, kernel on CUDA."""
+    """The per-pixel transform: plain version on the CPU, kernel on CUDA,
+    stand-in on fake tensors."""
+    if is_fake(frames, noise):
+        return tx_codec_stand_in(frames)
     if frames.device.type == "cpu":
         return ref.tx_codec_ref(frames, noise, levels, sigma, kcam)
     return tx_codec_cuda(frames.contiguous(), noise.contiguous(),

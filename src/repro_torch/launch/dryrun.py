@@ -1,9 +1,9 @@
-"""One-card dry run: the device memory a (arch x shape cell) needs, from
-shapes alone.
+"""Dry run: the device memory a (arch x shape cell) needs, from shapes
+alone and, with ``trace``, from one rank's step traced on fake tensors.
 
-The counterpart of the memory side of ``repro.launch.dryrun``.  For a
-cell that ``specs.cell_supported`` admits it sums, from tensors on the
-meta device (nothing is allocated):
+The counterpart of ``repro.launch.dryrun``.  For a cell that
+``specs.cell_supported`` admits it sums, from tensors on the meta device
+(nothing is allocated):
 
   * the weights (``LM.param_defs`` at the config's dtypes);
   * the AdamW state of a train cell (``optimizer.abstract_opt_state`` at
@@ -13,8 +13,8 @@ meta device (nothing is allocated):
 
 and holds the total against ``H100_SXM.hbm_bytes``, at the published
 depth and, with ``layers``, at a cut depth (``num_layers`` replaced, as
-``chip_smoke.py`` cuts a config).  Activations, gradients and workspace
-are not modelled: a cell that fits here may still not fit on the card.
+``chip_smoke.py`` cuts a config).  These shapes-only figures leave out
+activations, gradients and workspace.
 
 With ``mesh`` (``--mesh 1x4``: data x model, or pod x data x model) it
 also reports what each rank of that LM mesh holds: every leaf's piece
@@ -24,12 +24,25 @@ moments in the same layout and the step, and the cache under
 rank.  The mesh is a stand-in of axis names and sizes: nothing is
 started.
 
-JAX's lowering and compiling on 512 fake devices, ``memory_analysis()``,
-``cost_analysis()`` and the collectives parsed from the HLO have no
-counterpart: the port compiles no XLA program.
+With ``trace`` (``--trace``) the cell is also traced, JAX's lowering and
+compiling half: rank 0 of a world of the mesh's size on a fake process
+group (``launch.mesh.fake_world``; ``16x16`` and ``2x16x16`` are JAX's
+production meshes, no mesh a one-rank world) runs the cell's step
+(``specs.build_cell``) once on fake tensors under
+``analysis.trace_cost.trace``, which counts what the step allocates,
+computes and communicates, activations, gradients and the kernels'
+workspace included.  The artifact then carries JAX's ``memory`` (the
+peak of the rank's live bytes), ``cost``, ``collectives`` and
+``roofline`` (``roofline.analysis.roofline_terms`` with ``H100_SXM``)
+blocks, ``devices``, ``meta``, the kernels' ``launches`` and
+``trace_s`` (JAX's ``lower_s`` + ``compile_s``), and ``trace_device``.
+A trace allocates nothing on a card, but its fake tensors take the
+card's device type, so it runs where a card is and raises elsewhere
+unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``:
+CPU-typed fake tensors).
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k [--layers 8] [--mesh 1x4]
+  python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k [--layers 8] [--mesh 1x4] [--trace [--device cpu]]
   python -m repro_torch.launch.dryrun --list
 """
 from __future__ import annotations
@@ -37,13 +50,16 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import traceback
 import types
+from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.common.config import (H100_SXM, SHAPES_BY_NAME, ModelConfig,
                                        OptimizerConfig)
+from repro_torch.common.device import resolve_device
 from repro_torch.common.params import abstract_params, map_defs
 from repro_torch.launch.specs import (arch_run_config, cache_specs,
                                       cell_supported)
@@ -172,11 +188,13 @@ def memory_per_rank(cfg: ModelConfig, shape: str, moment_dtype: str,
 
 
 def run_cell(arch: str, shape: str, layers: Optional[int] = None,
-             mesh: Optional[Sequence[int]] = None) -> dict:
+             mesh: Optional[Sequence[int]] = None, trace: bool = False,
+             device=None) -> dict:
     """The dry run of one cell: ``published`` at the config's depth and,
     when ``layers`` is given, ``cut`` at that depth; with ``mesh`` (a
     data x model shape) also ``per_rank`` at the published depth (and
-    ``cut_per_rank``)."""
+    ``cut_per_rank``); with ``trace`` also ``trace_cell``'s blocks at the
+    published depth on ``mesh`` (default: one rank)."""
     ok, why = cell_supported(arch, shape)
     if not ok:
         return {"arch": arch, "shape": shape, "status": "skip",
@@ -199,7 +217,43 @@ def run_cell(arch: str, shape: str, layers: Optional[int] = None,
             res["cut_per_rank"] = memory_per_rank(
                 run.model.replace(num_layers=layers), shape,
                 run.opt.moment_dtype, m)
+    if trace:
+        res.update(trace_cell(arch, shape, tuple(mesh or (1, 1)),
+                              device=device))
+        res["activations"] = "traced"
     return res
+
+
+def trace_cell(arch: str, shape: str, mesh: Sequence[int], *,
+               device=None, run=None, cell=None) -> Dict[str, Any]:
+    """One cell traced on rank 0 of a fake world of ``mesh``'s shape
+    (``run`` / ``cell`` replace the config's run and shape cell, as
+    ``specs.build_cell``'s): JAX's ``memory``, ``cost``, ``collectives``
+    and ``roofline`` blocks, ``devices``, ``meta``, ``launches``,
+    ``donated``, ``ops``, ``trace_s`` and ``trace_device`` (``device``'s
+    type: the card's unless the caller asks for the CPU).  Starts and
+    ends the fake group (none may be up)."""
+    from repro_torch.analysis import trace_cost
+    from repro_torch.launch.mesh import fake_world, shutdown
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.roofline.analysis import roofline_terms
+    device = resolve_device(device)
+    lm_mesh = fake_world(tuple(mesh))
+    try:
+        fn, args, meta = build_cell(arch, shape, lm_mesh, device=device,
+                                    run=run, cell=cell)
+        res = trace_cost.trace(fn, *args)
+        del fn, args
+    finally:
+        shutdown()
+    res.pop("out")
+    return {"devices": lm_mesh.size(), "meta": meta,
+            "memory": res["memory"], "cost": res["cost"],
+            "collectives": res["collectives"],
+            "roofline": roofline_terms(res["cost"], res["collectives"]),
+            "launches": res["launches"], "donated": res["donated"],
+            "ops": res["ops"], "trace_s": round(res["trace_s"], 2),
+            "trace_device": device.type}
 
 
 def main(argv=None) -> int:
@@ -211,6 +265,15 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None,
                     help="also report one rank of this LM mesh: DxM "
                          "(data x model) or PxDxM")
+    ap.add_argument("--trace", action="store_true",
+                    help="also trace rank 0's step on a fake world of "
+                         "the mesh (JAX's memory, cost and collectives)")
+    ap.add_argument("--device", default=None,
+                    help="the traced tensors' device type (default: the "
+                         "card's; cpu on a host without one)")
+    ap.add_argument("--out", default=None,
+                    help="also write the result to this JSON file "
+                         "(with --trace, by default the sweep's artifact)")
     ap.add_argument("--list", action="store_true")
     args = ap.parse_args(argv)
     from repro_torch.configs import list_archs
@@ -221,10 +284,24 @@ def main(argv=None) -> int:
         return 0
     if not (args.arch and args.shape):
         ap.error("--arch and --shape required (or --list)")
-    mesh = (tuple(int(x) for x in args.mesh.lower().split("x"))
-            if args.mesh else None)
-    print(json.dumps(run_cell(args.arch, args.shape, args.layers, mesh)))
-    return 0
+    from repro_torch.launch import sweep
+    mesh = sweep.mesh_shape(args.mesh) if args.mesh else None
+    out = args.out
+    if out is None and args.trace:
+        out = sweep.artifact(args.arch, args.shape,
+                             sweep.mesh_name(args.mesh or "1x1"))
+    try:
+        res = run_cell(args.arch, args.shape, args.layers, mesh,
+                       trace=args.trace, device=args.device)
+    except Exception as e:      # the cell's failure is its record
+        res = {"arch": args.arch, "shape": args.shape, "status": "error",
+               "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-4000:]}
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+    return 0 if res["status"] in ("ok", "skip") else 1
 
 
 if __name__ == "__main__":

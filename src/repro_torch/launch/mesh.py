@@ -19,6 +19,8 @@ processes' group:
     ``make_production_mesh`` (the whole world: "model" over the ranks of
     one node by default, "data" over the nodes; with ``multi_pod`` one
     pod per node) and ``lm_device_mesh`` for an explicit shape;
+  * ``fake_world`` starts one rank of a world of any size on a "fake"
+    process group (no peers, no card), for the traced dry run;
   * ``shutdown`` drops the sharded episode graphs and the LM meshes,
     which hold the group's communicators, and leaves the group.
 
@@ -229,6 +231,25 @@ def make_host_mesh(device_type: Optional[str] = None, *,
         raise ValueError("make_host_mesh is the mesh of a one-rank group; "
                          "use make_production_mesh under torchrun")
     return lm_device_mesh(1, 1, one_rank_groups=one_rank_groups)
+
+
+def fake_world(shape: Tuple[int, ...], rank: int = 0) -> LMMesh:
+    """Rank ``rank`` of a world of ``prod(shape)`` ranks on a ``"fake"``
+    process group (``torch.testing._internal.distributed.fake_pg``:
+    every collective returns at once and moves nothing), and the LM mesh
+    of ``shape`` on it: ("data", "model") or ("pod", "data", "model").
+    What ``analysis.trace_cost`` traces one rank of JAX's production
+    mesh on, on a host with no card and no peers: the group touches no
+    device (``group_device_type`` is ``"cpu"`` for it).  No group may be
+    up; ``shutdown`` ends it."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up already; a fake world "
+                           "needs a process of its own")
+    dist.init_process_group("fake", rank=rank, world_size=math.prod(shape),
+                            store=dist.HashStore())
+    return lm_device_mesh(*shape[-2:],
+                          pod=shape[0] if len(shape) == 3 else None)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -16,18 +16,22 @@ NamedShardings).  The port's LM holds its caches as these say
 where that is not the layout its decode computes in (a dim whose length
 happens to equal the batch's or ``max_seq``), the decode re-cuts the
 leaf around the call.
-``build_cell`` lowers a step for XLA's dry run on a TPU mesh and has no
-counterpart: ``launch/dryrun.py`` sums the per-rank bytes instead.
+``build_cell`` is JAX's: a cell's step function and one rank's
+arguments on an LM mesh (``launch.mesh.fake_world`` for JAX's production
+mesh), the arguments as ``FakeTensor``s at the rank's local shapes (JAX
+gives ``ShapeDtypeStruct``s and their shardings), for
+``analysis.trace_cost.trace`` to run (JAX lowers and compiles them).
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.common.config import (ModelConfig, OptimizerConfig,
                                        RunConfig, ShapeCell)
+from repro_torch.common.device import resolve_device
 from repro_torch.configs import canonical
 from repro_torch.sharding import rules as R
 
@@ -120,3 +124,74 @@ def cache_shardings(lm, batch: int, max_seq: int, mesh) -> Dict:
             return R.param_placements(specs, mesh)
         return {k: walk(v) for k, v in specs.items()}
     return walk(cache_specs(lm, batch, max_seq, mesh))
+
+
+def _fake(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def build_cell(arch_id: str, shape_name: str, mesh, *, device=None,
+               run: Optional[RunConfig] = None,
+               cell: Optional[ShapeCell] = None
+               ) -> Tuple[Callable, Tuple[Any, ...], Dict[str, Any]]:
+    """(fn, args, meta) of one cell on ``mesh`` (an ``LMMesh``; this
+    rank's view), JAX's ``build_cell`` without the shardings: ``args``
+    are ``FakeTensor``s of one ``FakeTensorMode`` at this rank's local
+    shapes (parameters under ``rules.param_pspecs``, the batch under
+    ``batch_specs``, the cache under ``init_cache``'s layout, which is
+    ``cache_specs``'), on ``device`` (default: the card's type; raises
+    without a card unless ``device`` is ``"cpu"``; nothing is
+    allocated).  ``fn`` is the
+    train step with the parameters and AdamW state updated in place
+    (``make_train_step(..., donate=True)``: JAX's ``donate_argnums=(0,
+    1)``), ``make_serve_prefill``, or ``make_serve_decode`` writing the
+    cache in place (JAX's ``(2,)``) at position ``seq_len - 1`` (a host
+    int in the port; JAX's is an argument).  ``run`` and ``cell``
+    replace the config's run and the named shape cell (the tests' small
+    cells).  ``meta`` carries JAX's keys."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.common.config import SHAPES_BY_NAME
+    from repro_torch.common.params import param_count
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import (make_serve_decode,
+                                         make_serve_prefill, make_train_step)
+    cell = cell or SHAPES_BY_NAME[shape_name]
+    kind = "multi" if "pod" in mesh.axis_names else "single"
+    run = run or arch_run_config(arch_id, shape_name, kind)
+    cfg = run.model
+    device = resolve_device(device)
+    lm = LM(cfg, mesh)
+    defs = lm.param_defs()
+    meta = {"arch": arch_id, "shape": shape_name, "kind": cell.kind,
+            "microbatches": run.microbatches,
+            "param_count": param_count(defs)}
+    B = cell.global_batch
+    with FakeTensorMode():
+        params = _local_tree(defs, lm.specs, mesh, device)
+        batch = {k: _fake(R.local_shape(v.shape, sp, mesh), v.dtype, device)
+                 for (k, v), sp in zip(batch_abstract(cfg, cell).items(),
+                                       batch_specs(cfg, cell, mesh).values())}
+        if cell.kind == "train":
+            opt = init_opt_state(run.opt, params)
+            return (make_train_step(lm, run, donate=True),
+                    (params, opt, batch), meta)
+        if cell.kind == "prefill":
+            return (make_serve_prefill(lm, cell.seq_len, global_batch=B),
+                    (params, batch), meta)
+        cache = lm.init_cache(B, cell.seq_len, device)
+    meta["pos"] = pos = cell.seq_len - 1
+    decode = make_serve_decode(lm, global_batch=B)
+    return ((lambda p, tokens, c: decode(p, tokens, c, pos)),
+            (params, batch["tokens"], cache), meta)
+
+
+def _local_tree(defs, specs, mesh, device):
+    """Every ``ParamDef`` of ``defs`` as an empty tensor of this rank's
+    piece under ``specs``."""
+    from repro_torch.common.params import ParamDef
+    if isinstance(defs, ParamDef):
+        return _fake(R.local_shape(defs.shape, specs, mesh), defs.dtype,
+                     device)
+    return {k: _local_tree(defs[k], specs[k], mesh, device)
+            for k in sorted(defs)}

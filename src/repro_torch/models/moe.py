@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import is_fake
 from repro_torch.common.params import ParamDef
 from repro_torch.models import layers as L
 from repro_torch.sharding import comm
@@ -191,11 +192,20 @@ def _local_moe(x: torch.Tensor, p: Dict[str, Any], router: torch.Tensor,
     # group by local expert id
     g_order = torch.argsort(e_loc, stable=True)
     xs_g = xs[g_order]
-    # (bincount would read the largest id on the host as well)
-    # audit: allow(host-sync) the group sizes: one designed read a layer
-    sizes = torch.zeros(e_local, dtype=torch.long, device=x.device
-                        ).index_add_(0, e_loc, torch.ones_like(e_loc)
-                                     ).tolist()                    # host
+    if is_fake(x):
+        # a trace on fake tensors has no values to read: the one value it
+        # stands in for is the group sizes, the ``capacity`` rows split
+        # evenly over the local experts (``_grouped``'s products and
+        # bytes depend only on their total)
+        rows = xs_g.shape[0]
+        sizes = [rows // e_local + (e < rows % e_local)
+                 for e in range(e_local)]
+    else:
+        # (bincount would read the largest id on the host as well)
+        # audit: allow(host-sync) the group sizes: one designed read a layer
+        sizes = torch.zeros(e_local, dtype=torch.long, device=x.device
+                            ).index_add_(0, e_loc, torch.ones_like(e_loc)
+                                         ).tolist()                # host
     gate = _grouped(xs_g, p["w_gate"], sizes)
     up = _grouped(xs_g, p["w_up"], sizes)
     h = (F.silu(gate.to(F32)) * up.to(F32)).to(x.dtype)

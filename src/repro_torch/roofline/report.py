@@ -6,23 +6,29 @@ row per arch x shape x mesh (``launch.sweep``'s artifacts under
 ``artifacts/dryrun_torch/``): the status, the GB of weights, AdamW state
 and cache one card of the mesh holds and their total, whether that
 fits in ``H100_SXM.hbm_bytes``, and the cell's total on one card and
-whether it fits there; ``fit_table`` puts the totals on one card and on
-a card of each mesh side by side, with the bottleneck on each.
-``roofline_table(hw, mesh)`` has a row per arch x
-shape from ``roofline.analytic.analytic_terms``: compute, memory and
-collective seconds, the bottleneck, the step seconds, the roofline
-fraction and JAX's hint of what moves the dominant term; ``main`` shows
-it at one card (``MeshDims(1, 1, 1)``: no collective term) and at the
-sweep's mesh.
+whether it fits there; then JAX's columns from a traced artifact
+(``sweep --trace``): the traced peak GB of a card, the collective GB a
+card sends (the ring traffic of the traced collectives) and the trace's
+seconds (JAX's compile seconds).  A cell that has not been traced keeps
+its shapes-only row, its traced columns marked ``not traced`` (or
+``timeout`` when its trace ran out of time); a peak traced on CPU-typed
+fake tensors (``sweep --trace --device cpu``, a host without a card)
+is marked ``(cpu)``.
+``fit_table`` puts the totals on one card and on a card of each mesh
+side by side, the traced peak of a card of each mesh, and the bottleneck
+on each.  ``roofline_table(hw, mesh)`` has a row per arch x shape from
+``roofline.analytic.analytic_terms``: compute, memory and collective
+seconds, the bottleneck, the step seconds, the roofline fraction, the
+traced collective seconds of the mesh's artifact beside the analytic
+ones (JAX's "HLO coll s") and JAX's hint of what moves the dominant
+term; ``main`` shows it at one card (``MeshDims(1, 1, 1)``: no
+collective term) and at the sweep's mesh.
 
-Every figure is analytic: bytes counted from shapes, and seconds from
-the ``H100_SXM`` constants (989 TFLOP/s bf16 dense, 3.35 TB/s HBM,
-450 GB/s NVLink a direction, 80 GB), not measured on a card.  JAX's
-columns with no counterpart are left out: the compile seconds, the
-collective GB a chip parsed from the compiled HLO and the "HLO coll s
-(1-iter)" column, because the port compiles no XLA program.  The dry
-run's bytes leave out activations, gradients and workspace, as the
-artifacts say (``"activations": "not modelled"``).
+The analytic figures are bytes counted from shapes and seconds from the
+``H100_SXM`` constants (989 TFLOP/s bf16 dense, 3.35 TB/s HBM, 450 GB/s
+NVLink a direction, 80 GB), not measured on a card; the traced ones
+come from one rank's step on fake tensors (``analysis.trace_cost``), not
+measured either.
 
     PYTHONPATH=src python -m repro_torch.roofline.report [--mesh single]
 """
@@ -63,29 +69,49 @@ def _load(arch: str, shape: str, mesh: str) -> Optional[dict]:
     return json.loads(p.read_text()) if p.exists() else None
 
 
+def traced_peak(d: dict) -> str:
+    """The traced peak GB of a card, ``(cpu)`` when its fake tensors were
+    CPU-typed."""
+    cpu = " (cpu)" if d.get("trace_device") == "cpu" else ""
+    return f"{d['memory']['peak_estimate_bytes'] / 1e9:.1f}{cpu}"
+
+
+def traced_columns(d: Optional[dict]) -> str:
+    """JAX's columns of a traced artifact: peak GB a card, collective GB
+    a card, trace seconds (``not traced`` without a trace)."""
+    if d is not None and d["status"] == "timeout":
+        return "timeout | | "
+    if d is None or "memory" not in d:
+        return "not traced | | "
+    coll = d["roofline"]["collective_traffic_per_chip"]
+    return f"{traced_peak(d)} | {coll / 1e9:.2f} | {d['trace_s']:.0f}"
+
+
 def dryrun_table(meshes: Sequence[str] = ("single", "multi", "1x4")) -> str:
     gb = lambda n: f"{n / 1e9:.2f}"            # noqa: E731
     out = ["| arch | shape | mesh | status | weights GB/card | AdamW GB/card "
            "| cache GB/card | total GB/card | fits a card | one-card GB "
-           "| fits one card |",
-           "|---|---|---|---|---|---|---|---|---|---|---|"]
+           "| fits one card | traced peak GB/card | collective GB/card "
+           "| trace s |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for arch in list_archs():
         for shape in SHAPES_BY_NAME:
             for mesh in meshes:
                 d = _load(arch, shape, mesh)
-                if d is None or d["status"] != "ok":
+                if d is None or d["status"] not in ("ok", "timeout"):
                     status = "MISSING" if d is None else d["status"]
                     out.append(f"| {arch} | {shape} | {mesh} | {status} "
-                               "| | | | | | | |")
+                               "| | | | | | | | | | |")
                     continue
                 r, one = d["per_rank"], d["published"]
                 out.append(
-                    f"| {arch} | {shape} | {mesh} | ok "
+                    f"| {arch} | {shape} | {mesh} | {d['status']} "
                     f"| {gb(r['weights_bytes'])} | {gb(r['adamw_bytes'])} "
                     f"| {gb(r['cache_bytes'])} | {gb(r['total_bytes'])} "
                     f"| {'yes' if r['fits'] else 'no'} "
                     f"| {gb(one['total_bytes'])} "
-                    f"| {'yes' if one['fits'] else 'no'} |")
+                    f"| {'yes' if one['fits'] else 'no'} "
+                    f"| {traced_columns(d)} |")
     return "\n".join(out)
 
 
@@ -94,9 +120,11 @@ def fit_table(meshes: Sequence[str] = ("1x4", "single", "multi")) -> str:
     each mesh (``*``: more than ``H100_SXM.hbm_bytes``), and the
     analytic bottleneck on one card and on each mesh."""
     head = " | ".join(f"GB/card {m}" for m in meshes)
+    peaks = " | ".join(f"traced peak {m}" for m in meshes)
     doms = " | ".join(f"bound {m}" for m in meshes)
-    out = [f"| arch | shape | GB one card | {head} | bound one card "
-           f"| {doms} |", "|---|---|" + "---|" * (2 + 2 * len(meshes))]
+    out = [f"| arch | shape | GB one card | {head} | {peaks} "
+           f"| bound one card | {doms} |",
+           "|---|---|" + "---|" * (2 + 3 * len(meshes))]
     cap = H100_SXM.hbm_bytes
     gb = lambda n: f"{n / 1e9:.1f}" + ("*" if n > cap else "")  # noqa: E731
     one = {(a["arch"], a["shape"]): a["a_bottleneck"]
@@ -107,17 +135,22 @@ def fit_table(meshes: Sequence[str] = ("1x4", "single", "multi")) -> str:
     for arch in list_archs():
         for shape in SHAPES_BY_NAME:
             cells = [_load(arch, shape, m) for m in meshes]
-            if any(d is None or d["status"] != "ok" for d in cells):
+            if any(d is None or d["status"] not in ("ok", "timeout")
+                   for d in cells):
                 why = "skip" if all(d is not None and d["status"] == "skip"
                                     for d in cells) else "MISSING"
                 out.append(f"| {arch} | {shape} | {why} |"
-                           + " |" * (1 + 2 * len(meshes)))
+                           + " |" * (1 + 3 * len(meshes)))
                 continue
             key = (arch, shape)
             out.append(
                 f"| {arch} | {shape} "
                 f"| {gb(cells[0]['published']['total_bytes'])} | "
                 + " | ".join(gb(d["per_rank"]["total_bytes"]) for d in cells)
+                + " | " + " | ".join(
+                    traced_peak(d) if "memory" in d
+                    else "timeout" if d["status"] == "timeout"
+                    else "not traced" for d in cells)
                 + f" | {one[key]} | "
                 + " | ".join(on[m][key] for m in meshes) + " |")
     return "\n".join(out)
@@ -141,23 +174,29 @@ def roofline_rows(hw: HWConfig = H100_SXM, mesh: MeshDims = ONE_CARD
     return rows
 
 
-def roofline_table(hw: HWConfig = H100_SXM, mesh: MeshDims = ONE_CARD
-                   ) -> str:
+def roofline_table(hw: HWConfig = H100_SXM, mesh: MeshDims = ONE_CARD,
+                   traced: Optional[str] = None) -> str:
+    """The analytic rows at ``hw`` on ``mesh``, with the traced
+    collective seconds of the ``traced`` mesh's artifacts (``—`` on one
+    card or where a cell is not traced)."""
     out = ["| arch | shape | compute s | memory s | collective s "
-           "| bottleneck | step s | roofline frac "
+           "| bottleneck | step s | roofline frac | traced coll s "
            "| what moves the dominant term |",
-           "|---|---|---|---|---|---|---|---|---|"]
+           "|---|---|---|---|---|---|---|---|---|---|"]
     for a in roofline_rows(hw, mesh):
         if not a["supported"]:
             out.append(f"| {a['arch']} | {a['shape']} | — | — | — | skip "
                        "(full attention, see DESIGN Arch-applicability) "
-                       "| — | — | — |")
+                       "| — | — | — | — |")
             continue
         dom = a["a_bottleneck"]
+        d = _load(a["arch"], a["shape"], traced) if traced else None
+        coll = (f"{d['roofline']['collective_s']:.4f}"
+                if d is not None and "roofline" in d else "—")
         out.append(
             f"| {a['arch']} | {a['shape']} | {a['a_compute_s']:.4f} "
             f"| {a['a_memory_s']:.4f} | {a['a_collective_s']:.4f} | {dom} "
-            f"| {a['a_step_s']:.4f} | {a['a_fraction']:.3f} "
+            f"| {a['a_step_s']:.4f} | {a['a_fraction']:.3f} | {coll} "
             f"| {HINTS.get((dom, a['kind']), '')} |")
     return "\n".join(out)
 
@@ -185,7 +224,7 @@ def main(argv=None) -> int:
     print(f"\n## Roofline table, mesh {args.mesh} ({dims.chips} cards, "
           f"tp {dims.tp}; analytic, H100_SXM constants: {label}; "
           "not measured)\n")
-    print(roofline_table(H100_SXM, dims))
+    print(roofline_table(H100_SXM, dims, traced=args.mesh))
     return 0
 
 

@@ -154,8 +154,8 @@ def adamw_update(cfg: OptimizerConfig, params: Tree, grads: Tree,
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  All math in float32; moments stored in
     ``cfg.moment_dtype``; parameters updated in their storage dtype.
-    ``inplace`` writes the new parameters and moments into ``params`` and
-    ``state`` and returns those same trees.  ``grad_norm`` (the mesh's
+    ``inplace`` writes the new parameters, moments and step into
+    ``params`` and ``state`` and returns those same trees.  ``grad_norm`` (the mesh's
     global norm) replaces ``global_norm(grads)``: on a mesh each rank
     updates its pieces with the whole model's clip factor.
     Returns (params, state, {"grad_norm", "lr"})."""
@@ -193,7 +193,8 @@ def adamw_update(cfg: OptimizerConfig, params: Tree, grads: Tree,
     new = tree_map(leaf, params, grads, state.m, state.v)
     stats = {"grad_norm": gnorm, "lr": lr}
     if inplace:
-        return params, OptState(step, state.m, state.v), stats
+        state.step.copy_(step)
+        return params, state, stats
     return _pick(new, 0), OptState(step, _pick(new, 1), _pick(new, 2)), stats
 
 

@@ -24,7 +24,7 @@ load-balance term) sees the same rows together.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -162,15 +162,20 @@ def make_train_step(lm: LM, run: RunConfig, donate: bool = False
     return train_step
 
 
-def make_serve_prefill(lm: LM, max_seq: int) -> Callable:
+def make_serve_prefill(lm: LM, max_seq: int,
+                       global_batch: Optional[int] = None) -> Callable:
+    """``global_batch`` as ``LM.prefill``'s (a batch the data-parallel
+    ranks do not divide)."""
     def serve_prefill(params, batch):
-        return lm.prefill(params, batch, max_seq)
+        return lm.prefill(params, batch, max_seq, global_batch=global_batch)
     return serve_prefill
 
 
-def make_serve_decode(lm: LM) -> Callable:
+def make_serve_decode(lm: LM, global_batch: Optional[int] = None
+                      ) -> Callable:
     def serve_decode(params, tokens, cache, pos):
-        return lm.decode(params, tokens, cache, pos)
+        return lm.decode(params, tokens, cache, pos,
+                         global_batch=global_batch)
     return serve_decode
 
 

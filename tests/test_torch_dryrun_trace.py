@@ -1,0 +1,536 @@
+"""The traced dry run (``repro_torch.analysis.trace_cost``,
+``launch.specs.build_cell``, ``launch.dryrun.trace_cell``, the kernels'
+stand-ins, the manifest's traced fields and the donation check) against
+the JAX package's compiled analysis.
+
+JAX runs in one subprocess on 4 host devices
+(``_torch_dryrun_trace_worker.py``): its ``build_cell`` at granite-8b's,
+olmoe-1b-7b's and xlstm-125m's smoke configs, a train cell (8 x 32, 2
+microbatches) and a decode cell (8 x 64), on (1, 4) and (2, 2) meshes;
+the six (2, 2) cells are compiled (``memory_analysis()``, the
+collectives of the HLO, the donated leaves).  The port's side traces
+rank 0 of a fake world of the same shape.  Held:
+
+* ``build_cell``'s arguments, leaf by leaf in order, have JAX's shard
+  shapes and dtypes (JAX's decode also takes ``pos``; the port's is a
+  host int);
+* the traced ``argument_bytes``, ``output_bytes`` and ``alias_bytes``
+  equal JAX's ``memory_analysis()`` per device, but for the differences
+  ``EXCEPTIONS`` names (each row must be needed);
+* the traced collectives are the step's own: per kind, in count, result
+  bytes and ring traffic, those of the ``torch.distributed`` calls an
+  untraced run of the same step on the same fake world makes (counted
+  at the calls, not by the trace);
+* their total result bytes lie within ``COLL_BAND`` times JAX's
+  ``parse_collectives`` totals (a band no trace that recorded none, or
+  each twice or half, fits), and each kind equals JAX's in count and
+  result bytes but where an ``EXCEPTIONS`` row names the split;
+* at one device the traced product FLOPs (B4's stand-in's own included
+  in a decode) equal within ``FLOP_RTOL`` the sum of 2 x the product's
+  output and contracting sizes over the ``dot_general`` equations of
+  ``jax.make_jaxpr`` of JAX's step (and over its ``ragged_dot_general``
+  equations, the MoE's experts: the trace splits the capacity rows
+  evenly, and the total is what counts), sub-jaxprs walked and scan
+  bodies times their length, but for the named differences;
+* each kernel's stand-in gives the plain version's output shapes and
+  dtypes, and real CPU tensors never reach it;
+* the manifest's traced episode FLOPs a slot are equal across
+  ``EPISODE_BUCKETS`` and lower than reducto's for every other method
+  (``tests/test_pipeline.py``'s two checks on JAX's manifest), and each
+  program's traced donated inputs are JAX's ``donated_indices`` by name
+  (none the port has: JAX's slot step donates the frames and ground
+  truth it takes, which the port's makes itself);
+* the LM's train step and decode write in place exactly JAX's donated
+  leaves, and the audit catches a program that writes its input.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+# one intra-op thread: the suite runs several pytest workers at once
+torch.set_num_threads(1)
+
+from repro.analysis import jaxpr_audit as j_audit  # noqa: E402
+from repro.analysis import programs as j_programs  # noqa: E402
+from repro.common.config import OptimizerConfig as JOpt  # noqa: E402
+from repro.common.config import RunConfig as JRun  # noqa: E402
+from repro.common.config import ShapeCell as JCell  # noqa: E402
+from repro.configs import smoke_config as j_smoke  # noqa: E402
+from repro.launch import specs as j_specs  # noqa: E402
+from repro_torch.analysis import graph_audit, manifest, trace_cost  # noqa
+from repro_torch.analysis import programs as t_programs  # noqa: E402
+from repro_torch.common.device import is_fake  # noqa: E402
+from repro_torch.common.config import (OptimizerConfig, RunConfig,  # noqa
+                                       ShapeCell)
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.core import fleet  # noqa: E402
+from repro_torch.data.synthetic import SceneConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import fake_world, shutdown  # noqa: E402
+from repro_torch.launch.specs import build_cell  # noqa: E402
+
+FLOP_RTOL = 1e-3
+# the port's total collective result bytes over JAX's at (2, 2): 1.17
+# (granite train) to 2.12 (granite decode) in these cases; a trace that
+# recorded nothing, or each collective twice or half, falls outside
+COLL_BAND = (1.1, 2.3)
+ARCHS = ("granite-8b", "olmoe-1b-7b", "xlstm-125m")
+CELLS = {"train": ("t_small", 32, 8, 2), "decode": ("d_small", 64, 8, 1)}
+MESHES = {"14": (1, 4), "22": (2, 2)}
+CASES = [(a, k, m) for a in ARCHS for k in CELLS for m in MESHES]
+SMALL = SceneConfig(seed=0, num_cameras=3)
+
+# every way the traced figures may differ from JAX's compiled ones:
+# (what, cell kinds, arch, the difference, reason).  "memory" rows give
+# the bytes the port's figure is short of JAX's; "collectives" rows name a
+# kind whose count or result bytes differ; "flops" rows a product count
+# that differs.
+EXCEPTIONS = (
+    ("memory output_bytes", ("train", "decode"), "*", "8 bytes an output",
+     "XLA's entry computation returns a tuple, and its table of 8-byte "
+     "buffer pointers counts in output_size_in_bytes; the port's outputs "
+     "are tensors"),
+    ("memory argument_bytes", ("decode",), ("granite-8b", "olmoe-1b-7b"),
+     "4 bytes",
+     "JAX's decode takes pos as an int32 argument; the port's is a host "
+     "int (xlstm's recurrent decode reads no position, and XLA drops the "
+     "unused argument)"),
+    ("collectives all-gather", ("train", "decode"),
+     ("granite-8b", "olmoe-1b-7b"), "count, bytes",
+     "the port gathers each layer's FSDP cuts (and the activations its "
+     "tensor-parallel blocks need) one leaf at a time, once a microbatch; "
+     "GSPMD combines gathers and reshards whole stacks"),
+    ("collectives all-gather", ("train",), ("xlstm-125m",),
+     "count, bytes",
+     "the port gathers the microbatch's token rows (int32) over the data "
+     "ranks; GSPMD reshards activations instead"),
+    ("collectives all-reduce", ("train", "decode"),
+     ("granite-8b", "olmoe-1b-7b"), "count, bytes",
+     "the port issues Megatron's f/g pair per block, the gradient sync "
+     "per leaf and the norm per set of axes; XLA's all-reduce combiner "
+     "merges them"),
+    ("collectives all-reduce", ("train",), ("xlstm-125m",), "count, bytes",
+     "the port sums each float32 gradient leaf over the four data ranks "
+     "(4 x 282,328 parameters); XLA's combined all-reduces carry 47% of "
+     "those bytes"),
+    ("collectives reduce-scatter", ("train",), ("granite-8b", "olmoe-1b-7b"),
+     "count, bytes",
+     "the port's FSDP gather reduce-scatters its gradient in backward, "
+     "leaf by leaf; GSPMD mostly all-reduces and slices"),
+    ("collectives all-to-all", ("train", "decode"),
+     ("granite-8b", "olmoe-1b-7b"), "count, bytes",
+     "GSPMD reshards activations between layouts with all-to-alls; the "
+     "port keeps each block's layout and issues none"),
+    ("collectives collective-permute", ("train", "decode"),
+     ("granite-8b", "olmoe-1b-7b"), "count, bytes",
+     "GSPMD's halo exchanges and reshards; the port issues none"),
+    ("collectives collective-permute", ("train",), ("xlstm-125m",),
+     "count, bytes",
+     "GSPMD's halo exchanges and reshards; the port issues none"),
+    ("flops decode", ("decode",), "*", "B4 over pos positions",
+     "JAX's decode attends over every cached position, masked; the port's "
+     "B4 reads the pos valid ones and the fresh token joins outside it"),
+    ("flops xlstm", ("train",), ("xlstm-125m",), "2.2% fewer",
+     "JAX and the port group the xLSTM's products differently (JAX's "
+     "wider fused dot_generals against the port's separate ones, and "
+     "torch's autograd computing some backward sums elementwise): 0.13% "
+     "apart in the forward alone (98,304 of 77.6M), 2.2% in the train "
+     "step; not traced to one op"),
+)
+
+
+def _j_cell(kind):
+    shape, seq, batch, _ = CELLS[kind]
+    return JCell(shape, seq, batch, kind)
+
+
+def _t_run(arch, kind):
+    return RunConfig(model=smoke_config(arch), opt=OptimizerConfig(),
+                     microbatches=CELLS[kind][3])
+
+
+def _t_cell(kind):
+    shape, seq, batch, _ = CELLS[kind]
+    return ShapeCell(shape, seq, batch, kind)
+
+
+@pytest.fixture(scope="module")
+def jref(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("jax_dryrun")
+    cases = [{"name": f"{a}/{k}/{m}", "arch": a, "kind": k,
+              "shape": CELLS[k][0], "seq": CELLS[k][1],
+              "batch": CELLS[k][2], "microbatches": CELLS[k][3],
+              "mesh": list(MESHES[m]), "compile": m == "22"}
+             for a, k, m in CASES]
+    (tmp / "in.json").write_text(json.dumps(cases))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env.pop("REPRO_FAKE_DEVICES", None)
+    worker = Path(__file__).with_name("_torch_dryrun_trace_worker.py")
+    p = subprocess.run([sys.executable, str(worker), str(tmp / "in.json"),
+                        str(tmp / "out.json")], capture_output=True,
+                       text=True, env=env, timeout=900)
+    assert "DRYRUN-TRACE-REFERENCE-DONE" in p.stdout, p.stdout + p.stderr
+    return json.loads((tmp / "out.json").read_text())
+
+
+# the torch.distributed calls the LM's collectives go through
+# (``sharding.comm``), by the kind JAX's parse_collectives names them
+DIST_CALLS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+              "all_reduce": "all-reduce"}
+
+
+def _counted_collectives(fn, args) -> dict:
+    """``parse_collectives`` of the collectives ``fn(*args)`` issues, run
+    under the args' fake mode without the trace: each ``torch.distributed``
+    call of ``DIST_CALLS`` counted where it is made (its result: the
+    gathered list, the scattered piece, the reduced tensor)."""
+    import torch.distributed as dist
+    from torch._guards import detect_fake_mode
+    from repro_torch.roofline.analysis import parse_collectives
+    records, real = [], {n: getattr(dist, n) for n in DIST_CALLS}
+
+    def counting(name):
+        def call(out, *a, group=None, **kw):
+            ts = out if isinstance(out, list) else [out]
+            records.append((DIST_CALLS[name],
+                            sum(t.numel() * t.element_size() for t in ts),
+                            dist.get_world_size(group)))
+            return real[name](out, *a, group=group, **kw)
+        return call
+    try:
+        for n in DIST_CALLS:
+            setattr(dist, n, counting(n))
+        with detect_fake_mode(trace_cost._tensors(args)):
+            fn(*args)
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+    return parse_collectives(records)
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """The port's trace of every (2, 2) case (and, as ``counted``, the
+    collectives an untraced run of the same step makes) and the
+    arguments of every case, by case name."""
+    out = {}
+    for a, k, m in CASES:
+        mesh = fake_world(MESHES[m])
+        try:
+            fn, args, meta = build_cell(a, CELLS[k][0], mesh, device="cpu",
+                                        run=_t_run(a, k), cell=_t_cell(k))
+            leaves = [[list(t.shape), str(t.dtype).replace("torch.", "")]
+                      for t in trace_cost._tensors(args)]
+            res = trace_cost.trace(fn, *args) if m == "22" else {}
+            res["n_out"] = len(trace_cost._tensors(res.pop("out", None)))
+            if m == "22":
+                fn, args, _ = build_cell(a, CELLS[k][0], mesh, device="cpu",
+                                         run=_t_run(a, k), cell=_t_cell(k))
+                res["counted"] = _counted_collectives(fn, args)
+        finally:
+            shutdown()
+        out[f"{a}/{k}/{m}"] = dict(res, leaves=leaves, meta=meta)
+    return out
+
+
+USED = set()
+
+
+def _allowed(what: str, kind: str, arch: str) -> bool:
+    for i, (w, kinds, a, _, _) in enumerate(EXCEPTIONS):
+        if w == what and kind in kinds and (a == "*" or arch in a):
+            USED.add(i)
+            return True
+    return False
+
+
+@pytest.mark.parametrize("arch,kind,mesh", CASES)
+def test_build_cell_args_are_jax_shards(jref, traced, arch, kind, mesh):
+    name = f"{arch}/{kind}/{mesh}"
+    want = jref[name]["shards"]
+    if kind == "decode":
+        assert want[-1] == [[], "int32"]      # pos: a host int in the port
+        want = want[:-1]
+    assert traced[name]["leaves"] == want
+    assert traced[name]["meta"]["param_count"] == \
+        jref[name]["meta"]["param_count"]
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in ARCHS
+                                       for k in CELLS])
+def test_memory_equals_jax(jref, traced, arch, kind):
+    name = f"{arch}/{kind}/22"
+    got, want = traced[name]["memory"], jref[name]["memory"]
+    short = {"argument_bytes": 0, "alias_bytes": 0,
+             "output_bytes": 8 * traced[name]["n_out"]}
+    assert _allowed("memory output_bytes", kind, arch)
+    if _allowed("memory argument_bytes", kind, arch):
+        short["argument_bytes"] = 4
+    for k, d in short.items():
+        assert got[k] + d == want[k], (k, got[k], want[k])
+    assert got["alias_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in ARCHS
+                                       for k in CELLS])
+def test_traced_collectives_are_the_calls_the_step_makes(traced, arch,
+                                                         kind):
+    got = traced[f"{arch}/{kind}/22"]
+    assert got["collectives"] == got["counted"]
+    if arch != "xlstm-125m" or kind == "train":
+        assert sum(v["count"] for v in got["counted"].values()) > 0
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in ARCHS
+                                       for k in CELLS])
+def test_collectives_equal_jax_or_named(jref, traced, arch, kind):
+    name = f"{arch}/{kind}/22"
+    got, want = traced[name]["collectives"], jref[name]["collectives"]
+    assert set(got) == set(want)
+    total = [sum(c[k]["result_bytes"] for k in c) for c in (got, want)]
+    if total[1] == 0:
+        assert total[0] == 0            # xlstm's decode: the rows cut 4 ways
+    else:
+        lo, hi = COLL_BAND
+        assert lo <= total[0] / total[1] <= hi, (total, COLL_BAND)
+    unnamed = []
+    for k in want:
+        same = (got[k]["count"] == want[k]["count"]
+                and got[k]["result_bytes"] == want[k]["result_bytes"])
+        if not same and not _allowed(f"collectives {k}", kind, arch):
+            unnamed.append((k, got[k], want[k]))
+    assert unnamed == []
+
+
+def _dot_flops(jaxpr, mult: int = 1) -> float:
+    """2 x output size x contracting size over the dot_general equations
+    of ``jaxpr`` and its sub-jaxprs (a scan body times its length)."""
+    total = 0.0
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            (lc, _), _ = eqn.params["dimension_numbers"]
+            lhs = eqn.invars[0].aval.shape
+            k = int(np.prod([lhs[i] for i in lc])) if lc else 1
+            total += mult * 2.0 * k * int(np.prod(eqn.outvars[0].aval.shape))
+        elif eqn.primitive.name == "ragged_dot_general":
+            # each row of the ragged lhs meets one group's matrix: 2 x the
+            # lhs's size x the rhs's free (not contracted, not group) dims
+            dn = eqn.params["ragged_dot_dimension_numbers"]
+            (_, rc), _ = dn.dot_dimension_numbers
+            rhs = eqn.invars[1].aval.shape
+            free = [n for i, n in enumerate(rhs)
+                    if i not in rc and i not in dn.rhs_group_dimensions]
+            total += mult * 2.0 * int(np.prod(eqn.invars[0].aval.shape)) \
+                * int(np.prod(free))
+        n = mult * (eqn.params["length"] if eqn.primitive.name == "scan"
+                    else 1)
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (list, tuple)) else (v,)):
+                sj = getattr(sub, "jaxpr", sub)
+                if hasattr(sj, "eqns"):
+                    total += _dot_flops(sj, n)
+    return total
+
+
+def _jax_flops(arch, kind):
+    run = JRun(model=j_smoke(arch), opt=JOpt(),
+               microbatches=CELLS[kind][3])
+    saved = j_specs.arch_run_config
+    j_specs.arch_run_config = lambda *a: run
+    j_specs.SHAPES_BY_NAME[CELLS[kind][0]] = _j_cell(kind)
+    try:
+        from repro.launch.mesh import mesh_with_auto_axes
+        mesh = mesh_with_auto_axes(
+            np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+        fn, args, *_ = j_specs.build_cell(arch, CELLS[kind][0], mesh)
+        with mesh:
+            return _dot_flops(jax.make_jaxpr(fn)(*args).jaxpr)
+    finally:
+        j_specs.arch_run_config = saved
+        del j_specs.SHAPES_BY_NAME[CELLS[kind][0]]
+
+
+@pytest.fixture(scope="module")
+def flops():
+    """(traced, JAX's) product FLOPs of each (arch, kind) at one device."""
+    out = {}
+    for arch in ARCHS:
+        for kind in CELLS:
+            res = dryrun.trace_cell(arch, CELLS[kind][0], (1, 1),
+                                    device="cpu", run=_t_run(arch, kind),
+                                    cell=_t_cell(kind))
+            out[arch, kind] = (res["cost"]["flops"], _jax_flops(arch, kind))
+    return out
+
+
+def _check_flops(flops, arch, kind):
+    got, want = flops[arch, kind]
+    assert want > 0 and got > 0
+    if abs(got / want - 1) <= FLOP_RTOL:
+        return
+    named = "flops xlstm" if arch == "xlstm-125m" else "flops decode"
+    assert _allowed(named, kind, arch), (arch, kind, got, want)
+    if named == "flops decode":
+        # B4 reads pos = S - 1 of the S positions JAX's QK and PV
+        # products span (the fresh token's score and value join in
+        # elementwise ops, which count no product)
+        cfg = smoke_config(arch)
+        B = CELLS[kind][2]
+        one = 4 * B * cfg.num_heads * cfg.resolved_head_dim * cfg.num_layers
+        assert got == pytest.approx(want - one, rel=FLOP_RTOL)
+    else:
+        assert got == pytest.approx(want, rel=0.03)
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in ARCHS
+                                       for k in CELLS])
+def test_product_flops_equal_jax(flops, arch, kind):
+    _check_flops(flops, arch, kind)
+
+
+def test_every_exception_is_needed(jref, traced, flops):
+    """Each EXCEPTIONS row allows a difference some case has."""
+    USED.clear()
+    for arch in ARCHS:
+        for kind in CELLS:
+            test_memory_equals_jax(jref, traced, arch, kind)
+            test_collectives_equal_jax_or_named(jref, traced, arch, kind)
+            _check_flops(flops, arch, kind)
+    assert USED == set(range(len(EXCEPTIONS))), \
+        "an exception no difference needs: remove it"
+
+
+# -- the kernels' stand-ins --------------------------------------------------------
+
+def _kernel_cases():
+    """(name, dispatcher, real CPU inputs, keyword args) of each kernel at
+    small shapes."""
+    from repro_torch.kernels.cc_label import ops as cc
+    from repro_torch.kernels.edge_motion import ops as em
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.knapsack_dp import ops as dp
+    from repro_torch.kernels.tx_codec import ops as tx
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    util, costs = r(5, 6), torch.tensor([1, 2, 4, 8, 16, 20], dtype=torch.int32)
+    return [
+        ("edge_motion", em, "segment_motion_fleet", (r(3, 4, 24, 32),),
+         dict(block_size=8, edge_thresh=0.3)),
+        ("tx_codec", tx, "tx_codec",
+         (r(3, 2, 16, 24), r(3, 2, 16, 24), torch.full((3,), 8.0),
+          torch.full((3,), 0.01), torch.tensor([1, 2, 4], dtype=torch.int32)),
+         {}),
+        ("knapsack_dp", dp, "solve_values", (util, costs, 40), {}),
+        ("knapsack_dp", dp, "solve_device",
+         (util, costs, torch.tensor(30, dtype=torch.int32)), dict(w_cap=40)),
+        ("cc_label", cc, "cc_label", (r(3, 12, 20) > 0.6,), {}),
+        ("flash_decode", fd, "flash_decode",
+         (r(2, 1, 8, 16), r(2, 64, 2, 16), r(2, 64, 2, 16)),
+         dict(kv_valid_len=40)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_stand_in_gives_the_plain_versions_shapes(case):
+    name, mod, fn_name, args, kw = _kernel_cases()[case]
+    fn = getattr(mod, fn_name)
+    plain = trace_cost._tensors(fn(*args, **kw))
+    res = trace_cost.trace_real(lambda *a: fn(*a, **kw), *args)
+    fake = trace_cost._tensors(res["out"])
+    assert [(tuple(t.shape), t.dtype) for t in fake] == \
+        [(tuple(t.shape), t.dtype) for t in plain]
+    assert res["launches"] == {name: 1}
+    assert res["cost"]["kernel_flops"] > 0 and res["donated"] == []
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_real_tensors_never_reach_the_stand_in(case, monkeypatch):
+    name, mod, fn_name, args, kw = _kernel_cases()[case]
+    for attr in dir(mod):
+        if attr.endswith("stand_in"):
+            monkeypatch.setattr(mod, attr, lambda *a, **k: 1 / 0)
+    out = getattr(mod, fn_name)(*args, **kw)
+    assert all(not is_fake(t) for t in trace_cost._tensors(out))
+
+
+# -- the manifest's traced fields and the donation check ------------------------
+
+@pytest.fixture(scope="module")
+def programs():
+    return t_programs.get_programs(canon=t_programs.Canonical(
+        t_programs.canonical_system("cpu", SMALL)))
+
+
+@pytest.fixture(scope="module")
+def traced_manifest(programs):
+    return manifest.build_manifest(programs, trace=True)["programs"]
+
+
+def test_episode_flops_a_slot_equal_across_buckets(traced_manifest):
+    flops = {}
+    for name, e in traced_manifest.items():
+        if name.startswith("episode/"):
+            _, method, b = name.split("/")
+            flops[method, int(b[1:])] = e["cost"]["flops"] / \
+                t_programs.CALL_SLOTS
+    for method in t_programs.METHODS:
+        assert len({flops[method, b] for b in fleet.EPISODE_BUCKETS}) == 1
+        if method != "reducto":
+            for b in fleet.EPISODE_BUCKETS:
+                assert flops[method, b] < flops["reducto", b]
+
+
+def test_manifest_entries_carry_jax_fields(traced_manifest):
+    for name, e in traced_manifest.items():
+        assert set(e) >= {"signature", "outs", "donated", "cost", "memory"}
+        assert len(e["signature"]) == 16 and e["memory"][
+            "peak_estimate_bytes"] >= e["memory"]["argument_bytes"] > 0
+        assert e["cost"]["bytes accessed"] > 0
+    assert traced_manifest["slot_step/unified"]["launches"] == {
+        "edge_motion": 1, "cc_label": 1, "knapsack_dp": 1, "tx_codec": 1}
+
+
+def test_donated_inputs_are_jax_donated_indices(traced_manifest):
+    """JAX's donated leaves by name (``donated_indices`` of its lowered
+    programs, named by ``manifest.JAX_ARGS``), less the inputs the port
+    does not have (``manifest.EXCEPTIONS``' jax-only rows)."""
+    from jax.tree_util import tree_flatten_with_path
+    for p in j_programs.get_programs():
+        if p.name.startswith("episode/") and not p.name.endswith("b8"):
+            continue               # one bucket a method: the same program
+        names = []
+        for arg, tree in zip(manifest.JAX_ARGS[p.kind], p.abs_args):
+            for path, _ in tree_flatten_with_path(tree)[0]:
+                names.append(arg + "".join(
+                    "." + str(getattr(k, "key", getattr(k, "name", k)))
+                    for k in path))
+        want = [names[i] for i in j_audit.donated_indices(p)
+                if manifest._exception(p.kind, names[i], "jax-only") is None]
+        assert traced_manifest[p.name]["donated"] == want, p.name
+
+
+def test_lm_steps_donate_jax_leaves_and_audit_catches_a_write(programs,
+                                                              monkeypatch):
+    assert graph_audit.check_donation(programs[:1], "cpu") == []
+    prog = programs[0]
+    fn, args, names = prog.call
+
+    def writes(ctx, xs, carry, T=2):
+        xs.trace.add_(1.0)
+        return fn(ctx, xs, carry, T)
+    bad = t_programs.Program(prog.name, prog.kind, prog.inputs, prog.run,
+                             prog.graphs, prog.statics,
+                             (writes, args, names))
+    got = graph_audit.check_donation([bad], "cpu")
+    assert got == [f"donation[{prog.name}]: writes its inputs "
+                   "['xs.trace'] in place; JAX donates none"]

@@ -18,6 +18,7 @@ missing.
 import json
 
 import pytest
+import torch
 
 from repro.common.config import SHAPES_BY_NAME as J_SHAPES
 from repro.common.config import TPU_V5E as J_TPU_V5E
@@ -174,3 +175,129 @@ def test_report_prints_both_tables(art, capsys):
     dry = out.split("## What fits")[0]
     assert dry.count("| ok |") == 96 and dry.count("| skip |") == 24
     assert "granite_8b | train_4k | 1x4 | ok |" in dry
+
+
+# -- the traced sweep (``--trace``): a subprocess a cell ---------------------------
+
+TRACED = ("xlstm-125m", "decode_32k")     # a cell that traces in seconds
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
+                    "without a card")
+def test_trace_takes_the_card_unless_asked_for_the_cpu(art):
+    """A trace's fake tensors take the card's device type: without a card
+    ``build_cell``, ``trace_cell`` and ``dryrun --trace`` raise (the
+    error is the cell's record) unless the caller asks for the CPU."""
+    from repro_torch.launch.mesh import fake_world, shutdown
+    from repro_torch.launch.specs import build_cell
+    mesh = fake_world((1, 1))
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_cell(*TRACED, mesh)
+    finally:
+        shutdown()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.trace_cell(*TRACED, (1, 1))
+    assert dryrun.main(["--arch", TRACED[0], "--shape", TRACED[1],
+                        "--trace"]) == 1
+    d = _read(art, *TRACED, "1x1")
+    assert d["status"] == "error" and "device='cpu'" in d["error"]
+
+
+def test_trace_cli_writes_jax_blocks(art):
+    """``dryrun --trace --mesh 16x16`` writes the sweep's ``single``
+    artifact with JAX's blocks: rank 0 of a world of 256."""
+    assert dryrun.main(["--arch", TRACED[0], "--shape", TRACED[1],
+                        "--mesh", "16x16", "--trace", "--device",
+                        "cpu"]) == 0
+    d = _read(art, *TRACED, "single")
+    assert {"memory", "cost", "collectives", "roofline", "devices",
+            "trace_s", "meta"} <= set(d)
+    assert d["devices"] == 256 and d["activations"] == "traced"
+    assert set(d["memory"]) == {"argument_bytes", "output_bytes",
+                                "temp_bytes", "alias_bytes",
+                                "peak_estimate_bytes"}
+    assert set(d["cost"]) >= {"flops", "bytes accessed", "transcendentals"}
+    assert d["memory"]["alias_bytes"] == d["per_rank"]["cache_bytes"]
+    assert d["memory"]["argument_bytes"] >= d["per_rank"]["total_bytes"]
+    assert d["roofline"]["bottleneck"] in ("compute_s", "memory_s",
+                                           "collective_s")
+    # the shapes-only figures are the untraced run's
+    plain = json.loads(json.dumps(dryrun.run_cell(*TRACED,
+                                                  mesh=(16, 16))))
+    assert {k: d[k] for k in plain if k != "activations"} == {
+        k: v for k, v in plain.items() if k != "activations"}
+
+
+def test_traced_sweep_runs_a_subprocess_a_cell(art, monkeypatch):
+    calls = []
+    real = sweep.subprocess.run
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return real(cmd, **kw)
+    monkeypatch.setattr(sweep.subprocess, "run", run)
+    lines = []
+    res = sweep.sweep(["1x4"], archs=[TRACED[0], "granite-8b"],
+                      shapes=[TRACED[1], "long_500k"], trace=True,
+                      device="cpu", echo=lines.append)
+    assert [r["status"] for r in res] == ["ok", "ok", "ok", "skip"]
+    assert len(calls) == 4 and all("--trace" in c for c in calls)
+    assert "peak=" in lines[0] and "dom=" in lines[0] and "frac=" in lines[0]
+    assert lines[-1] == "\nSWEEP DONE: 3 ok, 1 skip, 0 failed / 4 cells"
+    # a traced artifact is reused; an untraced one is traced again
+    calls.clear()
+    sweep.sweep(["1x4"], archs=[TRACED[0]], shapes=[TRACED[1]], trace=True,
+                echo=lambda s: None)
+    assert calls == []
+    sweep.sweep(["1x4"], archs=[TRACED[0]], shapes=["long_500k"],
+                force=True, echo=lambda s: None)
+    assert calls == [] and "memory" not in _read(art, TRACED[0],
+                                                  "long_500k", "1x4")
+    sweep.sweep(["1x4"], archs=[TRACED[0]], shapes=["long_500k"],
+                trace=True, device="cpu", echo=lambda s: None)
+    assert len(calls) == 1
+
+
+def test_traced_cell_that_runs_out_of_time_is_recorded(art):
+    lines = []
+    res = sweep.sweep(["1x4"], archs=[TRACED[0]], shapes=[TRACED[1]],
+                      trace=True, timeout=0.5, echo=lines.append)
+    assert res[0]["status"] == "timeout"
+    assert res[0]["error"].startswith("trace exceeded 0.5s")
+    assert _read(art, *TRACED, "1x4")["status"] == "timeout"
+    # its shapes-only figures stay
+    want = json.loads(json.dumps(dryrun.run_cell(*TRACED, mesh=(1, 4))))
+    assert {k: res[0][k] for k in want if k != "status"} == {
+        k: v for k, v in want.items() if k != "status"}
+    assert lines[-1] == "\nSWEEP DONE: 0 ok, 0 skip, 1 failed / 1 cells"
+    assert "timeout" in lines[0]
+    # a timeout runs again next time
+    res = sweep.sweep(["1x4"], archs=[TRACED[0]], shapes=[TRACED[1]],
+                      trace=True, device="cpu", echo=lambda s: None)
+    assert res[0]["status"] == "ok"
+
+
+def test_report_reads_the_traced_columns(art, capsys):
+    sweep.main(["--mesh", "both"])
+    sweep.main(["--mesh", "1x4"])
+    sweep.main(["--mesh", "single", "--archs", TRACED[0], "--shapes",
+                TRACED[1], "--trace", "--device", "cpu"])
+    capsys.readouterr()
+    d = _read(art, *TRACED, "single")
+    assert report.main([]) == 0
+    out = capsys.readouterr().out
+    dry = out.split("## What fits")[0]
+    arch = canonical(TRACED[0])
+    row = next(x for x in dry.splitlines()
+               if x.startswith(f"| {arch} | {TRACED[1]} | single |"))
+    assert d["trace_device"] == "cpu"
+    assert row.endswith(f"| {d['memory']['peak_estimate_bytes'] / 1e9:.1f} "
+                        "(cpu) "
+                        f"| {d['roofline']['collective_traffic_per_chip'] / 1e9:.2f} "
+                        f"| {d['trace_s']:.0f} |")
+    assert dry.count("not traced") == 96 - 1
+    roof = out.split("## Roofline table, mesh single")[1]
+    row = next(x for x in roof.splitlines()
+               if x.startswith(f"| {arch} | {TRACED[1]} |"))
+    assert f"| {d['roofline']['collective_s']:.4f} |" in row

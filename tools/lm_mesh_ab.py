@@ -51,7 +51,14 @@ equal the dry run's per-rank figure (``dryrun.cache_bytes_per_rank``,
 JAX's ``cache_shardings``), and the logits are compared with one card's
 (max |diff| over max |logit|, and the argmax of every call).
 
-``--smoke --device cpu`` runs the same on the CPU over gloo at the
+``--train-only`` runs the train steps alone.  ``--traced`` runs no
+step: it traces rank 0's train step of each mesh of ``meshes(N)`` on
+a fake world of N ranks (``launch.dryrun.trace_cell`` at the same
+config, rows and microbatches, on fake tensors of ``--device``'s type;
+one process a mesh, one card or none) and prints its peak and argument
+bytes, what the ``--train-only`` run's per-card step peaks are held to.
+``--smoke --device cpu``
+runs the same on the CPU over gloo at the
 arch's smoke width (a rehearsal, no timing worth reading).  It fails if
 granite's tokens differ or a loss is not finite.  The card's name and
 power limit come first.
@@ -190,7 +197,7 @@ def train(args, shape, dev, sync) -> dict:
     lo, hi = lm.batch_rows(rows)
     ms, losses = [], []
     for i in range(TIMED + 1):
-        batch = {k: torch.as_tensor(v[lo:hi], device=dev).long()
+        batch = {k: torch.as_tensor(v[lo:hi], device=dev).to(torch.int32)
                  for k, v in src.batch_at(i).items()}
         dist.barrier()
         sync()
@@ -204,13 +211,79 @@ def train(args, shape, dev, sync) -> dict:
     peak = torch.tensor(float(torch.cuda.max_memory_allocated())
                         if dev.type == "cuda" else 0.0, device=dev)
     dist.all_reduce(peak, dist.ReduceOp.MAX)
+    # one more step with the card's peak around it alone: the peak less
+    # what was resident at entry but the step's arguments (what
+    # ``launch.dryrun.trace_cell`` traces on a rank of a fake world)
+    from repro_torch.launch.dryrun import tree_bytes
+    batch = {k: torch.as_tensor(v[lo:hi], device=dev).to(torch.int32)
+             for k, v in src.batch_at(TIMED + 1).items()}
+    dist.barrier()
+    sync()
+    step_peak = 0.0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        entry = torch.cuda.memory_allocated()
+    args_bytes = tree_bytes((params, opt, batch))
+    params, opt, metrics = step(params, opt, batch)
+    sync()
+    if dev.type == "cuda":
+        step_peak = float(torch.cuda.max_memory_allocated()
+                          - (entry - args_bytes))
+    per_rank = [torch.zeros((), dtype=torch.float64, device=dev)
+                for _ in range(dist.get_world_size())]
+    dist.all_gather(per_rank, torch.tensor(step_peak, dtype=torch.float64,
+                                           device=dev))
     med = statistics.median(ms)
     flops = _flops_per_token(cfg, LM(cfg), seq) * rows * seq
     mfu = flops / (med / 1e3) / H100_SXM.peak_flops / mesh.size()
     del params, opt
     return {"mesh": shape, "layers": cfg.num_layers, "loss": losses[0],
             "losses": losses, "ms_per_step": med, "ms": ms, "mfu": mfu,
-            "peak_bytes": int(peak), "finite": bool(np.isfinite(losses).all())}
+            "peak_bytes": int(peak), "finite": bool(np.isfinite(losses).all()),
+            "step_peak_bytes": [int(x) for x in per_rank],
+            "args_bytes": int(args_bytes)}
+
+
+def trace_step(args, shape) -> dict:
+    """Rank 0's train step of ``train`` on ``shape``, traced on a fake
+    world of that shape (this process's only group)."""
+    from repro_torch.common.config import (OptimizerConfig, RunConfig,
+                                           ShapeCell)
+    from repro_torch.launch.dryrun import trace_cell
+    rows, seq = ((SMOKE["rows"], SMOKE["seq"]) if args.smoke
+                 else (ROWS, SEQ))
+    run = RunConfig(model=_config(args),
+                    opt=OptimizerConfig(lr=1e-4, warmup_steps=1,
+                                        total_steps=10),
+                    microbatches=MICROBATCHES)
+    res = trace_cell(args.arch, "lm_mesh_ab train", shape,
+                     device=args.device, run=run,
+                     cell=ShapeCell("lm_mesh_ab train", seq, rows, "train"))
+    return {"mesh": list(shape), "layers": run.model.num_layers,
+            "peak_bytes": res["memory"]["peak_estimate_bytes"],
+            "args_bytes": res["memory"]["argument_bytes"],
+            "trace_s": res["trace_s"], "device": res["trace_device"]}
+
+
+def traced(args, tag: str) -> int:
+    """``--traced``: ``trace_step`` of each mesh, one process each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for d, m in meshes(args.ranks, args.arch):
+        cmd = [sys.executable, str(Path(__file__).resolve()),
+               "--trace-shape", f"{d}x{m}", "--arch", args.arch,
+               "--layers", str(args.layers), "--device", args.device,
+               "--out", args.out] + (["--smoke"] if args.smoke else [])
+        Path(args.out).unlink(missing_ok=True)
+        if subprocess.run(cmd, env=env, cwd=ROOT, timeout=3000).returncode:
+            print(f"lm_mesh_ab: the trace of (data {d}, model {m}) failed",
+                  file=sys.stderr)
+            return 1
+        t = json.loads(Path(args.out).read_text())
+        print(f"lm mesh traced {args.arch} ({t['layers']} layers) on (data "
+              f"{d}, model {m}): rank 0's step peak {t['peak_bytes']} bytes,"
+              f" {t['args_bytes']} argument bytes (fake tensors of device "
+              f"type {t['device']}, traced in {t['trace_s']:.1f} s) {tag}")
+    return 0
 
 
 def serve(args, dev, sync) -> dict:
@@ -358,9 +431,10 @@ def worker(args) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     try:
         res = {"train": [train(args, s, dev, sync)
-                         for s in meshes(dist.get_world_size(), args.arch)],
-               "serve": serve(args, dev, sync)}
-        if args.arch == "granite-8b":
+                         for s in meshes(dist.get_world_size(), args.arch)]}
+        if not args.train_only:
+            res["serve"] = serve(args, dev, sync)
+        if args.arch == "granite-8b" and not args.train_only:
             res["long"] = long_context(args, dev, sync)
         if dist.get_rank() == 0:
             Path(args.out).write_text(json.dumps(res))
@@ -380,7 +454,14 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's smoke config (a CPU rehearsal)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--train-only", action="store_true",
+                    help="the train steps alone (no serving, no long "
+                         "context)")
+    ap.add_argument("--traced", action="store_true",
+                    help="trace rank 0's train step of each mesh instead "
+                         "(no step runs; one card or none)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--trace-shape", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=str(ROOT / "build" / "lm_mesh_ab.json"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -389,13 +470,17 @@ def main(argv=None) -> int:
     if args.worker:
         return worker(args)
     sys.path.insert(0, str(ROOT / "src"))
+    if args.trace_shape:
+        shape = tuple(int(x) for x in args.trace_shape.split("x"))
+        Path(args.out).write_text(json.dumps(trace_step(args, shape)))
+        return 0
     import torch
     tag = "[cpu]"
     if args.device == "cuda":
         if not torch.cuda.is_available():
             print("lm_mesh_ab: no CUDA device", file=sys.stderr)
             return 2
-        if torch.cuda.device_count() < args.ranks:
+        if torch.cuda.device_count() < args.ranks and not args.traced:
             print(f"lm_mesh_ab: {args.ranks} ranks need as many cards, this "
                   f"machine has {torch.cuda.device_count()}",
                   file=sys.stderr)
@@ -405,16 +490,20 @@ def main(argv=None) -> int:
                              text=True, check=True).stdout.strip()
         print(" | ".join(smi.splitlines()))
         tag = f"[{smi.splitlines()[0]}]"
-        from repro_torch.kernels import build
-        build.build()
+        if not args.traced:
+            from repro_torch.kernels import build
+            build.build()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    if args.traced:
+        return traced(args, tag)
     Path(args.out).unlink(missing_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(args.ranks), str(Path(__file__).resolve()),
            "--worker", "--arch", args.arch, "--layers", str(args.layers),
            "--device", args.device,
-           "--out", args.out] + (["--smoke"] if args.smoke else [])
+           "--out", args.out] + (["--smoke"] if args.smoke else []) + (
+               ["--train-only"] if args.train_only else [])
     p = subprocess.run(cmd, env=env, cwd=ROOT, timeout=3000)
     if p.returncode != 0:
         print(f"lm_mesh_ab: the {args.ranks}-rank run failed",
@@ -431,7 +520,14 @@ def main(argv=None) -> int:
               f"{[round(x, 1) for x in t['ms']]}), MFU per card "
               f"{100 * t['mfu']:.2f}%, peak memory of the fullest card "
               f"{t['peak_bytes'] / 2**30:.2f} GiB {tag}")
+        print(f"lm mesh train {args.arch} on (data {d}, model {m}): one "
+              f"step's peak a card (max_memory_allocated() less what was "
+              f"resident at entry but the step's arguments; rank 0 "
+              f"{t['args_bytes']} argument bytes) "
+              f"{t['step_peak_bytes']} bytes {tag}")
         ok &= t["finite"]
+    if args.train_only:
+        return 0 if ok else 1
     (one, one_ms), (mesh, mesh_ms) = res["serve"]["one"], res["serve"]["mesh"]
     same = one == mesh
     differ = ("" if same else " (first at request, token " + str(next(
