@@ -65,6 +65,13 @@ JAX.  In order it prints:
      equal the eager reference body's on the card bitwise and the port's
      CPU run's to <= 1e-5; then a camera_churn run (no capture, the same
      checks) and two windows chained through the carry against one run;
+  4b. the stage marks: ``stage_stamp`` against ``stamp_ref`` on a (9, 7)
+     int64 buffer inside guard rows (every counter row, one out of range
+     on either side, every mark; the cells written and their order), then
+     a replayed deepstream episode at C=16, T=8 with tracing on, every
+     graph's marks zeroed first: rows 0-7 hold the 5 front marks, rows 0-8
+     the 2 finish marks, no other cell; in stream order; 5 stage spans a
+     slot; logs bitwise the untraced run's; no capture;
   5. the pipelined ``run()`` loop, four methods, C=5, T=8: the same
      checks, knapsack_dp launched once per slot for deepstream and jcab
      and edge_motion 16 times in all, logs equal to the card's episode and
@@ -123,8 +130,8 @@ JAX.  In order it prints:
   9. each replayed episode of phase 4 once more under the profiler: its
      kernels as the card recorded them (CUPTI kernel records counted by
      name; a replay runs the kernels without their wrappers) must be T per
-     kernel of the method's path and none of the others, with no wrapper
-     call; the C=5, T=8 counts go into the kernel records; then one
+     kernel of the method's path and none of the others, and 7 T + 2
+     stage_stamp marks, with no wrapper call; the C=5, T=8 counts go into the kernel records; then one
      8-slot window of the stream per method, counted the same way;
  10. training (no hand-written kernel on its path: every launch counter
      stays 0 in the trainers): (a) the light detector trained on the
@@ -1216,7 +1223,125 @@ def event_ms(torch, run) -> float:
 # launches of a graph replay, which runs the kernels without their wrappers
 KERNEL_NAMES = {"edge_motion": "edge_motion_kernel",
                 "tx_codec": "tx_codec_kernel", "knapsack_dp": "knapsack_dp_",
-                "flash_decode": "fd_kernel", "cc_label": "cc_label_kernel"}
+                "flash_decode": "fd_kernel", "cc_label": "cc_label_kernel",
+                "stage_stamp": "stage_stamp_kernel"}
+
+
+def stamp_launches(T: int, pipelined: bool = True) -> int:
+    """stage_stamp_kernel launches of a replayed T-slot episode: 7 marks a
+    ``full{p}`` or ``step`` replay, 2 the pipelined body's drain."""
+    return 7 * T + (2 if pipelined else 0)
+
+
+def check_stage_stamp(torch, dev) -> int:
+    """``stage_stamp`` on the card against ``stamp_ref`` on the CPU on a
+    (T_SLOTS + 1, 7) int64 buffer: a random half of the calls (every
+    counter row, one before the first and one past the last, times every
+    mark k), launched in a random order.  The cells written must be those
+    the plain version writes (nonzero there, zero elsewhere; the guard
+    rows on either side of the buffer, a view into a larger one, keep
+    their value), and the card's times, taken in the plain version's order
+    of writes, must not decrease (the host clock's increase); a mark
+    outside the columns raises.  Returns the cells written."""
+    import numpy as np
+    from repro_torch.core.fleet import MARK_COLS
+    from repro_torch.kernels.stage_stamp import ops as st_ops
+    rows, cols, guard = T_SLOTS + 1, MARK_COLS, -7
+    rng = np.random.default_rng(11)
+    calls = [(r, k) for r in range(-1, rows + 1) for k in range(cols)]
+    picked = [calls[i] for i in rng.permutation(len(calls))[:len(calls) // 2]]
+    whole = torch.full((rows + 2, cols), guard, dtype=torch.int64,
+                       device=dev)
+    card = whole[1:rows + 1]
+    card.zero_()
+    host = torch.zeros((rows, cols), dtype=torch.int64)
+    counters = [torch.tensor(r, dtype=torch.int64, device=dev)
+                for r, _ in picked]
+    for (r, k), c in zip(picked, counters):
+        st_ops.stamp_cuda(card, c, k)
+        st_ops.stamp_ref(host, torch.tensor(r, dtype=torch.int64), k)
+    torch.cuda.synchronize()
+    got, ref = whole.cpu().numpy(), host.numpy()
+    if not (got[0] == guard).all() or not (got[-1] == guard).all():
+        raise AssertionError(f"stage_stamp wrote outside its buffer: "
+                             f"{got[0]} {got[-1]}")
+    written = ref != 0
+    if not np.array_equal(got[1:-1] != 0, written):
+        raise AssertionError(f"stage_stamp wrote {np.argwhere(got[1:-1])} "
+                             f"where the plain version wrote "
+                             f"{np.argwhere(written)}")
+    order = np.argsort(ref[written], kind="stable")
+    if (np.diff(ref[written][order]) <= 0).any():
+        raise AssertionError("the plain version's times do not increase")
+    if (np.diff(got[1:-1][written][order]) < 0).any():
+        raise AssertionError("stage_stamp's times are not in launch order")
+    for bad in (-1, cols):
+        try:
+            st_ops.stamp_cuda(card, counters[0], bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"stage_stamp took mark {bad} of {cols}")
+    return int(written.sum())
+
+
+def check_episode_marks(torch, fleet_mod, trace_mod, run, T: int,
+                        what: str) -> dict:
+    """The stage marks of one replayed pipelined episode and its harvest
+    (``run`` returns its ``EpisodeOut`` and logs) with tracing on, every
+    captured graph's marks zeroed first.  Exactly one graph's buffer is written: rows 0 to T - 1
+    hold the five front marks (slot i's synthesis to encode), rows 0 to T
+    the two finish marks (row i + 1 holds slot i's finish, row 0 the
+    warm-up row's, row T the drain's), every other cell 0; each row's
+    front marks and finish marks do not decrease, a finish starts after
+    the front that staged it (side stream waits on main) and a front after
+    the previous finish ended (main waits on side).  The run's
+    ``EpisodeOut.stamps`` are the buffer's first T + 1 rows, and the
+    harvest recorded 5 device spans a slot with their global slot.
+    Returns the run's logs."""
+    import numpy as np
+    graphs = list(fleet_mod._GRAPHS.values())
+    for g in graphs:
+        g.stamps.zero_()
+    trace_mod.clear()
+    trace_mod.enable()
+    try:
+        out, logs = run()
+        torch.cuda.synchronize()
+    finally:
+        trace_mod.enable(False)
+    bufs = [g.stamps.cpu().numpy() for g in graphs]
+    hit = [b for b in bufs if b.any()]
+    if len(hit) != 1:
+        raise AssertionError(f"{what}: {len(hit)} graphs' marks written")
+    st = hit[0]
+    want = np.zeros(st.shape, bool)
+    want[:T, :5] = True
+    want[:T + 1, 5:] = True
+    if not np.array_equal(st != 0, want):
+        raise AssertionError(f"{what}: marks written at "
+                             f"{np.argwhere(st != 0).tolist()}")
+    if not np.array_equal(out.stamps.cpu().numpy(), st[:T + 1]):
+        raise AssertionError(f"{what}: EpisodeOut.stamps is not the "
+                             "graph's buffer")
+    for i in range(T + 1):
+        if i < T and (np.diff(st[i, :5]) < 0).any():
+            raise AssertionError(f"{what}: row {i} front {st[i, :5]}")
+        if st[i, 5] > st[i, 6]:
+            raise AssertionError(f"{what}: row {i} finish {st[i, 5:]}")
+        if i > 0 and st[i, 5] < st[i - 1, 4]:
+            raise AssertionError(f"{what}: slot {i - 1}'s finish starts "
+                                 "before its front ended")
+        if 0 < i < T and st[i, 0] < st[i - 1, 6]:
+            raise AssertionError(f"{what}: slot {i}'s front starts before "
+                                 "the previous finish ended")
+    stages = [sp for sp in trace_mod.spans() if sp.clock == "device"]
+    trace_mod.clear()
+    slots = sorted({sp.ids["slot"] for sp in stages})
+    if len(stages) != 5 * T or len(slots) != T \
+            or any(sp.seconds < 0 for sp in stages):
+        raise AssertionError(f"{what}: {len(stages)} stage spans over "
+                             f"slots {slots}")
+    return logs
 
 
 def recorded_launches(torch, run, want: dict, what: str,
@@ -4270,6 +4395,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.common import prng
+    from repro_torch.common import trace as trace_mod
     from repro_torch.core import codec
     from repro_torch.core import fleet as fleet_mod
     from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
@@ -4548,7 +4674,8 @@ def main(argv=None) -> int:
                 replays.append((what, C, T, lambda g=g_sys, tr=tr, m=method:
                                 g.run_episode(scene_of(g), tr, m),
                                 {k: T if k in needs(method) else 0
-                                 for k in counters}))
+                                 for k in counters}
+                                | {"stage_stamp": stamp_launches(T)}))
                 eager = e_sys._episode_logs(e_sys._episode_dispatch(
                     scene_of(e_sys), tr, method, _eager=True), tr)
                 same_logs(eager, logs, f"episode {method} C={C} T={T} graph "
@@ -4610,6 +4737,31 @@ def main(argv=None) -> int:
         print(f"episode {method} C=5: windows of 4 and 7 slots through the "
               "carry vs one 11-slot run (camera_churn), max diff "
               + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
+
+    # -- 4b. the stage marks: the kernel against its plain version, then
+    # a replayed C=16 episode's marks
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 4b: stage marks")
+    n_cells = check_stage_stamp(torch, dev)
+    g16 = make_system(16, dev)
+    tr16 = (trace11 * 16 / 5)[:T_SLOTS]
+    plain16 = g16.run_episode(scene_of(g16), tr16, "deepstream")
+    n_graphs = fleet_mod.episode_graph_count()
+    what = f"episode deepstream C=16 T={T_SLOTS} marks"
+
+    def traced16():
+        out = g16._episode_dispatch(scene_of(g16), tr16, "deepstream")
+        return out, g16._episode_logs(out, tr16)
+
+    logs16 = check_episode_marks(torch, fleet_mod, trace_mod, traced16,
+                                 T_SLOTS, what)
+    same_logs(plain16, logs16, f"{what}: traced vs untraced logs")
+    if fleet_mod.episode_graph_count() != n_graphs:
+        raise AssertionError(f"{what}: tracing captured a graph")
+    print(f"stage_stamp: {n_cells} cells written at the plain version's "
+          f"cells, guard rows untouched, in launch order; {what}: rows 0-"
+          f"{T_SLOTS - 1} front marks, rows 0-{T_SLOTS} finish marks, no "
+          f"other cell, in stream order, {5 * T_SLOTS} stage spans, logs "
+          "bitwise the untraced run's, no capture")
 
     # -- 5. run(), pipelined, four methods -------------------------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 5: run()")
@@ -4797,7 +4949,8 @@ def main(argv=None) -> int:
     launches_stream = dict.fromkeys(counters, 0)
     for method, (r, tr, lv) in stream_runners.items():
         want = {k: STREAM_WINDOW if k in needs(method) else 0
-                for k in counters}
+                for k in counters} | {
+                    "stage_stamp": stamp_launches(STREAM_WINDOW)}
         reset_counts()
         n = recorded_launches(torch, lambda r=r, tr=tr, lv=lv: stream_window(
             r, tr, lv), want, f"stream {method} window")
@@ -4819,7 +4972,8 @@ def main(argv=None) -> int:
             scene=SceneConfig(seed=7, num_cameras=5)), light_h, server,
             device=dev), arts, 5),
         scene_of, trace, episode_logs["deepstream"],
-        {k: T_SLOTS if k in needs("deepstream") else 0 for k in counters})
+        {k: T_SLOTS if k in needs("deepstream") else 0 for k in counters}
+        | {"stage_stamp": stamp_launches(T_SLOTS)})
     print(f"phase 10 (training): {time.perf_counter() - t_new:.1f} s")
     # -- 11. the other LM families and the int8 cache, serving and
     # training

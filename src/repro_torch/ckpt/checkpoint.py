@@ -62,7 +62,6 @@ import os
 import re
 import shutil
 import threading
-import time
 import zlib
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -70,6 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.device import upload
 
 try:
@@ -223,8 +223,9 @@ def snapshot(tree):
 class AsyncSaver:
     """Background-thread checkpoint writer with atomic commit, bounded
     retention (``keep``) and chaos hooks (``chaos``).  ``write_s`` holds
-    the writer's seconds per committed save (compress, write, commit, gc);
-    ``snapshot_s`` the calling thread's seconds per snapshot."""
+    the writer's seconds per committed save (span ``ckpt.write``:
+    compress, write, commit, gc); ``snapshot_s`` the calling thread's
+    seconds per snapshot (span ``ckpt.snapshot``)."""
 
     def __init__(self, keep: Optional[int] = None, chaos: Any = None):
         if keep is not None and keep < 1:
@@ -250,11 +251,15 @@ class AsyncSaver:
              dtypes: Optional[Dict[str, Any]] = None) -> None:
         """Snapshot ``tree`` now, write it to ``path`` on the writer thread
         (or here, ``blocking``).  ``dtypes`` maps leaf key strings to the
-        dtype they are written in (the port's int64 run key as uint32)."""
-        self.wait()  # one outstanding save at a time
-        t0 = time.perf_counter()
-        host = snapshot(tree)
-        self.snapshot_s.append(time.perf_counter() - t0)
+        dtype they are written in (the port's int64 run key as uint32).
+        Spans: ``ckpt.wait`` (for the previous write), ``ckpt.snapshot``;
+        on the writer, ``ckpt.write`` with ``window=step`` and its parts
+        (``_write_checkpoint``, ``ckpt.gc``)."""
+        with trace.span("ckpt.wait"):
+            self.wait()  # one outstanding save at a time
+        with trace.timer("ckpt.snapshot") as tm:
+            host = snapshot(tree)
+        self.snapshot_s.append(tm.seconds)
         host_leaves = [(k, v.astype(dtypes[k]) if dtypes and k in dtypes
                         else v) for k, v in _flatten(host)]
         # the manifest's tree field (the JAX package writes its PyTreeDef;
@@ -263,18 +268,19 @@ class AsyncSaver:
 
         def _write():
             try:
-                t1 = time.perf_counter()
-                if self.chaos is not None:
-                    self.chaos.on_save_start(step)
-                _write_checkpoint(host_leaves, treedef_str, Path(path),
-                                  step=step, metadata=metadata or {})
-                if self.chaos is not None:
-                    self.chaos.on_save_committed(Path(path), step)
-                if self.keep is not None:
-                    self.gc_removed.extend(
-                        str(p) for p in gc_generations(Path(path).parent,
-                                                       self.keep))
-                self.write_s.append(time.perf_counter() - t1)
+                with trace.timer("ckpt.write", window=step) as tm:
+                    if self.chaos is not None:
+                        self.chaos.on_save_start(step)
+                    _write_checkpoint(host_leaves, treedef_str, Path(path),
+                                      step=step, metadata=metadata or {})
+                    if self.chaos is not None:
+                        self.chaos.on_save_committed(Path(path), step)
+                    if self.keep is not None:
+                        with trace.span("ckpt.gc"):
+                            self.gc_removed.extend(
+                                str(p) for p in gc_generations(
+                                    Path(path).parent, self.keep))
+                self.write_s.append(tm.seconds)
             except BaseException as e:  # surfaced on the next wait()
                 self._error = e
 
@@ -288,8 +294,21 @@ class AsyncSaver:
             self._thread.start()
 
 
+def _write_file(path: Path, text: str) -> None:
+    with open(path, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+
+
 def _write_checkpoint(host_leaves, treedef_str: str, path: Path, *,
                       step: int, metadata: Dict) -> None:
+    """Write and commit one generation.  Spans: ``ckpt.compress`` (each
+    leaf compressed, checksummed and written), ``ckpt.data_fsync``,
+    ``ckpt.manifest`` (its JSON, the metadata's logs included, written and
+    fsync'd) and ``ckpt.commit`` (the marker, the rename and the
+    directory's fsync); counter ``ckpt.bytes`` (the data and manifest
+    bytes written)."""
     tmp = path.with_name(path.name + ".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -298,33 +317,36 @@ def _write_checkpoint(host_leaves, treedef_str: str, path: Path, *,
                 "treedef": treedef_str, "leaves": {}}
     data_path = tmp / "data.0.bin"
     with open(data_path, "wb") as f:
-        for key, arr in host_leaves:
-            raw = np.ascontiguousarray(arr).tobytes()
-            blob, codec = _compress(raw)
-            off = f.tell()
-            f.write(blob)
-            manifest["leaves"][key] = {
-                "shape": list(arr.shape), "dtype": _dtype_name(arr),
-                "offset": off, "nbytes": len(blob), "file": data_path.name,
-                "codec": codec,
-                "crc32": zlib.crc32(raw), "raw_nbytes": len(raw),
-            }
-        f.flush()
-        os.fsync(f.fileno())
-    for name, text in (("manifest.json", json.dumps(manifest)),
-                       (COMMIT_MARKER, "ok")):
-        with open(tmp / name, "w") as f:
-            f.write(text)
+        with trace.span("ckpt.compress"):
+            for key, arr in host_leaves:
+                raw = np.ascontiguousarray(arr).tobytes()
+                blob, codec = _compress(raw)
+                off = f.tell()
+                f.write(blob)
+                manifest["leaves"][key] = {
+                    "shape": list(arr.shape), "dtype": _dtype_name(arr),
+                    "offset": off, "nbytes": len(blob),
+                    "file": data_path.name, "codec": codec,
+                    "crc32": zlib.crc32(raw), "raw_nbytes": len(raw),
+                }
+        with trace.span("ckpt.data_fsync"):
             f.flush()
             os.fsync(f.fileno())
-    if path.exists():
-        shutil.rmtree(path)
-    os.rename(tmp, path)
-    dfd = os.open(path.parent, os.O_RDONLY)   # make the rename durable
-    try:
-        os.fsync(dfd)
-    finally:
-        os.close(dfd)
+        nbytes = f.tell()
+    with trace.span("ckpt.manifest"):
+        text = json.dumps(manifest)
+        _write_file(tmp / "manifest.json", text)
+    trace.count("ckpt.bytes", nbytes + len(text))
+    with trace.span("ckpt.commit"):
+        _write_file(tmp / COMMIT_MARKER, "ok")
+        if path.exists():
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        dfd = os.open(path.parent, os.O_RDONLY)   # make the rename durable
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
 
 
 def _spec_leaves(tree, specs) -> List[Any]:

@@ -58,12 +58,12 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.common import prng
+from repro_torch.common import prng, trace
 from repro_torch.common.device import upload
 from repro_torch.core import allocation as alloc_mod
 from repro_torch.core import codec as codec_mod
@@ -75,6 +75,7 @@ from repro_torch.core.elastic import ElasticConfig, ElasticState
 from repro_torch.data import synthetic as synth_mod
 from repro_torch.data.synthetic import DeviceSceneParams, SceneConfig
 from repro_torch.kernels.edge_motion import ops as em_ops
+from repro_torch.kernels.stage_stamp import ops as stamp_ops
 from repro_torch.models import detector as det
 from repro_torch.sharding import rules
 
@@ -517,6 +518,38 @@ class EpisodeOut(NamedTuple):
     ref: torch.Tensor       # (n_local, H, W) final reducto reference (the
                             # rank's rows; all C unsharded), the
                             # carry a windowed run hands to the next window
+    stamps: Optional[torch.Tensor] = None   # the graphs' (T + 1, MARK_COLS)
+                            # stage marks, taken while tracing is active
+    t_start: int = 0        # the run's first global slot
+    pipelined: bool = True
+
+
+# the stage marks of a slot step, by column of ``_EpisodeGraph.stamps``:
+# 0-4 on the slot front's stream (``slot_front``'s ``mark``), 5-6 around
+# the finish on the finish's stream (the pipelined body's side stream)
+MARKS: Tuple[str, ...] = ("synth_start", "synth_end", "roidet_end",
+                          "control_end", "encode_end", "finish_start",
+                          "finish_end")
+MARK_COLS = len(MARKS)
+# each stage's device span: (name, first mark, last mark)
+STAGES: Tuple[Tuple[str, int, int], ...] = (
+    ("stage.synth", 0, 1), ("stage.roidet", 1, 2), ("stage.control", 2, 3),
+    ("stage.encode", 3, 4), ("stage.finish", 5, 6))
+
+
+def record_stages(stamps: np.ndarray, T: int, t_start: int,
+                  pipelined: bool) -> None:
+    """Each of the T slots' stage intervals from a run's host copy of its
+    marks ((T + 1, MARK_COLS) ns on the card's timer) into the trace
+    recorder as ``clock="device"`` spans with the global ``slot``.  Slot
+    i's front is row i; its finish is row i + 1 in the pipelined body
+    (row 0's finish is the warm-up row's), row i in the reference body."""
+    for i in range(T):
+        for name, k0, k1 in STAGES:
+            row = i + 1 if pipelined and k0 >= 5 else i
+            trace.record(name, 1e-9 * float(stamps[row, k0]),
+                         1e-9 * float(stamps[row, k1]), clock="device",
+                         slot=t_start + i)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -584,7 +617,8 @@ class _Carry(NamedTuple):
 
 
 def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
-               W_t: torch.Tensor, live_t: torch.Tensor
+               W_t: torch.Tensor, live_t: torch.Tensor,
+               mark: Optional[Callable[[int], None]] = None
                ) -> Tuple[_Carry, SlotStaged, torch.Tensor,
                           Optional[torch.Tensor]]:
     """Everything up to the staged detector batch for one slot: synthesis
@@ -601,15 +635,17 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
     order.  Under a camera mesh every per-camera tensor is the rank's
     rows (``s.n_local``) and ``live_t``, the control step and its packs
     are global; (a, c) are gathered before control and (b, r) sliced
-    after it."""
+    after it.  ``mark(k)`` (the episode graph's stage marks; None
+    elsewhere) is called at the stage boundaries ``MARKS`` 0 to 4 names."""
     N, H, W = s.scfg.frames_per_segment, s.scfg.height, s.scfg.width
     dev = W_t.device
     deep = s.method in ("deepstream", "deepstream_no_elastic")
+    if mark is not None:
+        mark(0)
     frames, gtb, gtv = synth_mod.segments_device(
         s.scfg, ctx.scene, ctx.skey, t, gt_pad=s.gt_pad)
-    keys = slot_camera_keys(ctx.key0, t, ctx.scene.cam_ids)
-    reconnect = live_t & ~carry.live_prev
-    live_l = rules.scatter(live_t, s.mesh, False)
+    if mark is not None:
+        mark(1)
     a = c = None
     if deep:
         roi = roidet_mod.roidet_fleet(frames, ctx.light,
@@ -622,6 +658,10 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
     else:
         masks = roidet_mod.full_frame_mask(s.n_local, H, W, s.block_size,
                                            dev)
+    if mark is not None:
+        mark(2)
+    reconnect = live_t & ~carry.live_prev
+    live_l = rules.scatter(live_t, s.mesh, False)
     co = fleet_control_step(
         ctx.mlp if deep else None, ctx.jcab_util, ctx.jcab_res, ctx.lam, a,
         c, W_t, carry.est, ctx.tau_wl, ctx.tau_wh, live_t, reconnect.any(),
@@ -634,6 +674,9 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
         cpack = torch.cat([cpack, _violated(torch.isfinite(W_t)), co.flags])
     b = rules.scatter(co.b, s.mesh, 1.0)
     r = rules.scatter(co.r, s.mesh, 1.0)
+    if mark is not None:
+        mark(3)
+    keys = slot_camera_keys(ctx.key0, t, ctx.scene.cam_ids)
     ref = carry.ref
     if s.method == "reducto":
         # "first" is per run (t == t_first) and per reconnecting camera
@@ -655,6 +698,8 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
                       eval_frames=s.eval_frames,
                       block_size=s.block_size,
                       with_reuse=s.method == "reducto", tables=ctx.tables)
+    if mark is not None:
+        mark(4)
     return _Carry(co.est, ref, live_t), st, cpack, inv
 
 
@@ -776,7 +821,13 @@ class _EpisodeGraph:
     row 0 is the warm-up row and is dropped).  The host replays only the
     run's T slots and the drain: a padded slot never runs.  A replay goes
     through no kernel wrapper, so it adds nothing to their launch counts:
-    the kernels a replay runs are counted on the card (CUPTI records)."""
+    the kernels a replay runs are counted on the card (CUPTI records).
+
+    Every body writes its stage marks (``MARKS``) into row ``counter`` of
+    ``stamps`` through the one-thread ``stage_stamp`` kernel: seven a
+    ``full{p}`` or ``step`` replay, two a drain.  They are captured
+    always, so tracing changes no graph key, and read only while tracing
+    is active (``record_stages``)."""
 
     def __init__(self, s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry):
         global _CAPTURES
@@ -790,6 +841,8 @@ class _EpisodeGraph:
         self.cpacks = torch.zeros(
             (rows, 4 + (len(EPISODE_CHECKS) if s.checked else 0)),
             device=dev)
+        self.stamps = torch.zeros((rows, MARK_COLS), dtype=torch.int64,
+                                  device=dev)
         self.side = torch.cuda.Stream(dev)
         self.halves = None
         # build the kernels, bind their entry points, let cuDNN and cuBLAS
@@ -797,7 +850,7 @@ class _EpisodeGraph:
         # stream, before anything is captured
         warm = torch.cuda.Stream(dev)
         warm.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(warm):
+        with trace.span("episode.warm"), torch.cuda.stream(warm):
             if s.pipelined:
                 _, st, _, inv = slot_front(s, self.ctx, self.carry,
                                            *self._slot_inputs())
@@ -818,8 +871,9 @@ class _EpisodeGraph:
         mode = "global" if s.mesh is None else "thread_local"
         for name, body in bodies.items():
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool, capture_error_mode=mode):
-                body()
+            with trace.span("episode.capture", graph=name):
+                with torch.cuda.graph(g, pool=pool, capture_error_mode=mode):
+                    body()
             pool = g.pool()
             self.graphs[name] = g
             _CAPTURES += 1
@@ -836,15 +890,21 @@ class _EpisodeGraph:
                 for kind, fn in (("full", self._full), ("drain", self._drain))
                 for p in (0, 1)}
 
+    def _mark(self, k: int) -> None:
+        stamp_ops.stamp(self.stamps, self.counter, k)
+
     def _finish_into(self, half) -> torch.Tensor:
+        self._mark(5)
         pack = _finish(self.s, self.ctx, *half)
         self.packs.index_copy_(0, self.counter.view(1), pack[None])
+        self._mark(6)
         return pack
 
     def _front(self):
         """Slot front into the carry; returns ((staged, inv), cpack)."""
         carry, st, cpack, inv = slot_front(self.s, self.ctx, self.carry,
-                                           *self._slot_inputs())
+                                           *self._slot_inputs(),
+                                           mark=self._mark)
         _copy(self.carry, carry)
         return (st, inv), cpack
 
@@ -872,9 +932,12 @@ class _EpisodeGraph:
         self._finish_into(self.halves[1 - p])
 
     def run(self, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
-            ) -> Tuple[torch.Tensor, torch.Tensor, _Carry]:
+            ) -> Tuple[torch.Tensor, torch.Tensor, _Carry,
+                       Optional[torch.Tensor]]:
         """Load the run's inputs and replay the first T slots; the same
-        return as ``_episode_eager``, copied out of the static buffers."""
+        return as ``_episode_eager``, copied out of the static buffers,
+        and the run's (T + 1, MARK_COLS) stage marks while tracing is
+        active (else None)."""
         _copy(self.ctx, ctx)
         _copy(self.xs, xs)
         _copy(self.carry, carry)
@@ -888,12 +951,14 @@ class _EpisodeGraph:
             for _ in range(T):
                 self.graphs["step"].replay()
             packs = self.packs[:T]
+        stamps = self.stamps[:T + 1].clone() if trace.active() else None
         return (packs.clone(), self.cpacks[:T].clone(),
-                _map(torch.clone, self.carry))
+                _map(torch.clone, self.carry), stamps)
 
 
 def _episode_graphed(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry,
-                     T: int) -> Tuple[torch.Tensor, torch.Tensor, _Carry]:
+                     T: int) -> Tuple[torch.Tensor, torch.Tensor, _Carry,
+                                      Optional[torch.Tensor]]:
     """The episode on the card: the graphs of (statics, bucket, input
     shapes), captured on first use, replayed for the T active slots.  One
     run at a time uses a graph's static buffers (callers share the current
@@ -914,6 +979,7 @@ class EpisodeInputs(NamedTuple):
     xs: _Xs
     carry: _Carry
     T: int
+    t_start: int = 0        # the run's first global slot
 
 
 def episode_inputs(method: str, *, codec_cfg: CodecConfig,
@@ -999,7 +1065,7 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
         gt_pad=int(gt_pad), pipelined=bool(pipelined) and not checked,
         checked=bool(checked), c_pad=int(c_pad),
         mesh_key=rules.mesh_cache_key(mesh), mesh=mesh)
-    return EpisodeInputs(s, ctx, xs, carry, T)
+    return EpisodeInputs(s, ctx, xs, carry, T, int(t_start))
 
 
 def fleet_episode(method: str, *, _eager: bool = False, **kw
@@ -1036,17 +1102,30 @@ def fleet_episode(method: str, *, _eager: bool = False, **kw
     and no slot reads the device from the host; on the CPU it runs
     eagerly.  ``_eager`` runs the eager loop on the card too, for
     comparison only."""
-    inp = episode_inputs(method, **kw)
-    run = (_episode_graphed if inp.xs.trace.device.type == "cuda"
-           and not _eager else _episode_eager)
-    packs, cpacks, carry = run(inp.statics, inp.ctx, inp.xs, inp.carry,
-                               inp.T)
-    if inp.statics.mesh is not None:
-        # the harvest's one gather: every rank's (T, 2, n_local) logs
-        packs = rules.gather(packs, inp.statics.mesh,
-                             dim=2)[:, :, :inp.statics.num_cams].contiguous()
+    return episode_run(episode_inputs(method, **kw), _eager=_eager)
+
+
+def episode_run(inp: EpisodeInputs, _eager: bool = False) -> EpisodeOut:
+    """``fleet_episode`` on inputs ``episode_inputs`` built (span
+    ``episode.launch``: on the card the static-buffer copies, the replays
+    and the copies out, after the captures on a configuration's first
+    run)."""
+    s = inp.statics
+    stamps = None
+    with trace.span("episode.launch"):
+        if inp.xs.trace.device.type == "cuda" and not _eager:
+            packs, cpacks, carry, stamps = _episode_graphed(
+                s, inp.ctx, inp.xs, inp.carry, inp.T)
+        else:
+            packs, cpacks, carry = _episode_eager(s, inp.ctx, inp.xs,
+                                                  inp.carry, inp.T)
+        if s.mesh is not None:
+            # the harvest's one gather: every rank's (T, 2, n_local) logs
+            packs = rules.gather(packs, s.mesh,
+                                 dim=2)[:, :, :s.num_cams].contiguous()
     return EpisodeOut(packs=packs, cpacks=cpacks, key=inp.ctx.key0,
-                      est=carry.est, ref=carry.ref)
+                      est=carry.est, ref=carry.ref, stamps=stamps,
+                      t_start=inp.t_start, pipelined=s.pipelined)
 
 
 def eval_indices(n: int, eval_frames: int) -> np.ndarray:

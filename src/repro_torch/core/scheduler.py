@@ -90,7 +90,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common import prng
+from repro_torch.common import prng, trace
 from repro_torch.common.device import resolve_device, upload
 from repro_torch.core import allocation as alloc
 from repro_torch.core import codec as codec_mod
@@ -116,9 +116,11 @@ LOG_KEYS = ("utility", "mean_f1", "bytes", "W", "extra", "alloc_kbps",
 
 # -- device-to-host accounting ------------------------------------------------
 # Categories: 'harvest' (log packs), 'keep' (the sequential reducto
-# keep-flag fetch), 'control' (the host control path's (a, c) fetch).
+# keep-flag fetch), 'control' (the host control path's (a, c) fetch),
+# 'stamps' (an episode's stage marks, fetched only while tracing is
+# active, after the harvest's fetches).
 
-D2H_CATEGORIES = ("harvest", "keep", "control")
+D2H_CATEGORIES = ("harvest", "keep", "control", "stamps")
 _D2H_FETCHES: Dict[str, int] = {}
 
 
@@ -1034,12 +1036,16 @@ class DeepStreamSystem:
         pinned memory), ``fleet.fleet_episode``, the scene cursor and
         ``last_carry``; returns the device logs.  On a warm configuration
         nothing here waits on the card.  ``_eager`` runs the slot loop
-        eagerly on the card (for comparison with the graph only)."""
-        kw = self._episode_kwargs(scene, trace_kbps, method, use_elastic,
-                                  faults, carry)
+        eagerly on the card (for comparison with the graph only).  Spans
+        ``episode.inputs`` (the uploads and the statics) and
+        ``episode.launch`` (``fleet.episode_run``)."""
+        with trace.span("episode.inputs"):
+            kw = self._episode_kwargs(scene, trace_kbps, method, use_elastic,
+                                      faults, carry)
+            inp = fleet_mod.episode_inputs(method, **kw)
         C = self.cfg.scene.num_cameras
         t_begin = scene._t
-        out = fleet_mod.fleet_episode(method, **kw, _eager=_eager)
+        out = fleet_mod.episode_run(inp, _eager=_eager)
         scene._t += len(trace_kbps)
         self.last_carry = EpisodeCarry(
             est=out.est, ref=out.ref,
@@ -1052,22 +1058,37 @@ class DeepStreamSystem:
     def _episode_logs(self, out: fleet_mod.EpisodeOut,
                       trace_kbps: np.ndarray) -> Dict[str, np.ndarray]:
         """The one harvest of an episode's stacked logs; a checked run
-        raises here on the first violated check (``fleet.CheckError``)."""
+        raises here on the first violated check (``fleet.CheckError``).
+        Span ``episode.harvest``: ``harvest.wait`` (the first fetch, where
+        the host waits for the card), ``harvest.logs`` (the rest of the
+        fetch and the logs) and, when the run took stage marks (tracing
+        active on the card), ``harvest.stamps`` (their fetch, the card
+        already done, and the slots' ``stage.*`` device spans)."""
         lam = self.cfg.lam()
-        packs = _d2h(out.packs, "harvest")
-        cpacks = _d2h(out.cpacks, "harvest")
-        if cpacks.shape[1] > 4:
-            fleet_mod.raise_failed(cpacks[:, 4:], fleet_mod.EPISODE_CHECKS,
-                                   run_level=1)
-        return {
-            "utility": packs[:, 0] @ lam,
-            "mean_f1": packs[:, 0].mean(axis=1),
-            "bytes": packs[:, 1].sum(axis=1),
-            "W": np.asarray(trace_kbps, float),
-            "extra": cpacks[:, 0].astype(float),
-            "area": cpacks[:, 1].astype(float),
-            "alloc_kbps": cpacks[:, 2].astype(float),
-        }
+        with trace.span("episode.harvest"):
+            with trace.span("harvest.wait"):
+                packs = _d2h(out.packs, "harvest")
+            with trace.span("harvest.logs"):
+                cpacks = _d2h(out.cpacks, "harvest")
+                if cpacks.shape[1] > 4:
+                    fleet_mod.raise_failed(cpacks[:, 4:],
+                                           fleet_mod.EPISODE_CHECKS,
+                                           run_level=1)
+                logs = {
+                    "utility": packs[:, 0] @ lam,
+                    "mean_f1": packs[:, 0].mean(axis=1),
+                    "bytes": packs[:, 1].sum(axis=1),
+                    "W": np.asarray(trace_kbps, float),
+                    "extra": cpacks[:, 0].astype(float),
+                    "area": cpacks[:, 1].astype(float),
+                    "alloc_kbps": cpacks[:, 2].astype(float),
+                }
+            if out.stamps is not None and trace.active():
+                with trace.span("harvest.stamps"):
+                    fleet_mod.record_stages(_d2h(out.stamps, "stamps"),
+                                            len(packs), out.t_start,
+                                            out.pipelined)
+        return logs
 
 
 # -- watchdog-supervised runs ---------------------------------------------------

@@ -16,10 +16,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from repro_torch.common import trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("edge_motion", "tx_codec", "knapsack_dp", "flash_decode",
-           "cc_label")
+           "cc_label", "stage_stamp")
 # no --use_fast_math: the kernels rely on IEEE division and round-to-even
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
@@ -46,7 +48,13 @@ def library_path(name: str) -> Path:
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Compile every named source whose library is missing, all ``nvcc``
-    processes at once; raises with the compiler's output on failure."""
+    processes at once (span ``kernels.build``); raises with the compiler's
+    output on failure."""
+    with trace.span("kernels.build"):
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
     for name in names:

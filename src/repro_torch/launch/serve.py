@@ -22,10 +22,13 @@ checkpoint and goes on)::
 
 The fleet is the JAX launcher's: ``SceneConfig(seed=33)`` (5 cameras,
 96 x 160, 10 frames a segment), ``eval_frames=3``, the capacity pinned at
-8000 Kbps, the committed detectors (``artifacts/detector_{light,
-server}``), the utility MLP of ``init_utility_mlp(PRNGKey(0))``,
-thresholds 10 / 50 Kbps and the linspace jcab table; the stream is
-``make_soak_stream(--stream-slots)``.  ``--source file:PATH`` tails a
+8000 Kbps (scaled by C / 5 above 5 cameras, as the soak stream is), the
+committed detectors (``artifacts/detector_{light, server}``), the
+utility MLP of ``init_utility_mlp(PRNGKey(0))``, thresholds 10 / 50 Kbps
+and the linspace jcab table; the stream is
+``make_soak_stream(--stream-slots)``.  ``--trace`` records the program's
+spans (``common.trace``) and prints each span's count, p50 and p95 in ms
+and each counter after the serving stats.  ``--source file:PATH`` tails a
 line-protocol file and ``--source HOST:PORT`` reads the protocol over TCP
 (``serve.ingest``: quarantine, slot sequencing, read backoff), one
 ``"<t> <kbps> <live-bits>"`` record per slot.  Without ``--device`` both
@@ -55,11 +58,41 @@ and rank 0 prints::
 from __future__ import annotations
 
 import argparse
+from typing import Dict, List
 
 import numpy as np
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.device import resolve_device
+
+# the launcher's pinned DP capacity at 5 cameras (the JAX launcher's)
+W_CAP_KBPS = 8000.0
+
+
+def span_summary() -> Dict[str, Dict[str, float]]:
+    """Per span name of the recorder: count, p50 and p95 in ms."""
+    by: Dict[str, List[float]] = {}
+    for sp in trace.spans():
+        by.setdefault(sp.name, []).append(sp.seconds)
+    return {name: {"n": len(v),
+                   "p50_ms": round(1e3 * float(np.percentile(v, 50)), 4),
+                   "p95_ms": round(1e3 * float(np.percentile(v, 95)), 4)}
+            for name, v in sorted(by.items())}
+
+
+def fleet_system_config(num_cameras: int, launched: bool = False):
+    """The launcher's episode-mode ``SystemConfig`` at ``num_cameras``:
+    scene seed 33, ``eval_frames=3`` and the DP capacity pinned at
+    ``W_CAP_KBPS`` x max(1, C / 5).  ``make_soak_stream`` scales its
+    bandwidth by C / 5, so at 16 cameras its diurnal peak plus the
+    elastic borrow passes 8000 Kbps, which the pin would refuse."""
+    from repro_torch.core.scheduler import SystemConfig
+    from repro_torch.data.synthetic import SceneConfig
+    return SystemConfig(scene=SceneConfig(seed=33, num_cameras=num_cameras),
+                        episode=True, eval_frames=3,
+                        w_cap_kbps=W_CAP_KBPS * max(1.0, num_cameras / 5),
+                        shard="on" if launched else "auto")
 
 
 def run_fleet_stream(args) -> None:
@@ -68,9 +101,9 @@ def run_fleet_stream(args) -> None:
     window by window, and print the serving stats."""
     from repro_torch.common import prng
     from repro_torch.core import utility as util_mod
-    from repro_torch.core.scheduler import DeepStreamSystem, SystemConfig
+    from repro_torch.core.scheduler import DeepStreamSystem
     from repro_torch.data.scenarios import make_soak_stream
-    from repro_torch.data.synthetic import DeviceScene, SceneConfig
+    from repro_torch.data.synthetic import DeviceScene
     from repro_torch.models.detector import load_detector
     from repro_torch.serve import ingest as ingest_mod
     from repro_torch.serve.stream import StreamConfig, StreamingFleetRunner
@@ -78,14 +111,14 @@ def run_fleet_stream(args) -> None:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.sharding import rules
 
+    if args.trace:
+        trace.enable()
     launched = mesh_mod.under_launcher()
     if launched:
         mesh_mod.init_distributed("cpu" if args.device == "cpu" else "cuda")
     dev = resolve_device(args.device)
-    scene_cfg = SceneConfig(seed=33, num_cameras=args.num_cameras)
-    sys_cfg = SystemConfig(scene=scene_cfg, episode=True, eval_frames=3,
-                           w_cap_kbps=8000.0,
-                           shard="on" if launched else "auto")
+    sys_cfg = fleet_system_config(args.num_cameras, launched)
+    scene_cfg = sys_cfg.scene
     system = DeepStreamSystem(sys_cfg, load_detector("light", dev),
                               load_detector("server", dev), device=dev)
     mesh = system.mesh
@@ -94,8 +127,8 @@ def run_fleet_stream(args) -> None:
     system.tau_wl, system.tau_wh = 10.0, 50.0
     system.jcab_table = np.linspace(0.2, 0.8, 18).reshape(6, 3).astype(
         np.float32)
-    trace, live = make_soak_stream(args.stream_slots,
-                                   num_cams=scene_cfg.num_cameras)
+    trace_kbps, live = make_soak_stream(args.stream_slots,
+                                        num_cams=scene_cfg.num_cameras)
     runner = StreamingFleetRunner(
         system, DeviceScene(scene_cfg, device=dev, mesh=mesh),
         method=args.method,
@@ -116,13 +149,18 @@ def run_fleet_stream(args) -> None:
             ing.pump(until_t=args.stream_slots, flush=True)
         else:
             t = runner.t_next
-            while t < len(trace):
-                t += runner.offer(trace[t:t + args.window_slots],
+            while t < len(trace_kbps):
+                t += runner.offer(trace_kbps[t:t + args.window_slots],
                                   faults=live[t:t + args.window_slots])
                 runner.serve()
             runner.serve(flush=True)
         say({k: round(v, 4) if isinstance(v, float) else v
              for k, v in runner.stats().items()})
+        if args.trace:
+            for name, row in span_summary().items():
+                say(f"# span {name} {row}")
+            for name, n in sorted(trace.counts().items()):
+                say(f"# count {name} {n}")
     if launched:
         mesh_mod.shutdown()
 
@@ -186,6 +224,9 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-keep", type=int, default=None,
                     help="retention: keep the newest N checkpoint "
                          "generations (never the newest valid one)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the fleet stream's spans and print each "
+                         "span's count, p50 and p95")
     ap.add_argument("--source", default=None,
                     help="hardened ingest source: file:PATH (tail a "
                          "line-protocol file) or HOST:PORT (TCP)")

@@ -63,7 +63,6 @@ Window lifecycle::
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -73,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.common import trace
 from repro_torch.core import elastic as elastic_mod
 from repro_torch.core import fleet as fleet_mod
 from repro_torch.core.scheduler import DeepStreamSystem, EpisodeCarry
@@ -163,8 +163,10 @@ class StreamingFleetRunner:
         self.duplicates = 0
         self.out_of_order = 0
         self.logs: Dict[str, List[float]] = {k: [] for k in LOG_KEYS}
-        self.window_walls: List[float] = []  # turnaround per served window
-        self.restore_s: List[float] = []     # seconds per successful restore
+        # turnaround per served window (span ``stream.turnaround``) and
+        # seconds per successful restore (span ``stream.restore``)
+        self.window_walls: List[float] = []
+        self.restore_s: List[float] = []
         self.events: List[Dict[str, Any]] = []
         self._queue: Deque[Tuple[float, np.ndarray]] = deque()
         self.watchdog = Watchdog(cfg.watchdog)
@@ -205,30 +207,31 @@ class StreamingFleetRunner:
         """Enqueue slots; returns how many were accepted.  Slots past the
         queue's free space are dropped and counted.  Non-finite or negative
         bandwidth is refused (ValueError) before anything reaches the
-        device: untrusted input goes through ``serve.ingest``."""
-        trace = np.asarray(trace_kbps, np.float64).reshape(-1)
-        if trace.size and (not np.all(np.isfinite(trace))
-                           or np.any(trace < 0.0)):
-            raise ValueError("offer() requires finite, non-negative "
-                             "bandwidth; route untrusted input through "
-                             "serve.ingest.StreamIngestor")
-        T = len(trace)
-        if faults is None:
-            live = np.ones((T, self._C), bool)
-        else:
-            live = np.asarray(faults, bool)
-            if live.shape != (T, self._C):
-                raise ValueError(f"faults mask must be (T={T}, C={self._C}),"
-                                 f" got {live.shape}")
-        room = max(0, self.cfg.queue_slots - len(self._queue))
-        take = min(room, T)
-        for i in range(take):
-            self._queue.append((float(trace[i]), live[i]))
-        if take < T:
-            self.dropped_slots += T - take
-            self.events.append({"kind": "drop", "slots": T - take,
-                                "queued": len(self._queue)})
-        return take
+        device: untrusted input goes through ``serve.ingest``.  Span
+        ``stream.offer``, of the window it feeds."""
+        with trace.span("stream.offer", window=self.window + 1):
+            W = np.asarray(trace_kbps, np.float64).reshape(-1)
+            if W.size and (not np.all(np.isfinite(W)) or np.any(W < 0.0)):
+                raise ValueError("offer() requires finite, non-negative "
+                                 "bandwidth; route untrusted input through "
+                                 "serve.ingest.StreamIngestor")
+            T = len(W)
+            if faults is None:
+                live = np.ones((T, self._C), bool)
+            else:
+                live = np.asarray(faults, bool)
+                if live.shape != (T, self._C):
+                    raise ValueError(f"faults mask must be (T={T}, "
+                                     f"C={self._C}), got {live.shape}")
+            room = max(0, self.cfg.queue_slots - len(self._queue))
+            take = min(room, T)
+            for i in range(take):
+                self._queue.append((float(W[i]), live[i]))
+            if take < T:
+                self.dropped_slots += T - take
+                self.events.append({"kind": "drop", "slots": T - take,
+                                    "queued": len(self._queue)})
+            return take
 
     # -- serving ---------------------------------------------------------------
 
@@ -254,55 +257,66 @@ class StreamingFleetRunner:
         return W, live
 
     def _serve_window(self, n: int) -> None:
-        W, live = self._take(n)
-        mesh = self.system.mesh
-        t0 = time.perf_counter()
-        self._pre_window()
-        logs = self._dispatch_window(W, live)
-        wall = time.perf_counter() - t0
-        if self.wall_hook is not None:
-            wall = self.wall_hook(self.window, wall)
-        preempted = None
-        if mesh is not None:
-            # the slowest rank's turnaround and any rank's preemption,
-            # read once: every rank takes the same rung and saves alike
-            _, (wall, flag) = rules.agree(
-                None, (wall, self.checkpointer.preempted), mesh,
-                self.system.device)
-            wall, preempted = float(wall), bool(flag)
-            if preempted:
-                self.checkpointer.preempted = True
-        self.carry = self.system.last_carry
-        for k in LOG_KEYS:
-            self.logs[k].extend(float(v) for v in logs[k])
-        self.window += 1
-        self.window_walls.append(wall)
-        self._supervise(wall)
-        if self.cfg.ckpt_dir is not None:
-            self.checkpointer.maybe_save(self.window, preempted=preempted)
+        """One window under the root span ``stream.window`` (its id: the
+        window count once it is served, the checkpoint's step):
+        ``stream.take``, ``stream.turnaround`` (the watchdog's wall:
+        ``stream.pre_window`` and the episodes), ``stream.supervise`` and
+        ``stream.checkpoint``."""
+        with trace.span("stream.window", window=self.window + 1):
+            with trace.span("stream.take"):
+                W, live = self._take(n)
+            mesh = self.system.mesh
+            with trace.timer("stream.turnaround") as turn:
+                self._pre_window()
+                logs = self._dispatch_window(W, live)
+            wall = turn.seconds
+            if self.wall_hook is not None:
+                wall = self.wall_hook(self.window, wall)
+            preempted = None
+            if mesh is not None:
+                # the slowest rank's turnaround and any rank's preemption,
+                # read once: every rank takes the same rung and saves alike
+                _, (wall, flag) = rules.agree(
+                    None, (wall, self.checkpointer.preempted), mesh,
+                    self.system.device)
+                wall, preempted = float(wall), bool(flag)
+                if preempted:
+                    self.checkpointer.preempted = True
+            self.carry = self.system.last_carry
+            for k in LOG_KEYS:
+                self.logs[k].extend(float(v) for v in logs[k])
+            self.window += 1
+            self.window_walls.append(wall)
+            with trace.span("stream.supervise"):
+                self._supervise(wall)
+            if self.cfg.ckpt_dir is not None:
+                with trace.span("stream.checkpoint"):
+                    self.checkpointer.maybe_save(self.window,
+                                                 preempted=preempted)
 
     def _pre_window(self) -> None:
-        """The window's fault hooks.  Under a camera mesh a hook that
-        raises on one rank raises on every rank (the others a
-        RuntimeError naming it) before any collective of the window, so
-        the ranks crash, and restore, together."""
-        mesh = self.system.mesh
-        err = None
-        try:
-            if self.fault_hook is not None:
-                self.fault_hook(window=self.window, rung=self.rung)
-            if self.chaos is not None:
-                # consumed-once: a recovered runner re-serving this window
-                # does not crash again
-                self.chaos.pre_window(self.window)
-        except Exception as e:
-            if mesh is None:
-                raise
-            err = e
-        if mesh is not None:
-            err, _ = rules.agree(err, (), mesh, self.system.device)
-            if err is not None:
-                raise err
+        """The window's fault hooks (span ``stream.pre_window``).  Under a
+        camera mesh a hook that raises on one rank raises on every rank
+        (the others a RuntimeError naming it) before any collective of
+        the window, so the ranks crash, and restore, together."""
+        with trace.span("stream.pre_window"):
+            mesh = self.system.mesh
+            err = None
+            try:
+                if self.fault_hook is not None:
+                    self.fault_hook(window=self.window, rung=self.rung)
+                if self.chaos is not None:
+                    # consumed-once: a recovered runner re-serving this
+                    # window does not crash again
+                    self.chaos.pre_window(self.window)
+            except Exception as e:
+                if mesh is None:
+                    raise
+                err = e
+            if mesh is not None:
+                err, _ = rules.agree(err, (), mesh, self.system.device)
+                if err is not None:
+                    raise err
 
     def _dispatch_window(self, W: np.ndarray, live: np.ndarray
                          ) -> Dict[str, np.ndarray]:
@@ -400,16 +414,18 @@ class StreamingFleetRunner:
         tree = self._carry_tree()
         if not rules.is_writer(self.system.mesh):
             return
-        meta = {"window": window, "t_next": int(self.t_next),
-                "t_first": int(self.carry.t_first), "rung": self.rung,
-                "ok_streak": self.ok_streak,
-                "dropped_slots": self.dropped_slots, "method": self.method,
-                "quarantined": dict(self.quarantined),
-                "quarantined_slots": self.quarantined_slots,
-                "gap_filled_slots": self.gap_filled_slots,
-                "duplicates": self.duplicates,
-                "out_of_order": self.out_of_order,
-                "logs": {k: list(v) for k, v in self.logs.items()}}
+        with trace.span("ckpt.meta"):
+            meta = {"window": window, "t_next": int(self.t_next),
+                    "t_first": int(self.carry.t_first), "rung": self.rung,
+                    "ok_streak": self.ok_streak,
+                    "dropped_slots": self.dropped_slots,
+                    "method": self.method,
+                    "quarantined": dict(self.quarantined),
+                    "quarantined_slots": self.quarantined_slots,
+                    "gap_filled_slots": self.gap_filled_slots,
+                    "duplicates": self.duplicates,
+                    "out_of_order": self.out_of_order,
+                    "logs": {k: list(v) for k, v in self.logs.items()}}
         # the file holds the run key as the JAX package does: uint32
         self.saver.save(tree, self._ckpt_path(window),
                         step=window, metadata=meta,
@@ -428,7 +444,13 @@ class StreamingFleetRunner:
         them."""
         if self.cfg.ckpt_dir is None:
             return False
-        t0 = time.perf_counter()
+        with trace.timer("stream.restore") as tm:
+            ok = self._restore()
+        if ok:
+            self.restore_s.append(tm.seconds)
+        return ok
+
+    def _restore(self) -> bool:
         tree = meta = path = None
         for cand in reversed(ckpt.generations(self.cfg.ckpt_dir)):
             try:
@@ -460,7 +482,6 @@ class StreamingFleetRunner:
         self.logs = {k: [float(v) for v in meta["logs"].get(k, [])]
                      for k in LOG_KEYS}
         self.checkpointer.last_saved = self.window
-        self.restore_s.append(time.perf_counter() - t0)
         self.events.append({"kind": "restore", "path": str(path),
                             "window": self.window, "t_next": self.t_next})
         return True

@@ -88,7 +88,8 @@ def test_pipelined_run_matches_jax(systems, method):
     harness.assert_logs_match(want, got, ctx=f"pipelined {method}")
     assert np.all((got["mean_f1"] >= 0) & (got["mean_f1"] <= 1))
     np.testing.assert_array_equal(got["W"], want["W"])
-    assert fetches == {"harvest": 2 * T, "keep": 0, "control": 0}
+    assert fetches == {"harvest": 2 * T, "keep": 0, "control": 0,
+                       "stamps": 0}
 
 
 @pytest.mark.parametrize("method", ["deepstream", "reducto"])
@@ -110,7 +111,8 @@ def test_batched_host_alloc_matches_jax(systems, method):
     want, got, fetches = _run_pair(systems("batched"), method, _trace(T))
     harness.assert_logs_match(want, got, ctx=f"host alloc {method}")
     assert fetches == {"harvest": T, "keep": 0,
-                       "control": T if method == "deepstream" else 0}
+                       "control": T if method == "deepstream" else 0,
+                       "stamps": 0}
 
 
 @pytest.mark.parametrize("method", ["deepstream", "reducto"])
@@ -121,7 +123,7 @@ def test_sequential_run_matches_jax(systems, method):
     C = 3
     assert fetches == {
         "harvest": 0, "keep": C * T if method == "reducto" else 0,
-        "control": T if method == "deepstream" else 0}
+        "control": T if method == "deepstream" else 0, "stamps": 0}
 
 
 @pytest.mark.parametrize("method", ["deepstream", "reducto"])
