@@ -30,7 +30,11 @@ JAX.  In order it prints:
      and full masks, serpentines at 12 x 20 and 68 x 120 and random masks
      at 68 x 120; tx_codec bitwise at the profiling sweep's shape
      (30, 10, 96, 160): a profiled slot's 5 cameras x 3 resolutions x
-     masked/full, at each of the 6 bitrates;
+     masked/full, at each of the 6 bitrates; threefry_normal
+     (``prng.normal`` and ``prng.normal_erfinv`` of CUDA keys, one launch
+     each) bitwise against the torch code on the CPU and on the card at
+     the fleet's (16 keys, (10, 96, 160)), one () key over 1001 values,
+     (3,) keys over (3, 5, 7) and one value a key;
   3b. the offline profile at full width (``SystemConfig(eval_frames=5)``,
      C = 5, 96 x 160, 10 frames, 6 bitrates, 3 resolutions) on
      ``MultiCameraScene(SceneConfig(seed=42))``, 8 slots and 700 fit
@@ -115,7 +119,7 @@ JAX.  In order it prints:
      scaled_dot_product_attention's as the library yardstick), tagged with
      the card and power limit; the kernel times are taken first, right
      after the build, in two passes (``kernel_time_records``): the
-     one-kernel windows of all five kernels, then the plain versions' and
+     one-kernel windows of all six kernels, then the plain versions' and
      the library calls' windows, so that no profiled phase and no plain
      version's window thins their CUPTI records: each one-kernel window
      must record all 100 of its launches (one that does not is taken
@@ -125,13 +129,16 @@ JAX.  In order it prints:
      chain; tx_codec at (5, 10, 96, 160) and at the sweep's (30, 10, 96,
      160); knapsack_dp's fused solve at I = 5, 16 and 1 with its kernels
      per solve (one), and the sweep alone; cc_label at the C = 5 and 16
-     scene masks and at 68 x 120; and ``run()`` of deepstream on a host
+     scene masks and at 68 x 120; threefry_normal at the fleet's (16
+     keys, (10, 96, 160)) against its bytes and its operations; and
+     ``run()`` of deepstream on a host
      scene beside the same run on a ``DeviceScene`` (in turns);
   9. each replayed episode of phase 4 once more under the profiler: its
      kernels as the card recorded them (CUPTI kernel records counted by
      name; a replay runs the kernels without their wrappers) must be T per
-     kernel of the method's path and none of the others, and 7 T + 2
-     stage_stamp marks, with no wrapper call; the C=5, T=8 counts go into the kernel records; then one
+     kernel of the method's path and none of the others, 7 T + 2
+     stage_stamp marks and 2 T threefry_normal draws, with no wrapper
+     call; the C=5, T=8 counts go into the kernel records; then one
      8-slot window of the stream per method, counted the same way;
  10. training (no hand-written kernel on its path: every launch counter
      stays 0 in the trainers): (a) the light detector trained on the
@@ -910,6 +917,96 @@ def tx_codec_record(torch, dev, tag: str) -> dict:
             "at_shape": {str(tuple(sw_frames.shape)): out["sweep "]}}
 
 
+# the threefry normal draw's cases: (key batch, draw shape) of
+# tests/test_torch_prng_kernel.py: the fleet's (16 cameras, one slot's
+# frames), one () key over an odd count, (3,) keys over (3, 5, 7), one
+# value a key; the first is timed
+TF_CASES = (((16,), (10, 96, 160)), ((), (1001,)), ((3,), (3, 5, 7)),
+            ((), (1,)), ((5,), ()))
+
+
+def tf_keys(torch, dev, batch, seed: int = 2 ** 31 + 77):
+    """Keys (*batch, 2) folded from one seed, made on the CPU."""
+    from repro_torch.common import prng
+    k = prng.fold_in(prng.PRNGKey(seed), torch.arange(math.prod(batch)))
+    return k.reshape(tuple(batch) + (2,)).to(dev)
+
+
+def tf_plain(keys, shape, scaled: bool):
+    """``prng``'s torch code (the CPU's route) on ``keys`` wherever they
+    lie: the plain version of the threefry_normal kernel."""
+    from repro_torch.common import prng
+    e = prng.erf_inv(prng.uniform(keys, shape, prng._LO, 1.0))
+    return e * prng.SQRT2 if scaled else e
+
+
+def check_threefry_normal(torch, dev) -> float:
+    """``prng.normal`` and ``prng.normal_erfinv`` of CUDA keys (one
+    threefry_normal launch each) against the torch code on the CPU and on
+    the card, bitwise, at TF_CASES.  Returns the worst |diff|."""
+    from repro_torch.common import prng
+    from repro_torch.kernels.threefry_normal import ops as tf_ops
+    worst = 0.0
+    for batch, shape in TF_CASES:
+        keys = tf_keys(torch, "cpu", batch)
+        for name, scaled in (("normal", True), ("normal_erfinv", False)):
+            before = tf_ops.LAUNCHES
+            got = getattr(prng, name)(keys.to(dev), shape)
+            torch.cuda.synchronize()
+            if tf_ops.LAUNCHES != before + 1:
+                raise AssertionError(f"prng.{name} on the card is not one "
+                                     "threefry_normal launch")
+            got = got.cpu()
+            cpu = tf_plain(keys, shape, scaled)
+            card = tf_plain(keys.to(dev), shape, scaled).cpu()
+            err = float((got - cpu).abs().max())
+            worst = max(worst, err)
+            same = (torch.equal(got.view(torch.int32), cpu.view(torch.int32))
+                    and torch.equal(card.view(torch.int32),
+                                    cpu.view(torch.int32)))
+            print(f"threefry_normal vs plain {name} keys {tuple(batch)} "
+                  f"shape {shape}: max |diff| {err}, bits equal to the "
+                  f"torch code's on the CPU and on the card: {same}")
+            if not same:
+                raise AssertionError("threefry_normal differs from its "
+                                     "plain version")
+    return worst
+
+
+def threefry_normal_record(torch, dev, tag: str) -> dict:
+    """The draw's time at the fleet's shape (TF_CASES[0], ``prng.normal``)
+    beside its plain version and its bound: the larger of the bytes (keys
+    read once, values written once) over the HBM rate and the operations
+    (``ops.OPS_PER_VALUE`` a value) over the float32 rate, both printed."""
+    from repro_torch.common import prng
+    from repro_torch.kernels.threefry_normal import ops as tf_ops
+    batch, shape = TF_CASES[0]
+    keys = tf_keys(torch, dev, batch)
+    ms, plain_ms, stream_ms, plain_stream_ms = kernel_times(
+        torch, lambda: prng.normal(keys, shape),
+        lambda: tf_plain(keys, shape, True), "threefry_normal_kernel")
+    ops, nbytes = tf_ops.cost(math.prod(batch), math.prod(shape))
+    bound_ms, bound_by = bound(nbytes, ops)
+    bytes_ms, ops_ms = bound(nbytes, 0)[0], bound(0, ops)[0]
+    print(f"kernel threefry_normal {tuple(batch)} x {shape}: "
+          f"{ms * 1e3:.2f} us on the card ({stream_ms * 1e3:.2f} us per call "
+          f"back to back), plain {plain_ms * 1e3:.2f} us "
+          f"({plain_stream_ms * 1e3:.2f} us); bound {bound_ms * 1e3:.4f} us "
+          f"({bound_by}; {100 * bound_ms / ms:.1f}% of it): bytes "
+          f"{bytes_ms * 1e3:.4f} us ({nbytes} B), operations "
+          f"{ops_ms * 1e3:.4f} us ({ops}) {tag}")
+    return {"name": "threefry_normal", "route": "cuda",
+            "source": "src/repro_torch/csrc/threefry_normal.cu",
+            "replaces": "jax.random.normal, XLA-fused "
+                        "(src/repro/data/synthetic.py:381, "
+                        "src/repro/kernels/tx_codec/ops.py:33)",
+            "shape": [*batch, *shape], "ms": ms, "plain_ms": plain_ms,
+            "stream_ms": stream_ms, "plain_stream_ms": plain_stream_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "library_ms": None}
+
+
 def scene_motion_masks(torch, dev, bs: int, thr: float) -> dict:
     """ROIDet's motion masks of slot 3 of the C = 5 and 16 scenes (seed
     7): what cc_label labels on the main path."""
@@ -931,7 +1028,7 @@ def scene_motion_masks(torch, dev, bs: int, thr: float) -> dict:
 
 def kernel_time_records(torch, dev, tag: str) -> list:
     """Phase 8's kernel times, taken first in the run: every kernel's
-    record in two passes, the one-kernel windows of all five kernels
+    record in two passes, the one-kernel windows of all six kernels
     (each held to all of its launches) before any other profiler window,
     then the plain versions' and the library calls' windows; each pass
     leaves the other's numbers NaN, and the two are merged."""
@@ -945,7 +1042,8 @@ def kernel_time_records(torch, dev, tag: str) -> list:
                 flash_decode_record(torch, dev, tag),
                 cc_label_record(torch, dev, cc_cases(
                     torch, dev, scene_motion_masks(torch, dev, bs, thr)),
-                    tag)]
+                    tag),
+                threefry_normal_record(torch, dev, tag)]
     PART = "kernel"
     first = records()
     again = [w for w in WINDOWS if w[1] != w[2]]
@@ -1224,13 +1322,22 @@ def event_ms(torch, run) -> float:
 KERNEL_NAMES = {"edge_motion": "edge_motion_kernel",
                 "tx_codec": "tx_codec_kernel", "knapsack_dp": "knapsack_dp_",
                 "flash_decode": "fd_kernel", "cc_label": "cc_label_kernel",
-                "stage_stamp": "stage_stamp_kernel"}
+                "stage_stamp": "stage_stamp_kernel",
+                "threefry_normal": "threefry_normal_kernel"}
 
 
 def stamp_launches(T: int, pipelined: bool = True) -> int:
     """stage_stamp_kernel launches of a replayed T-slot episode: 7 marks a
     ``full{p}`` or ``step`` replay, 2 the pipelined body's drain."""
     return 7 * T + (2 if pipelined else 0)
+
+
+def every_slot_launches(T: int) -> dict:
+    """The launches of a replayed T-slot pipelined episode that every
+    method makes: the stage marks, and two threefry normal draws a slot
+    (the scene's noise at synthesis, the codec's at encode; none in the
+    drain)."""
+    return {"stage_stamp": stamp_launches(T), "threefry_normal": 2 * T}
 
 
 def check_stage_stamp(torch, dev) -> int:
@@ -4409,6 +4516,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.knapsack_dp import ops as dp_ops
     from repro_torch.kernels.knapsack_dp import ref as dp_ref
+    from repro_torch.kernels.threefry_normal import ops as tf_ops
     from repro_torch.kernels.tx_codec import ops as tx_ops
     from repro_torch.kernels.tx_codec import ref as tx_ref
     from repro_torch.models.detector import load_detector
@@ -4451,6 +4559,8 @@ def main(argv=None) -> int:
           "times")
     kernel_records = kernel_time_records(torch, dev, tag)
     print_kernel_times(kernel_records, tag)
+    # the draw's record is finished apart: no phase counts its wrapper
+    tf_record = kernel_records.pop()
 
     # -- 3. kernels vs their plain versions on the card -----------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 3: kernels vs plain")
@@ -4571,6 +4681,7 @@ def main(argv=None) -> int:
     worst["cc_label"] = check_cc_label(torch, dev, cc_parity)
     sweep_err = check_tx_codec_sweep(torch, dev)
     worst["tx_codec"] = max(worst["tx_codec"], sweep_err)
+    tf_record["max_abs_err"] = check_threefry_normal(torch, dev)
 
     # -- 3b-3d. the offline profile at full width, whose artifacts every
     # later phase runs on; the control scan; Fig. 3 ----------------------
@@ -4675,7 +4786,7 @@ def main(argv=None) -> int:
                                 g.run_episode(scene_of(g), tr, m),
                                 {k: T if k in needs(method) else 0
                                  for k in counters}
-                                | {"stage_stamp": stamp_launches(T)}))
+                                | every_slot_launches(T)))
                 eager = e_sys._episode_logs(e_sys._episode_dispatch(
                     scene_of(e_sys), tr, method, _eager=True), tr)
                 same_logs(eager, logs, f"episode {method} C={C} T={T} graph "
@@ -4766,6 +4877,7 @@ def main(argv=None) -> int:
     # -- 5. run(), pipelined, four methods -------------------------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 5: run()")
     launches_run = dict.fromkeys(counters, 0)
+    tf_before = tf_ops.LAUNCHES
     run_logs = {}
     for method in METHODS:
         scene = DeviceScene(gpu_sys.cfg.scene, device=dev)
@@ -4835,6 +4947,7 @@ def main(argv=None) -> int:
     if "cuda" in backtracks:
         raise AssertionError("a device solve on the card took the plain "
                              "backtrack")
+    tf_record["launches"] = tf_ops.LAUNCHES - tf_before
     if launches_run["edge_motion"] != 2 * T_SLOTS:
         raise AssertionError(f"run(): edge_motion launched "
                              f"{launches_run['edge_motion']} times, not "
@@ -4945,12 +5058,13 @@ def main(argv=None) -> int:
         if C == 5 and T == T_SLOTS:
             for k in counters:
                 launches_episode[k] += n[k]
+            tf_record["launches_episode"] = tf_record.get(
+                "launches_episode", 0) + n["threefry_normal"]
     # one window of the stream per method (C=5, 8 slots), replayed
     launches_stream = dict.fromkeys(counters, 0)
     for method, (r, tr, lv) in stream_runners.items():
         want = {k: STREAM_WINDOW if k in needs(method) else 0
-                for k in counters} | {
-                    "stage_stamp": stamp_launches(STREAM_WINDOW)}
+                for k in counters} | every_slot_launches(STREAM_WINDOW)
         reset_counts()
         n = recorded_launches(torch, lambda r=r, tr=tr, lv=lv: stream_window(
             r, tr, lv), want, f"stream {method} window")
@@ -4963,6 +5077,8 @@ def main(argv=None) -> int:
               + ", wrapper calls 0")
         for k in counters:
             launches_stream[k] += n[k]
+        tf_record["launches_stream"] = tf_record.get(
+            "launches_stream", 0) + n["threefry_normal"]
     # -- 10. training: the detectors' trainer, granite-8b, the launcher
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 10: training")
     t_new = time.perf_counter()
@@ -4973,7 +5089,7 @@ def main(argv=None) -> int:
             device=dev), arts, 5),
         scene_of, trace, episode_logs["deepstream"],
         {k: T_SLOTS if k in needs("deepstream") else 0 for k in counters}
-        | {"stage_stamp": stamp_launches(T_SLOTS)})
+        | every_slot_launches(T_SLOTS))
     print(f"phase 10 (training): {time.perf_counter() - t_new:.1f} s")
     # -- 11. the other LM families and the int8 cache, serving and
     # training
@@ -5108,7 +5224,7 @@ def main(argv=None) -> int:
 
     print(f"chip_smoke wall time: {time.perf_counter() - t_begin:.1f} s "
           f"{tag}")
-    print(json.dumps({"kernels": records}, allow_nan=False))
+    print(json.dumps({"kernels": records + [tf_record]}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -120,6 +120,7 @@ def kernel_calls() -> List[Tuple[object, str]]:
     from repro_torch.kernels.edge_motion import ops as em_ops
     from repro_torch.kernels.knapsack_dp import ops as dp_ops
     from repro_torch.kernels.stage_stamp import ops as stamp_ops
+    from repro_torch.kernels.threefry_normal import ops as tf_ops
     from repro_torch.kernels.tx_codec import ops as tx_ops
     return [(cc_ops.ref, "cc_label_ref"), (tx_ops.ref, "tx_codec_ref"),
             (em_ops.ref, "segment_motion_ref"),
@@ -127,7 +128,8 @@ def kernel_calls() -> List[Tuple[object, str]]:
             (stamp_ops, "stamp_ref"),
             (cc_ops, "cc_label_cuda"), (tx_ops, "tx_codec_cuda"),
             (em_ops, "_launch"), (dp_ops, "knapsack_dp_cuda"),
-            (dp_ops, "knapsack_dp_solve_cuda"), (stamp_ops, "stamp_cuda")]
+            (dp_ops, "knapsack_dp_solve_cuda"), (stamp_ops, "stamp_cuda"),
+            (tf_ops, "threefry_normal_cuda")]
 
 
 @contextlib.contextmanager

@@ -22,6 +22,11 @@ takes batched keys: a leading key shape broadcasts over the draw.
 correctly rounded sqrt only, so the draws are the same bits on the CPU and
 on the card (a library ``log1p`` differs between the two, and
 ``torch.special.erfinv`` differs from XLA's expansion in most inputs).
+
+``normal`` and ``normal_erfinv`` of CUDA keys are one launch of the
+threefry_normal kernel (``kernels/threefry_normal``), which repeats this
+module's arithmetic operation by operation; CPU keys take the torch code
+here, fake keys the kernel's stand-in.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from typing import Sequence, Union
 
 import numpy as np
 import torch
+
+from repro_torch.common.device import is_fake
 
 MASK = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
@@ -117,10 +124,15 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    # the bounds in float32, as kernel arguments (nothing is uploaded)
-    lo = _f32(minval)
-    span = float(np.float32(maxval) - np.float32(lo))
+    lo, span = _bounds(minval, maxval)
     return torch.clamp(floats * span + lo, min=lo)
+
+
+def _bounds(minval: float, maxval: float):
+    """``uniform``'s lower bound and span in float32, as kernel arguments
+    (nothing is uploaded)."""
+    lo = _f32(minval)
+    return lo, float(np.float32(maxval) - np.float32(lo))
 
 
 # XLA's float32 erf_inv (Giles' single-precision polynomial), Horner order
@@ -234,9 +246,25 @@ def normal_erfinv(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     ``SQRT2``.  XLA folds a constant scale into the ``SQRT2`` factor
     (``c * normal`` becomes ``(c * SQRT2) * erf_inv(u)``), so callers that
     scale by a constant need the unscaled draw to match it."""
-    return erf_inv(uniform(key, shape, _LO, 1.0))
+    return _normal(key, shape, scaled=False)
 
 
 def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: key (..., 2) -> (..., *shape)."""
-    return normal_erfinv(key, shape) * SQRT2
+    return _normal(key, shape, scaled=True)
+
+
+def _normal(key: torch.Tensor, shape: Shape, scaled: bool) -> torch.Tensor:
+    """The draw by where the key lies: the torch code above on the CPU, one
+    launch of the threefry_normal kernel (the same bits) on the card, its
+    stand-in on fake tensors."""
+    shape = _shape(shape)
+    fake = is_fake(key)
+    if not fake and key.device.type != "cuda":
+        e = erf_inv(uniform(key, shape, _LO, 1.0))
+        return e * SQRT2 if scaled else e
+    from repro_torch.kernels.threefry_normal import ops
+    if fake:
+        return ops.threefry_normal_stand_in(key, shape)
+    return ops.threefry_normal_cuda(key.contiguous(), shape,
+                                    *_bounds(_LO, 1.0), scaled)

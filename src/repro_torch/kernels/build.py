@@ -21,7 +21,7 @@ from repro_torch.common import trace
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("edge_motion", "tx_codec", "knapsack_dp", "flash_decode",
-           "cc_label", "stage_stamp")
+           "cc_label", "stage_stamp", "threefry_normal")
 # no --use_fast_math: the kernels rely on IEEE division and round-to-even
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")

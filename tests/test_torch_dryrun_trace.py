@@ -497,7 +497,8 @@ def test_manifest_entries_carry_jax_fields(traced_manifest):
             "peak_estimate_bytes"] >= e["memory"]["argument_bytes"] > 0
         assert e["cost"]["bytes accessed"] > 0
     assert traced_manifest["slot_step/unified"]["launches"] == {
-        "edge_motion": 1, "cc_label": 1, "knapsack_dp": 1, "tx_codec": 1}
+        "edge_motion": 1, "cc_label": 1, "knapsack_dp": 1, "tx_codec": 1,
+        "threefry_normal": 2}
 
 
 def test_donated_inputs_are_jax_donated_indices(traced_manifest):
