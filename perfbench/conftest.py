@@ -1,5 +1,6 @@
 """Fixtures of the benchmark's CPU tests: a cell cut to a size the CPU
-runs in seconds (2 cameras, windows of 2 slots, a sample of 3 windows)."""
+runs in seconds (2 cameras, windows of 2 slots, a sample of 3 windows,
+one window of each part of a traced run)."""
 import copy
 import sys
 from pathlib import Path
@@ -23,6 +24,7 @@ def tiny(cell, cameras: int = 2):
     cfg["check"].update(windows=3, first_windows=1)
     cell.config = cfg
     traffic = dict(cell.traffic)
+    traffic["span_windows"] = 1
     traffic["trace_windows"] = 1
     cell.traffic = traffic
     return cell

@@ -1,7 +1,8 @@
 """Bytes and operations of the port's hand-written kernels at a launch's
-shape: the arithmetic behind ``chip_smoke.py``'s bounds, copied so that
-the yardstick stays with the benchmark.  Each input byte is read once and
-each output byte written once.
+shape, in that order: the arithmetic behind ``chip_smoke.py``'s bounds and
+``kernels/threefry_normal/ops.py::cost`` (which returns operations, then
+bytes), copied so that the yardstick stays with the benchmark.  Each
+input byte is read once and each output byte written once.
 
 Kernels are found in the card's records by these name fragments; a launch
 shape comes from the driver, which knows the configuration it runs.
@@ -18,6 +19,7 @@ KERNEL_NAMES: Dict[str, str] = {
     "tx_codec": "tx_codec_kernel",
     "knapsack_dp": "knapsack_dp_",
     "cc_label": "cc_label_kernel",
+    "threefry_normal": "threefry_normal_kernel",
 }
 
 
@@ -51,9 +53,22 @@ def cc_label(C: int, M: int, N: int, passes: int = 1) -> Tuple[int, int]:
     return 5 * C * M * N, 5 * passes * C * M * N
 
 
+# operations a value of the threefry normal draw: the threefry2x32 rounds,
+# the mantissa trick, erf_inv's log1p/log branch and its polynomial
+THREEFRY_OPS_PER_VALUE = 140
+
+
+def threefry_normal(num_keys: int, n: int) -> Tuple[int, int]:
+    """One normal draw of ``n`` values under each of ``num_keys`` keys: the
+    keys read once (16 bytes each), the float32 values written once."""
+    return (16 * num_keys + 4 * num_keys * n,
+            THREEFRY_OPS_PER_VALUE * num_keys * n)
+
+
 COST: Dict[str, Callable[..., Tuple[int, int]]] = {
     "edge_motion": edge_motion, "tx_codec": tx_codec,
-    "knapsack_dp": knapsack_dp, "cc_label": cc_label}
+    "knapsack_dp": knapsack_dp, "cc_label": cc_label,
+    "threefry_normal": threefry_normal}
 
 
 def launch_bound_s(kernel: str, shape) -> float:

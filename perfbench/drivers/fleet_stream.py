@@ -2,14 +2,19 @@
 ``repro_torch.serve.stream`` as ``repro_torch.launch.serve --fleet-stream``
 runs it.
 
-Set-up builds the configuration's system (the committed detectors, the
-utility MLP from ``PRNGKey(0)``, thresholds, the linspace jcab table) and
-its ``StreamingFleetRunner`` with checkpoints at every window into a fresh
-directory under the run's temporary directory, then serves the warm-up
-windows, which capture the episode's CUDA graphs.  The measured window is
+Set-up builds the configuration's system (the committed light detector,
+the server detector from the builder that the configuration's
+``detectors.server_program`` names, the utility MLP from ``PRNGKey(0)``,
+thresholds, the linspace jcab table) and its ``StreamingFleetRunner`` with
+checkpoints at every window into a fresh directory under the run's
+temporary directory, then serves the warm-up windows, which capture the
+episode's CUDA graphs.  The measured window is
 a closed loop of one producer: offer ``window_slots`` slots of the traffic
 stream, ``serve()``, repeat, until ``--seconds`` have passed.  A traced
-run then serves ``trace_windows`` more windows under the profiler.
+run then serves ``span_windows`` more windows with the program's span
+recorder on and no profiler, whose host spans are the untraced program's,
+and ``trace_windows`` more under the profiler, whose device trace and
+stage marks the per-layer readers take (``perfbench/core/spans.py``).
 
 After the window the program's state is freed, and the served logs of a
 sample of windows drawn from the seed are held to
@@ -18,6 +23,7 @@ sample of windows drawn from the seed are held to
 from __future__ import annotations
 
 import gc
+import importlib
 import math
 import shutil
 import tempfile
@@ -29,6 +35,7 @@ import numpy as np
 
 from perfbench.core import devtrace
 from perfbench.core.bench import ROOT, Cell, Check, Outcome, Readings
+from perfbench.core.spans import HOST, PROFILED, Recorded
 from perfbench.core.traffic import make_stream
 from perfbench.reference import fleet as ref_fleet
 
@@ -38,6 +45,16 @@ LOG_KEYS = ref_fleet.LOG_KEYS
 def stream_seed(seed: int) -> int:
     """The run's seed as the scene's and the stream's seed: a uint32."""
     return int(seed) % (2 ** 32)
+
+
+def server_detector(config: Dict, device):
+    """The program's server detector: the builder that
+    ``detectors.server_program`` names (``"module:function"``), called
+    with ``device=`` and ``detectors.server_program_args`` as keywords."""
+    det = config["detectors"]
+    module, _, fn = det["server_program"].partition(":")
+    builder = getattr(importlib.import_module(module), fn)
+    return builder(device=device, **det.get("server_program_args", {}))
 
 
 def build(cell: Cell, seed: int, device):
@@ -73,7 +90,7 @@ def build(cell: Cell, seed: int, device):
         episode_buckets=tuple(sy["episode_buckets"]),
         w_cap_kbps=float(sy["w_cap_kbps"]), checked=sy["checked"])
     system = DeepStreamSystem(sys_cfg, load_detector("light", dev),
-                              load_detector("server", dev), device=dev)
+                              server_detector(cfg, dev), device=dev)
     ctl = cfg["control"]
     system.mlp = util_mod.init_utility_mlp(
         prng.PRNGKey(int(ctl["utility_mlp_seed"]), device=dev))
@@ -144,8 +161,9 @@ def reference_logs(cell: Cell, seed: int, device, stream: Stream,
     area)."""
     import torch
     dtype = torch.float32 if detector_dtype is None else detector_dtype
-    ref = ref_fleet.FleetReference(cell.config, stream_seed(seed), device,
-                                   ROOT / "artifacts", dtype)
+    ref = ref_fleet.FleetReference(
+        cell.config, stream_seed(seed), device, ROOT / "artifacts", dtype,
+        detectors_dir=cell.bench_dir / "reference" / "detectors")
     C = ref.spec.num_cameras
     dev = ref.device
     est = ref_fleet.elastic_init(dev)
@@ -243,6 +261,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     """One run of a fleet stream cell (``max_windows`` caps the measured
     window's length, for tests on the CPU)."""
     import torch
+    from repro_torch.common import trace as recorder
     from repro_torch.core import fleet as fleet_mod
 
     tr = cell.traffic
@@ -274,7 +293,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         "knapsack_dp": (C, len(cfg["codec"]["bitrates_kbps"]),
                         ref_fleet.dp_capacity(ref_fleet.FleetSpec.of(cfg))
                         + 1),
-        "cc_label": (C, H // bs, W // bs)}
+        "cc_label": (C, H // bs, W // bs),
+        # synthesis's and encode's draws: a key a camera, (N, H, W) each
+        "threefry_normal": (C, N * H * W)}
     pos = {"t": 0, "windows": 0, "attempted": 0, "failed": 0}
 
     def step() -> int:
@@ -330,26 +351,43 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
             runner.saver.write_s[writes0:],
             sum(g["collections"] for g in gc.get_stats()) - gc_before))
         if trace:
-            traced = []
+            # the recorder holds this run's parts alone; each part's window
+            # ids tell the readers which spans are whose
+            parts = {HOST: [], PROFILED: []}
+            rd.counters["span_windows"] = parts
+            recorder_was_on = recorder.active()
+            recorder.clear()
+            recorder.enable()
+            try:
+                served_in = []
+                for _ in range(int(tr.get("span_windows", 0))):
+                    served_in.append(step())
+                    parts[HOST].append(runner.window)
+                traced = []
 
-            def span():
-                for _ in range(int(tr["trace_windows"])):
-                    with torch.profiler.record_function(
-                            "perfbench.offer+serve"):
-                        traced.append(step())
+                def span():
+                    for _ in range(int(tr["trace_windows"])):
+                        with torch.profiler.record_function(
+                                "perfbench.offer+serve"):
+                            traced.append(step())
+                        parts[PROFILED].append(runner.window)
 
-            if on_card:
-                rd.device = devtrace.profiled(torch, span)
-                rd.notes.append(conv_note(rd.device))
-            else:
-                span()
+                if on_card:
+                    rd.device = devtrace.profiled(torch, span)
+                    rd.notes.append(conv_note(rd.device))
+                else:
+                    span()
+            finally:
+                recorder.enable(recorder_was_on)
             rd.counters["trace_slots"] = sum(traced)
-            pos["attempted"] += len(traced)
-            pos["failed"] += sum(x < n for x in traced)
+            pos["attempted"] += len(served_in) + len(traced)
+            pos["failed"] += sum(x < n for x in served_in + traced)
         peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
     finally:
-        runner.close()
+        runner.close()      # waits for the last checkpoint write
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if trace:
+        rd.counters["span_recorder"] = Recorded(recorder.spans())
     logs = {k: list(v) for k, v in runner.logs.items()}
     rd.counters["program_area"] = logs["area"]
     # free the program's state before the reference runs

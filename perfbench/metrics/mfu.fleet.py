@@ -1,7 +1,8 @@
-"""mfu.fleet: the detectors' convolution FLOPs of every camera-slot served
-in the measured window, over the window's seconds and the card's peak in
-the precision the convolutions ran in (TF32 where cuDNN may use it, else
-float32), in %."""
+"""mfu.fleet: the detectors' FLOPs (the light detector's and the
+configuration's server detector's, ``perfbench/core/flops.py``) of every
+camera-slot served in the measured window, over the window's seconds and
+the card's peak in the precision the convolutions ran in (TF32 where
+cuDNN may use it, else float32), in %."""
 from perfbench.core.flops import fleet_slot_flops
 from perfbench.core.peaks import FLOPS_PER_S
 
@@ -13,5 +14,5 @@ def read(rd):
         return None
     peak = FLOPS_PER_S["tf32" if rd.counters.get("cudnn_allow_tf32")
                        else "float32"]
-    return 100.0 * fleet_slot_flops(rd.cell.config) * cam_slots / window \
-        / peak
+    flops = fleet_slot_flops(rd.cell.config, rd.cell.bench_dir)
+    return 100.0 * flops * cam_slots / window / peak

@@ -1,9 +1,11 @@
 """stage_control_ms: p50 over the traced slots of the card's time in the
 slot's control (elastic update, utility table, knapsack DP): the interval
 between two of the episode graph's stage marks (``stage.control`` device
-spans)."""
-from perfbench.core.spans import span_p50_ms
+spans).
+
+Read in the run's profiled windows."""
+from perfbench.core.spans import PROFILED, span_p50_ms
 
 
 def read(rd):
-    return span_p50_ms(rd, "stage.control")
+    return span_p50_ms(rd, "stage.control", part=PROFILED)

@@ -5,7 +5,7 @@ A frozen copy, in plain PyTorch and numpy, of what one slot of the
 synthesis (``DeviceScene``), ROIDet (light detector, edge motion,
 connected components, box union), control (elastic update, utility MLP,
 knapsack DP), encode (the codec's blur, quantisation and noise) and finish
-(server detector, box decode, greedy F1).  It imports nothing of the
+(the server detector, its decode, greedy F1).  It imports nothing of the
 program: no CUDA graph, no hand-written kernel (each kernel's plain
 version is written out here), no pipelining, no camera mesh.  Every
 operation runs in the order of the program's eager reference body, so on
@@ -14,8 +14,10 @@ one device and in one precision the two give the same logs.
 Everything the program derives is worked out again here from the same
 inputs: the scene geometry from the seed, the threefry keys and draws, the
 utility MLP from ``PRNGKey(0)``, the codec tables and the DP capacity.
-The detector weights are read from the committed checkpoint files, which
-both sides read.
+The light detector's weights are read from the committed checkpoint files,
+which both sides read.  The server detector is the module of
+``perfbench/reference/detectors/`` that the configuration's
+``detectors.server_arch`` names, which loads its own parameters.
 
 ``detector_dtype`` is the precision of the two detectors' convolutions:
 float32 (what the configuration states) or, for the benchmark's control,
@@ -23,16 +25,18 @@ bfloat16.
 """
 from __future__ import annotations
 
-import json
 import math
-import zlib
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from perfbench.reference.detectors import server_module
+from perfbench.reference.detectors.conv4 import (  # noqa: F401
+    STRIDE, box_iou, decode_boxes, detector_forward, load_detector)
 
 # -- threefry2x32 keys and draws (jax.random's bits) --------------------------
 
@@ -418,104 +422,9 @@ def segment(spec: FleetSpec, sc: Scene, key: torch.Tensor, t: torch.Tensor
 
 
 # -- detectors ---------------------------------------------------------------
-
-STRIDE = 16
-_CONVS = ("c1", "c2", "c3", "c4", "head")
-
-
-def load_detector(path: Path, device) -> Dict[str, torch.Tensor]:
-    """A committed detector checkpoint (manifest + zlib leaves, kernels in
-    HWIO) -> float32 tensors, kernels in OIHW."""
-    path = Path(path)
-    manifest = json.loads((path / "manifest.json").read_text())
-    blobs: Dict[str, bytes] = {}
-    out = {}
-    for leaf, ent in manifest["leaves"].items():
-        name = leaf[2:-2]                       # "['c1']" -> "c1"
-        if ent.get("codec", "zlib") != "zlib":
-            raise ValueError(f"{path}: leaf {leaf} codec {ent['codec']}")
-        blob = blobs.setdefault(ent["file"],
-                                (path / ent["file"]).read_bytes())
-        raw = zlib.decompress(blob[ent["offset"]:ent["offset"]
-                                   + ent["nbytes"]])
-        a = np.frombuffer(raw, dtype=ent["dtype"]).reshape(ent["shape"])
-        a = a.astype(np.float32)
-        if name in _CONVS:
-            a = np.transpose(a, (3, 2, 0, 1))
-        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return out
-
-
-def _same_pad(size: int, k: int, stride: int) -> Tuple[int, int]:
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _conv(x, w, b, stride):
-    k = w.shape[-1]
-    ph, pw = _same_pad(x.shape[2], k, stride), _same_pad(x.shape[3], k, stride)
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, w, b, stride=stride)
-
-
-def detector_forward(params, frames: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """frames (B, H, W) -> raw grid (B, H/16, W/16, 5) in float32, the
-    convolutions computed in ``dtype``."""
-    p = params if dtype == torch.float32 else {
-        k: v.to(dtype) for k, v in params.items()}
-    x = frames[:, None].to(dtype)
-    for i in (1, 2, 3, 4):
-        x = torch.relu(_conv(x, p[f"c{i}"], p[f"b{i}"], 2))
-    y = _conv(x, p["head"], p["bh"], 1)
-    return y.permute(0, 2, 3, 1).to(torch.float32)
-
-
-def box_iou(a, b):
-    ax0, ay0, ax1, ay1 = a.unbind(-1)
-    bx0, by0, bx1, by1 = b.unbind(-1)
-    ix0 = torch.maximum(ax0[..., :, None], bx0[..., None, :])
-    iy0 = torch.maximum(ay0[..., :, None], by0[..., None, :])
-    ix1 = torch.minimum(ax1[..., :, None], bx1[..., None, :])
-    iy1 = torch.minimum(ay1[..., :, None], by1[..., None, :])
-    inter = torch.clamp(ix1 - ix0, min=0) * torch.clamp(iy1 - iy0, min=0)
-    area_a = torch.clamp((ax1 - ax0) * (ay1 - ay0), min=0)
-    area_b = torch.clamp((bx1 - bx0) * (by1 - by0), min=0)
-    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :]
-                               - inter, min=1e-6)
-
-
-def decode_boxes(grid, conf_thresh: float, k: int = 16):
-    """grid (B, Gy, Gx, 5) -> boxes (B, K, 4), scores (B, K), valid (B, K)
-    after greedy NMS at IoU 0.45; top-k puts the lowest index first among
-    equal scores."""
-    B, Gy, Gx, _ = grid.shape
-    dev = grid.device
-    obj = torch.sigmoid(grid[..., 0])
-    cy = (torch.arange(Gy, device=dev, dtype=torch.float32)[:, None]
-          + torch.sigmoid(grid[..., 1])) * STRIDE
-    cx = (torch.arange(Gx, device=dev, dtype=torch.float32)[None, :]
-          + torch.sigmoid(grid[..., 2])) * STRIDE
-    bw = torch.exp(torch.clamp(grid[..., 3], -4, 4)) * STRIDE
-    bh = torch.exp(torch.clamp(grid[..., 4], -4, 4)) * STRIDE
-    boxes = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
-                        -1)
-    flat_s = obj.reshape(B, -1)
-    flat_b = boxes.reshape(B, -1, 4)
-    k = min(k, flat_s.shape[1])
-    idx = torch.sort(flat_s, dim=-1, descending=True, stable=True).indices[
-        ..., :k]
-    scores = torch.gather(flat_s, -1, idx)
-    sel = torch.gather(flat_b, 1, idx[..., None].expand(B, k, 4))
-    valid = scores > conf_thresh
-    iou = box_iou(sel, sel)
-    keep = torch.ones((B, k), dtype=torch.bool, device=dev)
-    for i in range(1, k):
-        over = (iou[:, i, :i] > 0.45) & keep[:, :i] & valid[:, :i]
-        keep[:, i] = ~torch.any(over, dim=-1)
-    return sel, scores, valid & keep
-
+# The light (ROIDet) detector is always ``conv4``; the server detector is
+# the module that the configuration's ``detectors.server_arch`` names
+# (``perfbench/reference/detectors/``).
 
 def f1_score_batch(pred_boxes, pred_valid, gt_boxes, gt_valid,
                    iou_thresh: float = 0.3):
@@ -916,7 +825,10 @@ class FleetReference:
     """The deepstream fleet of one configuration and seed, slot by slot."""
 
     def __init__(self, cfg: Dict, seed: int, device, weights_dir: Path,
-                 detector_dtype: torch.dtype = torch.float32):
+                 detector_dtype: torch.dtype = torch.float32,
+                 detectors_dir: Optional[Path] = None):
+        """``detectors_dir``: the folder of the server detector's module
+        (default: ``perfbench/reference/detectors``)."""
         self.spec = spec = FleetSpec.of(cfg)
         self.device = dev = torch.device(device)
         self.dtype = detector_dtype
@@ -924,8 +836,8 @@ class FleetReference:
         self.scene_key = prng_key(seed, dev)
         self.run_key = prng_key(spec.run_key_seed, dev)
         self.light = load_detector(Path(weights_dir) / "detector_light", dev)
-        self.server = load_detector(Path(weights_dir) / "detector_server",
-                                    dev)
+        self.server_arch = server_module(cfg, detectors_dir)
+        self.server = self.server_arch.load(cfg, weights_dir, dev)
         self.mlp = utility_mlp(spec.mlp_seed, dev)
         f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32),
                                         device=dev)
@@ -993,11 +905,11 @@ class FleetReference:
         batch = _rows(decoded, eval_idx).reshape(C * F_, H, W)
         gt_e, gv_e = _rows(gtb, eval_idx), _rows(gtv, eval_idx)
         tx = live & (b > 0.0)
-        # finish: server detector, box decode, greedy F1
+        # finish: server detector, its decode, greedy F1
         G = gt_e.shape[2]
-        grid = detector_forward(self.server, batch, self.dtype)
-        boxes, _, valid = decode_boxes(grid,
-                                       conf_thresh=spec.conf_thresh_server)
+        raw = self.server_arch.forward(self.server, batch, self.dtype)
+        boxes, _, valid = self.server_arch.decode(
+            raw, spec.conf_thresh_server, 16)
         f1_frames = f1_score_batch(boxes, valid, gt_e.reshape(C * F_, G, 4),
                                    gv_e.reshape(C * F_, G)).reshape(C, F_)
         f1 = (f1_frames * eval_w).sum(dim=1)

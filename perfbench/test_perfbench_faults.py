@@ -74,7 +74,8 @@ def test_the_unbroken_run_is_correct(tiny_cell):
     line = bench.result_line(out, {}, False)
     assert line["correct"] is True, line["check"]
     assert line["check"]["log_gap"]["value"] == 0.0
-    assert out.attempted == 2 and out.failed == 0   # 1 measured, 1 traced
+    # 1 measured, then 1 recorded and 1 profiled
+    assert out.attempted == 3 and out.failed == 0
     rd = out.readings
     assert rd.counters["degraded_windows"] == 0
     assert rd.counters["graph_captures_in_window"] == 0

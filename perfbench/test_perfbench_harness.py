@@ -1,7 +1,9 @@
 """The harness on the CPU: discovery by name, adding a cell's files
-without editing any, the result line's schema, the metric arithmetic on
-synthetic spans and traces, and the traffic copies against the port's
-generators."""
+without editing any (a server detector of its own included), the result
+line's schema, the metric arithmetic on synthetic spans and traces, and
+the traffic copies against the port's generators."""
+import hashlib
+import importlib
 import json
 import math
 import shutil
@@ -14,6 +16,7 @@ from perfbench.core.flops import detector_flops, fleet_slot_flops
 from perfbench.core.traffic import (FAULT_FAMILIES, TRACE_FAMILIES,
                                     make_faults, make_soak_stream,
                                     make_stream, make_trace)
+from perfbench.test_perfbench_spans import EXPECTED, synthetic_recorder
 
 CELLS = ("ds16.stream", "ds5.stream")
 
@@ -37,12 +40,26 @@ def test_benchmark_json_keys_and_files():
     b = bench.load_benchmark()
     assert set(b) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
-    assert [w["name"] for w in b["workloads"]] == ["ds16.stream"]
-    assert all(w["chips"] == 1 for w in b["workloads"])
-    for m in b["end_to_end"] + b["per_layer"]:
+    metrics = b["end_to_end"] + b["per_layer"]
+    for group in (b["configs"], b["workloads"], metrics):
+        names = [x["name"] for x in group]
+        assert len(names) == len(set(names)), names
+    cells = {w["name"] for w in b["workloads"]}
+    assert "ds16.stream" in cells
+    configs = {c["name"]: c for c in b["configs"]}
+    for w in b["workloads"]:
+        cfg = bench.ROOT / configs[w["config"]]["file"]
+        traffic = bench.BENCH_DIR / "traffic" / f"{w['traffic']}.json"
+        assert cfg.exists() and traffic.exists(), w
+        driver = json.loads(traffic.read_text())["driver"]
+        assert (bench.BENCH_DIR / "drivers" / f"{driver}.py").exists()
+        assert w["chips"] in (1, 4)
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(1, len(b["workloads"]) // 4)
+    for m in metrics:
         assert (bench.BENCH_DIR / "metrics" / f"{m['name']}.py").exists()
-    assert {m["name"] for m in b["end_to_end"]} == {
-        "camera_slots_per_s", "window_p95_ms", "setup_s"}
+        assert set(m.get("workloads", cells)) <= cells, m["name"]
+    assert "setup_s" in {m["name"] for m in b["end_to_end"]}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -53,7 +70,9 @@ def test_find_cell_by_name(name):
     assert bench.driver_of(cell).run
     assert {m["name"] for m in cell.end_to_end} == {
         "camera_slots_per_s", "window_p95_ms", "setup_s"}
-    assert len(cell.per_layer) == 8
+    listing = [m for m in with_ds5(bench.load_benchmark())["per_layer"]
+               if name in m.get("workloads", [name])]
+    assert len(cell.per_layer) == len(listing) > 0
     C = {"ds16.stream": 16, "ds5.stream": 5}[name]
     assert cell.config["scene"]["num_cameras"] == C
 
@@ -119,11 +138,14 @@ def _readings(cell):
                        degraded_windows=1, ckpt_snapshot_s=[0.001, 0.003],
                        cudnn_allow_tf32=True, trace_slots=16,
                        kernel_shapes={"tx_codec": (5, 10, 96, 160),
-                                      "cc_label": (5, 12, 20)})
+                                      "cc_label": (5, 12, 20),
+                                      "threefry_normal": (5, 153600)},
+                       span_recorder=synthetic_recorder())
     rd.device = bench.DeviceTrace(
         window_s=0.5, busy_s=0.4,
         kernels=[("tx_codec_kernel", 10e-6), ("tx_codec_kernel", 10e-6),
-                 ("cc_label_kernel", 4e-6), ("elementwise", 1e-3)],
+                 ("cc_label_kernel", 4e-6), ("elementwise", 1e-3),
+                 ("void threefry_normal_kernel<true>(...)", 20e-6)],
         other_ops=[("Memcpy DtoH", 2e-6)],
         idle_gaps=[("perfbench.offer+serve/cudaGraphLaunch", 0.07),
                    ("host", 0.03)])
@@ -146,14 +168,17 @@ def test_metric_arithmetic_on_synthetic_spans():
     assert v["degraded_windows"] == 1
     assert v["ckpt_snapshot_ms"] == pytest.approx(2.0)
     assert v["device_idle_share"] == pytest.approx(20.0)
-    assert v["kernels_per_slot"] == 4 / 16
+    assert v["kernels_per_slot"] == 5 / 16
     tx = kernel_cost.launch_bound_s("tx_codec", (5, 10, 96, 160))
     cc = kernel_cost.launch_bound_s("cc_label", (5, 12, 20))
+    tf = kernel_cost.launch_bound_s("threefry_normal", (5, 153600))
     assert v["kernel_roofline"] == pytest.approx(
-        100 * (2 * tx + cc) / 24e-6)
+        100 * (2 * tx + cc + tf) / 44e-6)
     flops = fleet_slot_flops(cell.config)
     assert v["mfu.fleet"] == pytest.approx(
         100 * flops * 200 / 0.8 / 495e12)
+    for name, want in EXPECTED.items():
+        assert v[name] == pytest.approx(want, rel=1e-12), name
     for m in cell.end_to_end + cell.per_layer:
         assert got[m["name"]]["unit"] == m["unit"]
 
@@ -180,6 +205,166 @@ def test_bounds_and_flops():
     assert (light, server) == (6_101_760, 23_262_720)
     cfg = bench.find_cell(bench.load_benchmark(), "ds16.stream").config
     assert fleet_slot_flops(cfg) == 2 * light + 3 * server
+
+
+def test_threefry_normal_bound():
+    """The draw at the cell's shape, 16 keys over (10, 96, 160): 5.135 us,
+    bound by its operations (140 a value at the float32 rate); bytes and
+    operations in the order ``COST`` gives them, which is the reverse of
+    the program's ``cost()``."""
+    from repro_torch.kernels.threefry_normal import ops
+    n = 10 * 96 * 160
+    nbytes, n_ops = kernel_cost.threefry_normal(16, n)
+    assert (n_ops, nbytes) == ops.cost(16, n)
+    assert kernel_cost.THREEFRY_OPS_PER_VALUE == ops.OPS_PER_VALUE
+    assert 1e6 * kernel_cost.launch_bound_s(
+        "threefry_normal", (16, n)) == pytest.approx(5.135, abs=1e-3)
+    assert 1e6 * nbytes / peaks.HBM_BYTES_PER_S == pytest.approx(2.935,
+                                                                 abs=1e-3)
+
+
+def _sha256s(folder):
+    return {p.relative_to(folder): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(folder.rglob("*")) if p.is_file()}
+
+
+STUB_REFERENCE = """
+import torch
+import torch.nn.functional as F
+
+CALLS = []
+
+
+def load(config, weights_dir, device):
+    g = torch.Generator().manual_seed(7)
+    w = int(config["detectors"]["stub_width"])
+    return {"c1": torch.randn(w, 1, 3, 3, generator=g).to(device),
+            "head": torch.randn(5, w, 1, 1, generator=g).to(device)}
+
+
+def forward(params, frames, dtype):
+    CALLS.append(("forward", tuple(frames.shape), dtype))
+    x = torch.relu(F.conv2d(frames[:, None].to(dtype),
+                            params["c1"].to(dtype), stride=4, padding=1))
+    return F.conv2d(x, params["head"].to(dtype)).permute(0, 2, 3, 1).float()
+
+
+def decode(raw, conf_thresh, k):
+    CALLS.append(("decode", tuple(raw.shape), conf_thresh, k))
+    B, Gy, Gx, _ = raw.shape
+    scores, idx = torch.sigmoid(raw[..., 0]).reshape(B, -1).topk(k)
+    y, x = (idx // Gx).float() * 4, (idx % Gx).float() * 4
+    boxes = torch.stack([x, y, x + 12, y + 12], -1)
+    return boxes, scores, scores > conf_thresh
+
+
+def flops(config):
+    sc = config["scene"]
+    w = int(config["detectors"]["stub_width"])
+    cells = -(-int(sc["height"]) // 4) * -(-int(sc["width"]) // 4)
+    return 2 * w * 9 * cells + 2 * 5 * w * cells
+"""
+
+STUB_PROGRAM = """
+import torch
+
+
+def build(device, width):
+    g = torch.Generator().manual_seed(7)
+    return {"c1": torch.randn(width, 1, 3, 3, generator=g).to(device),
+            "head": torch.randn(5, width, 1, 1, generator=g).to(device)}
+"""
+
+
+def test_a_server_detector_is_files_and_entries(tmp_path, monkeypatch):
+    """A cell whose configuration names a server detector of another
+    architecture (a two-conv stub): its configuration, its reference
+    module and the program's builder are new files and its cell a new
+    entry.  The cell resolves, the program is built with the builder's
+    parameters, the reference runs the stub's forward and decode on a
+    CPU slot, ``mfu.fleet`` counts the stub's FLOPs, and no file that was
+    in the benchmark's folder changes."""
+    import numpy as np
+    import torch
+    from perfbench.reference import fleet as ref_fleet
+    root = tmp_path / "checkout"
+    shutil.copytree(bench.BENCH_DIR, root / "perfbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = _sha256s(root / "perfbench")
+    cfg = json.loads((bench.ROOT / "perfbench/configs/deepstream_c5.json")
+                     .read_text())
+    cfg["name"] = "deepstream_stub"
+    cfg["scene"]["num_cameras"] = 2
+    cfg["detectors"].update(server_arch="stub2",
+                            server_program="stub2_program:build",
+                            server_program_args={"width": 4},
+                            stub_width=4)
+    (root / "perfbench/configs/deepstream_stub.json").write_text(
+        json.dumps(cfg))
+    (root / "perfbench/reference/detectors/stub2.py").write_text(
+        STUB_REFERENCE)
+    (tmp_path / "program").mkdir()
+    (tmp_path / "program/stub2_program.py").write_text(STUB_PROGRAM)
+    monkeypatch.syspath_prepend(str(tmp_path / "program"))
+    b = bench.load_benchmark()
+    b["configs"].append({"name": "deepstream_stub", "source": "x",
+                         "file": "perfbench/configs/deepstream_stub.json",
+                         "reduced": [], "why": "x"})
+    b["workloads"].append({"name": "dsstub.stream",
+                           "config": "deepstream_stub", "traffic": "stream",
+                           "chips": 1, "why": "x"})
+    b["per_layer"].append({"name": "mfu.fleet.stub", "unit": "%",
+                           "better": "higher", "source": "host_clock",
+                           "layer": "whole slot",
+                           "moves": "camera_slots_per_s",
+                           "workloads": ["dsstub.stream"]})
+    shutil.copy(root / "perfbench/metrics/mfu.fleet.py",
+                root / "perfbench/metrics/mfu.fleet.stub.py")
+    cell = bench.find_cell(b, "dsstub.stream", root=root)
+    assert cell.config["detectors"]["server_arch"] == "stub2"
+    assert [m["name"] for m in cell.per_layer] == ["mfu.fleet.stub"]
+
+    driver = bench.driver_of(cell)
+    system, runner, ckpt_dir = driver.build(cell, 5, "cpu")
+    try:
+        want = importlib.import_module("stub2_program").build("cpu", 4)
+        assert set(system.server) == set(want)
+        for k in want:
+            assert torch.equal(system.server[k], want[k]), k
+    finally:
+        runner.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    detectors_dir = root / "perfbench/reference/detectors"
+    ref = ref_fleet.FleetReference(cell.config, 5, "cpu",
+                                   bench.ROOT / "artifacts",
+                                   detectors_dir=detectors_dir)
+    stub = ref.server_arch
+    assert stub.__file__ == str(detectors_dir / "stub2.py")
+    C, F_ = 2, int(cfg["system"]["eval_frames"])
+    pack, _, _ = ref.slot(0, 2000.0, np.ones(C, bool),
+                          ref_fleet.elastic_init("cpu"), np.ones(C, bool))
+    assert pack.shape == (2, C) and torch.isfinite(pack).all()
+    assert stub.CALLS == [
+        ("forward", (C * F_, 96, 160), torch.float32),
+        ("decode", (C * F_, 24, 40, 5), cfg["control"]["server_conf_thresh"],
+         16)]
+
+    light = detector_flops(cfg["detectors"]["light_widths"], 96, 160)
+    per_slot = fleet_slot_flops(cell.config, cell.bench_dir)
+    assert per_slot == 2 * light + F_ * stub.flops(cell.config)
+    assert per_slot != fleet_slot_flops(
+        json.loads((bench.ROOT / "perfbench/configs/deepstream_c5.json")
+                   .read_text()))
+    rd = bench.Readings(cell, counters={"camera_slots": 100,
+                                        "cudnn_allow_tf32": True})
+    rd.span("window", 0.0, 2.0)
+    got = bench.read_metrics(cell.per_layer, rd)
+    assert got["mfu.fleet.stub"]["value"] == pytest.approx(
+        100 * per_slot * 50 / 495e12)
+
+    after = _sha256s(root / "perfbench")
+    assert {p: after[p] for p in before} == before
 
 
 def test_result_line_schema():

@@ -60,3 +60,27 @@ def test_sample_windows_keeps_the_start_and_the_end():
     assert w == fs.sample_windows(300, 3, 24, TINY_SEED)
     assert w != fs.sample_windows(300, 3, 24, TINY_SEED + 1)
     assert fs.sample_windows(4, 3, 24, 1) == [0, 1, 2, 3]
+
+
+def test_conv4_module_gives_the_programs_bits():
+    """``reference/detectors/conv4.py`` at a small size: the server
+    checkpoint as the program loads it, and its forward and decode
+    bitwise the program's ``detector.forward`` and ``decode_boxes``."""
+    from repro_torch.models import detector
+    from perfbench.reference.detectors import conv4, server_module
+    cfg = bench.find_cell(bench.load_benchmark(), "ds16.stream").config
+    assert server_module(cfg) is conv4
+    params = conv4.load(cfg, bench.ROOT / "artifacts", "cpu")
+    prog = detector.load_detector("server", "cpu")
+    assert set(params) == set(prog)
+    for k in prog:
+        assert torch.equal(params[k], prog[k]), k
+    g = torch.Generator().manual_seed(11)
+    frames = torch.rand((3, 48, 80), generator=g)
+    raw = conv4.forward(params, frames, torch.float32)
+    assert torch.equal(raw, detector.forward(prog, frames))
+    got = conv4.decode(raw, 0.4, 16)
+    want = detector.decode_boxes(raw, conf_thresh=0.4, k=16)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert conv4.flops(cfg) == 23_262_720

@@ -3,8 +3,8 @@
 one, on a program without the recorder, and on the real recorder over a
 CPU run of the fleet stream cell.
 
-``BENCHMARK.json`` does not list these metrics yet: the tests append the
-entries below to it, as the change that lists them would."""
+``BENCHMARK.json`` lists the ten metrics as ``span_entries()`` gives
+them."""
 import sys
 from types import SimpleNamespace
 
@@ -28,9 +28,9 @@ EXPECTED = {
     "stage_finish_ms": 2.05,
 }
 SPAN_METRICS = tuple(EXPECTED)
-# the three that time the host around the graph launches are read in the
-# profiled windows, where CUPTI slows the launches: their readers say so
-PROFILED = ("window_host_ms", "graph_launch_ms", "harvest_wait_ms")
+# the stage marks are read in the profiled windows, the host spans in the
+# windows served before them with no profiler: their readers say so
+PROFILED = tuple(n for n in SPAN_METRICS if n.startswith("stage_"))
 # the layers as the accepted metrics name them, letter for letter
 LAYERS = {
     "window_host_ms": "fleet stream (serve/stream.py)",
@@ -53,12 +53,6 @@ def span_entries():
                                        "graphs (core/fleet.py)"),
              "moves": MOVES.get(name, "camera_slots_per_s"),
              "workloads": ["ds16.stream"]} for name in SPAN_METRICS]
-
-
-def with_span_metrics(b):
-    """BENCHMARK.json with the ten entries appended to ``per_layer``."""
-    b = dict(b, per_layer=list(b["per_layer"]) + span_entries())
-    return b
 
 
 class SyntheticRecorder:
@@ -104,8 +98,7 @@ def synthetic_recorder() -> SyntheticRecorder:
 
 @pytest.fixture
 def cell():
-    return bench.find_cell(with_span_metrics(bench.load_benchmark()),
-                           "ds16.stream")
+    return bench.find_cell(bench.load_benchmark(), "ds16.stream")
 
 
 def _read(name, rd):
@@ -127,15 +120,15 @@ def test_reader_finds_nothing_in_an_empty_recorder(cell, name):
 
 
 def test_span_metrics_are_program_spans_of_the_cell(cell):
-    """Appended as new entries, the ten resolve for the cell after its
-    accepted metrics, each with its reader file and a known layer and
+    """The benchmark lists the ten for the cell as ``span_entries()``
+    gives them, each with its reader file and a known layer and
     end-to-end metric."""
-    accepted = bench.find_cell(bench.load_benchmark(), "ds16.stream")
-    assert [m["name"] for m in cell.per_layer] == \
-        [m["name"] for m in accepted.per_layer] + list(SPAN_METRICS)
-    known = {m["name"] for m in accepted.end_to_end}
-    layers = {m["layer"] for m in accepted.per_layer}
     entries = {m["name"]: m for m in cell.per_layer}
+    assert [entries.get(e["name"]) for e in span_entries()] == \
+        span_entries()
+    known = {m["name"] for m in cell.end_to_end}
+    layers = {m["layer"] for m in cell.per_layer
+              if m["name"] not in SPAN_METRICS}
     for name in SPAN_METRICS:
         m = entries[name]
         assert (bench.BENCH_DIR / "metrics" / f"{name}.py").exists()
@@ -147,8 +140,9 @@ def test_span_metrics_are_program_spans_of_the_cell(cell):
 
 
 def test_readers_find_nothing_without_the_recorder(cell, monkeypatch):
-    """A program from before the recorder (the module cannot be
-    imported): every reader returns None and none raises."""
+    """Readings that carry no recorder (an untraced run's), with the
+    program's recorder module unimportable besides: every reader returns
+    None and none raises or reads the module."""
     import repro_torch.common
     monkeypatch.delattr(repro_torch.common, "trace", raising=False)
     monkeypatch.setitem(sys.modules, "repro_torch.common.trace", None)
@@ -159,32 +153,54 @@ def test_readers_find_nothing_without_the_recorder(cell, monkeypatch):
 
 
 def test_readers_on_the_programs_recorder_over_a_cpu_run(tiny_cell):
-    """The tiny cell on the CPU with the recorder on: every host span
-    metric is found and agrees with the driver's own host clock; the
-    stage marks exist only on the card."""
+    """The tiny cell on the CPU, traced: the driver turns the recorder on
+    for a window with no profiler and the traced window, keeps their
+    spans and turns it off again; every host span metric is found in the
+    first and agrees with the driver's own host clock; the stage marks
+    exist only on the card."""
     from repro_torch.common import trace
-    trace.clear()
-    trace.enable()
+    trace.enable(False)
     try:
         out = bench.driver_of(tiny_cell).run(tiny_cell, TINY_SEED, 0.0,
                                              True, "cpu", 0.0,
                                              max_windows=2)
-    finally:
-        trace.enable(False)
-    try:
+        assert not trace.active()
+        rd = out.readings
         got = {k: v["value"] for k, v in bench.read_metrics(
-            span_entries(), out.readings).items()}
+            span_entries(), rd).items()}
         for name in ("window_host_ms", "graph_launch_ms", "harvest_wait_ms",
                      "ckpt_wait_ms", "ckpt_write_ms"):
             assert got[name] >= 0.0, name
         assert not {f"stage_{s}_ms" for s in ("synth", "roidet", "control",
                                               "encode", "finish")} & set(got)
-        walls = sorted(out.readings.durations("serve_window"))
+        walls = sorted(rd.durations("serve_window"))
         # a window's own host work and its launch lie inside the window
         assert got["graph_launch_ms"] <= got["window_host_ms"] \
             <= 1e3 * walls[-1] * 1.5
-        n_win = sum(sp.name == "stream.window" for sp in trace.spans())
-        # the warm-up, one measured (a window of 0 s) and one traced
-        assert n_win == 3
+        # the warm-up (1) and the measured window (2, of 0 s) unrecorded,
+        # then one window of each part
+        assert rd.counters["span_windows"] == {"host": [3], "profiled": [4]}
+        kept = rd.counters["span_recorder"].spans()
+        assert sorted(sp.window for sp in kept
+                      if sp.name == "stream.window") == [3, 4]
+        assert out.attempted == 3 and out.failed == 0
     finally:
         trace.clear()
+
+
+def test_readers_take_their_parts_windows(cell):
+    """With the parts named, the host readers read the first part's
+    windows and the stage readers the profiled part's."""
+    rd = bench.Readings(cell, counters={
+        "span_recorder": synthetic_recorder(),
+        "span_windows": {"host": [1], "profiled": [2]}})
+    assert _read("graph_launch_ms", rd) == pytest.approx(12.0)
+    assert _read("harvest_wait_ms", rd) == pytest.approx(80.0)
+    assert _read("window_host_ms", rd) == pytest.approx(20.0)
+    assert _read("ckpt_wait_ms", rd) == pytest.approx(0.0)
+    assert _read("ckpt_write_ms", rd) == pytest.approx(30.0)
+    # window 2 holds slots 2 and 3 of each stage
+    assert _read("stage_synth_ms", rd) == pytest.approx(4.2)
+    assert _read("stage_encode_ms", rd) == pytest.approx(6.5)
+    rd.counters["span_windows"] = {"host": [], "profiled": []}
+    assert all(_read(n, rd) is None for n in SPAN_METRICS)
