@@ -69,13 +69,27 @@ JAX.  In order it prints:
      equal the eager reference body's on the card bitwise and the port's
      CPU run's to <= 1e-5; then a camera_churn run (no capture, the same
      checks) and two windows chained through the carry against one run;
-  4b. the stage marks: ``stage_stamp`` against ``stamp_ref`` on a (9, 7)
+  4b. the stage marks: ``stage_stamp`` against ``stamp_ref`` on a (9, 9)
      int64 buffer inside guard rows (every counter row, one out of range
      on either side, every mark; the cells written and their order), then
      a replayed deepstream episode at C=16, T=8 with tracing on, every
      graph's marks zeroed first: rows 0-7 hold the 5 front marks, rows 0-8
-     the 2 finish marks, no other cell; in stream order; 5 stage spans a
-     slot; logs bitwise the untraced run's; no capture;
+     the 4 finish marks (finish start, detect end, decode end, finish
+     end), no other cell; in stream order; 7 stage spans a slot, detect +
+     decode within the finish; logs bitwise the untraced run's; no
+     capture;
+  4c. YOLOv8s as the server detector (``models/yolov8.py`` with the
+     ``deepstream_c16_yolov8s`` benchmark configuration's settings): the
+     deepstream episode at C=16, T=8 graph-replayed against the eager
+     reference body on the card (logs bitwise), then traced (4b's marks
+     with the overflow column, detect + decode within the finish, no
+     capture); the raw head output of the program and of the benchmark's
+     plain reference (``perfbench/reference/detectors/yolov8s.py``) on
+     the same 48-frame batch (the first slot's detector input): the
+     largest gap (0.0 expected) and the kept boxes, then the reference in
+     bfloat16 (the control, which must differ); ms/slot of the replayed
+     episode beside conv4's (CUDA events, in turns), the stage p50s and
+     the peak memory;
   5. the pipelined ``run()`` loop, four methods, C=5, T=8: the same
      checks, knapsack_dp launched once per slot for deepstream and jcab
      and edge_motion 16 times in all, logs equal to the card's episode and
@@ -136,7 +150,7 @@ JAX.  In order it prints:
   9. each replayed episode of phase 4 once more under the profiler: its
      kernels as the card recorded them (CUPTI kernel records counted by
      name; a replay runs the kernels without their wrappers) must be T per
-     kernel of the method's path and none of the others, 7 T + 2
+     kernel of the method's path and none of the others, 9 T + 4
      stage_stamp marks and 2 T threefry_normal draws, with no wrapper
      call; the C=5, T=8 counts go into the kernel records; then one
      8-slot window of the stream per method, counted the same way;
@@ -1327,9 +1341,9 @@ KERNEL_NAMES = {"edge_motion": "edge_motion_kernel",
 
 
 def stamp_launches(T: int, pipelined: bool = True) -> int:
-    """stage_stamp_kernel launches of a replayed T-slot episode: 7 marks a
-    ``full{p}`` or ``step`` replay, 2 the pipelined body's drain."""
-    return 7 * T + (2 if pipelined else 0)
+    """stage_stamp_kernel launches of a replayed T-slot episode: 9 marks a
+    ``full{p}`` or ``step`` replay, 4 the pipelined body's drain."""
+    return 9 * T + (4 if pipelined else 0)
 
 
 def every_slot_launches(T: int) -> dict:
@@ -1342,7 +1356,7 @@ def every_slot_launches(T: int) -> dict:
 
 def check_stage_stamp(torch, dev) -> int:
     """``stage_stamp`` on the card against ``stamp_ref`` on the CPU on a
-    (T_SLOTS + 1, 7) int64 buffer: a random half of the calls (every
+    (T_SLOTS + 1, MARK_COLS) = (9, 9) int64 buffer: a random half of the calls (every
     counter row, one before the first and one past the last, times every
     mark k), launched in a random order.  The cells written must be those
     the plain version writes (nonzero there, zero elsewhere; the guard
@@ -1392,20 +1406,25 @@ def check_stage_stamp(torch, dev) -> int:
 
 
 def check_episode_marks(torch, fleet_mod, trace_mod, run, T: int,
-                        what: str) -> dict:
+                        what: str, overflow: bool = False) -> dict:
     """The stage marks of one replayed pipelined episode and its harvest
     (``run`` returns its ``EpisodeOut`` and logs) with tracing on, every
-    captured graph's marks zeroed first.  Exactly one graph's buffer is written: rows 0 to T - 1
-    hold the five front marks (slot i's synthesis to encode), rows 0 to T
-    the two finish marks (row i + 1 holds slot i's finish, row 0 the
-    warm-up row's, row T the drain's), every other cell 0; each row's
-    front marks and finish marks do not decrease, a finish starts after
+    captured graph's marks zeroed first.  Exactly one graph's buffer is
+    written: rows 0 to T - 1 hold the five front marks (slot i's synthesis
+    to encode), rows 0 to T the four finish marks (row i + 1 holds slot
+    i's finish, row 0 the warm-up row's, row T the drain's), every other
+    cell 0 (the overflow column too, unless ``overflow``: a server
+    detector that counts it); each row's front marks and finish marks
+    (taken in the order 5, 7, 8, 6) do not decrease, a finish starts after
     the front that staged it (side stream waits on main) and a front after
     the previous finish ended (main waits on side).  The run's
     ``EpisodeOut.stamps`` are the buffer's first T + 1 rows, and the
-    harvest recorded 5 device spans a slot with their global slot.
-    Returns the run's logs."""
+    harvest recorded ``len(STAGES)`` (7) device spans a slot with their
+    global slot, ``stage.detect`` + ``stage.decode`` within
+    ``stage.finish``.  Returns the run's logs."""
     import numpy as np
+    fin = [5, 7, 8, 6]
+    ocol = fleet_mod.OVERFLOW_COL
     graphs = list(fleet_mod._GRAPHS.values())
     for g in graphs:
         g.stamps.zero_()
@@ -1423,7 +1442,9 @@ def check_episode_marks(torch, fleet_mod, trace_mod, run, T: int,
     st = hit[0]
     want = np.zeros(st.shape, bool)
     want[:T, :5] = True
-    want[:T + 1, 5:] = True
+    want[:T + 1, 5:fleet_mod.MARK_COLS] = True
+    if overflow:
+        want[:, ocol] = st[:, ocol] != 0
     if not np.array_equal(st != 0, want):
         raise AssertionError(f"{what}: marks written at "
                              f"{np.argwhere(st != 0).tolist()}")
@@ -1433,8 +1454,8 @@ def check_episode_marks(torch, fleet_mod, trace_mod, run, T: int,
     for i in range(T + 1):
         if i < T and (np.diff(st[i, :5]) < 0).any():
             raise AssertionError(f"{what}: row {i} front {st[i, :5]}")
-        if st[i, 5] > st[i, 6]:
-            raise AssertionError(f"{what}: row {i} finish {st[i, 5:]}")
+        if (np.diff(st[i, fin]) < 0).any():
+            raise AssertionError(f"{what}: row {i} finish {st[i, fin]}")
         if i > 0 and st[i, 5] < st[i - 1, 4]:
             raise AssertionError(f"{what}: slot {i - 1}'s finish starts "
                                  "before its front ended")
@@ -1444,10 +1465,17 @@ def check_episode_marks(torch, fleet_mod, trace_mod, run, T: int,
     stages = [sp for sp in trace_mod.spans() if sp.clock == "device"]
     trace_mod.clear()
     slots = sorted({sp.ids["slot"] for sp in stages})
-    if len(stages) != 5 * T or len(slots) != T \
+    if len(stages) != len(fleet_mod.STAGES) * T or len(slots) != T \
             or any(sp.seconds < 0 for sp in stages):
         raise AssertionError(f"{what}: {len(stages)} stage spans over "
                              f"slots {slots}")
+    by = {}
+    for sp in stages:
+        by.setdefault(sp.ids["slot"], {})[sp.name] = sp.seconds
+    for slot, d in by.items():
+        if d["stage.detect"] + d["stage.decode"] > d["stage.finish"]:
+            raise AssertionError(f"{what}: slot {slot} detect + decode "
+                                 f"outlast the finish {d}")
     return logs
 
 
@@ -1477,6 +1505,118 @@ def recorded_launches(torch, run, want: dict, what: str,
         print(f"{what}: the profiler recorded {got} of {want}; taking "
               "another window")
     raise AssertionError(f"{what}: the card ran {got}, not {want}")
+
+
+def yolov8s_phase(torch, dev, tag, system_of, scene_of, tr, fleet_mod,
+                  trace_mod) -> None:
+    """Phase 4c (see the module docstring).  ``system_of(server)`` is a
+    C=16 system with that server detector (None: the committed conv4),
+    ``tr`` the T-slot trace."""
+    import numpy as np
+    from perfbench.reference.detectors import yolov8s as ref_y
+    from repro_torch.models import yolov8
+    cfg = json.loads((ROOT / "perfbench/configs/deepstream_c16_yolov8s.json")
+                     .read_text())
+    args = cfg["detectors"]["server_program_args"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    det = yolov8.build_server(dev, **args)
+    sy = system_of(det)
+    T, C = len(tr), sy.cfg.scene.num_cameras
+    what = f"yolov8s episode deepstream C={C} T={T}"
+    plain = sy.run_episode(scene_of(sy), tr, "deepstream")
+    n_graphs = fleet_mod.episode_graph_count()
+    batches = []
+    forward = yolov8.YOLOv8.forward
+
+    def keep_batch(self, frames):
+        if not batches:
+            batches.append(frames.clone())
+        return forward(self, frames)
+    yolov8.YOLOv8.forward = keep_batch
+    try:
+        out = sy._episode_dispatch(scene_of(sy), tr, "deepstream",
+                                   _eager=True)
+        eager = sy._episode_logs(out, tr)
+    finally:
+        yolov8.YOLOv8.forward = forward
+    same_logs(plain, eager, f"{what}: graph vs eager reference body")
+
+    def traced():
+        o = sy._episode_dispatch(scene_of(sy), tr, "deepstream")
+        return o, sy._episode_logs(o, tr)
+
+    stage_ms = {}
+    record = trace_mod.record
+
+    def keep(name, t0, t1, clock="host", **ids):
+        stage_ms.setdefault(name, []).append(1e3 * (t1 - t0))
+        return record(name, t0, t1, clock=clock, **ids)
+    trace_mod.record = keep
+    try:
+        logs = check_episode_marks(torch, fleet_mod, trace_mod, traced, T,
+                                   what, overflow=True)
+    finally:
+        trace_mod.record = record
+    same_logs(plain, logs, f"{what}: traced vs untraced")
+    if fleet_mod.episode_graph_count() != n_graphs:
+        raise AssertionError(f"{what}: tracing or the eager run captured")
+    peak = torch.cuda.max_memory_allocated()
+
+    batch = batches[0]
+    params = ref_y.load(cfg, None, dev)
+    mine = sy.server.forward(batch)
+    ref32 = ref_y.forward(params, batch, torch.float32)
+    ref16 = ref_y.forward(params, batch, torch.bfloat16)
+    torch.cuda.synchronize()
+    scale = float(ref32.out.abs().max())
+    gap = float((mine - ref32.out).abs().max())
+    gap16 = float((ref16.out - ref32.out).abs().max())
+    conf = float(cfg["control"]["server_conf_thresh"])
+
+    def kept(boxes, valid):
+        return [boxes[b][valid[b]].cpu() for b in range(boxes.shape[0])]
+    a = ref_y.decode(ref32, conf, 16)
+    b = sy.server.decode(mine, conf, 16)
+    c = ref_y.decode(ref16, conf, 16)
+    ka, kb, kc = kept(a[0], a[2]), kept(b[0], b[2]), kept(c[0], c[2])
+    eq = sum(x.shape == y.shape and torch.equal(x, y) for x, y in zip(ka, kb))
+    eq16 = sum(x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(ka, kc))
+    print(f"{what}: graph = eager reference body bitwise, traced = "
+          f"untraced, no capture; raw head program vs reference on "
+          f"{batch.shape[0]} frames: max |diff| {gap!r} (of max |raw| "
+          f"{scale:.6g}), kept boxes equal in {eq}/{batch.shape[0]} "
+          f"frames; bfloat16 reference: max |diff| {gap16!r}, kept boxes "
+          f"equal in {eq16}/{batch.shape[0]} frames; peak memory {peak:,} "
+          f"bytes {tag}")
+    if gap > 1e-5 * scale or eq != batch.shape[0]:
+        raise AssertionError(f"{what}: program and reference differ")
+    if gap16 <= 1e-5 * scale or eq16 == batch.shape[0]:
+        raise AssertionError(f"{what}: the bfloat16 control passes")
+
+    # ms/slot of the replayed episode with each server detector, in turns
+    conv4_sys = system_of(None)
+    conv4_sys.run_episode(scene_of(conv4_sys), tr, "deepstream")
+    times = {"yolov8s": [], "conv4": []}
+    for _ in range(TIMED_ROUNDS):
+        for name, s_ in (("yolov8s", sy), ("conv4", conv4_sys)):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            s_.run_episode(scene_of(s_), tr, "deepstream")
+            t1.record()
+            t1.synchronize()
+            times[name].append(t0.elapsed_time(t1) / T)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    p50 = {k: statistics.median(v) for k, v in stage_ms.items()}
+    print(f"ms/slot episode graph C={C} T={T} yolov8s {med['yolov8s']:.3f} "
+          f"(min {min(times['yolov8s']):.3f}) conv4 {med['conv4']:.3f} "
+          f"(min {min(times['conv4']):.3f}); yolov8s stage p50 ms: detect "
+          f"{p50['stage.detect']:.3f} decode {p50['stage.decode']:.3f} "
+          f"finish {p50['stage.finish']:.3f} front "
+          f"{sum(p50['stage.' + k] for k in ('synth', 'roidet', 'control', 'encode')):.3f} "
+          f"{tag}")
 
 
 def same_logs(a: dict, b: dict, what: str) -> None:
@@ -4706,11 +4846,12 @@ def main(argv=None) -> int:
     # -- 4. the episode, graph-replayed: card vs eager, vs CPU -----------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 4: episode")
 
-    def make_system(C: int, device, **kw) -> DeepStreamSystem:
-        """A system on scene seed 7 holding the profiled artifacts."""
+    def make_system(C: int, device, server=None, **kw) -> DeepStreamSystem:
+        """A system on scene seed 7 holding the profiled artifacts (the
+        committed conv4 server detector unless ``server``)."""
         return give_artifacts(DeepStreamSystem(SystemConfig(scene=SceneConfig(
-            seed=7, num_cameras=C), **kw), light_h, server_h, device=device),
-            arts, C)
+            seed=7, num_cameras=C), **kw), light_h,
+            server_h if server is None else server, device=device), arts, C)
 
     def needs(method: str) -> tuple:
         """The kernels a method's main path launches."""
@@ -4868,11 +5009,25 @@ def main(argv=None) -> int:
     same_logs(plain16, logs16, f"{what}: traced vs untraced logs")
     if fleet_mod.episode_graph_count() != n_graphs:
         raise AssertionError(f"{what}: tracing captured a graph")
+    n_stages = len(fleet_mod.STAGES) * T_SLOTS
     print(f"stage_stamp: {n_cells} cells written at the plain version's "
           f"cells, guard rows untouched, in launch order; {what}: rows 0-"
-          f"{T_SLOTS - 1} front marks, rows 0-{T_SLOTS} finish marks, no "
-          f"other cell, in stream order, {5 * T_SLOTS} stage spans, logs "
-          "bitwise the untraced run's, no capture")
+          f"{T_SLOTS - 1} front marks, rows 0-{T_SLOTS} finish marks (4), "
+          f"no other cell, in stream order, {n_stages} stage spans, detect "
+          "+ decode within finish, logs bitwise the untraced run's, no "
+          "capture")
+
+    # -- 4c. YOLOv8s as the server detector -----------------------------
+    print(f"[{time.perf_counter() - t_begin:.1f} s] phase 4c: yolov8s")
+    before_4c = set(fleet_mod._GRAPHS)
+    yolov8s_phase(torch, dev, tag,
+                  lambda det: make_system(16, dev, server=det), scene_of,
+                  tr16, fleet_mod, trace_mod)
+    # the detector's graphs hold its activations' pool: none is replayed
+    # again
+    for key in set(fleet_mod._GRAPHS) - before_4c:
+        del fleet_mod._GRAPHS[key]
+    torch.cuda.empty_cache()
 
     # -- 5. run(), pipelined, four methods -------------------------------
     print(f"[{time.perf_counter() - t_begin:.1f} s] phase 5: run()")

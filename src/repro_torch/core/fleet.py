@@ -306,15 +306,56 @@ class FleetSlotOut(NamedTuple):
     sizes: torch.Tensor      # (C,) encoded bytes
     host_pack: torch.Tensor  # (2, C) [f1; sizes], the one per-slot fetch
     flags: Optional[torch.Tensor] = None   # (len(SLOT_CHECKS),) if checked
+    # 0-d int64: frames whose NMS may have missed a box for want of
+    # candidates (``ServerOps.decode``; None for conv4, which has no cap)
+    overflow: Optional[torch.Tensor] = None
 
 
-def _slot_finish(server_params: Params, st: SlotStaged, *,
-                 conf_thresh: float, with_reuse: bool) -> FleetSlotOut:
+# the conv4 server detector's confidence threshold (the JAX package's)
+CONV4_CONF = 0.4
+
+
+class ServerOps(NamedTuple):
+    """A server detector's calls: ``forward(frames (B, H, W))`` -> raw
+    output, ``decode(raw, conf_thresh, k)`` -> (boxes (B, k, 4) xyxy in
+    frame pixels, scores, valid, overflow count or None), and its
+    confidence threshold."""
+    forward: Callable
+    decode: Callable
+    conf: float
+
+
+def _conv4_decode(grid: torch.Tensor, conf_thresh: float, k: int = 16):
+    return det.decode_boxes(grid, conf_thresh=conf_thresh, k=k) + (None,)
+
+
+def server_ops(server) -> ServerOps:
+    """The server detector's calls, chosen by its type: a plain dict of
+    tensors is ``conv4`` (``models.detector``: its forward and decode, the
+    same ops as ever); any other object carries its own ``forward``,
+    ``decode`` and ``conf`` (``models.yolov8.YOLOv8``)."""
+    if isinstance(server, dict):
+        return ServerOps(lambda frames: det.forward(server, frames),
+                         _conv4_decode, CONV4_CONF)
+    return ServerOps(server.forward, server.decode, server.conf)
+
+
+def _slot_finish(server, st: SlotStaged, *, conf_thresh: float,
+                 with_reuse: bool,
+                 mark: Optional[Callable[[int], None]] = None
+                 ) -> FleetSlotOut:
     """Server detector -> box decode -> greedy F1 of both arms -> the
-    tx-masked outputs and their (2, C) [f1; sizes] log pack."""
+    tx-masked outputs and their (2, C) [f1; sizes] log pack.  ``mark(k)``
+    (the episode graph's stage marks) is called after the detector
+    (``detect_end``) and after the decode (``decode_end``)."""
     C, F, G = st.gt_e.shape[:3]
-    grid = det.forward(server_params, st.batch)
-    boxes, _, valid = det.decode_boxes(grid, conf_thresh=conf_thresh)
+    ops = server_ops(server)
+    raw = ops.forward(st.batch)
+    if mark is not None:
+        mark(MARKS.index("detect_end"))
+    boxes, _, valid, overflow = ops.decode(raw, conf_thresh, 16)
+    if mark is not None:
+        mark(MARKS.index("decode_end"))
     f1_frames = det.f1_score_batch(
         boxes[:C * F], valid[:C * F], st.gt_e.reshape(C * F, G, 4),
         st.gv_e.reshape(C * F, G)).reshape(C, F)
@@ -331,18 +372,22 @@ def _slot_finish(server_params: Params, st: SlotStaged, *,
     f1_frames = torch.where(st.tx[:, None], f1_frames, 0.0)
     sizes = torch.where(st.tx, st.sizes, 0.0)
     return FleetSlotOut(f1=f1, f1_frames=f1_frames, sizes=sizes,
-                        host_pack=torch.stack([f1, sizes]))
+                        host_pack=torch.stack([f1, sizes]),
+                        overflow=overflow)
 
 
-def fleet_slot_step(cfg: CodecConfig, server_params: Params,
+def fleet_slot_step(cfg: CodecConfig, server_params,
                     frames: torch.Tensor, masks: torch.Tensor,
                     b: torch.Tensor, r: torch.Tensor, keys: torch.Tensor,
                     keep: torch.Tensor, gt_boxes: torch.Tensor,
                     gt_valid: torch.Tensor, live: torch.Tensor, *,
                     eval_frames: int, block_size: int, with_reuse: bool,
-                    tables: CodecTables, conf_thresh: float = 0.4,
+                    tables: CodecTables,
+                    conf_thresh: Optional[float] = None,
                     checked: bool = False) -> FleetSlotOut:
     """One slot of every method: ``_slot_encode`` then ``_slot_finish``.
+    ``server_params`` is the server detector (``server_ops``); its own
+    threshold where ``conf_thresh`` is None.
     frames (C, N, H, W); masks (C, H/bs, W/bs) bool; b, r (C,); keys
     (C, 2); keep (C, N) bool (all True except for reducto); GT for all N
     frames; live (C,) bool.  ``with_reuse`` adds reducto's reuse arm;
@@ -352,6 +397,8 @@ def fleet_slot_step(cfg: CodecConfig, server_params: Params,
                       gt_valid, live, eval_frames=eval_frames,
                       block_size=block_size, with_reuse=with_reuse,
                       tables=tables)
+    if conf_thresh is None:
+        conf_thresh = server_ops(server_params).conf
     out = _slot_finish(server_params, st, conf_thresh=conf_thresh,
                        with_reuse=with_reuse)
     if not checked:
@@ -518,38 +565,51 @@ class EpisodeOut(NamedTuple):
     ref: torch.Tensor       # (n_local, H, W) final reducto reference (the
                             # rank's rows; all C unsharded), the
                             # carry a windowed run hands to the next window
-    stamps: Optional[torch.Tensor] = None   # the graphs' (T + 1, MARK_COLS)
+    stamps: Optional[torch.Tensor] = None   # the graphs' (T + 1, STAMP_COLS)
                             # stage marks, taken while tracing is active
     t_start: int = 0        # the run's first global slot
     pipelined: bool = True
 
 
 # the stage marks of a slot step, by column of ``_EpisodeGraph.stamps``:
-# 0-4 on the slot front's stream (``slot_front``'s ``mark``), 5-6 around
-# the finish on the finish's stream (the pipelined body's side stream)
+# 0-4 on the slot front's stream (``slot_front``'s ``mark``), 5-8 in the
+# finish on the finish's stream (the pipelined body's side stream), taken
+# in the order 5, 7, 8, 6
 MARKS: Tuple[str, ...] = ("synth_start", "synth_end", "roidet_end",
                           "control_end", "encode_end", "finish_start",
-                          "finish_end")
+                          "finish_end", "detect_end", "decode_end")
 MARK_COLS = len(MARKS)
+# the stamps' column after the marks: the finish's NMS overflow count
+# (``FleetSlotOut.overflow``; 0 for conv4)
+OVERFLOW_COL = MARK_COLS
+STAMP_COLS = MARK_COLS + 1
 # each stage's device span: (name, first mark, last mark)
 STAGES: Tuple[Tuple[str, int, int], ...] = (
     ("stage.synth", 0, 1), ("stage.roidet", 1, 2), ("stage.control", 2, 3),
-    ("stage.encode", 3, 4), ("stage.finish", 5, 6))
+    ("stage.encode", 3, 4), ("stage.finish", 5, 6), ("stage.detect", 5, 7),
+    ("stage.decode", 7, 8))
 
 
 def record_stages(stamps: np.ndarray, T: int, t_start: int,
                   pipelined: bool) -> None:
     """Each of the T slots' stage intervals from a run's host copy of its
-    marks ((T + 1, MARK_COLS) ns on the card's timer) into the trace
-    recorder as ``clock="device"`` spans with the global ``slot``.  Slot
-    i's front is row i; its finish is row i + 1 in the pipelined body
-    (row 0's finish is the warm-up row's), row i in the reference body."""
+    marks ((T + 1, STAMP_COLS) ns on the card's timer, then the overflow
+    count) into the trace recorder as ``clock="device"`` spans with the
+    global ``slot``, and each slot's overflow count into the counter
+    ``nms.overflow_frames`` and onto its ``stage.decode`` span (id
+    ``overflow_frames``).  Slot i's front is row i; its finish is row
+    i + 1 in the pipelined body (row 0's finish is the warm-up row's), row
+    i in the reference body."""
     for i in range(T):
+        fin = i + 1 if pipelined else i
+        n = int(stamps[fin, OVERFLOW_COL])
+        trace.count("nms.overflow_frames", n)
         for name, k0, k1 in STAGES:
-            row = i + 1 if pipelined and k0 >= 5 else i
+            row = fin if k0 >= 5 else i
+            ids = {"overflow_frames": n} if name == "stage.decode" else {}
             trace.record(name, 1e-9 * float(stamps[row, k0]),
                          1e-9 * float(stamps[row, k1]), clock="device",
-                         slot=t_start + i)
+                         slot=t_start + i, **ids)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -571,6 +631,7 @@ class _Statics:
     eval_frames: int
     block_size: int
     conf_thresh: float
+    server_spec: object     # the server detector's statics (None: conv4)
     gt_pad: int
     pipelined: bool
     checked: bool
@@ -588,7 +649,7 @@ class _Statics:
 
 class _Ctx(NamedTuple):
     """Every tensor a slot step reads and no slot changes."""
-    server: Params
+    server: object               # the server detector (``server_ops``)
     light: Params
     mlp: Params                  # {} for the content-agnostic methods
     jcab_util: torch.Tensor      # (C, J)
@@ -704,11 +765,18 @@ def slot_front(s: _Statics, ctx: _Ctx, carry: _Carry, t: torch.Tensor,
 
 
 def _finish(s: _Statics, ctx: _Ctx, st: SlotStaged,
-            inv: Optional[torch.Tensor]) -> torch.Tensor:
+            inv: Optional[torch.Tensor],
+            mark: Optional[Callable[[int], None]] = None,
+            overflow: Optional[Callable[[torch.Tensor], None]] = None
+            ) -> torch.Tensor:
     """A staged slot's (2, n_local) [f1; sizes] log pack, in camera
-    order."""
-    pack = _slot_finish(ctx.server, st, conf_thresh=s.conf_thresh,
-                        with_reuse=s.method == "reducto").host_pack
+    order.  ``mark`` is ``_slot_finish``'s; ``overflow(count)`` takes the
+    decode's overflow count where the server detector has one."""
+    out = _slot_finish(ctx.server, st, conf_thresh=s.conf_thresh,
+                       with_reuse=s.method == "reducto", mark=mark)
+    if overflow is not None and out.overflow is not None:
+        overflow(out.overflow)
+    pack = out.host_pack
     return pack if inv is None else pack[:, inv]
 
 
@@ -748,27 +816,28 @@ def _episode_eager(s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry, T: int
 # -- the slot step as a CUDA graph ------------------------------------------
 
 def _leaves(x) -> List[torch.Tensor]:
-    """The tensors of a nest of NamedTuples, tuples, dicts and None, in a
-    fixed order."""
+    """The tensors of a nest of NamedTuples, tuples, lists and dicts, in a
+    fixed order (None and other values hold none)."""
     if torch.is_tensor(x):
         return [x]
-    if x is None:
-        return []
     if isinstance(x, dict):
         return [y for k in sorted(x) for y in _leaves(x[k])]
-    return [y for v in x for y in _leaves(v)]
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _leaves(v)]
+    return []
 
 
 def _map(fn, x):
-    """``x`` with ``fn`` applied to each of its tensors."""
+    """``x`` with ``fn`` applied to each of its tensors (other values are
+    kept as they are)."""
     if torch.is_tensor(x):
         return fn(x)
-    if x is None:
-        return None
     if isinstance(x, dict):
         return {k: _map(fn, v) for k, v in x.items()}
-    items = [_map(fn, v) for v in x]
-    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    if isinstance(x, (tuple, list)):
+        items = [_map(fn, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return x
 
 
 def _copy(dst, src) -> None:
@@ -824,10 +893,11 @@ class _EpisodeGraph:
     the kernels a replay runs are counted on the card (CUPTI records).
 
     Every body writes its stage marks (``MARKS``) into row ``counter`` of
-    ``stamps`` through the one-thread ``stage_stamp`` kernel: seven a
-    ``full{p}`` or ``step`` replay, two a drain.  They are captured
-    always, so tracing changes no graph key, and read only while tracing
-    is active (``record_stages``)."""
+    ``stamps`` through the one-thread ``stage_stamp`` kernel: nine a
+    ``full{p}`` or ``step`` replay, four a drain; a server detector with
+    an overflow count writes it into the row's last column.  They are
+    captured always, so tracing changes no graph key, and read only while
+    tracing is active (``record_stages``)."""
 
     def __init__(self, s: _Statics, ctx: _Ctx, xs: _Xs, carry: _Carry):
         global _CAPTURES
@@ -841,7 +911,7 @@ class _EpisodeGraph:
         self.cpacks = torch.zeros(
             (rows, 4 + (len(EPISODE_CHECKS) if s.checked else 0)),
             device=dev)
-        self.stamps = torch.zeros((rows, MARK_COLS), dtype=torch.int64,
+        self.stamps = torch.zeros((rows, STAMP_COLS), dtype=torch.int64,
                                   device=dev)
         self.side = torch.cuda.Stream(dev)
         self.halves = None
@@ -893,11 +963,16 @@ class _EpisodeGraph:
     def _mark(self, k: int) -> None:
         stamp_ops.stamp(self.stamps, self.counter, k)
 
+    def _put_overflow(self, n: torch.Tensor) -> None:
+        self.stamps[:, OVERFLOW_COL].index_copy_(0, self.counter.view(1),
+                                                 n.view(1))
+
     def _finish_into(self, half) -> torch.Tensor:
-        self._mark(5)
-        pack = _finish(self.s, self.ctx, *half)
+        self._mark(MARKS.index("finish_start"))
+        pack = _finish(self.s, self.ctx, *half, mark=self._mark,
+                       overflow=self._put_overflow)
         self.packs.index_copy_(0, self.counter.view(1), pack[None])
-        self._mark(6)
+        self._mark(MARKS.index("finish_end"))
         return pack
 
     def _front(self):
@@ -936,8 +1011,8 @@ class _EpisodeGraph:
                        Optional[torch.Tensor]]:
         """Load the run's inputs and replay the first T slots; the same
         return as ``_episode_eager``, copied out of the static buffers,
-        and the run's (T + 1, MARK_COLS) stage marks while tracing is
-        active (else None)."""
+        and the run's (T + 1, STAMP_COLS) stage marks and overflow counts
+        while tracing is active (else None)."""
         _copy(self.ctx, ctx)
         _copy(self.xs, xs)
         _copy(self.carry, carry)
@@ -983,7 +1058,7 @@ class EpisodeInputs(NamedTuple):
 
 
 def episode_inputs(method: str, *, codec_cfg: CodecConfig,
-                   scene_cfg: SceneConfig, server_params: Params,
+                   scene_cfg: SceneConfig, server_params,
                    light_params: Params, mlp_params: Optional[Params],
                    jcab_util, jcab_res, lam: torch.Tensor,
                    scene_params: DeviceSceneParams, trace: torch.Tensor,
@@ -992,7 +1067,7 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
                    bitrates: Sequence[int], resolutions: Sequence[float],
                    use_elastic: bool, w_cap: int, num_cams: int,
                    eval_frames: int, block_size: int,
-                   conf_thresh: float = 0.4, gt_pad: int = 16,
+                   conf_thresh: Optional[float] = None, gt_pad: int = 16,
                    t_start: int = 0,
                    buckets: Optional[Sequence[int]] = EPISODE_BUCKETS,
                    faults: Optional[np.ndarray] = None,
@@ -1006,7 +1081,10 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
     from it, so the registry describes the graphs the episode captures.
     With a camera ``mesh`` the fleet pads to the mesh, and
     ``scene_params`` and ``ref0`` are the rank's rows of it
-    (``synthetic.init_device_scene(..., mesh)``, ``EpisodeOut.ref``)."""
+    (``synthetic.init_device_scene(..., mesh)``, ``EpisodeOut.ref``).
+    ``server_params`` is the server detector (``server_ops``: a dict of
+    conv4 tensors or an object with its own calls); ``conf_thresh`` None
+    takes its threshold."""
     if checked and mesh is not None:
         raise ValueError("checked episodes run unsharded "
                          "(SystemConfig.checked forces shard='off')")
@@ -1061,7 +1139,10 @@ def episode_inputs(method: str, *, codec_cfg: CodecConfig,
         resolutions=tuple(float(r) for r in resolutions),
         use_elastic=bool(use_elastic), w_cap=int(w_cap),
         num_cams=int(num_cams), eval_frames=int(eval_frames),
-        block_size=int(block_size), conf_thresh=float(conf_thresh),
+        block_size=int(block_size),
+        conf_thresh=float(server_ops(server_params).conf
+                          if conf_thresh is None else conf_thresh),
+        server_spec=getattr(server_params, "spec", None),
         gt_pad=int(gt_pad), pipelined=bool(pipelined) and not checked,
         checked=bool(checked), c_pad=int(c_pad),
         mesh_key=rules.mesh_cache_key(mesh), mesh=mesh)

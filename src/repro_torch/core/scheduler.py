@@ -221,10 +221,13 @@ class DeepStreamSystem:
     the camera mesh ``cfg.shard`` chose (``rules.camera_mesh``; None when
     unsharded, and always for a sequential system).  A sharded system
     serves a ``DeviceScene`` built on its mesh
-    (``DeviceScene(cfg, mesh=system.mesh)``)."""
+    (``DeviceScene(cfg, mesh=system.mesh)``).  ``server_params`` is the
+    server detector: conv4's dict of tensors, or an object with its own
+    ``forward``, ``decode`` and ``to`` (``fleet.server_ops``); ``server``
+    holds it on the system's device."""
 
     def __init__(self, cfg: SystemConfig, light_params: Dict[str, Any],
-                 server_params: Dict[str, Any], mlp_params=None, *,
+                 server_params, mlp_params=None, *,
                  device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -235,9 +238,12 @@ class DeepStreamSystem:
             if self.mesh is None and cfg.shard == "on":
                 raise ValueError("shard='on' needs a torch.distributed "
                                  "group (launch.mesh.init_distributed)")
+        # a dict of tensors (every conv4 detector, the MLP) or a server
+        # detector object that moves itself (``fleet.server_ops``)
         to_dev = lambda p: (None if p is None else
                             {k: torch.as_tensor(v).to(self.device)
-                             for k, v in p.items()})
+                             for k, v in p.items()} if isinstance(p, dict)
+                            else p.to(self.device))
         self.light = to_dev(light_params)
         self.server = to_dev(server_params)
         self.mlp = to_dev(mlp_params)
@@ -341,8 +347,9 @@ class DeepStreamSystem:
                                                           np.ndarray]:
         """Server detections of ``frames[idx]``, fetched: (boxes, valid)."""
         sel = torch.as_tensor(np.asarray(idx), device=frames.device)
-        grid = det.forward(self.server, frames[sel])
-        boxes, _, valid = det.decode_boxes(grid, conf_thresh=0.4)
+        ops = fleet_mod.server_ops(self.server)
+        boxes, _, valid, _ = ops.decode(ops.forward(frames[sel]), ops.conf,
+                                        16)
         return boxes.cpu().numpy(), valid.cpu().numpy()
 
     def detect_f1(self, decoded: torch.Tensor,

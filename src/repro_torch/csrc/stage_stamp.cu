@@ -3,7 +3,8 @@
 //
 // Replaces no TPU kernel.  Every kernel of a fleet slot runs inside one
 // replay of a captured graph, so the card's records say nothing of which
-// stage (synthesis, ROIDet, control, encode, finish) a kernel belongs to.
+// stage (synthesis, ROIDet, control, encode, the finish's detector and
+// decode) a kernel belongs to.
 // A CUDA event recorded inside a graph keeps only the last replay's time;
 // this kernel, captured between two stages, keeps one time per replay:
 // the row is the graph's slot counter, read on the card when the node
@@ -43,12 +44,13 @@ void launch(int64_t* stamps, const int64_t* counter, int64_t rows, int cols,
 }  // namespace
 
 // stamps (rows, cols) int64 contiguous, counter a 0-d int64, both on the
-// card; 0 <= k < min(cols, 8).  Returns the launch's cudaError_t, or 0
-// (cudaErrorInvalidValue for a k outside that range).
+// card; 0 <= k < min(cols, 9) (the episode's nine marks).  Returns the
+// launch's cudaError_t, or 0 (cudaErrorInvalidValue for a k outside that
+// range).
 extern "C" int stage_stamp_launch(int64_t* stamps, const int64_t* counter,
                                   int64_t rows, int cols, int k,
                                   void* stream) {
-  if (k < 0 || k >= cols || k >= 8)
+  if (k < 0 || k >= cols || k >= 9)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
@@ -59,7 +61,8 @@ extern "C" int stage_stamp_launch(int64_t* stamps, const int64_t* counter,
     case 4: launch<4>(stamps, counter, rows, cols, s); break;
     case 5: launch<5>(stamps, counter, rows, cols, s); break;
     case 6: launch<6>(stamps, counter, rows, cols, s); break;
-    default: launch<7>(stamps, counter, rows, cols, s); break;
+    case 7: launch<7>(stamps, counter, rows, cols, s); break;
+    default: launch<8>(stamps, counter, rows, cols, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

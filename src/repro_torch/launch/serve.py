@@ -23,7 +23,9 @@ checkpoint and goes on)::
 The fleet is the JAX launcher's: ``SceneConfig(seed=33)`` (5 cameras,
 96 x 160, 10 frames a segment), ``eval_frames=3``, the capacity pinned at
 8000 Kbps (scaled by C / 5 above 5 cameras, as the soak stream is), the
-committed detectors (``artifacts/detector_{light, server}``), the
+committed detectors (``artifacts/detector_{light, server}``; with
+``--server-detector yolov8s`` the server detector is Ultralytics YOLOv8s
+at 384 x 640 with seeded weights, ``models/yolov8.py``), the
 utility MLP of ``init_utility_mlp(PRNGKey(0))``, thresholds 10 / 50 Kbps
 and the linspace jcab table; the stream is
 ``make_soak_stream(--stream-slots)``.  ``--trace`` records the program's
@@ -95,6 +97,19 @@ def fleet_system_config(num_cameras: int, launched: bool = False):
                         shard="on" if launched else "auto")
 
 
+def server_detector(name: str, device):
+    """The fleet's server detector: ``conv4``, the committed
+    ``artifacts/detector_server`` weights, or ``yolov8s``, Ultralytics
+    YOLOv8s at 384 x 640 with its seeded weights
+    (``models.yolov8.build_server``, the ``deepstream_c16_yolov8s``
+    benchmark configuration's settings)."""
+    if name == "conv4":
+        from repro_torch.models.detector import load_detector
+        return load_detector("server", device)
+    from repro_torch.models.yolov8 import build_server
+    return build_server(device)
+
+
 def run_fleet_stream(args) -> None:
     """Windowed fleet serving of the soak stream: build the episode-mode
     system, restore if ``--ckpt-dir`` holds a checkpoint, offer the stream
@@ -120,7 +135,8 @@ def run_fleet_stream(args) -> None:
     sys_cfg = fleet_system_config(args.num_cameras, launched)
     scene_cfg = sys_cfg.scene
     system = DeepStreamSystem(sys_cfg, load_detector("light", dev),
-                              load_detector("server", dev), device=dev)
+                              server_detector(args.server_detector, dev),
+                              device=dev)
     mesh = system.mesh
     say = print if rules.is_writer(mesh) else (lambda *a, **k: None)
     system.mlp = util_mod.init_utility_mlp(prng.PRNGKey(0, device=dev))
@@ -218,6 +234,10 @@ def main(argv=None) -> None:
     ap.add_argument("--stream-slots", type=int, default=64)
     ap.add_argument("--window-slots", type=int, default=8)
     ap.add_argument("--method", default="deepstream")
+    ap.add_argument("--server-detector", choices=("conv4", "yolov8s"),
+                    default="conv4",
+                    help="the fleet stream's server detector (conv4: the "
+                         "committed weights; yolov8s: seeded, 384 x 640)")
     ap.add_argument("--num-cameras", type=int, default=5,
                     help="cameras of the fleet stream")
     ap.add_argument("--ckpt-dir", default=None)

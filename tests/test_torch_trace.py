@@ -338,7 +338,8 @@ def test_slot_front_marks_its_stage_boundaries_and_changes_nothing():
     marked = t_fleet.slot_front(inp.statics, inp.ctx, inp.carry, *slot,
                                 mark=marks.append)
     assert marks == [0, 1, 2, 3, 4]
-    assert len(t_fleet.MARKS) == t_fleet.MARK_COLS == 7
+    assert len(t_fleet.MARKS) == t_fleet.MARK_COLS == 9
+    assert t_fleet.STAMP_COLS == t_fleet.OVERFLOW_COL + 1 == 10
     a, b = t_fleet._leaves(plain), t_fleet._leaves(marked)
     assert len(a) == len(b)
     for x, y in zip(a, b):
@@ -372,9 +373,14 @@ def test_stamps_on_the_cpu_and_on_fake_tensors():
 
 def test_record_stages_maps_rows_to_slots():
     T, t0 = 3, 40
-    stamps = np.zeros((T + 1, t_fleet.MARK_COLS), np.int64)
+    stamps = np.zeros((T + 1, t_fleet.STAMP_COLS), np.int64)
     for i in range(T + 1):
-        stamps[i] = 1_000_000 * i + np.array([0, 10, 30, 60, 100, 0, 7])
+        # marks 0-8 (the finish's in the order 5, 7, 8, 6), then the
+        # row's overflow count
+        stamps[i] = np.array([0, 10, 30, 60, 100, 0, 7, 4, 6, 0]) + (
+            1_000_000 * i * (np.arange(t_fleet.STAMP_COLS)
+                             < t_fleet.MARK_COLS))
+        stamps[i, t_fleet.OVERFLOW_COL] = i
     trace.enable()
     for pipelined in (True, False):
         trace.clear()
@@ -387,7 +393,14 @@ def test_record_stages_maps_rows_to_slots():
                if sp.ids["slot"] == 41}
         assert got == {"stage.synth": 10, "stage.roidet": 20,
                        "stage.control": 30, "stage.encode": 40,
-                       "stage.finish": 7}
+                       "stage.finish": 7, "stage.detect": 4,
+                       "stage.decode": 2}
+        # the overflow of each slot's finish row, on its decode span and
+        # summed in the counter
+        rows = [1, 2, 3] if pipelined else [0, 1, 2]
+        assert [sp.ids["overflow_frames"] for sp in spans
+                if sp.name == "stage.decode"] == rows
+        assert trace.counts()["nms.overflow_frames"] == sum(rows)
 
 
 # -- on the card -------------------------------------------------------------
@@ -442,12 +455,14 @@ def test_marks_are_monotone_within_each_slot(card):
     assert t_sched.d2h_fetch_counts()["stamps"] == fetched + 1
     T = len(logs["W"])
     st = out.stamps.cpu().numpy()
-    assert st.shape == (T + 1, t_fleet.MARK_COLS)
+    assert st.shape == (T + 1, t_fleet.STAMP_COLS)
     for i in range(T):
         front = st[i, :5]
-        finish = st[i + 1, 5:]            # pipelined: the next row's
+        # pipelined: the next row's, in the order they are taken
+        finish = st[i + 1, [5, 7, 8, 6]]
         assert (front > 0).all() and (np.diff(front) >= 0).all(), (i, front)
-        assert 0 < finish[0] <= finish[1], (i, finish)
+        assert 0 < finish[0] and (np.diff(finish) >= 0).all(), (i, finish)
+        assert st[i + 1, t_fleet.OVERFLOW_COL] == 0      # conv4: no cap
         # the finish starts after the slot's front has staged it
         assert finish[0] >= front[4], i
     stages = [sp for sp in trace.spans() if sp.clock == "device"]
